@@ -1,0 +1,71 @@
+"""High-level Python API (counterpart of ``lbm_tpu/api.py``), single device::
+
+    from lbm_tpu_torch.api import Simulation
+
+    sim = Simulation.from_files("input_128x128.params", "obstacles_128x128.dat")
+    result = sim.run(device="cuda:0")      # full maxIters on the card
+    result.av_vels, result.cells           # the av_vels series, final state
+    sim.reynolds(result)
+    sim.write_outputs(result, out_dir=".")
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from lbm_tpu_torch.models.d2q9 import LBMParams
+from lbm_tpu_torch.runtime.driver import SimulationResult, run_simulation
+
+
+class Simulation:
+    """A configured lattice-Boltzmann simulation: params + obstacle geometry."""
+
+    def __init__(self, params: LBMParams, obstacles: np.ndarray):
+        obstacles = np.asarray(obstacles)
+        if obstacles.shape != (params.ny, params.nx):
+            raise ValueError(
+                f"obstacle mask shape {obstacles.shape} != grid ({params.ny}, {params.nx})"
+            )
+        self.params = params
+        self.obstacles = obstacles
+
+    @classmethod
+    def from_files(cls, paramfile, obstaclefile) -> "Simulation":
+        from lbm_tpu_torch.io import read_obstacles, read_params
+
+        params = read_params(paramfile)
+        return cls(params, read_obstacles(obstaclefile, params))
+
+    def run(self, *, device=None, backend: str = "auto", dtype=torch.float32,
+            mesh: int = 0, **kwargs) -> SimulationResult:
+        """Run ``max_iters`` steps. ``device`` defaults as ``--device`` does
+        (``$LBM_DEVICE``, else ``cuda:0``; the CPU only when named)."""
+        if mesh and mesh != 1:
+            raise NotImplementedError("mesh (sharded runs) is not yet ported")
+        if device is None:
+            from lbm_tpu_torch.runtime.device import select_device
+
+            device = select_device(None)
+        return run_simulation(self.params, self.obstacles, device=device,
+                              backend=backend, dtype=dtype, **kwargs)
+
+    def reynolds(self, result: SimulationResult) -> float:
+        return result.reynolds(self.params, self.obstacles)
+
+    def velocity_field(self, result: SimulationResult):
+        """``(u_x, u_y, |u|, pressure)`` numpy fields of the final state."""
+        from lbm_tpu_torch.ops.reference import velocity_field
+
+        fields = velocity_field(torch.as_tensor(result.cells), torch.as_tensor(self.obstacles))
+        return tuple(f.numpy() for f in fields)
+
+    def write_outputs(self, result: SimulationResult, out_dir=".") -> None:
+        from lbm_tpu_torch.io import write_av_vels, write_final_state
+
+        os.makedirs(out_dir, exist_ok=True)
+        write_final_state(os.path.join(out_dir, "final_state.dat"), self.params,
+                          result.cells, self.obstacles)
+        write_av_vels(os.path.join(out_dir, "av_vels.dat"), result.av_vels)

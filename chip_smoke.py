@@ -7,19 +7,38 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each printing what it found:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: nvcc builds the kernels of ``lbm_tpu_torch/csrc`` for sm_90a;
+2. build: nvcc builds the kernels of ``lbm_tpu_torch/csrc`` for sm_90a
+   (one process per source), and ``make -C native`` the C++ writers that
+   the big decks of phase 8 need to write their outputs in seconds;
 3. K1 (``csrc/step.cu``) against ``step_plain`` on the card, 1024^2 and
    1000^2, 200 steps; time per step of each at 1024^2 and 128^2;
 4. K2 (``csrc/aa.cu``) against ``run_aa_plain``, 200 and 201 steps (both
    exit parities) at 1024^2 and 1000^2; K2 against K1 over 1000 steps;
    two K2 runs must give bitwise-equal results;
-5. the main path: the four official decks, generated with
+5. the K2 and K1 path: the four official decks, generated with
    ``utils/geometry``, through ``lbm_tpu_torch.cli.main`` (what
-   ``python -m lbm_tpu_torch`` runs) with ``--backend auto`` at f32, and
+   ``python -m lbm_tpu_torch`` runs) with ``--backend aa`` at f32, and
    the 1024^2 deck once more with ``--backend pallas``. The launch counters,
-   zeroed just before, must show that auto ran K2 and pallas ran K1 for
+   zeroed just before, must show that aa ran K2 and pallas ran K1 for
    every step; the 1024^2 and 256^2 results must pass the 1% gate against
-   ``tests/golden/*.golden.npz``.
+   ``tests/golden/*.golden.npz``;
+6. the band kernels K7 (``csrc/band.cu``), K9 (``csrc/band2.cu``) and K11
+   (``csrc/band3.cu``) against their plain versions at 1024^2 and 1000^2,
+   over one pass, two passes and a K1 remainder, and for K11 three and four
+   passes; time per step of each kernel, its plain version and K2 at
+   2048^2 and 4096^2;
+7. each band kernel against K1 over 1000 steps at 2048^2 (bitwise equal or
+   not, and the max difference), and two runs of each bitwise equal;
+8. the band path through ``cli.main``: the four official decks with
+   ``--backend auto`` (K11 from 128^2 up), the 256^2 and 1024^2 decks with
+   ``band``, ``band2`` and ``band3`` through the 1% gate, and the 1000^2 x
+   1001 (ragged tiles, a K1 remainder), 2048^2 x 2048 and 4096^2 x 1024
+   "walls" decks (rows 0 and ny-1 blocked) with
+   ``aa``, each band backend and ``auto``; each of the latter is held
+   against the ``aa`` run through ``utils/checker.check_files`` at 1% and
+   directly (av series at rtol 1e-4, final_state identical bytes or within
+   the kernel tolerances). The counters, zeroed just before, must account
+   for every step: the band steps in their kernels, the remainders in K1.
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
@@ -28,8 +47,10 @@ checker). Any failure exits non-zero before the last line. The last two
 lines are the kernel report and ``{"ok": true, "device": {...}}``.
 """
 
+import filecmp
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -52,8 +73,15 @@ DECKS = {
 }
 
 
+T_START = time.time()
+
+
 def log(*args):
     print(*args, flush=True)
+
+
+def phase(title):
+    log(f"== {title} (at {time.time() - T_START:.1f} s)")
 
 
 def fail(msg):
@@ -202,6 +230,146 @@ def run_deck(cli, tag, backend, work, gpu_line):
     return stats
 
 
+# The band kernels: route -> (name in the report, source, the TPU kernel it
+# replaces).
+BANDS = {
+    "band": ("K7 band (values in registers)", "lbm_tpu_torch/csrc/band.cu",
+             "lbm_tpu/ops/pallas_band.py:172"),
+    "band2": ("K9 band2 (two ping-pong windows)", "lbm_tpu_torch/csrc/band2.cu",
+              "lbm_tpu/ops/pallas_band2.py:90"),
+    "band3": ("K11 band3 (one in-place AA window)", "lbm_tpu_torch/csrc/band3.cu",
+              "lbm_tpu/ops/pallas_band3.py:306"),
+}
+# (n, iters) of the n x n "walls" decks: a ragged grid whose iterations
+# leave a K1 remainder, then the JAX package's HBM-regime rows.
+WALLS_DECKS = ((1000, 1001), (2048, 2048), (4096, 1024))
+
+
+def band_routes():
+    """route -> (label, kernel, plain, (block, depth, panel)) with the
+    driver's schedules."""
+    import torch
+
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band, band2, band3
+    from lbm_tpu_torch.runtime.driver import band_schedule
+
+    params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    plains = {"band": band.run_band_plain, "band2": band2.run_band2_plain,
+              "band3": band3.run_band3_plain}
+    out = {}
+    for route in BANDS:
+        run, cfg = band_schedule(route, params, torch.float32)
+        out[route] = (BANDS[route][0].split()[0], run, plains[route], cfg)
+    return out
+
+
+def band_phase(torch, label, kernel, plain, cfg, step_counts, aa_us):
+    """Band kernel against its plain version at 1024^2 and 1000^2; returns
+    (max_abs_err, {n: (kernel ms, plain ms)} per step at 2048^2 and 4096^2)."""
+    block, depth, panel = cfg
+
+    def run(fn, cells, nobst, n):
+        return fn(cells, nobst, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel)
+
+    errs = []
+    for (nx, ny) in ((1024, 1024), (1000, 1000)):
+        cells, nobst = random_setup(torch, nx, ny, seed=nx + depth)
+        for n in step_counts:
+            errs.append(compare(torch, f"{label} {nx}x{ny} {n} steps",
+                                run(kernel, cells, nobst, n), run(plain, cells, nobst, n)))
+    per_step = {}
+    for nx, n_kernel in ((2048, 800), (4096, 200)):
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        n_plain = 2 * depth
+        run(kernel, cells, nobst, 2 * depth)  # warm up, the allocator included
+        run(plain, cells, nobst, n_plain)
+        _, k_ms = timed(torch, lambda: run(kernel, cells, nobst, n_kernel))
+        _, p_ms = timed(torch, lambda: run(plain, cells, nobst, n_plain))
+        per_step[nx] = (k_ms / n_kernel, p_ms / n_plain)
+        log(f"  {label} {nx}x{nx} (block {block}, depth {depth}, panel {panel}): kernel "
+            f"{1e3 * k_ms / n_kernel:.2f} us/step ({nx * nx * n_kernel / k_ms / 1e3:.1f} MLUPS), "
+            f"plain {1e3 * p_ms / n_plain:.2f} us/step, K2 {aa_us[nx]:.2f} us/step")
+    return max(errs), per_step
+
+
+def write_walls_deck(work, n, iters):
+    """The JAX package's HBM-regime rows (scripts/r5_headline_session.py):
+    an n x n channel with rows 0 and ny-1 blocked."""
+    import numpy as np
+
+    from lbm_tpu_torch.utils import geometry
+
+    deck = os.path.join(work, f"walls{n}")
+    os.makedirs(deck)
+    params_path = os.path.join(deck, "input.params")
+    obst_path = os.path.join(deck, "obstacles.dat")
+    geometry.write_params_file(params_path, n, n, iters, 10, DENSITY, ACCEL, OMEGA)
+    mask = np.zeros((n, n), np.int32)
+    mask[0, :] = mask[-1, :] = 1
+    geometry.write_obstacle_file(obst_path, mask)
+    return params_path, obst_path
+
+
+def run_walls(cli, deck, backend, work, n, gpu_line):
+    out = os.path.join(work, f"walls{n}-{backend}")
+    os.makedirs(out)
+    stats_path = os.path.join(out, "stats.json")
+    rc = cli.main([*deck, "--backend", backend, "--out-dir", out, "--stats-json", stats_path])
+    check(rc == 0, f"walls {n}^2 --backend {backend}: cli.main returned {rc}")
+    with open(stats_path) as f:
+        stats = json.load(f)
+    check(stats["torch_device"].startswith("cuda"), f"walls {n}^2: ran on {stats['torch_device']}")
+    log(f"  walls {n}x{n} x {stats['max_iters']} --backend {backend}: route {stats['route']}, "
+        f"loop {stats['loop_s']:.4f} s, {stats['mlups']:.1f} MLUPS [{gpu_line}]")
+    return out, stats
+
+
+def hold_against(out, ref, what):
+    """A run's files against the K2 run's: the 1% checker, then directly."""
+    import numpy as np
+
+    from lbm_tpu_torch.utils.checker import check_files
+
+    files = [os.path.join(d, f) for d in (out, ref) for f in ("av_vels.dat", "final_state.dat")]
+    res = check_files(*files, tolerance=1.0)
+    av, av_ref = (np.loadtxt(f, usecols=[1]) for f in (files[0], files[2]))
+    check(bool(np.isfinite(av).all()), f"{what}: non-finite av_vels")
+    av_rel = float((np.abs(av - av_ref) / np.abs(av_ref)).max())
+    same = filecmp.cmp(files[1], files[3], shallow=False)
+    line = (f"    vs K2: checker av_vels {res.av_vels.max_diff_pcnt:.4g}%, pressure "
+            f"{res.final_state.max_diff_pcnt:.4g}%: {'PASS' if res.passed else 'FAIL'}; "
+            f"av max rel diff {av_rel:.3e} (limit {TOL_AV}); final_state "
+            f"{'byte-identical' if same else 'differs'}")
+    if not same:
+        fs, fs_ref = (np.loadtxt(f, usecols=[2, 3, 4, 5]) for f in (files[1], files[3]))
+        p_err = float(np.abs(fs[:, 3] - fs_ref[:, 3]).max())
+        u_err = float(np.abs(fs[:, :3] - fs_ref[:, :3]).max())
+        p_lim = TOL_CELLS * float(np.abs(fs_ref[:, 3]).max())
+        u_lim = TOL_AV * float(np.abs(fs_ref[:, :3]).max())
+        line += (f", pressure max diff {p_err:.3e} (limit {p_lim:.3e}), velocity "
+                 f"{u_err:.3e} (limit {u_lim:.3e})")
+        check(p_err <= p_lim and u_err <= u_lim, f"{what}: final state differs from K2's")
+    log(line)
+    check(res.passed, f"{what} fails the 1% checker against K2")
+    check(av_rel <= TOL_AV, f"{what}: av series differs from K2's by {av_rel}")
+
+
+def build_native_io():
+    """``make -C native``: the C++ writers of io/native.py (byte-identical
+    to the Python ones, which stay the fallback)."""
+    t0 = time.time()
+    proc = subprocess.run(["make", "-C", os.path.join(ROOT, "native")], capture_output=True,
+                          text=True, timeout=300)
+    from lbm_tpu_torch.io import native
+
+    native._lib.cache_clear()
+    ok = proc.returncode == 0 and native.available()
+    log(f"  native IO library: {'built' if ok else 'NOT built (Python writers)'} in "
+        f"{time.time() - t0:.1f} s{'' if ok else ': ' + proc.stderr.strip()[-300:]}")
+
+
 def main():
     try:
         import torch
@@ -218,22 +386,23 @@ def main():
     except ImportError as e:
         fail(f"the port is not beside this script: {e}")
 
-    log("== 1. environment")
+    phase("1. environment")
     gpu_line = nvidia_smi()
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"  {gpu_line}")
     log(f"  torch.cuda: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    log("== 2. build")
+    phase("2. build")
     b = _build.library().build_info
     check("sm_90a" in b["flags"], "kernels not built for sm_90a")
     log(f"  {'built' if b['built'] else 'loaded'} {os.path.relpath(b['path'], ROOT)} "
         f"in {b['seconds']:.1f} s with nvcc {b['flags']} from {', '.join(b['sources'])}")
+    build_native_io()
 
-    log("== 3. K1 step kernel vs step_plain")
+    phase("3. K1 step kernel vs step_plain")
     k1_err, k1_ms, k1_plain_ms = kernel_phase(torch, "K1", run_step, run_step_plain, (200,))
 
-    log("== 4. K2 AA kernel vs run_aa_plain")
+    phase("4. K2 AA kernel vs run_aa_plain")
     k2_err, k2_ms, k2_plain_ms = kernel_phase(torch, "K2", run_aa, run_aa_plain, (200, 201))
     cells, nobst = random_setup(torch, 1024, 1024, seed=11)
     compare(torch, "K2 vs K1 1024x1024 1000 steps",
@@ -244,20 +413,99 @@ def main():
     check(torch.equal(a1, a2) and torch.equal(c1, c2), "K2 is not run-to-run deterministic")
     log("  K2 determinism: two 301-step runs give bitwise-equal av series and state")
 
-    log("== 5. main path: lbm_tpu_torch.cli.main on the official decks")
+    phase("5. the K2 and K1 path: lbm_tpu_torch.cli.main on the official decks")
     run_aa.launches = 0
     run_step.launches = 0
     with tempfile.TemporaryDirectory() as work:
         for tag in DECKS:
-            run_deck(cli, tag, "auto", work, gpu_line)
+            run_deck(cli, tag, "aa", work, gpu_line)
         run_deck(cli, "1024x1024", "pallas", work, gpu_line)
     aa_launches, step_launches = run_aa.launches, run_step.launches
     want_aa = sum(fields[2] for fields, _, _ in DECKS.values())
     want_step = DECKS["1024x1024"][0][2]
     log(f"  launch counters: K2 {aa_launches} steps (want {want_aa}), "
         f"K1 {step_launches} steps (want {want_step})")
-    check(aa_launches == want_aa, "auto did not run every step through K2")
+    check(aa_launches == want_aa, "--backend aa did not run every step through K2")
     check(step_launches == want_step, "--backend pallas did not run every step through K1")
+
+    phase("6. band kernels K7, K9, K11 vs their plain versions")
+    routes = band_routes()
+    aa_us = {}
+    for nx, n_aa in ((2048, 800), (4096, 200)):
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        run_aa(cells, nobst, DENSITY, ACCEL, OMEGA, 10, 1.0)
+        _, ms = timed(torch, lambda: run_aa(cells, nobst, DENSITY, ACCEL, OMEGA, n_aa, 1.0))
+        aa_us[nx] = 1e3 * ms / n_aa
+    band_res = {}
+    for route, (label, kernel, plain, cfg) in routes.items():
+        depth = cfg[1]
+        counts = (depth, 2 * depth + 3) + ((3 * depth, 4 * depth) if route == "band3" else ())
+        band_res[route] = band_phase(torch, label, kernel, plain, cfg, counts, aa_us)
+
+    phase("7. band kernels vs K1 over 1000 steps at 2048x2048, and repeatability")
+    cells, nobst = random_setup(torch, 2048, 2048, seed=13)
+    k1 = run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 1000, 1.0)
+    for route, (label, kernel, _, (block, depth, panel)) in routes.items():
+        def go():
+            return kernel(cells, nobst, DENSITY, ACCEL, OMEGA, 1000, block, depth, panel=panel)
+
+        (c1, a1), (c2, a2) = go(), go()
+        torch.cuda.synchronize()
+        log(f"  {label} vs K1: final state bitwise equal: {torch.equal(c1, k1[0])}, max diff "
+            f"{float((c1 - k1[0]).abs().max()):.3e}")
+        compare(torch, f"{label} vs K1 2048x2048 1000 steps", (c1, a1), k1)
+        check(torch.equal(c1, c2) and torch.equal(a1, a2), f"{label} is not run-to-run deterministic")
+        log(f"  {label} determinism: two 1000-step runs give bitwise-equal av series and state")
+    del cells, nobst, k1
+
+    phase("8. the band path: lbm_tpu_torch.cli.main with band, band2, band3 and auto")
+    from lbm_tpu_torch.ops import band, band2, band3
+
+    counters = {"band": band.run_band, "band2": band2.run_band2, "band3": band3.run_band3}
+    for fn in (*counters.values(), run_step, run_aa):
+        fn.launches = 0
+    want = dict.fromkeys(counters, 0)
+    want_k1 = want_k2 = 0
+
+    def account(stats):
+        nonlocal want_k1, want_k2
+        route, n = stats["route"], stats["max_iters"]
+        if route in counters:
+            depth = routes[route][3][1]
+            want[route] += n // depth * depth
+            want_k1 += n % depth
+        else:
+            check(route == "aa", f"unexpected route {route}")
+            want_k2 += n
+
+    with tempfile.TemporaryDirectory() as work:
+        for tag in DECKS:
+            stats = run_deck(cli, tag, "auto", work, gpu_line)
+            check(stats["route"] == "band3", f"{tag}: auto routed {stats['route']}, not band3")
+            account(stats)
+        for tag in ("256x256", "1024x1024"):
+            for route in counters:
+                account(run_deck(cli, tag, route, work, gpu_line))
+        for n, iters in WALLS_DECKS:
+            deck = write_walls_deck(work, n, iters)
+            ref, stats = run_walls(cli, deck, "aa", work, n, gpu_line)
+            account(stats)
+            for backend in (*counters, "auto"):
+                out, stats = run_walls(cli, deck, backend, work, n, gpu_line)
+                account(stats)
+                check(backend != "auto" or stats["route"] == "band3",
+                      f"walls {n}^2: auto routed {stats['route']}, not band3")
+                hold_against(out, ref, f"walls {n}^2 --backend {backend}")
+                shutil.rmtree(out)
+            shutil.rmtree(ref)
+    got = {route: fn.launches for route, fn in counters.items()}
+    log(f"  launch counters: K7 {got['band']} steps (want {want['band']}), K9 {got['band2']} "
+        f"(want {want['band2']}), K11 {got['band3']} (want {want['band3']}), K1 "
+        f"{run_step.launches} (want {want_k1}), K2 {run_aa.launches} (want {want_k2})")
+    for route in counters:
+        check(got[route] == want[route], f"--backend {route}: not every band step ran in its kernel")
+    check(run_step.launches == want_k1, "not every remainder step ran in K1")
+    check(run_aa.launches == want_k2, "--backend aa did not run every step through K2")
 
     report = {"kernels": [
         {"name": "K1 fused step", "route": "cuda", "source": "lbm_tpu_torch/csrc/step.cu",
@@ -266,6 +514,12 @@ def main():
         {"name": "K2 in-place AA", "route": "cuda", "source": "lbm_tpu_torch/csrc/aa.cu",
          "replaces": "lbm_tpu/ops/pallas_aa.py:163", "launches": aa_launches,
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+    ] + [
+        {"name": BANDS[route][0], "route": "cuda", "source": BANDS[route][1],
+         "replaces": BANDS[route][2], "launches": got[route],
+         "max_abs_err": band_res[route][0], "ms": band_res[route][1][2048][0],
+         "plain_ms": band_res[route][1][2048][1]}
+        for route in BANDS
     ]}
     log(gpu_line)
     log(json.dumps(report))

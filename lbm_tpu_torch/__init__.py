@@ -6,9 +6,12 @@ unchanged as the reference each module is held against.
 
 - ``lbm_tpu_torch.models``  — the D2Q9/BGK lattice model and the parameter record.
 - ``lbm_tpu_torch.ops``     — the plain PyTorch reference step, the shared
-                              collision, and the two kernel routes: ``ops/aa.py``
-                              (kernel K2, ``csrc/aa.cu``) and ``ops/step.py``
-                              (kernel K1, ``csrc/step.cu``), built by ``ops/_build.py``.
+                              collision, and the kernel routes: ``ops/aa.py``
+                              (kernel K2, ``csrc/aa.cu``), ``ops/step.py``
+                              (kernel K1, ``csrc/step.cu``) and the band family
+                              ``ops/band.py``, ``ops/band2.py``, ``ops/band3.py``
+                              (kernels K7, K9, K11, ``csrc/band*.cu``), built by
+                              ``ops/_build.py``.
 - ``lbm_tpu_torch.runtime`` — the driver (whole run on the device, av_vels kept
                               there) and device selection.
 - ``lbm_tpu_torch.io``      — the reference's file formats, byte for byte.

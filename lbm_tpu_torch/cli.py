@@ -39,8 +39,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--backend",
         choices=list(BACKENDS),
         default="auto",
-        help="aa: in-place AA kernel on one state copy (auto's route at f32); "
-        "pallas: fused one-step kernel; reference: plain PyTorch step",
+        help="auto: band3 from 128x128 cells up, aa below (f32), reference "
+        "(f64); aa: in-place AA kernel on one state copy; pallas: fused "
+        "one-step kernel; band, band2, band3: T steps per pass on windows in "
+        "shared memory (values in registers, two ping-pong windows, one "
+        "in-place AA window), remainder on the step kernel; reference: plain "
+        "PyTorch step",
     )
     p.add_argument("--precision", choices=["f32", "f64"], default="f32",
                    help="state dtype (f64 runs the reference step)")

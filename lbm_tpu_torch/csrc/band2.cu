@@ -1,0 +1,105 @@
+// K9: the band pass with two shared-memory windows, ping-ponged.
+//
+// Replaces: lbm_tpu/ops/pallas_band2.py::_kernel2 (:90) and
+// ::_kernel2_panel (:382), the band schedule with two VMEM scratch buffers
+// and T/2 double-steps. Full row and panel are one kernel here: every tile
+// is two-dimensional, B rows by P columns, with a T-cell halo on each side
+// (band_common.cuh), because no full row of a large grid fits the 227 KB of
+// shared memory a block can use.
+//
+// What bounds it on the H100: shared memory. A window cell costs 76 B of it
+// (two copies of 9 f32 planes plus the f32 not-obstacle value), so a block
+// holds at most ~3,000 cells, and the redundancy (B+2T)(P+2T)/(BP) of the
+// recomputed halo is what the schedule pays for touching device memory once
+// per T steps instead of every step (76 B per cell each way per pass, where
+// K1 moves 76 B per cell per step). Each step reads 9 values and writes 9
+// per window cell in shared memory, with one barrier.
+//
+// What the design does about it: one thread per window cell in each
+// sweep, consecutive threads on consecutive columns, so a warp reads
+// consecutive words of a plane (no bank conflicts within a row); each step
+// pulls from one buffer into the other, as _kernel2 does between a_ref and
+// b_ref, so no step needs a second barrier. T is even, so the result ends
+// in the first buffer. The forcing of the ny-2 rows is fused into the pull
+// as in K1 (step.cu): a thread whose source cell lies on such a row adds
+// the delta, with the mask taken at the source cell from the read-only
+// buffer. TMA loads, clusters and register tiling are later work.
+#include "band_common.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(band::kThreads)
+band2_kernel(const float* __restrict__ src, float* __restrict__ dst,
+             const float* __restrict__ nobst, float* __restrict__ partials,
+             unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, float w1a,
+             float w2a, lbm::Relax rc, float inv_tot) {
+  extern __shared__ float smem[];
+  const band::Smem s = band::carve(smem, g, 2);
+  int y0, x0;
+  band::fill_tables(g, s, y0, x0);
+  __syncthreads();
+  float* a = s.planes;
+  float* b = s.planes + 9 * g.ncell;
+  band::load_window(g, s, a, src, nobst);
+  __syncthreads();
+  const band::Central cen = band::central(g, y0, x0);
+  const int frow = g.ny - 2;
+  const int n = g.ncell;
+  for (int st = 0; st < g.T; ++st) {
+    const float* in = (st & 1) ? b : a;
+    float* out = (st & 1) ? a : b;
+    float acc = 0.0f;
+    band::for_cells(g.WH, g.WW, [&](int r, int c) {
+      const int ru = band::wrap1(r - 1, g.WH), rd = band::wrap1(r + 1, g.WH);
+      const int cl = band::wrap1(c - 1, g.WW), cr = band::wrap1(c + 1, g.WW);
+      float t[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const int sr = lbm::cy(k) == 1 ? ru : (lbm::cy(k) == -1 ? rd : r);
+        const int sc = lbm::cx(k) == 1 ? cl : (lbm::cx(k) == -1 ? cr : c);
+        const int si = sr * g.WW + sc;
+        float v = in[k * n + si];
+        if (band::forced(k) && s.grow[sr] == frow) {
+          const float m = lbm::force_mask(in[3 * n + si], in[6 * n + si], in[7 * n + si],
+                                          s.nob[si], w1a, w2a);
+          v = v + band::force_weight(k, w1a, w2a) * m;
+        }
+        t[k] = v;
+      }
+      const int i = r * g.WW + c;
+      const float nob = s.nob[i];
+      const float usq = lbm::collide_fused(t, nob, rc);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) out[k * n + i] = t[k];
+      if (cen.has(r, c)) acc += nob * sqrtf(usq);
+    });
+    band::step_partial(s, st, acc);
+    __syncthreads();
+  }
+  band::store_tile(g, a, dst, y0, x0);
+  band::finish_sums(g, s, partials, ticket, inv_tot, av);
+}
+
+}  // namespace
+
+// Runs n_passes band passes of ``depth`` steps (even) on B x P tiles.
+// buf_a holds the initial state; pass p reads buf[p % 2] and writes
+// buf[(p + 1) % 2]. av receives n_passes * depth values; partials needs
+// depth * lbm_band_num_tiles floats; ticket one zeroed unsigned int.
+// Returns the first CUDA error, or 0.
+extern "C" int lbm_band2_run(float* buf_a, float* buf_b, const float* nobst, float* av,
+                             float* partials, unsigned int* ticket, int ny, int nx, int block,
+                             int depth, int panel, int n_passes, float w1a, float w2a, float beta,
+                             float ow0, float ow1, float ow2, float inv_tot, void* stream) {
+  const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
+  const lbm::Relax rc{beta, ow0, ow1, ow2};
+  const size_t smem = band::smem_bytes(g, 2);
+  const cudaError_t err = band::allow_smem(band2_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return band::run_passes(n_passes, depth, buf_a, buf_b, av,
+                          [&](const float* src, float* dst, float* av_p, int) {
+    band2_kernel<<<g.nty * g.ntx, band::kThreads, smem, st>>>(src, dst, nobst, partials, ticket,
+                                                              av_p, g, w1a, w2a, rc, inv_tot);
+  });
+}

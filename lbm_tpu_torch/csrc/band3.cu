@@ -1,0 +1,136 @@
+// K11: the band pass on ONE shared-memory window in the AA arrangement.
+//
+// Replaces: lbm_tpu/ops/pallas_band3.py::_kernel3 (:306) and
+// ::_kernel3_panel (:408), the band schedule on one VMEM scratch buffer
+// with the AA even/odd alternation. Full row and panel are one kernel here:
+// every tile is B x P with a T-cell halo (band_common.cuh).
+//
+// The window holds the S arrangement on entry and exit (device memory keeps
+// S between passes, in two copies, because neighbouring tiles read each
+// other's halos). Steps alternate as in K2 (aa.cu):
+//   even (S -> C): cell-local; read the 9 slots of the cell, relax, write
+//     the value travelling k into slot opp(k) of the same cell;
+//   odd (C -> S): gather t_k from (x - c_k, opp(k)), relax, scatter to
+//     (x + c_k, k), wrapping at the window's edges.
+// Address (w, j) has one reader and one writer, the same cell w - c_j (the
+// window wrap keeps this), and each thread finishes a cell's 9 reads
+// before its 9 writes, so a step updates in place with no barrier but the
+// one between steps. Garbage creeps 0 + 2 cells per double step: T over T
+// steps, so the central tile stays genuine.
+//
+// Forcing of the window rows whose global row is ny-2:
+//   - the even step adds the C-space forcing of the odd step that follows
+//     to the cell's own outputs before writing them (pallas_band3.py
+//     applies it as a 1-row update at the start of the odd step: same
+//     values, same arithmetic);
+//   - the odd step fuses the NEXT even step's S-space forcing: the cell on
+//     a forcing row adds the delta to its own scattered values, with the
+//     mask from its own f*_3, f*_6, f*_7 (pallas_band3.py:261-280);
+//   - the last odd step of a run's final pass is not fused (fuse_last = 0),
+//     so the stored state is unforced for the S -> R exit. The run's first
+//     forcing is applied to the full S state before the first pass
+//     (ops/band3.py). The TPU split of the final pass into (T-2, fused) +
+//     (2, unfused) calls, forced by its compile helper, is not carried over.
+//
+// What bounds it on the H100: shared memory, at 40 B per window cell (one
+// copy of 9 f32 planes and the not-obstacle value), about half of K9's, so
+// a block holds ~5,800 cells and the halo redundancy (B+2T)(P+2T)/(BP) can
+// be lower than K9's at the same footprint. Each step reads and writes 9
+// values per window cell in shared memory, with one barrier; the odd step's
+// accesses at +-1 rows and columns cost extra bank traffic at row ends.
+// What the design does about it: one thread per window cell in each sweep,
+// consecutive threads on consecutive columns; in place, so no second
+// buffer. TMA, clusters and register tiling are later work.
+#include "band_common.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(band::kThreads)
+band3_kernel(const float* __restrict__ src, float* __restrict__ dst,
+             const float* __restrict__ nobst, float* __restrict__ partials,
+             unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, float w1a,
+             float w2a, lbm::Relax rc, float inv_tot, int fuse_last) {
+  extern __shared__ float smem[];
+  const band::Smem s = band::carve(smem, g, 1);
+  int y0, x0;
+  band::fill_tables(g, s, y0, x0);
+  __syncthreads();
+  float* w = s.planes;
+  band::load_window(g, s, w, src, nobst);
+  __syncthreads();
+  const band::Central cen = band::central(g, y0, x0);
+  const int frow = g.ny - 2;
+  const int n = g.ncell;
+  const int half = g.T / 2;
+  for (int h = 0; h < half; ++h) {
+    float acc = 0.0f;
+    band::for_cells(g.WH, g.WW, [&](int r, int c) {  // even step: S -> C
+      const int i = r * g.WW + c;
+      float t[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) t[k] = w[k * n + i];
+      const float nob = s.nob[i];
+      const float usq = lbm::collide_fused(t, nob, rc);
+      if (s.grow[r] == frow) band::force_cell(t, nob, w1a, w2a);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) w[lbm::opp(k) * n + i] = t[k];
+      if (cen.has(r, c)) acc += nob * sqrtf(usq);
+    });
+    band::step_partial(s, 2 * h, acc);
+    __syncthreads();
+
+    const bool fuse = fuse_last || h + 1 < half;
+    acc = 0.0f;
+    band::for_cells(g.WH, g.WW, [&](int r, int c) {  // odd step: C -> S
+      const int ru = band::wrap1(r - 1, g.WH), rd = band::wrap1(r + 1, g.WH);
+      const int cl = band::wrap1(c - 1, g.WW), cr = band::wrap1(c + 1, g.WW);
+      float t[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const int sr = lbm::cy(k) == 1 ? ru : (lbm::cy(k) == -1 ? rd : r);
+        const int sc = lbm::cx(k) == 1 ? cl : (lbm::cx(k) == -1 ? cr : c);
+        t[k] = w[lbm::opp(k) * n + sr * g.WW + sc];
+      }
+      const int i = r * g.WW + c;
+      const float nob = s.nob[i];
+      const float usq = lbm::collide_fused(t, nob, rc);
+      if (fuse && s.grow[r] == frow) band::force_cell(t, nob, w1a, w2a);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const int dr = lbm::cy(k) == 1 ? rd : (lbm::cy(k) == -1 ? ru : r);
+        const int dc = lbm::cx(k) == 1 ? cr : (lbm::cx(k) == -1 ? cl : c);
+        w[k * n + dr * g.WW + dc] = t[k];
+      }
+      if (cen.has(r, c)) acc += nob * sqrtf(usq);
+    });
+    band::step_partial(s, 2 * h + 1, acc);
+    __syncthreads();
+  }
+  band::store_tile(g, w, dst, y0, x0);
+  band::finish_sums(g, s, partials, ticket, inv_tot, av);
+}
+
+}  // namespace
+
+// Runs n_passes in-place AA band passes of ``depth`` steps (even) on B x P
+// tiles. buf_a holds the forced S arrangement on entry; pass p reads
+// buf[p % 2] and writes buf[(p + 1) % 2], both in S. Every pass but the
+// last fuses the next pass's first forcing. av receives n_passes * depth
+// values; partials needs depth * lbm_band_num_tiles floats; ticket one
+// zeroed unsigned int. Returns the first CUDA error, or 0.
+extern "C" int lbm_band3_run(float* buf_a, float* buf_b, const float* nobst, float* av,
+                             float* partials, unsigned int* ticket, int ny, int nx, int block,
+                             int depth, int panel, int n_passes, float w1a, float w2a, float beta,
+                             float ow0, float ow1, float ow2, float inv_tot, void* stream) {
+  const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
+  const lbm::Relax rc{beta, ow0, ow1, ow2};
+  const size_t smem = band::smem_bytes(g, 1);
+  const cudaError_t err = band::allow_smem(band3_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return band::run_passes(n_passes, depth, buf_a, buf_b, av,
+                          [&](const float* src, float* dst, float* av_p, int p) {
+    band3_kernel<<<g.nty * g.ntx, band::kThreads, smem, st>>>(
+        src, dst, nobst, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot, p + 1 < n_passes);
+  });
+}

@@ -1,7 +1,8 @@
 """Builds and loads the CUDA kernels of ``lbm_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, for ``sm_90a`` (Hopper), into ``lbm_tpu_torch/build/``. The
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper), one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface in ``lbm_tpu_torch/build/``. The
 file name carries a hash of the sources and flags, so a changed source
 builds anew and an unchanged one loads the library already built. The
 library is bound with ctypes: ``c_void_p`` for every pointer and the
@@ -27,7 +28,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -36,6 +37,16 @@ _F = ctypes.c_float
 _RUN_ARGTYPES = {
     "lbm_step_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_P],
     "lbm_aa_run": [_P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_P],
+    # band kernels: (buf_a, buf_b, nobst, av, partials, ticket, ny, nx,
+    # block, depth, panel, n_passes, 7 scalars, stream)
+    "lbm_band_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+    "lbm_band2_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+    "lbm_band3_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+}
+_COUNT_ARGTYPES = {
+    "lbm_step_num_blocks": [_I, _I],
+    "lbm_aa_num_blocks": [_I, _I],
+    "lbm_band_num_tiles": [_I, _I, _I, _I],  # (ny, nx, block, panel)
 }
 
 
@@ -77,21 +88,35 @@ def library() -> ctypes.CDLL:
     if built:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise BuildError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", src, "-o", obj] for src, obj in zip(sources(), objs)]
+        cmds.append([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
+        try:
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True) for cmd in cmds[:-1]]
+            results = []
+            for cmd, proc in zip(cmds, procs):
+                err = proc.communicate()[1]
+                results.append((cmd, proc.returncode, err))
+            if all(rc == 0 for _, rc, _ in results):
+                link = subprocess.run(cmds[-1], capture_output=True, text=True)
+                results.append((cmds[-1], link.returncode, link.stderr))
+            for cmd, rc, err in results:
+                if rc != 0:
+                    raise BuildError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     lib = ctypes.CDLL(out)
     for name, argtypes in _RUN_ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in ("lbm_step_num_blocks", "lbm_aa_num_blocks"):
+    for name, argtypes in _COUNT_ARGTYPES.items():
         fn = getattr(lib, name)
-        fn.argtypes = [_I, _I]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_uint
     lib.build_info = dict(
         path=out, built=built, seconds=time.perf_counter() - t0,

@@ -1,0 +1,107 @@
+"""The value-carrying band route (counterpart of ``lbm_tpu/ops/pallas_band.py``).
+
+``run_band`` advances a ``(9, ny, nx)`` f32 state ``n_iters`` steps on the
+band schedule of ``ops/band_common.py``: ``n_iters // T`` passes, each
+loading every tile's ``(B+2T) x (P+2T)`` window, taking T steps inside it
+and storing the central ``B x P`` cells, then the ``n_iters % T``
+remainder on K1. It returns ``(cells, av)`` with ``av[t] = inv_tot_cells *
+sum(nobst * |u|)`` of step t.
+
+On a CUDA tensor the passes run kernel K7 (``csrc/band.cu``): each thread
+carries its window cells' 9 values in registers across the T steps, the
+counterpart of ``_kernel``'s planes carried as loop values, and streams
+through one shared-memory exchange window; every pass of a run is issued
+by one C call. On a CPU tensor it runs ``run_band_plain``, the same
+schedule on all windows at once in plain PyTorch. Any other device raises;
+a CUDA tensor never falls back.
+
+The TPU's full-row and panel kernels (``_kernel``, ``_kernel_panel``) are
+one function here: ``panel=None`` is the full row (window ``nx + 2T``
+wide), ``panel=P`` a tile of P columns with a T-column halo. The kernel
+holds at most ``MAX_WINDOW_CELLS`` window cells (its register budget).
+``LBM_BAND_ROWFORCE`` and ``LBM_BAND_UNROLL`` are TPU A/B plumbing and are
+not ported.
+"""
+
+from __future__ import annotations
+
+from lbm_tpu_torch.ops import band_common as BC
+from lbm_tpu_torch.ops.step import forcing_weights
+
+PLANE_COPIES = 1  # one exchange window of the 9 planes per block
+MAX_WINDOW_CELLS = 4096  # 512 threads x 8 cells held in registers (csrc/band.cu)
+
+
+def band_supported(ny: int, nx: int, block: int, depth: int, panel: int | None = None) -> bool:
+    """Any tile and depth; ``ny >= 2`` as K1. The TPU kernel's ``nx % 128``,
+    ``depth % 8`` and ``ny % block`` are tiling constraints that the window
+    gather does not have."""
+    del nx
+    return ny >= 2 and depth >= 1 and block >= 1 and (panel is None or panel >= 1)
+
+
+def _check(cells, nobst, n_iters, block, depth, panel):
+    BC.check_schedule(cells, nobst, n_iters, block, depth, panel)
+    _, ny, nx = cells.shape
+    if not band_supported(ny, nx, block, depth, panel):
+        raise ValueError(f"band schedule unsupported: grid {ny}x{nx}, block {block}, "
+                         f"depth {depth}, panel {panel}")
+
+
+def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired):
+    w1a, w2a = forcing_weights(density, accel)
+    step = BC.r_step_plain(float(omega), w1a, w2a, paired)
+    return BC.plain_passes(nobst, inv_tot_cells, block, depth, panel, lambda p, n: step)
+
+
+def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired, device):
+    """``run_passes`` of ``run_creep`` for the device of the state."""
+    if device.type == "cpu":
+        return _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
+                             paired)
+    if device.type != "cuda":
+        raise ValueError(f"no band kernel for device {device}")
+    if not (isinstance(paired, str) and paired.startswith("fused")):
+        raise ValueError("the CUDA band kernel implements the fused collision form only")
+
+    b, p, t = BC.tile_shape(nobst.shape[1], block, depth, panel)
+    if (b + 2 * t) * (p + 2 * t) > MAX_WINDOW_CELLS:
+        raise ValueError(f"band kernel: a {b + 2 * t}x{p + 2 * t} window exceeds the "
+                         f"{MAX_WINDOW_CELLS} cells its threads hold in registers")
+
+    def run_passes(cells, npasses):
+        out = BC.launch_passes("lbm_band_run", "band kernel", cells.contiguous().clone(), nobst,
+                               density, accel, omega, inv_tot_cells, block, depth, panel,
+                               npasses, PLANE_COPIES)
+        run_band.launches += npasses * depth
+        return out
+
+    return run_passes
+
+
+def run_band_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
+                   inv_tot_cells=1.0, paired="fused"):
+    """The band schedule in plain PyTorch; returns ``(cells, av)``."""
+    _check(cells, nobst, n_iters, block, depth, panel)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
+                           paired)
+    return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+                        passes, paired)
+
+
+def run_band(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
+             inv_tot_cells=1.0, paired="fused"):
+    """Run ``n_iters`` steps, ``depth`` per pass: kernel K7 on CUDA (and K1
+    for the remainder), ``run_band_plain`` on CPU. ``cells`` is left
+    unchanged. The kernel implements the fused collision form."""
+    if cells.device.type == "cpu":
+        return run_band_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
+                              panel=panel, inv_tot_cells=inv_tot_cells, paired=paired)
+    _check(cells, nobst, n_iters, block, depth, panel)
+    passes = _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
+                     cells.device)
+    return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+                        passes, paired)
+
+
+run_band.launches = 0  # steps K7 advanced in this process

@@ -1,0 +1,224 @@
+"""Shared schedule of the band family (counterpart of ``lbm_tpu/ops/band_common.py``).
+
+The three band routes (``ops/band.py``, ``ops/band2.py``, ``ops/band3.py``)
+run the same garbage-creep schedule and differ only in the step body:
+
+- the grid is cut into output tiles of ``block`` rows by ``panel`` columns
+  (``panel=None``: the full row, the TPU kernels' full-row variant);
+- a pass loads, for every tile, the window of ``(block + 2T) x (panel + 2T)``
+  cells around it, with wrapped global row and column indices, so the
+  periodic boundary needs no strip copies;
+- it advances T steps inside the window. Streaming wraps at the WINDOW's
+  edges, so the cells within s of an edge are garbage after s steps, but
+  garbage creeps in one cell per step and never reaches the central tile;
+- it stores the central ``block x panel`` cells (those inside the grid).
+
+The forcing of row ny-2 is applied at every window row whose global row is
+ny-2, at every step, halo rows included: this is the TPU kernels' two gated
+static positions (``B+T-2`` of the last block, ``T-2`` of block 0)
+generalised to any tile height, and to windows taller than the grid.
+
+``creep_pass_plain`` is one pass in plain PyTorch on all windows at once,
+as a batch tensor ``(nwin, 9, B+2T, P+2T)``; ``run_creep`` is the pass loop
+with the ``n_iters % T`` remainder on ``ops/step.py::run_step``;
+``launch_passes`` issues every pass of a run through one C entry point of
+the CUDA kernels K7 (``csrc/band.cu``), K9 (``csrc/band2.cu``) and K11
+(``csrc/band3.cu``).
+
+The TPU's BlockSpec strip views (``fullrow_specs``/``panel_specs``), the
+extended mask ``nobst_ext`` and the 128-lane halo H do not carry over: the
+window gather replaces them, and every tile's x halo is T columns.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lbm_tpu_torch.ops import _build
+from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
+from lbm_tpu_torch.ops.step import _CXS, _CYS, _OPP, check_inputs, kernel_scalars, run_step
+
+CYS, CXS, OPP = _CYS, _CXS, _OPP
+# The forcing planes as (plane, sign, weight kind): kind 1 -> w1a, 2 -> w2a
+# (kernels.cl:33-41).
+FORCE = ((1, 1.0, 1), (3, -1.0, 1), (5, 1.0, 2),
+         (6, -1.0, 2), (7, -1.0, 2), (8, 1.0, 2))
+
+# Dynamic shared memory a band kernel's block may use on the H100: the
+# 227 KB opt-in, less 1 KB for the kernels' static shared memory.
+SMEM_LIMIT = 232448 - 1024
+# Warps of a band kernel's 512-thread block: each keeps one partial sum per
+# step in shared memory (band_common.cuh::smem_bytes).
+_WARPS = 16
+
+
+def tile_shape(nx: int, block: int, depth: int, panel: int | None):
+    """``(B, P, T)`` of a schedule; ``panel=None`` is the full row."""
+    return block, (nx if panel is None else panel), depth
+
+
+def smem_bytes(plane_copies: int, nx: int, block: int, depth: int, panel: int | None) -> int:
+    """Dynamic shared memory of one block of a band kernel whose window
+    holds ``plane_copies`` sets of the 9 planes."""
+    b, p, t = tile_shape(nx, block, depth, panel)
+    wh, ww = b + 2 * t, p + 2 * t
+    return (9 * plane_copies + 1) * 4 * wh * ww + 4 * (wh + ww) + 4 * _WARPS * t
+
+
+def check_schedule(cells, nobst, n_iters, block, depth, panel):
+    check_inputs(cells, nobst, n_iters, 2)
+    if block < 1 or depth < 1 or (panel is not None and panel < 1):
+        raise ValueError(f"bad band schedule: block {block}, depth {depth}, panel {panel}")
+
+
+def window_indices(ny: int, nx: int, block: int, depth: int, panel: int | None, device):
+    """Global rows ``(nty, B+2T)`` and columns ``(ntx, P+2T)`` of every
+    tile's window, wrapped into the grid."""
+    b, p, t = tile_shape(nx, block, depth, panel)
+    nty, ntx = -(-ny // b), -(-nx // p)
+    rows = (torch.arange(nty, device=device)[:, None] * b - t
+            + torch.arange(b + 2 * t, device=device)[None, :]) % ny
+    cols = (torch.arange(ntx, device=device)[:, None] * p - t
+            + torch.arange(p + 2 * t, device=device)[None, :]) % nx
+    return rows, cols
+
+
+def gather_windows(x, rows, cols):
+    """``(C, ny, nx)`` -> ``(nty * ntx, C, B+2T, P+2T)``."""
+    nty, wh = rows.shape
+    ntx, ww = cols.shape
+    g = x[:, rows[:, None, :, None], cols[None, :, None, :]]  # (C, nty, ntx, wh, ww)
+    return g.permute(1, 2, 0, 3, 4).reshape(nty * ntx, x.shape[0], wh, ww)
+
+
+def scatter_central(win, ny: int, nx: int, block: int, depth: int, panel: int | None):
+    """The central ``B x P`` cells of every window, back on the grid."""
+    b, p, t = tile_shape(nx, block, depth, panel)
+    nty, ntx = -(-ny // b), -(-nx // p)
+    c = win.shape[1]
+    mid = win[:, :, t:t + b, t:t + p].reshape(nty, ntx, c, b, p)
+    return mid.permute(2, 0, 3, 1, 4).reshape(c, nty * b, ntx * p)[:, :ny, :nx].contiguous()
+
+
+def creep_pass_plain(state, nobst, block, depth, panel, step):
+    """One band pass of ``depth`` steps in plain PyTorch on all windows.
+
+    ``step(s, planes, nob, frow)`` advances the 9 window planes (each
+    ``(nwin, B+2T, P+2T)``) one step with rolls inside the window and
+    returns ``(planes, u_sq)``; ``frow`` is 1.0 on the window rows whose
+    global row is ny-2 (``(nwin, B+2T, 1)``). Returns the new state and
+    the ``depth`` per-step sums of ``nob * |u|`` over the central cells,
+    each reduced from its per-tile partials."""
+    _, ny, nx = state.shape
+    b, p, t = tile_shape(nx, block, depth, panel)
+    rows, cols = window_indices(ny, nx, block, depth, panel, state.device)
+    nty, ntx = rows.shape[0], cols.shape[0]
+    win = gather_windows(state, rows, cols)
+    nob = gather_windows(nobst[None], rows, cols)[:, 0]
+    frow = (rows == ny - 2).to(state.dtype)[:, None, :, None].expand(nty, ntx, b + 2 * t, 1)
+    frow = frow.reshape(nty * ntx, b + 2 * t, 1)
+    # Central cells inside the grid: the ragged last tiles store and sum
+    # only those.
+    valid_y = (torch.arange(nty, device=state.device)[:, None] * b
+               + torch.arange(b, device=state.device)[None, :]) < ny
+    valid_x = (torch.arange(ntx, device=state.device)[:, None] * p
+               + torch.arange(p, device=state.device)[None, :]) < nx
+    valid = (valid_y[:, None, :, None] & valid_x[None, :, None, :]).reshape(nty * ntx, b, p)
+    nob_mid = nob[:, t:t + b, t:t + p] * valid.to(state.dtype)
+    planes = list(win.unbind(1))
+    sums = torch.empty(depth, dtype=state.dtype, device=state.device)
+    for s in range(depth):
+        planes, u_sq = step(s, planes, nob, frow)
+        # Central band sliced before any arithmetic: edge garbage never
+        # reaches the sums.
+        partials = torch.sum(nob_mid * u_mag(u_sq[:, t:t + b, t:t + p]), dim=(1, 2))
+        sums[s] = torch.sum(partials)
+    return scatter_central(torch.stack(planes, 1), ny, nx, block, depth, panel), sums
+
+
+def force_windows(planes, nob, frow, w1a, w2a):
+    """Add the forcing deltas to the 9 values of speed 0..8 on the window
+    rows marked by ``frow``, the joint mask from speeds 3, 6, 7 before any
+    change (kernels.cl:29-41)."""
+    ok = (planes[3] - w1a > 0.0) & (planes[6] - w2a > 0.0) & (planes[7] - w2a > 0.0)
+    am = ok.to(nob.dtype) * nob * frow
+    wgt = {1: w1a, 2: w2a}
+    out = list(planes)
+    for k, sign, kind in FORCE:
+        out[k] = planes[k] + (sign * wgt[kind]) * am
+    return out
+
+
+def r_step_plain(omega, w1a, w2a, paired):
+    """The regular-arrangement step of K7 and K9 on windows: forcing of the
+    ny-2 rows, pull streaming with wrap inside the window, BGK, bounce-back."""
+
+    def step(s, planes, nob, frow):
+        planes = force_windows(planes, nob, frow, w1a, w2a)
+        t = [torch.roll(planes[k], shifts=(CYS[k], CXS[k]), dims=(1, 2)) for k in range(9)]
+        relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+        fluid = nob > 0.0
+        return [torch.where(fluid, relaxed[k], t[OPP[k]]) for k in range(9)], u_sq
+
+    return step
+
+
+def run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+              run_passes, paired="fused"):
+    """The family's pass loop: ``run_passes(cells, n_iters // depth)`` returns
+    the state and the per-step av of the passes, then the ``n_iters % depth``
+    remainder runs on ``ops/step.py::run_step`` (kernel K1 on CUDA)."""
+    npasses, rem = divmod(n_iters, depth)
+    av = torch.empty(n_iters, dtype=torch.float32, device=cells.device)
+    if npasses:
+        cells, av[:npasses * depth] = run_passes(cells, npasses)
+    if rem:
+        cells, av[npasses * depth:] = run_step(cells, nobst, density, accel, omega, rem,
+                                               inv_tot_cells, paired)
+    return cells, av
+
+
+def plain_passes(nobst, inv_tot_cells, block, depth, panel, step_for):
+    """``run_passes`` for the plain versions: ``step_for(p, npasses)`` gives
+    pass p's step function."""
+
+    def run_passes(state, npasses):
+        inv = torch.tensor(inv_tot_cells, dtype=torch.float32, device=state.device)
+        av = []
+        for p in range(npasses):
+            state, sums = creep_pass_plain(state, nobst, block, depth, panel, step_for(p, npasses))
+            av.append(sums * inv)
+        return state, torch.cat(av)
+
+    return run_passes
+
+
+def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, inv_tot_cells,
+                  block, depth, panel, npasses, plane_copies):
+    """Issue ``npasses`` passes of a band kernel through one C call on the
+    current stream. ``state`` is consumed (the kernel ping-pongs between it
+    and a second copy); returns ``(state, av)``."""
+    _, ny, nx = state.shape
+    b, p, t = tile_shape(nx, block, depth, panel)
+    need = smem_bytes(plane_copies, nx, block, depth, panel)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{what}: a {b + 2 * t}x{p + 2 * t} window needs {need} B of shared memory, "
+            f"more than the {SMEM_LIMIT} B a block can use; choose a smaller block or panel")
+    lib = _build.library()
+    a = state.contiguous()
+    other = torch.empty_like(a)
+    nobst = nobst.contiguous()
+    av = torch.empty(npasses * t, dtype=torch.float32, device=a.device)
+    ntiles = lib.lbm_band_num_tiles(ny, nx, b, p)
+    partials = torch.empty(ntiles * t, dtype=torch.float32, device=a.device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = getattr(lib, entry)(
+            a.data_ptr(), other.data_ptr(), nobst.data_ptr(), av.data_ptr(),
+            partials.data_ptr(), ticket.data_ptr(), ny, nx, b, t, p, npasses,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), stream,
+        )
+    _build.check(rc, what)
+    return (a if npasses % 2 == 0 else other), av

@@ -9,11 +9,16 @@ until the loop ends. The final state is the true last state.
 
 Routes (``select_route``), as in the JAX package:
 
-- ``auto`` at f32 -> ``aa`` (kernel K2 on CUDA; its plain version on an
-  explicitly chosen CPU, so the CPU tests drive the card's route);
+- ``auto`` at f32 -> ``band3`` (kernel K11) from a state of
+  ``_BAND3_AUTO_MIN_STATE`` bytes (128^2 cells) up, ``aa`` (kernel K2) below
+  it; on an explicitly chosen CPU the same routes run their plain versions,
+  so the CPU tests drive the card's route;
 - ``pallas`` -> the fused one-step route (kernel K1 / its plain version);
+- ``band``, ``band2``, ``band3`` -> the band family (kernels K7, K9, K11 /
+  their plain versions), T steps per pass on the schedule of
+  ``band_config``, ``band2_config`` and ``band3_config``, the remainder on K1;
 - ``reference`` -> the plain step of ``ops/reference.py``;
-- f64 -> ``reference``; an explicit ``aa`` or ``pallas`` with f64 raises.
+- f64 -> ``reference``; an explicit kernel backend with f64 raises.
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ from lbm_tpu_torch.ops.aa import MIN_NY as AA_MIN_NY
 from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import lbm_step_reference
 
-BACKENDS = ("auto", "aa", "pallas", "reference")
+BACKENDS = ("auto", "aa", "pallas", "reference", "band", "band2", "band3")
+BAND_BACKENDS = ("band", "band2", "band3")
+KERNEL_BACKENDS = ("aa", "pallas") + BAND_BACKENDS
 
 
 @dataclasses.dataclass
@@ -38,7 +45,7 @@ class SimulationResult:
     av_vels: np.ndarray  # (max_iters,) per-step mean |u| over unblocked cells
     elapsed: float  # seconds of the compute loop (kernel build excluded)
     compile_time: float  # seconds spent building or loading the kernels
-    route: str = "reference"  # "aa", "pallas" or "reference"
+    route: str = "reference"  # the route that ran: a BACKENDS name other than "auto"
     device: str = "cpu"  # the torch device the loop ran on
 
     def mlups(self, params: LBMParams) -> float:
@@ -56,9 +63,66 @@ class SimulationResult:
         return params.reynolds(av / int(free.sum()))
 
 
+# Band schedules ``(block, depth, panel)``: the tile is block rows by panel
+# columns with a depth-cell halo. Each is the fastest, or within 2% of the
+# fastest, of a sweep of 38-74 schedules per kernel at 2048^2 and 4096^2 on
+# an H100 (PERF.md, "Schedule sweep"); all three settle on 32-row windows.
+_BAND_SCHEDULE = (24, 4, 56)    # K7: a 32 x 64 window, 4 cells per thread
+_BAND2_SCHEDULE = (24, 4, 24)   # K9: a 32 x 32 window, 78 KB of shared memory
+_BAND3_SCHEDULE = (24, 4, 56)   # K11: a 32 x 64 window, 82 KB of shared memory
+
+
+# auto: K11 (band3) takes the f32 grids from this state size up. On an H100
+# K11 took 33-55% less time per step than K2 at every square size measured,
+# 128^2 to 4096^2, in two interleaved runs (PERF.md, "auto"); smaller grids were not
+# measured and keep K2.
+_BAND3_AUTO_MIN_STATE = 9 * 128 * 128 * 4
+
+
+def band_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
+    """The band kernel's schedule ``(block, depth, panel)`` (driver.py:468-498
+    of the JAX package), or None for a dtype it does not store."""
+    del params
+    return _BAND_SCHEDULE if dtype == torch.float32 else None
+
+
+def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
+    """The band2 kernel's schedule ``(block, depth, panel)`` (driver.py:590-610),
+    or None for a dtype it does not store."""
+    del params
+    return _BAND2_SCHEDULE if dtype == torch.float32 else None
+
+
+def band3_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
+    """The band3 kernel's schedule ``(block, depth, panel)`` (driver.py:691-720),
+    or None for a dtype it does not store."""
+    del params
+    return _BAND3_SCHEDULE if dtype == torch.float32 else None
+
+
+def band_schedule(route: str, params: LBMParams, dtype):
+    """``(run, (block, depth, panel))`` of a band route."""
+    if route == "band":
+        from lbm_tpu_torch.ops.band import band_supported as supported, run_band as run
+        cfg = band_config(params, dtype)
+    elif route == "band2":
+        from lbm_tpu_torch.ops.band2 import band2_supported as supported, run_band2 as run
+        cfg = band2_config(params, dtype)
+    else:
+        from lbm_tpu_torch.ops.band3 import band3_supported as supported, run_band3 as run
+        cfg = band3_config(params, dtype)
+    if cfg is None or not supported(params.ny, params.nx, *cfg):
+        raise ValueError(f"grid {params.ny}x{params.nx} unsupported by the {route} kernel "
+                         f"(schedule {cfg}; the band kernels need ny >= 2)")
+    return run, cfg
+
+
 def select_route(params: LBMParams, backend: str, dtype) -> str:
-    """Resolve ``backend`` and ``dtype`` to ``"aa"``, ``"pallas"`` or
-    ``"reference"`` (driver.py:365-430 and :943-1007 of the JAX package)."""
+    """Resolve ``backend`` and ``dtype`` to a route: ``"aa"``, ``"pallas"``,
+    ``"band"``, ``"band2"``, ``"band3"`` or ``"reference"`` (driver.py:365-430,
+    :613-845 and :943-1007 of the JAX package). An explicit kernel backend
+    raises on a grid or dtype its kernel cannot take; it never routes
+    elsewhere."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if dtype not in (torch.float32, torch.float64):
@@ -66,7 +130,7 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
     if backend == "reference":
         return "reference"
     if dtype == torch.float64:
-        if backend in ("aa", "pallas"):
+        if backend in KERNEL_BACKENDS:
             raise ValueError(
                 f"{backend} backend stores f32 only; use --precision f32 or "
                 "--backend reference for f64"
@@ -76,7 +140,11 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
         raise ValueError(f"grid {params.ny}x{params.nx} unsupported by the AA kernel (ny < 3)")
     if backend == "pallas" and params.ny < 2:
         raise ValueError(f"grid {params.ny}x{params.nx} unsupported by the step kernel (ny < 2)")
+    if backend in BAND_BACKENDS:
+        band_schedule(backend, params, dtype)  # raises with the reason
     if backend == "auto":
+        if 9 * params.ny * params.nx * 4 >= _BAND3_AUTO_MIN_STATE and params.ny >= 2:
+            return "band3"
         return "aa" if params.ny >= AA_MIN_NY else "reference"
     return backend
 
@@ -157,12 +225,17 @@ def run_simulation(
             av[t] = tot_u * inv
     else:
         nobst = (obst == 0).to(torch.float32)
-        if route == "aa":
-            from lbm_tpu_torch.ops.aa import run_aa as run
+        if route in BAND_BACKENDS:
+            run, (block, depth, panel) = band_schedule(route, params, dtype)
+            cells, av = run(cells, nobst, params.density, params.accel, params.omega, n, block,
+                            depth, panel=panel, inv_tot_cells=float(inv_np), paired=paired)
         else:
-            from lbm_tpu_torch.ops.step import run_step as run
-        cells, av = run(cells, nobst, params.density, params.accel, params.omega,
-                        n, float(inv_np), paired=paired)
+            if route == "aa":
+                from lbm_tpu_torch.ops.aa import run_aa as run
+            else:
+                from lbm_tpu_torch.ops.step import run_step as run
+            cells, av = run(cells, nobst, params.density, params.accel, params.omega,
+                            n, float(inv_np), paired=paired)
     _sync(device)
     elapsed = time.perf_counter() - t0
 

@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card: K1 and K2 against their plain versions.
+"""The CUDA kernels on the card: K1, K2 and the band kernels K7, K9, K11
+against their plain versions.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -23,6 +24,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from lbm_tpu_torch.models.d2q9 import WEIGHTS  # noqa: E402
 from lbm_tpu_torch.ops import aa as taa  # noqa: E402
+from lbm_tpu_torch.ops import band as tband  # noqa: E402
+from lbm_tpu_torch.ops import band2 as tband2  # noqa: E402
+from lbm_tpu_torch.ops import band3 as tband3  # noqa: E402
 from lbm_tpu_torch.ops import step as tstep  # noqa: E402
 
 DENSITY, ACCEL, OMEGA = 0.1, 0.005, 1.85
@@ -74,9 +78,44 @@ def test_aa_kernel_matches_plain_and_repeats(cuda_device, nx, ny, iters):
     assert_close(got, taa.run_aa_plain(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0))
 
 
+BANDS = {
+    "band": (tband.run_band, tband.run_band_plain),
+    "band2": (tband2.run_band2, tband2.run_band2_plain),
+    "band3": (tband3.run_band3, tband3.run_band3_plain),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [8, 19, 25])
+@pytest.mark.parametrize("route", list(BANDS))
+def test_band_kernel_matches_plain_and_repeats(cuda_device, route, iters):
+    """A ragged 97 x 70 grid under 24 x 20 tiles (T 4): one pass and more,
+    with and without a K1 remainder; a second run is bitwise equal."""
+    kernel, plain = BANDS[route]
+    cells, nobst = make_setup(cuda_device, 70, 97, seed=iters)
+    before = kernel.launches
+    got = kernel(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 24, 4, panel=20)
+    assert kernel.launches == before + iters // 4 * 4
+    again = kernel(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 24, 4, panel=20)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert_close(got, plain(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 24, 4, panel=20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(BANDS))
+def test_band_kernel_rejects_oversized_window(cuda_device, route):
+    """A full-row window of a 1024-wide grid does not fit a block."""
+    cells, nobst = make_setup(cuda_device, 1024, 32, seed=2)
+    with pytest.raises(ValueError, match="band"):
+        BANDS[route][0](cells, nobst, DENSITY, ACCEL, OMEGA, 8, 8, 4)
+
+
 @pytest.mark.cuda
 def test_kernels_reject_other_collision_forms(cuda_device):
     cells, nobst = make_setup(cuda_device, 64, 8, seed=1)
     for run in (tstep.run_step, taa.run_aa):
         with pytest.raises(ValueError, match="fused"):
             run(cells, nobst, DENSITY, ACCEL, OMEGA, 2, 1.0, paired=True)
+    for run, _ in BANDS.values():
+        with pytest.raises(ValueError, match="fused"):
+            run(cells, nobst, DENSITY, ACCEL, OMEGA, 8, 16, 4, panel=16, paired=True)

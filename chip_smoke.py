@@ -30,21 +30,36 @@ PyTorch built for CUDA. Phases, each printing what it found:
 7. each band kernel against K1 over 1000 steps at 2048^2 (bitwise equal or
    not, and the max difference), and two runs of each bitwise equal;
 8. the band path through ``cli.main``: the four official decks with
-   ``--backend auto`` (K11 from 128^2 up), the 256^2 and 1024^2 decks with
+   ``--backend auto`` (K4 on 128^2, 128x256 and 256^2, K11 on 1024^2),
+   the 256^2 and 1024^2 decks with
    ``band``, ``band2`` and ``band3`` through the 1% gate, and the 1000^2 x
    1001 (ragged tiles, a K1 remainder), 2048^2 x 2048 and 4096^2 x 1024
    "walls" decks (rows 0 and ny-1 blocked) with
-   ``aa``, each band backend and ``auto``; each of the latter is held
+   ``aa``, each band backend and (but on 4096^2) ``auto``; each of the latter is held
    against the ``aa`` run through ``utils/checker.check_files`` at 1% and
    directly (av series at rtol 1e-4, final_state identical bytes or within
    the kernel tolerances). The counters, zeroed just before, must account
-   for every step: the band steps in their kernels, the remainders in K1.
+   for every step: the band steps in their kernels, the remainders in K1;
+9. the resident, temporal and deep kernels K4 (``csrc/resident.cu``), K5
+   (``csrc/temporal.cu``) and K6 (``csrc/deep.cu``) against their plain
+   versions at 1024^2 and 1000^2, over T and 2T+3 steps (K4: 254, 255, 256
+   and 511, around its 255-step launches); time per step of each kernel,
+   its plain version and K11 at 128^2, 1024^2, 2048^2 and 4096^2;
+10. each of them against K1 over 1000 steps at 2048^2 (bitwise equal or not,
+   and the max difference), and two runs of each bitwise equal;
+11. their path through ``cli.main``: the 256^2 and 1024^2 decks with
+   ``resident``, ``temporal`` and ``deep`` through the 1% gate, the 2048^2 x
+   2048 walls deck with each held against phase 8's ``aa`` run, and a 256^2 run
+   resumed with ``--resume --checkpoint-every`` from a step-30,001
+   checkpoint, whose files must be the bytes of the uninterrupted resident
+   run. The counters, zeroed just before, must account for every step.
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
 kernels and another summation order); golden gate 1% (the reference's
 checker). Any failure exits non-zero before the last line. The last two
-lines are the kernel report and ``{"ok": true, "device": {...}}``.
+lines are the kernel report (``ms``/``plain_ms`` per step: K1, K2 and K4
+at 1024^2, the others at 2048^2) and ``{"ok": true, "device": {...}}``.
 """
 
 import filecmp
@@ -240,6 +255,10 @@ BANDS = {
     "band3": ("K11 band3 (one in-place AA window)", "lbm_tpu_torch/csrc/band3.cu",
               "lbm_tpu/ops/pallas_band3.py:306"),
 }
+# The route auto takes on each official deck (runtime/driver.py:
+# select_route): K4 up to a 384^2 state, K11 above.
+AUTO_ROUTES = {"128x128": "resident", "128x256": "resident", "256x256": "resident",
+               "1024x1024": "band3"}
 # (n, iters) of the n x n "walls" decks: a ragged grid whose iterations
 # leave a K1 remainder, then the JAX package's HBM-regime rows.
 WALLS_DECKS = ((1000, 1001), (2048, 2048), (4096, 1024))
@@ -252,7 +271,7 @@ def band_routes():
 
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import band, band2, band3
-    from lbm_tpu_torch.runtime.driver import band_schedule
+    from lbm_tpu_torch.runtime.driver import pass_schedule
 
     params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
                        accel=ACCEL, omega=OMEGA)
@@ -260,7 +279,7 @@ def band_routes():
               "band3": band3.run_band3_plain}
     out = {}
     for route in BANDS:
-        run, cfg = band_schedule(route, params, torch.float32)
+        run, cfg = pass_schedule(route, params, torch.float32)
         out[route] = (BANDS[route][0].split()[0], run, plains[route], cfg)
     return out
 
@@ -370,6 +389,109 @@ def build_native_io():
         f"{time.time() - t0:.1f} s{'' if ok else ': ' + proc.stderr.strip()[-300:]}")
 
 
+# The resident, temporal and deep kernels: route -> (name in the report,
+# source, the TPU kernel it replaces).
+SCHEDULED = {
+    "resident": ("K4 resident (persistent cooperative grid)", "lbm_tpu_torch/csrc/resident.cu",
+                 "lbm_tpu/ops/pallas_resident.py:66"),
+    "temporal": ("K5 temporal (trapezoid, carried row packs)", "lbm_tpu_torch/csrc/temporal.cu",
+                 "lbm_tpu/ops/pallas_temporal.py:76"),
+    "deep": ("K6 deep (trapezoid, halos from the state)", "lbm_tpu_torch/csrc/deep.cu",
+             "lbm_tpu/ops/pallas_deep.py:68"),
+}
+
+
+def scheduled_routes():
+    """route -> (label, kernel, plain, depth) with the driver's schedules;
+    kernel and plain take (cells, nobst, n_steps). K4's "depth" is 1: it
+    has no remainder."""
+    import torch
+
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import deep, resident, temporal
+    from lbm_tpu_torch.runtime.driver import pass_schedule, resident_config
+
+    params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    chunk = resident_config(params, torch.float32)
+
+    def res(fn):
+        return lambda c, o, n: fn(c, o, DENSITY, ACCEL, OMEGA, n, 1.0, chunk=chunk)
+
+    out = {"resident": ("K4", res(resident.run_resident), res(resident.run_resident_plain), 1)}
+    for route, plain in (("temporal", temporal.run_temporal_plain), ("deep", deep.run_deep_plain)):
+        run, (block, depth, panel) = pass_schedule(route, params, torch.float32)
+
+        def bind(fn, block=block, depth=depth, panel=panel):
+            return lambda c, o, n: fn(c, o, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel)
+
+        out[route] = (SCHEDULED[route][0].split()[0], bind(run), bind(plain), depth)
+    return out
+
+
+def scheduled_phase(torch, label, kernel, plain, step_counts, depth, k11):
+    """K4, K5 or K6 against its plain version at 1024^2 and 1000^2; returns
+    (max_abs_err, {n: (kernel ms, plain ms)} per step at 128^2-4096^2)."""
+    errs = []
+    for (nx, ny) in ((1024, 1024), (1000, 1000)):
+        cells, nobst = random_setup(torch, nx, ny, seed=nx + depth)
+        for n in step_counts:
+            errs.append(compare(torch, f"{label} {nx}x{ny} {n} steps",
+                                kernel(cells, nobst, n), plain(cells, nobst, n)))
+    per_step = {}
+    for nx, n_kernel, n_plain in ((128, 2040, 6), (1024, 480, 6), (2048, 240, 2), (4096, 96, 2)):
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        n_plain *= depth  # whole passes: no K1 remainder in the plain time
+        kernel(cells, nobst, n_plain)  # warm up, the allocator included
+        k11(cells, nobst, 24)
+        plain(cells, nobst, n_plain)
+        _, k_ms = timed(torch, lambda: kernel(cells, nobst, n_kernel))
+        _, b_ms = timed(torch, lambda: k11(cells, nobst, n_kernel))
+        _, p_ms = timed(torch, lambda: plain(cells, nobst, n_plain))
+        per_step[nx] = (k_ms / n_kernel, p_ms / n_plain)
+        log(f"  {label} {nx}x{nx}: kernel {1e3 * k_ms / n_kernel:.2f} us/step "
+            f"({nx * nx * n_kernel / k_ms / 1e3:.1f} MLUPS), plain {1e3 * p_ms / n_plain:.2f} "
+            f"us/step, K11 {1e3 * b_ms / n_kernel:.2f} us/step")
+    return max(errs), per_step
+
+
+def resume_run(cli, work, gpu_line):
+    """The 256^2 deck from a checkpoint at step 30,001 of 80,000 (taken by
+    run_simulation on K4) through ``cli.main --resume --checkpoint-every
+    25000``: its files must be the bytes of the uninterrupted resident run
+    in ``work``. Returns the steps K4 ran."""
+    import dataclasses
+
+    from lbm_tpu_torch.io import read_obstacles, read_params
+    from lbm_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+    from lbm_tpu_torch.runtime.driver import run_simulation
+
+    full = os.path.join(work, "256x256-resident")
+    params_path = os.path.join(full, "input_256x256.params")
+    obst_path = os.path.join(full, "obstacles_256x256.dat")
+    params = read_params(params_path)
+    obstacles = read_obstacles(obst_path, params)
+    start, every = params.max_iters * 3 // 8 + 1, params.max_iters * 5 // 16
+    part = run_simulation(dataclasses.replace(params, max_iters=start), obstacles,
+                          device="cuda:0", backend="resident")
+    out = os.path.join(work, "256x256-resumed")
+    ckpt = os.path.join(out, "checkpoint.npz")
+    save_checkpoint(ckpt, params, part.cells, part.av_vels, start)
+    rc = cli.main([params_path, obst_path, "--backend", "resident", "--resume",
+                   "--checkpoint-every", str(every), "--checkpoint-path", ckpt, "--out-dir", out])
+    check(rc == 0, f"resumed 256^2 run: cli.main returned {rc}")
+    same = [filecmp.cmp(os.path.join(out, f), os.path.join(full, f), shallow=False)
+            for f in ("av_vels.dat", "final_state.dat")]
+    step = load_checkpoint(ckpt, params)[2]
+    log(f"  256x256 --backend resident resumed at step {start} with --checkpoint-every {every}: "
+        f"av_vels.dat {'identical' if same[0] else 'DIFFERS'}, final_state.dat "
+        f"{'identical' if same[1] else 'DIFFERS'} to the uninterrupted run; last checkpoint "
+        f"at step {step} [{gpu_line}]")
+    check(all(same), "the resumed 256^2 run's files differ from the uninterrupted run's")
+    check(step == params.max_iters, f"the last checkpoint is at step {step}")
+    return params.max_iters
+
+
 def main():
     try:
         import torch
@@ -459,53 +581,128 @@ def main():
     del cells, nobst, k1
 
     phase("8. the band path: lbm_tpu_torch.cli.main with band, band2, band3 and auto")
-    from lbm_tpu_torch.ops import band, band2, band3
+    from lbm_tpu_torch.ops import band, band2, band3, resident
 
     counters = {"band": band.run_band, "band2": band2.run_band2, "band3": band3.run_band3}
-    for fn in (*counters.values(), run_step, run_aa):
+    for fn in (*counters.values(), run_step, run_aa, resident.run_resident):
         fn.launches = 0
     want = dict.fromkeys(counters, 0)
-    want_k1 = want_k2 = 0
+    want_k1 = want_k2 = want_k4 = 0
 
     def account(stats):
-        nonlocal want_k1, want_k2
+        nonlocal want_k1, want_k2, want_k4
         route, n = stats["route"], stats["max_iters"]
         if route in counters:
             depth = routes[route][3][1]
             want[route] += n // depth * depth
             want_k1 += n % depth
+        elif route == "resident":
+            want_k4 += n
         else:
             check(route == "aa", f"unexpected route {route}")
             want_k2 += n
 
+    # The 2048^2 walls deck and its K2 run stay for phase 11, in ``keep``.
+    keep = tempfile.mkdtemp()
+    walls_ref = {}
     with tempfile.TemporaryDirectory() as work:
         for tag in DECKS:
             stats = run_deck(cli, tag, "auto", work, gpu_line)
-            check(stats["route"] == "band3", f"{tag}: auto routed {stats['route']}, not band3")
+            check(stats["route"] == AUTO_ROUTES[tag],
+                  f"{tag}: auto routed {stats['route']}, not {AUTO_ROUTES[tag]}")
             account(stats)
         for tag in ("256x256", "1024x1024"):
             for route in counters:
                 account(run_deck(cli, tag, route, work, gpu_line))
         for n, iters in WALLS_DECKS:
-            deck = write_walls_deck(work, n, iters)
-            ref, stats = run_walls(cli, deck, "aa", work, n, gpu_line)
+            deck = write_walls_deck(keep if n == 2048 else work, n, iters)
+            ref, stats = run_walls(cli, deck, "aa", keep if n == 2048 else work, n, gpu_line)
             account(stats)
-            for backend in (*counters, "auto"):
+            # auto routes 4096^2 to band3, as it does 2048^2: that run is not repeated.
+            for backend in (*counters, "auto") if n < 4096 else counters:
                 out, stats = run_walls(cli, deck, backend, work, n, gpu_line)
                 account(stats)
                 check(backend != "auto" or stats["route"] == "band3",
                       f"walls {n}^2: auto routed {stats['route']}, not band3")
                 hold_against(out, ref, f"walls {n}^2 --backend {backend}")
                 shutil.rmtree(out)
-            shutil.rmtree(ref)
+            if n == 2048:
+                walls_ref[n] = (deck, ref)
+            else:
+                shutil.rmtree(ref)
     got = {route: fn.launches for route, fn in counters.items()}
     log(f"  launch counters: K7 {got['band']} steps (want {want['band']}), K9 {got['band2']} "
         f"(want {want['band2']}), K11 {got['band3']} (want {want['band3']}), K1 "
-        f"{run_step.launches} (want {want_k1}), K2 {run_aa.launches} (want {want_k2})")
+        f"{run_step.launches} (want {want_k1}), K2 {run_aa.launches} (want {want_k2}), K4 "
+        f"{resident.run_resident.launches} (want {want_k4})")
     for route in counters:
         check(got[route] == want[route], f"--backend {route}: not every band step ran in its kernel")
     check(run_step.launches == want_k1, "not every remainder step ran in K1")
+    check(resident.run_resident.launches == want_k4, "auto did not run every K4 step in K4")
     check(run_aa.launches == want_k2, "--backend aa did not run every step through K2")
+
+    phase("9. K4, K5, K6 vs their plain versions")
+    sched = scheduled_routes()
+    _, k11_run, _, k11_cfg = routes["band3"]
+
+    def k11(c, o, n):
+        return k11_run(c, o, DENSITY, ACCEL, OMEGA, n, k11_cfg[0], k11_cfg[1], panel=k11_cfg[2])
+
+    sched_res = {}
+    for route, (label, kernel, plain, depth) in sched.items():
+        counts = (254, 255, 256, 511) if route == "resident" else (depth, 2 * depth + 3)
+        sched_res[route] = scheduled_phase(torch, label, kernel, plain, counts, depth, k11)
+
+    phase("10. K4, K5, K6 vs K1 over 1000 steps at 2048x2048, and repeatability")
+    cells, nobst = random_setup(torch, 2048, 2048, seed=17)
+    k1 = run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 1000, 1.0)
+    for route, (label, kernel, _, _) in sched.items():
+        (c1, a1), (c2, a2) = kernel(cells, nobst, 1000), kernel(cells, nobst, 1000)
+        torch.cuda.synchronize()
+        log(f"  {label} vs K1: final state bitwise equal: {torch.equal(c1, k1[0])}, max diff "
+            f"{float((c1 - k1[0]).abs().max()):.3e}")
+        compare(torch, f"{label} vs K1 2048x2048 1000 steps", (c1, a1), k1)
+        check(torch.equal(c1, c2) and torch.equal(a1, a2), f"{label} is not run-to-run deterministic")
+        log(f"  {label} determinism: two 1000-step runs give bitwise-equal av series and state")
+    del cells, nobst, k1, c1, c2
+
+    phase("11. the resident, temporal and deep path: lbm_tpu_torch.cli.main, and --resume")
+    from lbm_tpu_torch.ops import deep, resident, temporal
+
+    sched_counters = {"resident": resident.run_resident, "temporal": temporal.run_temporal,
+                      "deep": deep.run_deep}
+    for fn in (*sched_counters.values(), run_step):
+        fn.launches = 0
+    want = dict.fromkeys(sched_counters, 0)
+    want_k1 = 0
+
+    def account_sched(stats):
+        nonlocal want_k1
+        route, n = stats["route"], stats["max_iters"]
+        check(route in sched_counters, f"unexpected route {route}")
+        depth = sched[route][3]
+        want[route] += n // depth * depth
+        want_k1 += n % depth
+
+    with tempfile.TemporaryDirectory() as work:
+        for tag in ("256x256", "1024x1024"):
+            for route in sched_counters:
+                account_sched(run_deck(cli, tag, route, work, gpu_line))
+        want["resident"] += resume_run(cli, work, gpu_line)
+        deck, ref = walls_ref[2048]  # phase 8's deck and K2 run
+        for route in sched_counters:
+            out, stats = run_walls(cli, deck, route, work, 2048, gpu_line)
+            account_sched(stats)
+            hold_against(out, ref, f"walls 2048^2 --backend {route}")
+            shutil.rmtree(out)
+    shutil.rmtree(keep)
+    got_sched = {route: fn.launches for route, fn in sched_counters.items()}
+    log(f"  launch counters: K4 {got_sched['resident']} steps (want {want['resident']}), K5 "
+        f"{got_sched['temporal']} (want {want['temporal']}), K6 {got_sched['deep']} (want "
+        f"{want['deep']}), K1 {run_step.launches} (want {want_k1})")
+    for route in sched_counters:
+        check(got_sched[route] == want[route], f"--backend {route}: not every step ran in its kernel")
+    check(run_step.launches == want_k1, "not every remainder step ran in K1")
 
     report = {"kernels": [
         {"name": "K1 fused step", "route": "cuda", "source": "lbm_tpu_torch/csrc/step.cu",
@@ -520,6 +717,13 @@ def main():
          "max_abs_err": band_res[route][0], "ms": band_res[route][1][2048][0],
          "plain_ms": band_res[route][1][2048][1]}
         for route in BANDS
+    ] + [
+        {"name": SCHEDULED[route][0], "route": "cuda", "source": SCHEDULED[route][1],
+         "replaces": SCHEDULED[route][2], "launches": got_sched[route],
+         "max_abs_err": sched_res[route][0],
+         "ms": sched_res[route][1][1024 if route == "resident" else 2048][0],
+         "plain_ms": sched_res[route][1][1024 if route == "resident" else 2048][1]}
+        for route in SCHEDULED
     ]}
     log(gpu_line)
     log(json.dumps(report))

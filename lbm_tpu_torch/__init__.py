@@ -10,10 +10,14 @@ unchanged as the reference each module is held against.
                               (kernel K2, ``csrc/aa.cu``), ``ops/step.py``
                               (kernel K1, ``csrc/step.cu``) and the band family
                               ``ops/band.py``, ``ops/band2.py``, ``ops/band3.py``
-                              (kernels K7, K9, K11, ``csrc/band*.cu``), built by
-                              ``ops/_build.py``.
+                              (kernels K7, K9, K11, ``csrc/band*.cu``), and
+                              ``ops/resident.py``, ``ops/temporal.py``,
+                              ``ops/deep.py`` (kernels K4, K5, K6,
+                              ``csrc/resident.cu``, ``temporal.cu``,
+                              ``deep.cu``), built by ``ops/_build.py``.
 - ``lbm_tpu_torch.runtime`` — the driver (whole run on the device, av_vels kept
-                              there) and device selection.
+                              there, chunks ending on checkpoints), npz
+                              checkpoints and device selection.
 - ``lbm_tpu_torch.io``      — the reference's file formats, byte for byte.
 - ``lbm_tpu_torch.utils``   — the 1% result checker and the deck geometries.
 

@@ -12,8 +12,10 @@ prints the reference's stdout block (d2q9-bgk.c:283-287):
     Elapsed system CPU time:\t%.6f (s)
 
 ``--backend`` takes the JAX package's names, so one command line drives
-both packages. Bad inputs end with ``lbm_tpu_torch: error: ...`` on stderr
-and exit code 1, never a traceback.
+both packages; so do ``--checkpoint-every``/``--checkpoint-path``/
+``--resume``, whose npz checkpoints either package resumes. Bad inputs end
+with ``lbm_tpu_torch: error: ...`` on stderr and exit code 1, never a
+traceback.
 """
 
 from __future__ import annotations
@@ -39,12 +41,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--backend",
         choices=list(BACKENDS),
         default="auto",
-        help="auto: band3 from 128x128 cells up, aa below (f32), reference "
-        "(f64); aa: in-place AA kernel on one state copy; pallas: fused "
+        help="auto: resident up to 384x384 cells, band3 above (f32), "
+        "reference (f64); aa: in-place AA kernel on one state copy; pallas: fused "
         "one-step kernel; band, band2, band3: T steps per pass on windows in "
         "shared memory (values in registers, two ping-pong windows, one "
-        "in-place AA window), remainder on the step kernel; reference: plain "
-        "PyTorch step",
+        "in-place AA window), remainder on the step kernel; resident: 255 "
+        "whole-grid steps per launch of one persistent grid, a grid-wide "
+        "barrier between steps; temporal, deep: T steps per pass on a "
+        "shrinking trapezoid in shared memory, halo rows from carried row "
+        "packs or straight from the state, remainder on the step kernel; "
+        "reference: plain PyTorch step",
     )
     p.add_argument("--precision", choices=["f32", "f64"], default="f32",
                    help="state dtype (f64 runs the reference step)")
@@ -56,6 +62,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="CUDA device index (default: $LBM_DEVICE or 0); 'cpu' runs on the "
         "host, which happens only when named",
     )
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
+                   help="snapshot resumable state every K steps")
+    p.add_argument("--checkpoint-path", default=None,
+                   help="checkpoint file (default: <out-dir>/checkpoint.npz when enabled)")
+    p.add_argument("--checkpoint-format", choices=["npz", "orbax"], default="npz",
+                   help="npz: one atomic .npz file, readable by both packages; orbax is "
+                   "JAX-only (lbm_tpu) and is refused here")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint-path if it exists")
     p.add_argument("--list-devices", action="store_true",
                    help="print the device table and exit")
     p.add_argument("--stats-json", default=None, metavar="PATH",
@@ -106,10 +121,35 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
 
+    if args.checkpoint_format == "orbax":
+        return _error("orbax checkpoints are JAX-only (lbm_tpu); use --checkpoint-format npz")
+    if args.checkpoint_every < 0:
+        return _error(f"--checkpoint-every must be >= 0, got {args.checkpoint_every}")
+    checkpoint_path = args.checkpoint_path
+    if checkpoint_path is None and (args.checkpoint_every or args.resume):
+        checkpoint_path = os.path.join(args.out_dir, "checkpoint.npz")
+    resumed = {}
+    if args.resume and checkpoint_path and os.path.exists(checkpoint_path):
+        from lbm_tpu_torch.runtime.checkpoint import load_checkpoint
+
+        try:
+            cells, av_prefix, start_step = load_checkpoint(checkpoint_path, params)
+        except (OSError, KeyError, ValueError) as e:
+            return _error(f"cannot resume from {checkpoint_path}: {e}")
+        if start_step >= params.max_iters:
+            return _error(f"checkpoint already at step {start_step} of {params.max_iters}; "
+                          "nothing to resume")
+        if args.verbose:
+            print(f"[lbm_tpu_torch] resuming from step {start_step}", file=sys.stderr)
+        resumed = dict(initial_cells=cells, start_step=start_step, av_vels_prefix=av_prefix)
+
     tic = time.time()
     try:
-        result = run_simulation(params, obstacles, backend=args.backend, dtype=dtype,
-                                device=device)
+        result = run_simulation(
+            params, obstacles, backend=args.backend, dtype=dtype, device=device,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_path=checkpoint_path if args.checkpoint_every else None, **resumed,
+        )
     except ValueError as e:
         return _error(e)
     toc = time.time()

@@ -1,0 +1,73 @@
+// K6: T steps per pass on a shrinking trapezoid, halos read from the input
+// state.
+//
+// Replaces: lbm_tpu/ops/pallas_deep.py::_kernel (with _make_call), the
+// temporal kernel whose (9, T, nx) halo strips are views of the read-only
+// input state, the output going to a fresh buffer.
+//
+// What bounds it on the H100: device-memory bytes and shared memory. A pass
+// reads each tile's window once (the 9 planes and the not-obstacle plane,
+// 40 B per window cell) and writes its central cells once (36 B), so a
+// step moves about 76 / T B per cell plus the halo's share; the window's
+// two copies take 76 B of shared memory per cell, which caps the window
+// near 3,000 cells, and the steps then run out of shared memory.
+//
+// What the design does about it: one block per B x P tile (trapezoid.cuh).
+// The input state is read-only during a pass, so the window, halo rows and
+// columns included, is loaded straight from it with wrapped global indices
+// (the TPU kernel's strip BlockSpecs; T % 8 == 0 and B % T == 0 existed for
+// them and do not apply). The central cells go to the other state buffer,
+// every pass of a run is issued by one C call, and the per-step sums are
+// reduced in a fixed order (band_common.cuh::finish_sums).
+#include "trapezoid.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(band::kThreads)
+deep_kernel(const float* __restrict__ src, float* __restrict__ dst,
+            const float* __restrict__ nobst, float* __restrict__ partials,
+            unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, float w1a,
+            float w2a, lbm::Relax rc, float inv_tot) {
+  extern __shared__ float smem[];
+  const band::Smem s = band::carve(smem, g, 2);
+  const trap::Tile tl = trap::begin(g, s);
+  __syncthreads();
+  float* a = s.planes;
+  float* b = s.planes + 9 * g.ncell;
+  const size_t plane = (size_t)g.ny * g.nx;
+  band::for_cells(tl.wh, tl.ww, [&](int r, int c) {
+    const size_t gi = (size_t)s.grow[r] * g.nx + s.gcol[c];
+    const int i = r * g.WW + c;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) a[k * g.ncell + i] = src[k * plane + gi];
+    s.nob[i] = nobst[gi];
+  });
+  __syncthreads();
+  const float* out = trap::steps(g, s, tl, a, b, w1a, w2a, rc);
+  band::store_tile(g, out, dst, tl.y0, tl.x0);
+  band::finish_sums(g, s, partials, ticket, inv_tot, av);
+}
+
+}  // namespace
+
+// Runs n_passes passes of ``depth`` steps on B x P tiles. buf_a holds the
+// initial state; pass p reads buf[p % 2] and writes buf[(p + 1) % 2]. av
+// receives n_passes * depth values; partials needs depth *
+// lbm_band_num_tiles floats; ticket one zeroed unsigned int. Returns the
+// first CUDA error, or 0.
+extern "C" int lbm_deep_run(float* buf_a, float* buf_b, const float* nobst, float* av,
+                            float* partials, unsigned int* ticket, int ny, int nx, int block,
+                            int depth, int panel, int n_passes, float w1a, float w2a, float beta,
+                            float ow0, float ow1, float ow2, float inv_tot, void* stream) {
+  const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
+  const lbm::Relax rc{beta, ow0, ow1, ow2};
+  const size_t smem = band::smem_bytes(g, 2);
+  const cudaError_t err = band::allow_smem(deep_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return band::run_passes(n_passes, depth, buf_a, buf_b, av,
+                          [&](const float* src, float* dst, float* av_p, int) {
+    deep_kernel<<<g.nty * g.ntx, band::kThreads, smem, st>>>(src, dst, nobst, partials, ticket,
+                                                             av_p, g, w1a, w2a, rc, inv_tot);
+  });
+}

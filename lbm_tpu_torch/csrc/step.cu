@@ -33,31 +33,12 @@ step_kernel(const float* __restrict__ src, float* __restrict__ dst,
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const bool inside = x < nx && y < ny;
   const size_t plane = (size_t)ny * nx;
-  const int frow = ny - 2;
   float u = 0.0f;
   if (inside) {
     float t[9];
-    // Forcing delta on each speed (kernels.cl:21-41): +w on 1, 5, 8 and -w on 3, 6, 7.
-    const float fw[9] = {0.0f, w1a, 0.0f, -w1a, 0.0f, w2a, -w2a, -w2a, w2a};
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      int sy = y - lbm::cy(k);
-      sy = sy < 0 ? sy + ny : (sy >= ny ? sy - ny : sy);
-      int sx = x - lbm::cx(k);
-      sx = sx < 0 ? sx + nx : (sx >= nx ? sx - nx : sx);
-      const size_t s = (size_t)sy * nx + sx;
-      float v = src[k * plane + s];
-      if (fw[k] != 0.0f && sy == frow) {
-        const float m = lbm::force_mask(src[3 * plane + s], src[6 * plane + s],
-                                        src[7 * plane + s], nobst[s], w1a, w2a);
-        v = v + fw[k] * m;
-      }
-      t[k] = v;
-    }
-    const float nob = nobst[(size_t)y * nx + x];
-    const float usq = lbm::collide_fused(t, nob, rc);
-    u = nob * sqrtf(usq);
+    const float usq = lbm::pull_collide<false>(src, nobst, ny, nx, y, x, w1a, w2a, rc, t);
     const size_t c = (size_t)y * nx + x;
+    u = nobst[c] * sqrtf(usq);
 #pragma unroll
     for (int k = 0; k < 9; ++k) dst[k * plane + c] = t[k];
   }

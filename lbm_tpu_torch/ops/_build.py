@@ -42,6 +42,14 @@ _RUN_ARGTYPES = {
     "lbm_band_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
     "lbm_band2_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
     "lbm_band3_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+    "lbm_deep_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+    # (state_a, state_b, last_a, first_a, last_b, first_b, nobst, av,
+    # partials, ticket, ny, nx, block, depth, panel, n_passes, 7 scalars, stream)
+    "lbm_temporal_run": [_P] * 10 + [_I] * 6 + [_F] * 7 + [_P],
+    # (buf_a, buf_b, nobst, av, partials, ny, nx, n_steps, chunk, blocks,
+    # 7 scalars, stream)
+    "lbm_resident_run": [_P] * 5 + [_I] * 5 + [_F] * 7 + [_P],
+    "lbm_resident_max_blocks": [],
 }
 _COUNT_ARGTYPES = {
     "lbm_step_num_blocks": [_I, _I],

@@ -193,18 +193,25 @@ def plain_passes(nobst, inv_tot_cells, block, depth, panel, step_for):
     return run_passes
 
 
-def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, inv_tot_cells,
-                  block, depth, panel, npasses, plane_copies):
-    """Issue ``npasses`` passes of a band kernel through one C call on the
-    current stream. ``state`` is consumed (the kernel ping-pongs between it
-    and a second copy); returns ``(state, av)``."""
-    _, ny, nx = state.shape
+def check_smem(what: str, plane_copies: int, nx: int, block: int, depth: int,
+               panel: int | None) -> None:
+    """Raise if a tile's window does not fit the shared memory of a block."""
     b, p, t = tile_shape(nx, block, depth, panel)
     need = smem_bytes(plane_copies, nx, block, depth, panel)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"{what}: a {b + 2 * t}x{p + 2 * t} window needs {need} B of shared memory, "
             f"more than the {SMEM_LIMIT} B a block can use; choose a smaller block or panel")
+
+
+def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, inv_tot_cells,
+                  block, depth, panel, npasses, plane_copies):
+    """Issue ``npasses`` passes of a band kernel (K7, K9, K11) or of the deep
+    kernel K6 through one C call on the current stream. ``state`` is consumed (the kernel ping-pongs between it
+    and a second copy); returns ``(state, av)``."""
+    _, ny, nx = state.shape
+    b, p, t = tile_shape(nx, block, depth, panel)
+    check_smem(what, plane_copies, nx, block, depth, panel)
     lib = _build.library()
     a = state.contiguous()
     other = torch.empty_like(a)

@@ -9,16 +9,27 @@ until the loop ends. The final state is the true last state.
 
 Routes (``select_route``), as in the JAX package:
 
-- ``auto`` at f32 -> ``band3`` (kernel K11) from a state of
-  ``_BAND3_AUTO_MIN_STATE`` bytes (128^2 cells) up, ``aa`` (kernel K2) below
-  it; on an explicitly chosen CPU the same routes run their plain versions,
-  so the CPU tests drive the card's route;
+- ``auto`` at f32 -> ``resident`` (kernel K4) up to a state of
+  ``_RESIDENT_AUTO_MAX_STATE`` bytes (384^2 cells), ``band3`` (kernel K11)
+  above; on an explicitly chosen CPU the same routes run their plain
+  versions, so the CPU tests drive the card's route;
 - ``pallas`` -> the fused one-step route (kernel K1 / its plain version);
 - ``band``, ``band2``, ``band3`` -> the band family (kernels K7, K9, K11 /
   their plain versions), T steps per pass on the schedule of
   ``band_config``, ``band2_config`` and ``band3_config``, the remainder on K1;
+- ``resident`` -> whole-grid steps in persistent launches of
+  ``resident_config`` steps (kernel K4 / its plain version);
+- ``temporal``, ``deep`` -> T steps per pass on the shrinking trapezoid with
+  carried row packs or halos read from the state (kernels K5, K6 / their
+  plain versions), on the schedules of ``temporal_config`` and
+  ``deep_config``, the remainder on K1;
 - ``reference`` -> the plain step of ``ops/reference.py``;
 - f64 -> ``reference``; an explicit kernel backend with f64 raises.
+
+``run_simulation`` runs ``[start_step, max_iters)`` in chunks whose
+boundaries fall on every multiple of ``checkpoint_every``, writing a
+checkpoint (``runtime/checkpoint.py``) after each; ``elapsed`` sums the
+chunks' compute time only.
 """
 
 from __future__ import annotations
@@ -33,10 +44,13 @@ from lbm_tpu_torch.models.d2q9 import D2Q9, LBMParams, obstacles_from_numpy
 from lbm_tpu_torch.ops.aa import MIN_NY as AA_MIN_NY
 from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import lbm_step_reference
+from lbm_tpu_torch.ops.resident import resident_supported
 
-BACKENDS = ("auto", "aa", "pallas", "reference", "band", "band2", "band3")
-BAND_BACKENDS = ("band", "band2", "band3")
-KERNEL_BACKENDS = ("aa", "pallas") + BAND_BACKENDS
+BACKENDS = ("auto", "aa", "pallas", "reference", "band", "band2", "band3", "resident",
+            "temporal", "deep")
+# Routes of T steps per pass with the remainder on K1, run by ``pass_schedule``.
+PASS_BACKENDS = ("band", "band2", "band3", "temporal", "deep")
+KERNEL_BACKENDS = ("aa", "pallas", "resident") + PASS_BACKENDS
 
 
 @dataclasses.dataclass
@@ -70,13 +84,22 @@ class SimulationResult:
 _BAND_SCHEDULE = (24, 4, 56)    # K7: a 32 x 64 window, 4 cells per thread
 _BAND2_SCHEDULE = (24, 4, 24)   # K9: a 32 x 32 window, 78 KB of shared memory
 _BAND3_SCHEDULE = (24, 4, 56)   # K11: a 32 x 64 window, 82 KB of shared memory
+# K5 and K6: the best of a sweep of 143 and 184 schedules at 2048^2 and
+# 4096^2 on an H100 (PERF.md, PR 3); both settle on a 40 x 32 window, T 4.
+_TEMPORAL_SCHEDULE = (32, 4, 24)  # K5: 98 KB of shared memory, two blocks per SM
+_DEEP_SCHEDULE = (24, 4, 32)      # K6: 98 KB of shared memory, two blocks per SM
+# K4: steps per cooperative launch, the JAX package's 255; 1023 measured
+# 12% slower at 128^2 and within 2% at 256^2-1024^2.
+_RESIDENT_CHUNK = 255
 
 
-# auto: K11 (band3) takes the f32 grids from this state size up. On an H100
-# K11 took 33-55% less time per step than K2 at every square size measured,
-# 128^2 to 4096^2, in two interleaved runs (PERF.md, "auto"); smaller grids were not
-# measured and keep K2.
-_BAND3_AUTO_MIN_STATE = 9 * 128 * 128 * 4
+# auto at f32: K4 (resident) up to this state size, K11 (band3) above. On an
+# H100, in two runs each (PERF.md, "auto"): K4 took 5-45% less
+# time per step than K11 at every square size from 8^2 to 384^2 and lost
+# from 512^2 on; 53-74% less than K2 (auto's route below 128^2 before it)
+# at every square size from 8^2 to 128^2. K11 took 33-55% less than K2 from
+# 128^2 to 4096^2.
+_RESIDENT_AUTO_MAX_STATE = 9 * 384 * 384 * 4
 
 
 def band_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
@@ -100,29 +123,58 @@ def band3_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     return _BAND3_SCHEDULE if dtype == torch.float32 else None
 
 
-def band_schedule(route: str, params: LBMParams, dtype):
-    """``(run, (block, depth, panel))`` of a band route."""
+def resident_config(params: LBMParams, dtype) -> int | None:
+    """Steps per K4 launch (driver.py:1070-1080 of the JAX package runs
+    ``pallas_resident._CHUNK_STEPS``), or None for a dtype it does not store."""
+    del params
+    return _RESIDENT_CHUNK if dtype == torch.float32 else None
+
+
+def temporal_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
+    """The temporal kernel's schedule ``(block, depth, panel)``
+    (``pick_block``/``pick_depth`` of the JAX package), or None for a dtype
+    it does not store."""
+    del params
+    return _TEMPORAL_SCHEDULE if dtype == torch.float32 else None
+
+
+def deep_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
+    """The deep kernel's schedule ``(block, depth, panel)``
+    (``pallas_deep.pick_config``), or None for a dtype it does not store."""
+    del params
+    return _DEEP_SCHEDULE if dtype == torch.float32 else None
+
+
+def pass_schedule(route: str, params: LBMParams, dtype):
+    """``(run, (block, depth, panel))`` of a route of ``PASS_BACKENDS``;
+    raises for a grid or dtype its kernel cannot take."""
     if route == "band":
         from lbm_tpu_torch.ops.band import band_supported as supported, run_band as run
-        cfg = band_config(params, dtype)
+        cfg, need = band_config(params, dtype), "ny >= 2"
     elif route == "band2":
         from lbm_tpu_torch.ops.band2 import band2_supported as supported, run_band2 as run
-        cfg = band2_config(params, dtype)
-    else:
+        cfg, need = band2_config(params, dtype), "ny >= 2"
+    elif route == "band3":
         from lbm_tpu_torch.ops.band3 import band3_supported as supported, run_band3 as run
-        cfg = band3_config(params, dtype)
+        cfg, need = band3_config(params, dtype), "ny >= 2"
+    elif route == "temporal":
+        from lbm_tpu_torch.ops.temporal import run_temporal as run
+        from lbm_tpu_torch.ops.temporal import temporal_supported as supported
+        cfg, need = temporal_config(params, dtype), "ny >= 2 and every row block >= depth rows"
+    else:
+        from lbm_tpu_torch.ops.deep import deep_supported as supported, run_deep as run
+        cfg, need = deep_config(params, dtype), "ny >= 2"
     if cfg is None or not supported(params.ny, params.nx, *cfg):
         raise ValueError(f"grid {params.ny}x{params.nx} unsupported by the {route} kernel "
-                         f"(schedule {cfg}; the band kernels need ny >= 2)")
+                         f"(schedule {cfg}; it needs f32 and {need})")
     return run, cfg
 
 
 def select_route(params: LBMParams, backend: str, dtype) -> str:
-    """Resolve ``backend`` and ``dtype`` to a route: ``"aa"``, ``"pallas"``,
-    ``"band"``, ``"band2"``, ``"band3"`` or ``"reference"`` (driver.py:365-430,
-    :613-845 and :943-1007 of the JAX package). An explicit kernel backend
-    raises on a grid or dtype its kernel cannot take; it never routes
-    elsewhere."""
+    """Resolve ``backend`` and ``dtype`` to a route: a ``BACKENDS`` name other
+    than ``"auto"`` (driver.py:96-118, :365-430, :613-1007 of the JAX
+    package). An explicit kernel backend raises on a grid or dtype its
+    kernel cannot take; it never routes elsewhere."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if dtype not in (torch.float32, torch.float64):
@@ -140,12 +192,15 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
         raise ValueError(f"grid {params.ny}x{params.nx} unsupported by the AA kernel (ny < 3)")
     if backend == "pallas" and params.ny < 2:
         raise ValueError(f"grid {params.ny}x{params.nx} unsupported by the step kernel (ny < 2)")
-    if backend in BAND_BACKENDS:
-        band_schedule(backend, params, dtype)  # raises with the reason
+    if backend == "resident" and not resident_supported(params.ny, params.nx):
+        raise ValueError(f"grid {params.ny}x{params.nx} unsupported by the resident kernel "
+                         "(ny < 2)")
+    if backend in PASS_BACKENDS:
+        pass_schedule(backend, params, dtype)  # raises with the reason
     if backend == "auto":
-        if 9 * params.ny * params.nx * 4 >= _BAND3_AUTO_MIN_STATE and params.ny >= 2:
-            return "band3"
-        return "aa" if params.ny >= AA_MIN_NY else "reference"
+        if not resident_supported(params.ny, params.nx):
+            return "reference"
+        return "resident" if 9 * params.ny * params.nx * 4 <= _RESIDENT_AUTO_MAX_STATE else "band3"
     return backend
 
 
@@ -180,11 +235,20 @@ def run_simulation(
     backend: str = "auto",
     dtype=torch.float32,
     initial_cells: np.ndarray | None = None,
+    start_step: int = 0,
+    av_vels_prefix: np.ndarray | None = None,
+    checkpoint_every: int = 0,
+    checkpoint_path: str | None = None,
     fetch_final: bool = True,
 ) -> SimulationResult:
-    """Run ``params.max_iters`` steps on ``device`` and return the result.
+    """Run steps ``start_step .. params.max_iters`` on ``device`` and return
+    the result (driver.py:1272-1611 of the JAX package).
 
-    ``initial_cells`` replaces the equilibrium-at-rest start state.
+    ``initial_cells`` replaces the equilibrium-at-rest start state;
+    ``start_step`` and ``av_vels_prefix`` resume from a checkpoint, whose
+    av series the result's begins with. ``checkpoint_every`` > 0 splits the
+    run into chunks ending on its multiples, and with ``checkpoint_path``
+    each chunk's end (and the run's) writes a checkpoint there.
     ``fetch_final=False`` leaves ``result.cells`` None.
     """
     device = torch.device(device)
@@ -194,6 +258,8 @@ def run_simulation(
     obstacles = np.asarray(obstacles)
     if obstacles.shape != (params.ny, params.nx):
         raise ValueError(f"obstacle mask {obstacles.shape} != grid ({params.ny}, {params.nx})")
+    if start_step >= params.max_iters:
+        raise ValueError("start_step is beyond max_iters")
     if initial_cells is None:
         cells = D2Q9.initial_state(params, dtype=dtype, device=device)
     else:
@@ -204,7 +270,32 @@ def run_simulation(
     # the series rounds as the JAX driver's does (driver.py:1366-1368).
     inv_np = np.asarray(1.0 / tot_cells, dtype=np.float64 if dtype == torch.float64 else np.float32)
     paired = paired_default()  # read once, outside the loop
-    n = params.max_iters
+    nobst = (obst == 0).to(torch.float32)
+    scalars = (params.density, params.accel, params.omega)
+
+    def advance(cells, n):
+        """``n`` steps of the route; returns ``(cells, av)``."""
+        if route == "reference":
+            inv = torch.tensor(inv_np, device=device)
+            av = torch.empty(n, dtype=dtype, device=device)
+            for t in range(n):
+                cells, tot_u = lbm_step_reference(cells, obst, *scalars)
+                av[t] = tot_u * inv
+            return cells, av
+        if route in PASS_BACKENDS:
+            run, (block, depth, panel) = pass_schedule(route, params, dtype)
+            return run(cells, nobst, *scalars, n, block, depth, panel=panel,
+                       inv_tot_cells=float(inv_np), paired=paired)
+        if route == "resident":
+            from lbm_tpu_torch.ops.resident import run_resident
+
+            return run_resident(cells, nobst, *scalars, n, float(inv_np),
+                                chunk=resident_config(params, dtype), paired=paired)
+        if route == "aa":
+            from lbm_tpu_torch.ops.aa import run_aa as run
+        else:
+            from lbm_tpu_torch.ops.step import run_step as run
+        return run(cells, nobst, *scalars, n, float(inv_np), paired=paired)
 
     t0 = time.perf_counter()
     if route != "reference" and device.type == "cuda":
@@ -213,35 +304,27 @@ def run_simulation(
         _build.library()  # build or load before the timed loop
     compile_time = time.perf_counter() - t0
 
-    _sync(device)
-    t0 = time.perf_counter()
-    if route == "reference":
-        inv = torch.tensor(inv_np, device=device)
-        av = torch.empty(n, dtype=dtype, device=device)
-        for t in range(n):
-            cells, tot_u = lbm_step_reference(
-                cells, obst, params.density, params.accel, params.omega
-            )
-            av[t] = tot_u * inv
-    else:
-        nobst = (obst == 0).to(torch.float32)
-        if route in BAND_BACKENDS:
-            run, (block, depth, panel) = band_schedule(route, params, dtype)
-            cells, av = run(cells, nobst, params.density, params.accel, params.omega, n, block,
-                            depth, panel=panel, inv_tot_cells=float(inv_np), paired=paired)
-        else:
-            if route == "aa":
-                from lbm_tpu_torch.ops.aa import run_aa as run
-            else:
-                from lbm_tpu_torch.ops.step import run_step as run
-            cells, av = run(cells, nobst, params.density, params.accel, params.omega,
-                            n, float(inv_np), paired=paired)
-    _sync(device)
-    elapsed = time.perf_counter() - t0
+    av_chunks = [] if av_vels_prefix is None else [np.asarray(av_vels_prefix)]
+    elapsed = 0.0
+    step = start_step
+    for n in compute_chunk_sizes(start_step, params.max_iters, checkpoint_every):
+        _sync(device)
+        t0 = time.perf_counter()
+        cells, av = advance(cells, n)
+        _sync(device)
+        elapsed += time.perf_counter() - t0
+        av_chunks.append(av.cpu().numpy())
+        step += n
+        if checkpoint_path is not None and checkpoint_every and (
+                step % checkpoint_every == 0 or step == params.max_iters):
+            from lbm_tpu_torch.runtime.checkpoint import save_checkpoint
+
+            save_checkpoint(checkpoint_path, params, cells.cpu().numpy(),
+                            np.concatenate(av_chunks), step)
 
     return SimulationResult(
         cells=cells.cpu().numpy() if fetch_final else None,
-        av_vels=av.cpu().numpy(),
+        av_vels=np.concatenate(av_chunks),
         elapsed=elapsed,
         compile_time=compile_time,
         route=route,

@@ -82,7 +82,7 @@ def test_api_reaches_band_routes(backend):
     params = LBMParams(nx=128, ny=128, max_iters=6, reynolds_dim=10, density=0.1,
                        accel=0.005, omega=1.85)
     result = Simulation(params, walls(128, 128)).run(device="cpu", backend=backend)
-    assert result.route == ("band3" if backend == "auto" else backend)
+    assert result.route == ("resident" if backend == "auto" else backend)
     assert result.av_vels.shape == (6,) and np.isfinite(result.cells).all()
 
 
@@ -91,8 +91,10 @@ def test_api_reaches_band_routes(backend):
     ("band2", torch.float32, 64, 128, "band2"),
     ("band3", torch.float32, 64, 128, "band3"),
     ("band3", torch.float32, 2, 7, "band3"),
-    ("auto", torch.float32, 128, 128, "band3"),
-    ("auto", torch.float32, 127, 128, "aa"),
+    # auto ran K11 (band3) and K2 (aa) on these grids until K4 (resident)
+    # took every grid up to 384^2; the ids are the earlier ones.
+    pytest.param("auto", torch.float32, 128, 128, "resident", id="auto-dtype4-128-128-band3"),
+    pytest.param("auto", torch.float32, 127, 128, "resident", id="auto-dtype5-127-128-aa"),
     ("auto", torch.float64, 128, 128, "reference"),
     ("band", torch.float64, 64, 128, ValueError),
     ("band2", torch.float64, 64, 128, ValueError),
@@ -100,6 +102,7 @@ def test_api_reaches_band_routes(backend):
     ("band", torch.float32, 1, 128, ValueError),
     ("band2", torch.float32, 1, 128, ValueError),
     ("band3", torch.float32, 1, 128, ValueError),
+    ("auto", torch.float32, 512, 512, "band3"),
 ])
 def test_select_route_band(backend, dtype, ny, nx, want):
     params = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=0.1,

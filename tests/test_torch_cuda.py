@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card: K1, K2 and the band kernels K7, K9, K11
-against their plain versions.
+"""The CUDA kernels on the card: K1, K2, the band kernels K7, K9, K11 and
+the resident, temporal and deep kernels K4, K5, K6 against their plain
+versions.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -27,7 +28,10 @@ from lbm_tpu_torch.ops import aa as taa  # noqa: E402
 from lbm_tpu_torch.ops import band as tband  # noqa: E402
 from lbm_tpu_torch.ops import band2 as tband2  # noqa: E402
 from lbm_tpu_torch.ops import band3 as tband3  # noqa: E402
+from lbm_tpu_torch.ops import deep as tdeep  # noqa: E402
+from lbm_tpu_torch.ops import resident as tres  # noqa: E402
 from lbm_tpu_torch.ops import step as tstep  # noqa: E402
+from lbm_tpu_torch.ops import temporal as ttemp  # noqa: E402
 
 DENSITY, ACCEL, OMEGA = 0.1, 0.005, 1.85
 
@@ -119,3 +123,79 @@ def test_kernels_reject_other_collision_forms(cuda_device):
     for run, _ in BANDS.values():
         with pytest.raises(ValueError, match="fused"):
             run(cells, nobst, DENSITY, ACCEL, OMEGA, 8, 16, 4, panel=16, paired=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters,chunk", [(12, 5), (13, 5), (7, 255)])
+@pytest.mark.parametrize("nx,ny", [(70, 97), (33, 3)])
+def test_resident_kernel_matches_plain_and_repeats(cuda_device, nx, ny, iters, chunk):
+    """Chunk boundaries inside the run, both exit parities; a second run is
+    bitwise equal."""
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=iters)
+    before = tres.run_resident.launches
+    got = tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0, chunk=chunk)
+    assert tres.run_resident.launches == before + iters
+    again = tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0, chunk=chunk)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert_close(got, tres.run_resident_plain(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0,
+                                              chunk=chunk))
+
+
+@pytest.mark.cuda
+def test_resident_kernel_refuses_a_grid_the_card_cannot_hold(cuda_device):
+    """One block more than occupancy x SMs: the cooperative launch is refused
+    and the wrapper raises, where a plain launch of a grid-wide barrier
+    would hang."""
+    cells, nobst = make_setup(cuda_device, 256, 256, seed=1)
+    too_many = tres.max_blocks(cuda_device) + 1
+    with pytest.raises(RuntimeError, match="resident kernel"):
+        tres.launch(cells, nobst, DENSITY, ACCEL, OMEGA, 4, 1.0, 4, too_many)
+    torch.cuda.synchronize()  # the context is still usable
+    tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, 2, 1.0)
+
+
+TRAPEZOIDS = {
+    "temporal": (ttemp.run_temporal, ttemp.run_temporal_plain, ttemp.run_temporal),
+    "deep": (tdeep.run_deep, tdeep.run_deep_plain, tdeep.run_deep),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters,depth", [(8, 4), (19, 4), (25, 4), (11, 3)])
+@pytest.mark.parametrize("route", list(TRAPEZOIDS))
+def test_trapezoid_kernel_matches_plain_and_repeats(cuda_device, route, iters, depth):
+    """A ragged 97 x 70 grid under 20 x 20 tiles (the last row block 17
+    rows): one pass and more, with and without a K1 remainder, an odd T;
+    a second run is bitwise equal."""
+    kernel, plain, counter = TRAPEZOIDS[route]
+    cells, nobst = make_setup(cuda_device, 70, 97, seed=iters)
+    before = counter.launches
+    got = kernel(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 20, depth, panel=20)
+    assert counter.launches == before + iters // depth * depth
+    again = kernel(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 20, depth, panel=20)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert_close(got, plain(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 20, depth, panel=20))
+
+
+@pytest.mark.cuda
+def test_temporal_pass_packs_match_plain(cuda_device):
+    """One K5 pass from packs that differ from the state's rows: the state
+    and both output packs, in the (cells, last, first) order."""
+    cells, nobst = make_setup(cuda_device, 70, 97, seed=4)
+    last, first = ttemp.make_halos_t(cells, 20, 4)
+    state = (cells, last * 1.01, first * 0.99)
+    got, av = ttemp.step_t(state, nobst, DENSITY, ACCEL, OMEGA, 20, 4, panel=32)
+    want, want_av = ttemp.step_t_plain(state, nobst, DENSITY, ACCEL, OMEGA, 20, 4)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) < 1e-5 * float(w.abs().max())
+    np.testing.assert_allclose(av.cpu().numpy(), want_av.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_other_collision_forms(cuda_device):
+    cells, nobst = make_setup(cuda_device, 64, 8, seed=1)
+    with pytest.raises(ValueError, match="fused"):
+        tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, 2, 1.0, paired=True)
+    for run, _, _ in TRAPEZOIDS.values():
+        with pytest.raises(ValueError, match="fused"):
+            run(cells, nobst, DENSITY, ACCEL, OMEGA, 8, 8, 4, panel=16, paired=True)

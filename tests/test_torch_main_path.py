@@ -55,7 +55,7 @@ def test_slice_matches_jax_cli(deck, tmp_path, capsys, monkeypatch):
     import json
 
     s = json.loads(stats.read_text())
-    assert s["route"] == "aa" and s["torch_device"] == "cpu" and s["mlups"] > 0
+    assert s["route"] == "resident" and s["torch_device"] == "cpu" and s["mlups"] > 0
 
     assert jcli.main([*deck, "--backend", "reference", "--out-dir", str(j_out)]) == 0
     t_av = np.loadtxt(t_out / "av_vels.dat", usecols=[1])
@@ -111,9 +111,11 @@ def test_f64_reference_matches_jax_driver():
 
 
 @pytest.mark.parametrize("backend,dtype,ny,want", [
-    ("auto", torch.float32, 32, "aa"),
+    # auto ran K2 (aa) below 128^2 and the reference step at ny 2 until K4
+    # (resident) took every grid up to 384^2; the ids are the earlier ones.
+    pytest.param("auto", torch.float32, 32, "resident", id="auto-dtype0-32-aa"),
     ("auto", torch.float64, 32, "reference"),
-    ("auto", torch.float32, 2, "reference"),
+    pytest.param("auto", torch.float32, 2, "resident", id="auto-dtype2-2-reference"),
     ("aa", torch.float32, 32, "aa"),
     ("pallas", torch.float32, 32, "pallas"),
     ("reference", torch.float32, 32, "reference"),
@@ -121,7 +123,10 @@ def test_f64_reference_matches_jax_driver():
     ("aa", torch.float64, 32, ValueError),
     ("pallas", torch.float64, 32, ValueError),
     ("aa", torch.float32, 2, ValueError),
-    ("resident", torch.float32, 32, ValueError),
+    # resident is ported now: it takes f32 and raises on f64.
+    pytest.param("resident", torch.float64, 32, ValueError, id="resident-dtype10-32-ValueError"),
+    ("resident", torch.float32, 32, "resident"),
+    ("auto", torch.float32, 1, "reference"),
 ])
 def test_select_route(backend, dtype, ny, want):
     params = LBMParams(nx=128, ny=ny, max_iters=1, reynolds_dim=10, density=0.1,

@@ -53,13 +53,36 @@ PyTorch built for CUDA. Phases, each printing what it found:
    resumed with ``--resume --checkpoint-every`` from a step-30,001
    checkpoint, whose files must be the bytes of the uninterrupted resident
    run. The counters, zeroed just before, must account for every step.
+12. the shard kernels, every shard on ``cuda:0``: K3 (``csrc/shard_step.cu``)
+   on a 1-D mesh of 4 and on 2x2, K12 (same source) on 4, K8
+   (``csrc/band.cu``) and K10 (``csrc/band2.cu``) on 4, against their plain
+   versions at 1024^2 and 1000^2 (K3 and K12 over 50 steps, K8 and K10 over
+   T and 2T+3); time per step of each at 2048^2 and 4096^2 beside the
+   single-device kernel of its family (K1, K7, K9), the plain version's at
+   2048^2;
+13. each of them against K1 over 1000 steps on the 2048^2 walls mask: the
+   joined final state bitwise equal to K1's single-device run, and two runs
+   of each bitwise equal;
+14. the sharded path through ``cli.main``: the 1024^2 deck with ``--mesh 4
+   --device 0`` under ``auto``, ``pallas``, ``pallas-overlap``, ``band`` and
+   ``band2``, and ``--mesh 2x2 --device 0`` under ``auto``, each through the
+   1% gate; a 256^2 ``--mesh 4`` run resumed from a step-30,001 checkpoint
+   with ``--checkpoint-every``, whose files must be the bytes of the
+   uninterrupted run. The counters, zeroed just before, must account for
+   every step.
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
 kernels and another summation order); golden gate 1% (the reference's
 checker). Any failure exits non-zero before the last line. The last two
-lines are the kernel report (``ms``/``plain_ms`` per step: K1, K2 and K4
-at 1024^2, the others at 2048^2) and ``{"ok": true, "device": {...}}``.
+lines are the kernel report and ``{"ok": true, "device": {...}}``. In the
+report ``ms``/``plain_ms`` are per step (K1, K2 and K4 at 1024^2, the
+others at 2048^2, the shard kernels with 4 shards); ``bound_ms`` is the
+least time of that step on an H100 at this run's shape: the larger of its
+bytes (76 B per cell per launch of a one-step kernel and per pass of a
+T-step one: 9 planes read and written and the mask, each once) over 3.35
+TB/s and its f32 operations (``FLOPS_PER_CELL_STEP``) over 67 TFLOP/s;
+``library_ms`` is null, as no single PyTorch call computes these steps.
 """
 
 import filecmp
@@ -75,6 +98,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL_CELLS = 1e-5
 TOL_AV = 1e-4
 DENSITY, ACCEL, OMEGA = 0.1, 0.005, 1.85
+# An H100 SXM's peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
+# outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+F32_FLOPS = 67e12
+BYTES_PER_CELL = 76  # 9 f32 planes read, 9 written, the f32 mask read
+# f32 operations of one cell-step of collide_fused (lbm_common.cuh: 9-value
+# moments, the four paired relaxations, the select) with the forcing test
+# and the |u| sum: counted from the source, about 70.
+FLOPS_PER_CELL_STEP = 70
 
 # (nx, ny, maxIters, reynolds_dim, density, accel, omega) and geometry of the
 # four official decks (examples/generate_inputs.py, which imports the JAX
@@ -183,6 +215,15 @@ def kernel_phase(torch, label, kernel, plain, parity_steps):
     return max(errs), per_step[1024][0], per_step[1024][1]
 
 
+def bound(cells, depth=1):
+    """``(bound_ms, bound_by)`` of one step over ``cells`` cells on an H100:
+    a one-step kernel (depth 1) moves 76 B per cell, a T-step pass 76 B per
+    cell per T steps."""
+    bytes_ms = 1e3 * cells * BYTES_PER_CELL / depth / HBM_BYTES_S
+    ops_ms = 1e3 * cells * FLOPS_PER_CELL_STEP / F32_FLOPS
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
 def write_gold(npz_path, out_dir):
     """The committed f64 gold (tests/golden/*.npz) in the reference's file
     formats, the way tests/test_golden.py materialises it: av_vels as
@@ -204,14 +245,17 @@ def write_gold(npz_path, out_dir):
     return av_path, fs_path
 
 
-def run_deck(cli, tag, backend, work, gpu_line):
+def run_deck(cli, tag, backend, work, gpu_line, mesh=None):
+    """One official deck through ``cli.main``; ``mesh`` adds ``--mesh mesh
+    --device 0``."""
     import numpy as np
 
     from lbm_tpu_torch.utils import geometry
     from lbm_tpu_torch.utils.checker import check_files
 
     fields, geo, kw = DECKS[tag]
-    deck_dir = os.path.join(work, f"{tag}-{backend}")
+    extra = [] if mesh is None else ["--mesh", mesh, "--device", "0"]
+    deck_dir = os.path.join(work, f"{tag}-{backend}" + ("" if mesh is None else f"-mesh{mesh}"))
     os.makedirs(deck_dir)
     params_path = os.path.join(deck_dir, f"input_{tag}.params")
     obst_path = os.path.join(deck_dir, f"obstacles_{tag}.dat")
@@ -219,7 +263,8 @@ def run_deck(cli, tag, backend, work, gpu_line):
     geometry.write_obstacle_file(obst_path, getattr(geometry, geo)(fields[0], fields[1], **kw))
     stats_path = os.path.join(deck_dir, "stats.json")
     rc = cli.main([params_path, obst_path, "--backend", backend, "--out-dir", deck_dir,
-                   "--stats-json", stats_path])
+                   "--stats-json", stats_path, *extra])
+    backend = " ".join([backend, *extra])
     check(rc == 0, f"{tag} --backend {backend}: cli.main returned {rc}")
     with open(stats_path) as f:
         stats = json.load(f)
@@ -455,41 +500,229 @@ def scheduled_phase(torch, label, kernel, plain, step_counts, depth, k11):
     return max(errs), per_step
 
 
-def resume_run(cli, work, gpu_line):
+def resume_run(cli, work, gpu_line, backend="resident", mesh=None):
     """The 256^2 deck from a checkpoint at step 30,001 of 80,000 (taken by
-    run_simulation on K4) through ``cli.main --resume --checkpoint-every
-    25000``: its files must be the bytes of the uninterrupted resident run
-    in ``work``. Returns the steps K4 ran."""
+    run_simulation, or run_simulation_sharded on ``mesh`` shards of
+    ``cuda:0``) through ``cli.main --resume --checkpoint-every 25000``: its
+    files must be the bytes of the uninterrupted run of ``backend`` in
+    ``work`` (run_deck's directory). Returns the steps run."""
     import dataclasses
 
     from lbm_tpu_torch.io import read_obstacles, read_params
+    from lbm_tpu_torch.parallel.sharded import run_simulation_sharded
     from lbm_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
     from lbm_tpu_torch.runtime.driver import run_simulation
 
-    full = os.path.join(work, "256x256-resident")
+    tail = "" if mesh is None else f"-mesh{mesh}"
+    full = os.path.join(work, f"256x256-{backend}{tail}")
     params_path = os.path.join(full, "input_256x256.params")
     obst_path = os.path.join(full, "obstacles_256x256.dat")
     params = read_params(params_path)
     obstacles = read_obstacles(obst_path, params)
     start, every = params.max_iters * 3 // 8 + 1, params.max_iters * 5 // 16
-    part = run_simulation(dataclasses.replace(params, max_iters=start), obstacles,
-                          device="cuda:0", backend="resident")
-    out = os.path.join(work, "256x256-resumed")
+    head = dataclasses.replace(params, max_iters=start)
+    if mesh is None:
+        part = run_simulation(head, obstacles, device="cuda:0", backend=backend)
+    else:
+        part = run_simulation_sharded(head, obstacles, devices=["cuda:0"] * int(mesh),
+                                      backend=backend)
+    out = os.path.join(work, f"256x256-resumed{tail}")
     ckpt = os.path.join(out, "checkpoint.npz")
     save_checkpoint(ckpt, params, part.cells, part.av_vels, start)
-    rc = cli.main([params_path, obst_path, "--backend", "resident", "--resume",
-                   "--checkpoint-every", str(every), "--checkpoint-path", ckpt, "--out-dir", out])
+    extra = [] if mesh is None else ["--mesh", mesh, "--device", "0"]
+    rc = cli.main([params_path, obst_path, "--backend", backend, "--resume", "--checkpoint-every",
+                   str(every), "--checkpoint-path", ckpt, "--out-dir", out, *extra])
     check(rc == 0, f"resumed 256^2 run: cli.main returned {rc}")
     same = [filecmp.cmp(os.path.join(out, f), os.path.join(full, f), shallow=False)
             for f in ("av_vels.dat", "final_state.dat")]
     step = load_checkpoint(ckpt, params)[2]
-    log(f"  256x256 --backend resident resumed at step {start} with --checkpoint-every {every}: "
-        f"av_vels.dat {'identical' if same[0] else 'DIFFERS'}, final_state.dat "
-        f"{'identical' if same[1] else 'DIFFERS'} to the uninterrupted run; last checkpoint "
-        f"at step {step} [{gpu_line}]")
+    log(f"  256x256 --backend {backend} {' '.join(extra)} resumed at step {start} with "
+        f"--checkpoint-every {every}: av_vels.dat {'identical' if same[0] else 'DIFFERS'}, "
+        f"final_state.dat {'identical' if same[1] else 'DIFFERS'} to the uninterrupted run; "
+        f"last checkpoint at step {step} [{gpu_line}]")
     check(all(same), "the resumed 256^2 run's files differ from the uninterrupted run's")
     check(step == params.max_iters, f"the last checkpoint is at step {step}")
     return params.max_iters
+
+
+# The shard kernels: name -> (name in the report, source, the TPU kernel it
+# replaces).
+SHARDED = {
+    "K3": ("K3 shard step (ghost ring, refilled between steps)",
+           "lbm_tpu_torch/csrc/shard_step.cu", "lbm_tpu/ops/pallas_step.py:164"),
+    "K12": ("K12 shard step storing its edges into the neighbours' rings",
+            "lbm_tpu_torch/csrc/shard_step.cu", "lbm_tpu/ops/pallas_remote.py:49"),
+    "K8": ("K8 sharded band (values in registers)", "lbm_tpu_torch/csrc/band.cu",
+           "lbm_tpu/ops/pallas_band.py:574"),
+    "K10": ("K10 sharded band2 (two ping-pong windows)", "lbm_tpu_torch/csrc/band2.cu",
+            "lbm_tpu/ops/pallas_band2.py:584"),
+}
+
+
+def shard_routes():
+    """name -> (kernel, plain, meshes, family, depth) with the driver's
+    schedules: kernel and plain take (shards, nob_shards, n_steps, ny),
+    family (the single-device kernel of the same family) (cells, nobst,
+    n_steps)."""
+    import torch
+
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band, band2, shard_step, step
+    from lbm_tpu_torch.runtime.driver import band2_config, band_config
+
+    params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+
+    def steps(fn):
+        return lambda s, o, n, ny: fn(s, o, DENSITY, ACCEL, OMEGA, n, ny)
+
+    def k1(c, o, n):
+        return step.run_step(c, o, DENSITY, ACCEL, OMEGA, n, 1.0)
+
+    out = {"K3": (steps(shard_step.run_shard_step), steps(shard_step.run_shard_step_plain),
+                  ((4, 1), (2, 2)), k1, 1),
+           "K12": (steps(shard_step.run_shard_overlap), steps(shard_step.run_shard_step_plain),
+                   ((4, 1),), k1, 1)}
+    for name, mod, run, cfg in (("K8", band, "run_band", band_config(params, torch.float32)),
+                                ("K10", band2, "run_band2", band2_config(params, torch.float32))):
+        block, depth, panel = cfg
+
+        def bind(fn, block=block, depth=depth, panel=panel):
+            return lambda s, o, n, ny: fn(s, o, DENSITY, ACCEL, OMEGA, n, block, depth, ny,
+                                          panel=panel)
+
+        def family(c, o, n, fn=getattr(mod, run), block=block, depth=depth, panel=panel):
+            return fn(c, o, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel)
+
+        out[name] = (bind(getattr(mod, run + "_sharded")),
+                     bind(getattr(mod, run + "_sharded_plain")), ((4, 1),), family, depth)
+    return out
+
+
+def on_mesh(cells, nobst, py, px):
+    """A state and mask cut into a py x px mesh of shards, all on cuda:0."""
+    from lbm_tpu_torch.parallel.sharded import make_mesh_2d, split
+
+    mesh = make_mesh_2d(py, px, ["cuda:0"] * (py * px))
+    return split(cells, mesh), split(nobst, mesh)
+
+
+def joined(torch, out):
+    """(state, av) of a mesh run: the shards joined on the card, the raw
+    per-shard sums added in shard order."""
+    from lbm_tpu_torch.parallel.sharded import mesh_totals
+
+    shards, sums = out
+    return torch.cat([torch.cat(list(row), dim=2) for row in shards], dim=1), mesh_totals(sums, 1.0)
+
+
+def shard_phase(torch, name, kernel, plain, meshes, family, depth):
+    """A shard kernel against its plain version at 1024^2 and 1000^2; returns
+    (max_abs_err, {(mesh, n): (kernel ms, plain ms or None, family ms)} per
+    step at 2048^2 and 4096^2)."""
+    errs = []
+    counts = (50,) if depth == 1 else (depth, 2 * depth + 3)
+    for (nx, ny) in ((1024, 1024), (1000, 1000)):
+        cells, nobst = random_setup(torch, nx, ny, seed=nx + depth)
+        for py, px in meshes:
+            s, o = on_mesh(cells, nobst, py, px)
+            for n in counts:
+                errs.append(compare(torch, f"{name} {py}x{px} {nx}x{ny} {n} steps",
+                                    joined(torch, kernel(s, o, n, ny)),
+                                    joined(torch, plain(s, o, n, ny))))
+    per_step = {}
+    for nx, n_kernel in ((2048, 400), (4096, 100)):
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        family(cells, nobst, 2 * depth)  # warm up, the allocator included
+        _, f_ms = timed(torch, lambda: family(cells, nobst, n_kernel))
+        for py, px in meshes:
+            s, o = on_mesh(cells, nobst, py, px)
+            kernel(s, o, 2 * depth, nx)
+            _, k_ms = timed(torch, lambda: kernel(s, o, n_kernel, nx))
+            p_ms = None
+            if nx == 2048:
+                n_plain = 2 * depth
+                plain(s, o, n_plain, nx)
+                _, p_ms = timed(torch, lambda: plain(s, o, n_plain, nx))
+                p_ms /= n_plain
+            per_step[(py, px), nx] = (k_ms / n_kernel, p_ms, f_ms / n_kernel)
+            log(f"  {name} {py}x{px} shards of {nx}x{nx}: kernel {1e3 * k_ms / n_kernel:.2f} "
+                f"us/step ({nx * nx * n_kernel / k_ms / 1e3:.1f} MLUPS), "
+                + (f"plain {1e3 * p_ms:.2f} us/step, " if p_ms else "")
+                + f"single-device {1e3 * f_ms / n_kernel:.2f} us/step")
+        del cells, nobst
+    return max(errs), per_step
+
+
+def mesh_phases(torch, cli, run_step, gpu_line):
+    """Phases 12-14; returns (shard_routes(), {name: phase-12 result},
+    {route: launches in phase 14})."""
+    phase("12. shard kernels K3, K12, K8, K10 vs their plain versions (shards on cuda:0)")
+    shard = shard_routes()
+    shard_res = {}
+    for name, (kernel, plain, meshes, family, depth) in shard.items():
+        shard_res[name] = shard_phase(torch, name, kernel, plain, meshes, family, depth)
+
+    phase("13. shard kernels vs K1 over 1000 steps on the 2048^2 walls mask, and repeatability")
+    cells, nobst = random_setup(torch, 2048, 2048, seed=19)
+    nobst.fill_(1.0)
+    nobst[0].zero_()
+    nobst[-1].zero_()
+    k1 = run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 1000, 1.0)
+    for name, (kernel, _, meshes, _, _) in shard.items():
+        for py, px in meshes:
+            s, o = on_mesh(cells, nobst, py, px)
+            (c1, a1), (c2, a2) = (joined(torch, kernel(s, o, 1000, 2048)) for _ in range(2))
+            torch.cuda.synchronize()
+            log(f"  {name} {py}x{px} vs K1: final state bitwise equal: {torch.equal(c1, k1[0])}, "
+                f"max diff {float((c1 - k1[0]).abs().max()):.3e}")
+            compare(torch, f"{name} {py}x{px} vs K1 2048x2048 1000 steps", (c1, a1), k1)
+            check(torch.equal(c1, k1[0]), f"{name} {py}x{px}: final state differs from K1's")
+            check(torch.equal(c1, c2) and torch.equal(a1, a2),
+                  f"{name} {py}x{px} is not run-to-run deterministic")
+            log(f"  {name} {py}x{px} determinism: two 1000-step runs give bitwise-equal av "
+                "series and state")
+            del s, o, c1, c2
+    del cells, nobst, k1
+
+    phase("14. the sharded path: lbm_tpu_torch.cli.main --mesh 4 / 2x2 --device 0, and --resume")
+    from lbm_tpu_torch.ops import band, band2, shard_step
+
+    mesh_counters = {"pallas": shard_step.run_shard_step, "pallas-overlap":
+                     shard_step.run_shard_overlap, "band": band.run_band_sharded,
+                     "band2": band2.run_band2_sharded}
+    for fn in mesh_counters.values():
+        fn.launches = 0
+    want_mesh = dict.fromkeys(mesh_counters, 0)
+
+    def account_mesh(stats):
+        route, n = stats["route"], stats["max_iters"]
+        check(route in mesh_counters, f"unexpected route {route}")
+        check(len(stats["shards"]) == 4 and all(sh["device"] == "cuda:0" for sh in stats["shards"]),
+              f"shards not all on cuda:0: {stats['shards']}")
+        depth = shard["K8" if route == "band" else "K10"][4] if route.startswith("band") else 1
+        want_mesh[route] += n // depth * depth
+        want_mesh["pallas"] += n % depth
+
+    with tempfile.TemporaryDirectory() as work:
+        for backend, mesh in (("auto", "4"), ("pallas", "4"), ("pallas-overlap", "4"),
+                              ("band", "4"), ("band2", "4"), ("auto", "2x2")):
+            stats = run_deck(cli, "1024x1024", backend, work, gpu_line, mesh=mesh)
+            check(backend != "auto" or stats["route"] == "pallas",
+                  f"--mesh {mesh} auto routed {stats['route']}, not pallas (K3)")
+            account_mesh(stats)
+        account_mesh(run_deck(cli, "256x256", "auto", work, gpu_line, mesh="4"))
+        want_mesh["pallas"] += resume_run(cli, work, gpu_line, backend="auto", mesh="4")
+    got_mesh = {route: fn.launches for route, fn in mesh_counters.items()}
+    log(f"  launch counters: K3 {got_mesh['pallas']} mesh steps (want {want_mesh['pallas']}), "
+        f"K12 {got_mesh['pallas-overlap']} (want {want_mesh['pallas-overlap']}), K8 "
+        f"{got_mesh['band']} (want {want_mesh['band']}), K10 {got_mesh['band2']} (want "
+        f"{want_mesh['band2']})")
+    for route in mesh_counters:
+        check(got_mesh[route] == want_mesh[route], f"--mesh --backend {route}: not every step "
+              "ran in its kernel")
+
+    return shard, shard_res, got_mesh
 
 
 def main():
@@ -704,26 +937,38 @@ def main():
         check(got_sched[route] == want[route], f"--backend {route}: not every step ran in its kernel")
     check(run_step.launches == want_k1, "not every remainder step ran in K1")
 
+    shard, shard_res, got_mesh = mesh_phases(torch, cli, run_step, gpu_line)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1):
+        bound_ms, bound_by = bound(cells, depth)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+    from lbm_tpu_torch.runtime.driver import resident_config
+
+    shard_launches = {"K3": got_mesh["pallas"], "K12": got_mesh["pallas-overlap"],
+                      "K8": got_mesh["band"], "K10": got_mesh["band2"]}
+    band_depth = {route: routes[route][3][1] for route in BANDS}
     report = {"kernels": [
-        {"name": "K1 fused step", "route": "cuda", "source": "lbm_tpu_torch/csrc/step.cu",
-         "replaces": "lbm_tpu/ops/pallas_step.py:164", "launches": step_launches,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "K2 in-place AA", "route": "cuda", "source": "lbm_tpu_torch/csrc/aa.cu",
-         "replaces": "lbm_tpu/ops/pallas_aa.py:163", "launches": aa_launches,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+        entry("K1 fused step", "lbm_tpu_torch/csrc/step.cu", "lbm_tpu/ops/pallas_step.py:164",
+              step_launches, k1_err, k1_ms, k1_plain_ms, 1024 * 1024),
+        entry("K2 in-place AA", "lbm_tpu_torch/csrc/aa.cu", "lbm_tpu/ops/pallas_aa.py:163",
+              aa_launches, k2_err, k2_ms, k2_plain_ms, 1024 * 1024),
     ] + [
-        {"name": BANDS[route][0], "route": "cuda", "source": BANDS[route][1],
-         "replaces": BANDS[route][2], "launches": got[route],
-         "max_abs_err": band_res[route][0], "ms": band_res[route][1][2048][0],
-         "plain_ms": band_res[route][1][2048][1]}
+        entry(*BANDS[route], got[route], band_res[route][0], band_res[route][1][2048][0],
+              band_res[route][1][2048][1], 2048 * 2048, band_depth[route])
         for route in BANDS
     ] + [
-        {"name": SCHEDULED[route][0], "route": "cuda", "source": SCHEDULED[route][1],
-         "replaces": SCHEDULED[route][2], "launches": got_sched[route],
-         "max_abs_err": sched_res[route][0],
-         "ms": sched_res[route][1][1024 if route == "resident" else 2048][0],
-         "plain_ms": sched_res[route][1][1024 if route == "resident" else 2048][1]}
+        entry(*SCHEDULED[route], got_sched[route], sched_res[route][0],
+              *sched_res[route][1][1024 if route == "resident" else 2048],
+              (1024 if route == "resident" else 2048) ** 2,
+              resident_config(None, torch.float32) if route == "resident" else sched[route][3])
         for route in SCHEDULED
+    ] + [
+        entry(*SHARDED[name], shard_launches[name], shard_res[name][0],
+              *shard_res[name][1][(4, 1), 2048][:2], 2048 * 2048, shard[name][4])
+        for name in SHARDED
     ]}
     log(gpu_line)
     log(json.dumps(report))

@@ -15,6 +15,13 @@ unchanged as the reference each module is held against.
                               ``ops/deep.py`` (kernels K4, K5, K6,
                               ``csrc/resident.cu``, ``temporal.cu``,
                               ``deep.cu``), built by ``ops/_build.py``.
+                              The shard kernels K3 and K12
+                              (``ops/shard_step.py``, ``csrc/shard_step.cu``)
+                              and the sharded band passes K8, K10 (in
+                              ``ops/band.py``, ``ops/band2.py``) serve
+                              ``lbm_tpu_torch.parallel``.
+- ``lbm_tpu_torch.parallel`` — ``--mesh N|PYxPX``: a mesh of devices driven
+                              from this process (``parallel/sharded.py``).
 - ``lbm_tpu_torch.runtime`` — the driver (whole run on the device, av_vels kept
                               there, chunks ending on checkpoints), npz
                               checkpoints and device selection.

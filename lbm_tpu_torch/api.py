@@ -1,4 +1,4 @@
-"""High-level Python API (counterpart of ``lbm_tpu/api.py``), single device::
+"""High-level Python API (counterpart of ``lbm_tpu/api.py``)::
 
     from lbm_tpu_torch.api import Simulation
 
@@ -7,6 +7,8 @@
     result.av_vels, result.cells           # the av_vels series, final state
     sim.reynolds(result)
     sim.write_outputs(result, out_dir=".")
+    sim.run(mesh=4, device="cuda:0")       # four row shards on one card
+    sim.run(mesh=(2, 2), devices=["cpu"] * 4)
 """
 
 from __future__ import annotations
@@ -40,11 +42,25 @@ class Simulation:
         return cls(params, read_obstacles(obstaclefile, params))
 
     def run(self, *, device=None, backend: str = "auto", dtype=torch.float32,
-            mesh: int = 0, **kwargs) -> SimulationResult:
+            mesh: int | tuple[int, int] = 0, devices=None, **kwargs) -> SimulationResult:
         """Run ``max_iters`` steps. ``device`` defaults as ``--device`` does
-        (``$LBM_DEVICE``, else ``cuda:0``; the CPU only when named)."""
-        if mesh and mesh != 1:
-            raise NotImplementedError("mesh (sharded runs) is not yet ported")
+        (``$LBM_DEVICE``, else ``cuda:0``; the CPU only when named).
+        ``mesh`` shards the run over N row shards (int) or a 2-D ``(py,
+        px)`` mesh, on ``devices`` (one per shard), else every shard on
+        ``device`` when it is given, else the first cards."""
+        if isinstance(mesh, tuple) or (mesh and mesh > 1):
+            from lbm_tpu_torch.parallel import sharded
+
+            count = mesh[0] * mesh[1] if isinstance(mesh, tuple) else mesh
+            if devices is None and device is not None:
+                devices = [device] * count
+            if isinstance(mesh, tuple):
+                return sharded.run_simulation_sharded_2d(
+                    self.params, self.obstacles, mesh_shape=mesh, devices=devices,
+                    backend=backend, dtype=dtype, **kwargs)
+            return sharded.run_simulation_sharded(
+                self.params, self.obstacles, n_devices=mesh, devices=devices, backend=backend,
+                dtype=dtype, **kwargs)
         if device is None:
             from lbm_tpu_torch.runtime.device import select_device
 

@@ -12,8 +12,11 @@ prints the reference's stdout block (d2q9-bgk.c:283-287):
     Elapsed system CPU time:\t%.6f (s)
 
 ``--backend`` takes the JAX package's names, so one command line drives
-both packages; so do ``--checkpoint-every``/``--checkpoint-path``/
-``--resume``, whose npz checkpoints either package resumes. Bad inputs end
+both packages; so do ``--mesh N|PYxPX`` (shards over a mesh of devices in
+this process; with ``--device`` or ``$LBM_DEVICE`` every shard goes to
+that device, else the mesh is the first N cards) and
+``--checkpoint-every``/``--checkpoint-path``/``--resume``, whose npz
+checkpoints either package resumes. Bad inputs end
 with ``lbm_tpu_torch: error: ...`` on stderr and exit code 1, never a
 traceback.
 """
@@ -39,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("obstaclefile", help="obstacle list file ('x y 1' per line)")
     p.add_argument(
         "--backend",
-        choices=list(BACKENDS),
+        choices=list(BACKENDS) + ["pallas-overlap"],
         default="auto",
         help="auto: resident up to 384x384 cells, band3 above (f32), "
         "reference (f64); aa: in-place AA kernel on one state copy; pallas: fused "
@@ -50,10 +53,19 @@ def build_parser() -> argparse.ArgumentParser:
         "barrier between steps; temporal, deep: T steps per pass on a "
         "shrinking trapezoid in shared memory, halo rows from carried row "
         "packs or straight from the state, remainder on the step kernel; "
-        "reference: plain PyTorch step",
+        "reference: plain PyTorch step; pallas-overlap (--mesh N only): the "
+        "shard step kernel storing its edge rows into the neighbour shards",
     )
     p.add_argument("--precision", choices=["f32", "f64"], default="f32",
                    help="state dtype (f64 runs the reference step)")
+    p.add_argument(
+        "--mesh",
+        default="0",
+        metavar="N|PYxPX",
+        help="shard the lattice over N devices (1-D row mesh), or a 2-D PYxPX mesh "
+        "like 2x4 (0 = single device); with --device every shard goes to that "
+        "device, else to the first N cards",
+    )
     p.add_argument("--out-dir", default=".", help="directory for output .dat files")
     p.add_argument(
         "--device",
@@ -143,13 +155,36 @@ def main(argv=None) -> int:
             print(f"[lbm_tpu_torch] resuming from step {start_step}", file=sys.stderr)
         resumed = dict(initial_cells=cells, start_step=start_step, av_vels_prefix=av_prefix)
 
+    mesh_2d, mesh_n = None, 0
+    try:
+        if "x" in args.mesh:
+            mesh_2d = tuple(int(v) for v in args.mesh.split("x"))
+            if len(mesh_2d) != 2:
+                raise ValueError
+        else:
+            mesh_n = int(args.mesh)
+    except ValueError:
+        return _error(f"bad --mesh {args.mesh!r}")
+    # A named device takes every shard; otherwise the mesh is the first cards.
+    named = args.device is not None or os.environ.get("LBM_DEVICE") is not None
+    run_kw = dict(backend=args.backend, dtype=dtype, checkpoint_every=args.checkpoint_every,
+                  checkpoint_path=checkpoint_path if args.checkpoint_every else None, **resumed)
     tic = time.time()
     try:
-        result = run_simulation(
-            params, obstacles, backend=args.backend, dtype=dtype, device=device,
-            checkpoint_every=args.checkpoint_every,
-            checkpoint_path=checkpoint_path if args.checkpoint_every else None, **resumed,
-        )
+        if mesh_2d is not None:
+            from lbm_tpu_torch.parallel.sharded import run_simulation_sharded_2d
+
+            result = run_simulation_sharded_2d(
+                params, obstacles, mesh_shape=mesh_2d,
+                devices=[device] * (mesh_2d[0] * mesh_2d[1]) if named else None, **run_kw)
+        elif mesh_n > 1:
+            from lbm_tpu_torch.parallel.sharded import run_simulation_sharded
+
+            result = run_simulation_sharded(params, obstacles, n_devices=mesh_n,
+                                            devices=[device] * mesh_n if named else None,
+                                            **run_kw)
+        else:
+            result = run_simulation(params, obstacles, device=device, **run_kw)
     except ValueError as e:
         return _error(e)
     toc = time.time()
@@ -176,6 +211,9 @@ def main(argv=None) -> int:
             "backend": args.backend,
             "route": result.route,
             "precision": args.precision,
+            "mesh": args.mesh,
+            "shards": [{"device": d, "route": result.route}
+                       for d in result.shard_devices or (result.device,)],
             "device": f"{device_name(device)} ({result.device})",
             "torch_device": result.device,
             "elapsed_wall_s": toc - tic,

@@ -22,24 +22,38 @@
 // design does about it: the collision runs on registers, shared memory only
 // carries the exchange, and the output is stored straight from registers.
 // TMA, clusters and register tiling across warps are later work.
+//
+// K8: the same kernel on the shards of a 1-D mesh (kSharded). Replaces
+// lbm_tpu/ops/pallas_band.py::_kernel_sharded (:574) and
+// ::_kernel_sharded_panel (:776): one pass of T steps over one shard's rows,
+// the window's y halo read from the neighbour shards' T edge rows, copied
+// once per pass (band_common.cuh: Source, halo_rows_kernel), and the
+// forcing at every window row whose global row is ny-2. Bound as K7: the
+// halo copy adds 2T rows per shard per pass, 2T/ny_shard of the pass's
+// bytes.
 #include "band_common.cuh"
 
 namespace {
 
-template <int MAXC>
+template <int MAXC, bool kSharded>
 __global__ void __launch_bounds__(band::kThreads)
-band_kernel(const float* __restrict__ src, float* __restrict__ dst,
-            const float* __restrict__ nobst, float* __restrict__ partials,
+band_kernel(band::Source src, float* __restrict__ dst, float* __restrict__ partials,
             unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, float w1a,
             float w2a, lbm::Relax rc, float inv_tot) {
   extern __shared__ float smem[];
   const band::Smem s = band::carve(smem, g, 1);
+  const size_t plane = (size_t)g.ny * g.nx;
+  const size_t z = blockIdx.y;  // the shard (0 on one grid)
+  src = band::shard(g, src);
+  dst += z * 9 * plane;
+  partials += z * g.T * g.nty * g.ntx;
+  ticket += z;
+  av += z * g.av_stride;
   int y0, x0;
   band::fill_tables(g, s, y0, x0);
   __syncthreads();
   float* x = s.planes;
   const int n = g.ncell;
-  const size_t plane = (size_t)g.ny * g.nx;
   float v[MAXC][9];
   int rr[MAXC], cc[MAXC];  // window row and column of each cell; rr < 0: none
 #pragma unroll
@@ -50,15 +64,12 @@ band_kernel(const float* __restrict__ src, float* __restrict__ dst,
     if (i < n) {
       rr[j] = i / g.WW;
       cc[j] = i - rr[j] * g.WW;
-      const size_t gi = (size_t)s.grow[rr[j]] * g.nx + s.gcol[cc[j]];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) v[j][k] = src[k * plane + gi];
-      s.nob[i] = nobst[gi];
+      s.nob[i] = band::load_cell<kSharded>(g, s, src, y0, rr[j], cc[j], v[j]);
     }
   }
   __syncthreads();
   const band::Central cen = band::central(g, y0, x0);
-  const int frow = g.ny - 2;
+  const int frow = g.nyg - 2;
   for (int st = 0; st < g.T; ++st) {
 #pragma unroll
     for (int j = 0; j < MAXC; ++j) {  // force, then publish
@@ -104,18 +115,42 @@ band_kernel(const float* __restrict__ src, float* __restrict__ dst,
   band::finish_sums(g, s, partials, ticket, inv_tot, av);
 }
 
-template <int MAXC>
-int run(const band::Geom& g, float* buf_a, float* buf_b, const float* nobst, float* av,
-        float* partials, unsigned int* ticket, int n_passes, float w1a, float w2a,
-        const lbm::Relax& rc, float inv_tot, cudaStream_t st) {
+template <int MAXC, bool kSharded>
+int run(const band::Geom& g, int nshards, float* buf_a, float* buf_b, const band::Source& src,
+        float* halo_dn, float* halo_up, bool exchange, float* av, float* partials,
+        unsigned int* ticket, int n_passes, float w1a, float w2a, const lbm::Relax& rc,
+        float inv_tot, cudaStream_t st) {
   const size_t smem = band::smem_bytes(g, 1);
-  const cudaError_t err = band::allow_smem(band_kernel<MAXC>, smem);
+  const cudaError_t err = band::allow_smem(band_kernel<MAXC, kSharded>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return band::run_passes(n_passes, g.T, buf_a, buf_b, av,
-                          [&](const float* src, float* dst, float* av_p, int) {
-    band_kernel<MAXC><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
-        src, dst, nobst, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot);
-  });
+  const dim3 grid(g.nty * g.ntx, nshards);
+  auto launch = [&](const float* from, float* to, float* av_p, int) {
+    band::Source s = src;
+    s.cells = from;
+    band_kernel<MAXC, kSharded><<<grid, band::kThreads, smem, st>>>(
+        s, to, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot);
+  };
+  if (kSharded) {
+    return band::run_sharded_passes(g, nshards, n_passes, buf_a, buf_b, halo_dn, halo_up, av,
+                                    exchange, st, launch);
+  }
+  return band::run_passes(n_passes, g.T, buf_a, buf_b, av, launch);
+}
+
+template <bool kSharded>
+int run_any(const band::Geom& g, int nshards, float* buf_a, float* buf_b,
+            const band::Source& src, float* halo_dn, float* halo_up, bool exchange, float* av,
+            float* partials, unsigned int* ticket, int n_passes, float w1a, float w2a,
+            const lbm::Relax& rc, float inv_tot, cudaStream_t st) {
+  if (g.ncell <= 4 * band::kThreads) {
+    return run<4, kSharded>(g, nshards, buf_a, buf_b, src, halo_dn, halo_up, exchange, av,
+                            partials, ticket, n_passes, w1a, w2a, rc, inv_tot, st);
+  }
+  if (g.ncell <= 8 * band::kThreads) {
+    return run<8, kSharded>(g, nshards, buf_a, buf_b, src, halo_dn, halo_up, exchange, av,
+                            partials, ticket, n_passes, w1a, w2a, rc, inv_tot, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -132,14 +167,38 @@ extern "C" int lbm_band_run(float* buf_a, float* buf_b, const float* nobst, floa
                             float ow0, float ow1, float ow2, float inv_tot, void* stream) {
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g.ncell <= 4 * band::kThreads) {
-    return run<4>(g, buf_a, buf_b, nobst, av, partials, ticket, n_passes, w1a, w2a, rc, inv_tot, st);
-  }
-  if (g.ncell <= 8 * band::kThreads) {
-    return run<8>(g, buf_a, buf_b, nobst, av, partials, ticket, n_passes, w1a, w2a, rc, inv_tot, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const band::Source src{buf_a, nobst, nullptr, nullptr, nullptr, nullptr};
+  return run_any<false>(g, 1, buf_a, buf_b, src, nullptr, nullptr, false, av, partials, ticket,
+                        n_passes, w1a, w2a, rc, inv_tot, static_cast<cudaStream_t>(stream));
+}
+
+// K8: n_passes passes over the nshards shards of a 1-D mesh stacked in
+// buf_a (nshards, 9, ny, nx), shard z holding global rows [r0 + z*ny,
+// r0 + (z+1)*ny) of ny_global. halo_dn, halo_up: (nshards, 9, depth, nx);
+// with ``exchange`` each pass first copies them from the pass's source
+// (nshards must then be the whole mesh), else the caller fills them (one
+// pass). nobst (nshards, ny, nx) and nob_dn, nob_up (nshards, depth, nx)
+// hold the mask and its halos. av receives nshards x (n_passes * depth)
+// values (shard-major); partials nshards * depth * lbm_band_num_tiles
+// floats; ticket nshards zeroed unsigned ints. Returns the first CUDA
+// error, or 0.
+extern "C" int lbm_band_sharded_run(float* buf_a, float* buf_b, float* halo_dn, float* halo_up,
+                                    const float* nobst, const float* nob_dn, const float* nob_up,
+                                    float* av, float* partials, unsigned int* ticket, int nshards,
+                                    int ny, int nx, int ny_global, int r0, int block, int depth,
+                                    int panel, int n_passes, int exchange, float w1a, float w2a,
+                                    float beta, float ow0, float ow1, float ow2, float inv_tot,
+                                    void* stream) {
+  band::Geom g = band::make_geom(ny, nx, block, depth, panel);
+  g.nyg = ny_global;
+  g.r0 = r0;
+  g.av_stride = n_passes * depth;
+  if (depth > ny) return static_cast<int>(cudaErrorInvalidValue);
+  const lbm::Relax rc{beta, ow0, ow1, ow2};
+  const band::Source src{buf_a, nobst, halo_dn, halo_up, nob_dn, nob_up};
+  return run_any<true>(g, nshards, buf_a, buf_b, src, halo_dn, halo_up, exchange != 0, av,
+                       partials, ticket, n_passes, w1a, w2a, rc, inv_tot,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // Output tiles of a band schedule (all three band kernels): one block each.

@@ -24,26 +24,40 @@
 // as in K1 (step.cu): a thread whose source cell lies on such a row adds
 // the delta, with the mask taken at the source cell from the read-only
 // buffer. TMA loads, clusters and register tiling are later work.
+//
+// K10: the same kernel on the shards of a 1-D mesh (kSharded). Replaces
+// lbm_tpu/ops/pallas_band2.py::_kernel2_sharded (:584) and
+// ::_kernel2_sharded_panel (:840), with K8's protocol (band.cu): the
+// window's y halo from the neighbour shards' T edge rows, copied once per
+// pass, the forcing at every window row whose global row is ny-2. The JAX
+// package's two protocol variants (LBM_SHARD_LEAN, LBM_SHARD_FORCE) compute
+// this same function in other TPU layouts; there is one here.
 #include "band_common.cuh"
 
 namespace {
 
+template <bool kSharded>
 __global__ void __launch_bounds__(band::kThreads)
-band2_kernel(const float* __restrict__ src, float* __restrict__ dst,
-             const float* __restrict__ nobst, float* __restrict__ partials,
+band2_kernel(band::Source src, float* __restrict__ dst, float* __restrict__ partials,
              unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, float w1a,
              float w2a, lbm::Relax rc, float inv_tot) {
   extern __shared__ float smem[];
   const band::Smem s = band::carve(smem, g, 2);
+  const size_t z = blockIdx.y;  // the shard (0 on one grid)
+  src = band::shard(g, src);
+  dst += z * 9 * (size_t)g.ny * g.nx;
+  partials += z * g.T * g.nty * g.ntx;
+  ticket += z;
+  av += z * g.av_stride;
   int y0, x0;
   band::fill_tables(g, s, y0, x0);
   __syncthreads();
   float* a = s.planes;
   float* b = s.planes + 9 * g.ncell;
-  band::load_window(g, s, a, src, nobst);
+  band::load_window<kSharded>(g, s, a, src, y0);
   __syncthreads();
   const band::Central cen = band::central(g, y0, x0);
-  const int frow = g.ny - 2;
+  const int frow = g.nyg - 2;
   const int n = g.ncell;
   for (int st = 0; st < g.T; ++st) {
     const float* in = (st & 1) ? b : a;
@@ -94,12 +108,44 @@ extern "C" int lbm_band2_run(float* buf_a, float* buf_b, const float* nobst, flo
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   const size_t smem = band::smem_bytes(g, 2);
-  const cudaError_t err = band::allow_smem(band2_kernel, smem);
+  const cudaError_t err = band::allow_smem(band2_kernel<false>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return band::run_passes(n_passes, depth, buf_a, buf_b, av,
                           [&](const float* src, float* dst, float* av_p, int) {
-    band2_kernel<<<g.nty * g.ntx, band::kThreads, smem, st>>>(src, dst, nobst, partials, ticket,
-                                                              av_p, g, w1a, w2a, rc, inv_tot);
+    const band::Source from{src, nobst, nullptr, nullptr, nullptr, nullptr};
+    band2_kernel<false><<<g.nty * g.ntx, band::kThreads, smem, st>>>(from, dst, partials, ticket,
+                                                                     av_p, g, w1a, w2a, rc,
+                                                                     inv_tot);
+  });
+}
+
+// K10: lbm_band_sharded_run's contract (band.cu) with the band2 pass
+// (depth even).
+extern "C" int lbm_band2_sharded_run(float* buf_a, float* buf_b, float* halo_dn, float* halo_up,
+                                     const float* nobst, const float* nob_dn,
+                                     const float* nob_up, float* av, float* partials,
+                                     unsigned int* ticket, int nshards, int ny, int nx,
+                                     int ny_global, int r0, int block, int depth, int panel,
+                                     int n_passes, int exchange, float w1a, float w2a, float beta,
+                                     float ow0, float ow1, float ow2, float inv_tot,
+                                     void* stream) {
+  band::Geom g = band::make_geom(ny, nx, block, depth, panel);
+  g.nyg = ny_global;
+  g.r0 = r0;
+  g.av_stride = n_passes * depth;
+  if (depth > ny) return static_cast<int>(cudaErrorInvalidValue);
+  const lbm::Relax rc{beta, ow0, ow1, ow2};
+  const size_t smem = band::smem_bytes(g, 2);
+  const cudaError_t err = band::allow_smem(band2_kernel<true>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(g.nty * g.ntx, nshards);
+  return band::run_sharded_passes(g, nshards, n_passes, buf_a, buf_b, halo_dn, halo_up, av,
+                                  exchange != 0, st,
+                                  [&](const float* src, float* dst, float* av_p, int) {
+    const band::Source from{src, nobst, halo_dn, halo_up, nob_dn, nob_up};
+    band2_kernel<true><<<grid, band::kThreads, smem, st>>>(from, dst, partials, ticket, av_p, g,
+                                                           w1a, w2a, rc, inv_tot);
   });
 }

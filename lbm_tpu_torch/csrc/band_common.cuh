@@ -23,6 +23,16 @@
 // after the last step the block writes partials[s][tile]. The last block to
 // finish (an integer ticket, no float atomics) reduces partials[s][0..ntiles)
 // in a fixed order into av[s] * inv_tot, so two runs are bitwise equal.
+//
+// Sharded form (K8 in band.cu, K10 in band2.cu): a 1-D mesh of shards, each
+// of ny rows of a grid of nyg rows, shard z starting at global row
+// r0 + z * ny. All shards of one device sit in one (nshards, 9, ny, nx)
+// array and one launch covers them (blockIdx.y = shard). A tile's window
+// rows come from three arrays instead of the wrapped grid: the previous
+// shard's last T rows (halo_dn), the shard's own rows and the next shard's
+// first T rows (halo_up), which halo_rows_kernel copies once per pass; x
+// still wraps within the shard's full rows. The global row of every window
+// row, for the forcing test, is (r0 + z * ny + y0 - T + r) mod nyg.
 #pragma once
 
 #include "lbm_common.cuh"
@@ -33,17 +43,23 @@ constexpr int kThreads = 512;  // one 1-D block per tile
 constexpr int kWarps = kThreads / 32;
 
 struct Geom {
-  int ny, nx;    // grid
+  int ny, nx;    // grid (sharded: one shard's rows)
   int B, P, T;   // tile rows, tile columns, steps per pass
   int WH, WW;    // window rows B + 2T, columns P + 2T
   int ncell;     // WH * WW
   int nty, ntx;  // tiles down and across
+  int nyg;       // global rows: the forcing row is nyg - 2
+  int r0;        // global row of the first row (of shard 0 of the launch)
+  int av_stride; // sharded: av values between two shards
 };
 
 inline Geom make_geom(int ny, int nx, int B, int T, int P) {
   Geom g;
   g.ny = ny;
   g.nx = nx;
+  g.nyg = ny;
+  g.r0 = 0;
+  g.av_stride = 0;
   g.B = B;
   g.P = P;
   g.T = T;
@@ -109,28 +125,96 @@ __device__ __forceinline__ void for_cells(int rows, int cols, F&& f) {
 }
 
 // The tile's origin and its window's global rows and columns; the caller
-// syncs before reading them.
+// syncs before reading them. Sharded, blockIdx.y is the shard.
 __device__ __forceinline__ void fill_tables(const Geom& g, const Smem& s, int& y0, int& x0) {
   const int tile = blockIdx.x;
   y0 = (tile / g.ntx) * g.B;
   x0 = (tile % g.ntx) * g.P;
-  for (int i = threadIdx.x; i < g.WH; i += kThreads) s.grow[i] = wrap_mod(y0 - g.T + i, g.ny);
+  const int r0 = g.r0 + blockIdx.y * g.ny;
+  for (int i = threadIdx.x; i < g.WH; i += kThreads) s.grow[i] = wrap_mod(r0 + y0 - g.T + i, g.nyg);
   for (int i = threadIdx.x; i < g.WW; i += kThreads) s.gcol[i] = wrap_mod(x0 - g.T + i, g.nx);
+}
+
+// Where the windows of a launch read: the grid (halo_dn null), or the
+// shards' rows between their halos, each array with all shards of the
+// launch stacked; the launch's shard blockIdx.y is picked by ``shard``.
+struct Source {
+  const float* cells;    // (9, ny, nx) per shard
+  const float* nobst;    // (ny, nx) per shard
+  const float* halo_dn;  // (9, T, nx) per shard: previous shard's last T rows
+  const float* halo_up;  // (9, T, nx) per shard: next shard's first T rows
+  const float* nob_dn;   // (T, nx) per shard
+  const float* nob_up;   // (T, nx) per shard
+};
+
+__device__ __forceinline__ Source shard(const Geom& g, Source src) {
+  const size_t z = blockIdx.y;
+  const size_t plane = (size_t)g.ny * g.nx, hplane = (size_t)g.T * g.nx;
+  src.cells += z * 9 * plane;
+  src.nobst += z * plane;
+  if (src.halo_dn != nullptr) {
+    src.halo_dn += z * 9 * hplane;
+    src.halo_up += z * 9 * hplane;
+    src.nob_dn += z * hplane;
+    src.nob_up += z * hplane;
+  }
+  return src;
+}
+
+// Loads the 9 values of window cell (r, c) of the tile at row y0 into v
+// and returns its not-obstacle value. Sharded, window row r is row y0 + r
+// of the shard's rows with T halo rows on each side (wrapped within those
+// ny + 2T rows: the rows beyond them only feed garbage that never reaches
+// the central cells).
+template <bool kSharded>
+__device__ __forceinline__ float load_cell(const Geom& g, const Smem& s, const Source& src, int y0,
+                                           int r, int c, float v[9]) {
+  const float* base = src.cells;
+  const float* nbase = src.nobst;
+  size_t plane = (size_t)g.ny * g.nx;
+  int row = s.grow[r];
+  if (kSharded) {
+    int q = y0 + r;
+    const int ext = g.ny + 2 * g.T;
+    q = q >= ext ? q - ext : q;
+    if (q < g.T) {
+      base = src.halo_dn;
+      nbase = src.nob_dn;
+      plane = (size_t)g.T * g.nx;
+      row = q;
+    } else if (q < g.T + g.ny) {
+      row = q - g.T;
+    } else {
+      base = src.halo_up;
+      nbase = src.nob_up;
+      plane = (size_t)g.T * g.nx;
+      row = q - g.T - g.ny;
+    }
+  }
+  const size_t gi = (size_t)row * g.nx + s.gcol[c];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) v[k] = base[k * plane + gi];
+  return nbase[gi];
 }
 
 // Loads the window's 9 planes into ``win`` (9 x ncell) and its
 // not-obstacle plane into s.nob.
+template <bool kSharded>
+__device__ __forceinline__ void load_window(const Geom& g, const Smem& s, float* win,
+                                            const Source& src, int y0) {
+  for_cells(g.WH, g.WW, [&](int r, int c) {
+    const int i = r * g.WW + c;
+    float v[9];
+    s.nob[i] = load_cell<kSharded>(g, s, src, y0, r, c, v);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) win[k * g.ncell + i] = v[k];
+  });
+}
+
 __device__ __forceinline__ void load_window(const Geom& g, const Smem& s, float* win,
                                             const float* __restrict__ src,
                                             const float* __restrict__ nobst) {
-  const size_t plane = (size_t)g.ny * g.nx;
-  for_cells(g.WH, g.WW, [&](int r, int c) {
-    const size_t gi = (size_t)s.grow[r] * g.nx + s.gcol[c];
-    const int i = r * g.WW + c;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) win[k * g.ncell + i] = src[k * plane + gi];
-    s.nob[i] = nobst[gi];
-  });
+  load_window<false>(g, s, win, Source{src, nobst, nullptr, nullptr, nullptr, nullptr}, 0);
 }
 
 // Stores the central cells of ``win`` that lie inside the grid.
@@ -239,6 +323,57 @@ template <class Launch>
 inline int run_passes(int n_passes, int T, float* a, float* b, float* av, Launch&& launch) {
   for (int p = 0; p < n_passes; ++p) {
     launch((p & 1) ? b : a, (p & 1) ? a : b, av + (size_t)p * T, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// Sharded: copies the halo rows of every shard of ``cells`` (nshards, 9,
+// ny, nx): halo_dn[z] = the last T rows of shard z - 1, halo_up[z] = the
+// first T rows of shard z + 1, around the ring of shards. (Internal
+// linkage: every band source includes this header.)
+static __global__ void halo_rows_kernel(const float* __restrict__ cells,
+                                        float* __restrict__ halo_dn,
+                                        float* __restrict__ halo_up, int nshards, int ny,
+                                        int nx, int T) {
+  const size_t per = (size_t)9 * T * nx;  // halo floats per shard and side
+  const size_t n = 2 * per * nshards;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t side = i / (per * nshards);
+    const size_t j = i - side * per * nshards;
+    const int z = (int)(j / per);
+    const size_t e = j - (size_t)z * per;  // (k, row, col) within the halo
+    const int k = (int)(e / ((size_t)T * nx));
+    const size_t rc = e - (size_t)k * T * nx;
+    const int nz = side == 0 ? (z == 0 ? nshards - 1 : z - 1) : (z == nshards - 1 ? 0 : z + 1);
+    const size_t row0 = side == 0 ? (size_t)(ny - T) * nx : 0;
+    const float v = cells[((size_t)nz * 9 + k) * ny * nx + row0 + rc];
+    (side == 0 ? halo_dn : halo_up)[j] = v;
+  }
+}
+
+// Sharded: issues n_passes passes over all shards of a launch, each
+// preceded (``exchange``) by the halo copy from the pass's source buffer.
+// launch(src, dst, av + p * T, p) as run_passes. Returns the first launch
+// error, or 0.
+template <class Launch>
+inline int run_sharded_passes(const Geom& g, int nshards, int n_passes, float* a, float* b,
+                              float* halo_dn, float* halo_up, float* av, bool exchange,
+                              cudaStream_t st, Launch&& launch) {
+  for (int p = 0; p < n_passes; ++p) {
+    const float* src = (p & 1) ? b : a;
+    if (exchange) {
+      const size_t n = (size_t)2 * 9 * g.T * g.nx * nshards;
+      const size_t want = (n + kThreads - 1) / kThreads;
+      const int blocks = (int)(want < 4096 ? want : 4096);
+      halo_rows_kernel<<<blocks, kThreads, 0, st>>>(src, halo_dn, halo_up, nshards, g.ny, g.nx,
+                                                    g.T);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    launch(src, (p & 1) ? a : b, av + (size_t)p * g.T, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -25,6 +25,16 @@ with the ``n_iters % T`` remainder on ``ops/step.py::run_step``;
 the CUDA kernels K7 (``csrc/band.cu``), K9 (``csrc/band2.cu``) and K11
 (``csrc/band3.cu``).
 
+The sharded form (K8, K10; ``parallel/sharded.py``): a 1-D mesh of shards
+of ``ry`` rows each, given as a list of ``[cells]`` rows (the mesh's
+``shards[i][0]``). A shard's windows take their rows from its own rows
+between two halos of T rows, the previous shard's last T rows and the next
+shard's first T rows, exchanged once per pass; x wraps within the shard's
+full rows. ``creep_pass_plain(..., halo=...)`` is its plain pass,
+``run_creep_sharded`` its pass loop with the remainder on the shard step
+K3 (``ops/shard_step.py``), ``launch_passes_sharded`` the kernels' passes.
+The per-step sums stay raw per shard; the mesh adds them up.
+
 The TPU's BlockSpec strip views (``fullrow_specs``/``panel_specs``), the
 extended mask ``nobst_ext`` and the 128-lane halo H do not carry over: the
 window gather replaces them, and every tile's x halo is T columns.
@@ -100,7 +110,8 @@ def scatter_central(win, ny: int, nx: int, block: int, depth: int, panel: int | 
     return mid.permute(2, 0, 3, 1, 4).reshape(c, nty * b, ntx * p)[:, :ny, :nx].contiguous()
 
 
-def creep_pass_plain(state, nobst, block, depth, panel, step):
+def creep_pass_plain(state, nobst, block, depth, panel, step, *, halo=None, r0=0,
+                     ny_global=None):
     """One band pass of ``depth`` steps in plain PyTorch on all windows.
 
     ``step(s, planes, nob, frow)`` advances the 9 window planes (each
@@ -108,15 +119,32 @@ def creep_pass_plain(state, nobst, block, depth, panel, step):
     returns ``(planes, u_sq)``; ``frow`` is 1.0 on the window rows whose
     global row is ny-2 (``(nwin, B+2T, 1)``). Returns the new state and
     the ``depth`` per-step sums of ``nob * |u|`` over the central cells,
-    each reduced from its per-tile partials."""
+    each reduced from its per-tile partials.
+
+    ``halo=(dn, up, nob_dn, nob_up)``: ``state`` is one shard whose first
+    row is global row ``r0`` of ``ny_global``; window rows come from its
+    rows between the T rows ``dn`` above and ``up`` below (wrapped within
+    those ``ry + 2T`` rows, beyond which only garbage is fed)."""
     _, ny, nx = state.shape
     b, p, t = tile_shape(nx, block, depth, panel)
     rows, cols = window_indices(ny, nx, block, depth, panel, state.device)
     nty, ntx = rows.shape[0], cols.shape[0]
-    win = gather_windows(state, rows, cols)
-    nob = gather_windows(nobst[None], rows, cols)[:, 0]
-    frow = (rows == ny - 2).to(state.dtype)[:, None, :, None].expand(nty, ntx, b + 2 * t, 1)
+    if halo is None:
+        src, nob_src, grows = state, nobst, rows
+    else:
+        dn, up, nob_dn, nob_up = halo
+        src = torch.cat([dn, state, up], dim=1)
+        nob_src = torch.cat([nob_dn, nobst, nob_up], dim=0)
+        base = (torch.arange(nty, device=state.device)[:, None] * b
+                + torch.arange(b + 2 * t, device=state.device)[None, :])
+        rows = base % (ny + 2 * t)
+        grows = (base + (r0 - t)) % ny_global
+        ny = ny_global
+    win = gather_windows(src, rows, cols)
+    nob = gather_windows(nob_src[None], rows, cols)[:, 0]
+    frow = (grows == ny - 2).to(state.dtype)[:, None, :, None].expand(nty, ntx, b + 2 * t, 1)
     frow = frow.reshape(nty * ntx, b + 2 * t, 1)
+    ny = state.shape[1]
     # Central cells inside the grid: the ragged last tiles store and sum
     # only those.
     valid_y = (torch.arange(nty, device=state.device)[:, None] * b
@@ -229,3 +257,141 @@ def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, in
         )
     _build.check(rc, what)
     return (a if npasses % 2 == 0 else other), av
+
+
+def check_sharded(shards, nob_shards, n_iters, block, depth, panel) -> None:
+    """A 1-D mesh of f32 shards of at least ``depth`` rows, one device
+    type; the schedule as ``check_schedule``."""
+    if any(len(row) != 1 for row in shards) or len(nob_shards) != len(shards):
+        raise ValueError("the sharded band routes take a 1-D mesh of row shards")
+    for row, nob_row in zip(shards, nob_shards):
+        check_inputs(row[0], nob_row[0], max(n_iters, 1), 1)
+    if len({tuple(row[0].shape) for row in shards}) != 1:
+        raise ValueError("shards differ in shape")
+    if len({row[0].device.type for row in shards}) != 1:
+        raise ValueError("shards on more than one kind of device")
+    if block < 1 or depth < 1 or (panel is not None and panel < 1):
+        raise ValueError(f"bad band schedule: block {block}, depth {depth}, panel {panel}")
+    ry, nx = shards[0][0].shape[1:]
+    if depth > ry:
+        raise ValueError(f"local grid {ry}x{nx} is shallower than the band depth {depth}: "
+                         "the halo of a pass must come from the neighbour shards")
+
+
+def neighbour_rows(flat, depth):
+    """``(dn, up)``: per shard, the previous shard's last ``depth`` rows and
+    the next shard's first ``depth`` rows, on the shard's device."""
+    n = len(flat)
+    dn = [flat[(z - 1) % n][..., -depth:, :].to(flat[z].device) for z in range(n)]
+    up = [flat[(z + 1) % n][..., :depth, :].to(flat[z].device) for z in range(n)]
+    return dn, up
+
+
+def plain_passes_sharded(nob_shards, ny_global, block, depth, panel, step):
+    """``run_passes`` of ``run_creep_sharded`` in plain PyTorch: each pass
+    takes the halos from the neighbour shards, then runs
+    ``creep_pass_plain`` on every shard. Sums raw, ``(nshards, T)`` per pass."""
+    nobs = [row[0] for row in nob_shards]
+    nob_dn, nob_up = neighbour_rows(nobs, depth)
+
+    def run_passes(shards, npasses):
+        flat = [row[0] for row in shards]
+        ry = flat[0].shape[1]
+        sums = []
+        for _ in range(npasses):
+            dn, up = neighbour_rows(flat, depth)
+            out = [creep_pass_plain(flat[z], nobs[z], block, depth, panel, step,
+                                    halo=(dn[z], up[z], nob_dn[z], nob_up[z]), r0=z * ry,
+                                    ny_global=ny_global) for z in range(len(flat))]
+            flat = [o[0] for o in out]
+            sums.append(torch.stack([o[1].to(flat[0].device) for o in out]))
+        return [[f] for f in flat], torch.cat(sums, dim=1)
+
+    return run_passes
+
+
+def run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny_global, depth,
+                      run_passes, paired="fused", plain=False):
+    """The sharded pass loop: ``run_passes(shards, n_iters // depth)``, then
+    the ``n_iters % depth`` remainder on the shard step
+    (``ops/shard_step.py::run_shard_step``, kernel K3 on CUDA; with
+    ``plain``, its plain version on any device). Returns the shards and the
+    raw per-shard sums ``(nshards, n_iters)``."""
+    from lbm_tpu_torch.ops.shard_step import run_shard_step, run_shard_step_plain
+
+    def remainder(shards, nob_shards, density, accel, omega, rem, ny_global, paired):
+        if plain:
+            return run_shard_step_plain(shards, nob_shards, density, accel, omega, rem,
+                                        ny_global, paired)
+        return run_shard_step(shards, nob_shards, density, accel, omega, rem, ny_global,
+                              paired=paired)
+
+    npasses, rem = divmod(n_iters, depth)
+    parts = []
+    if npasses:
+        shards, sums = run_passes(shards, npasses)
+        parts.append(sums)
+    if rem:
+        shards, sums = remainder(shards, nob_shards, density, accel, omega, rem, ny_global,
+                                 paired)
+        parts.append(sums)
+    return shards, torch.cat(parts, dim=1)
+
+
+def launch_passes_sharded(entry: str, what: str, shards, nob_shards, ny_global, density, accel,
+                          omega, block, depth, panel, npasses, plane_copies, grouped=True):
+    """Issue ``npasses`` passes of a sharded band kernel (K8, K10). With all
+    shards on one device (and ``grouped``), one C call stacks them and
+    issues every pass: the halo copy, then one launch over all shards.
+    Otherwise each pass copies the halos between the devices with
+    ``Tensor.copy_`` and launches each shard on its own device. Returns the
+    shards and their raw sums ``(nshards, npasses * depth)``."""
+    flat = [row[0] for row in shards]
+    nobs = [row[0] for row in nob_shards]
+    n = len(flat)
+    _, ry, nx = flat[0].shape
+    b, p, t = tile_shape(nx, block, depth, panel)
+    check_smem(what, plane_copies, nx, block, depth, panel)
+    lib = _build.library()
+    ntiles = lib.lbm_band_num_tiles(ry, nx, b, p)
+    scalars = kernel_scalars(density, accel, omega, 1.0)
+    nob_dn, nob_up = neighbour_rows(nobs, t)
+
+    def call(dev, a, other, halos, nob, ndn, nup, av, count, r0, passes, exchange):
+        partials = torch.empty(count * t * ntiles, dtype=torch.float32, device=dev)
+        ticket = torch.zeros(count, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = getattr(lib, entry)(
+                a.data_ptr(), other.data_ptr(), halos[0].data_ptr(), halos[1].data_ptr(),
+                nob.data_ptr(), ndn.data_ptr(), nup.data_ptr(), av.data_ptr(),
+                partials.data_ptr(), ticket.data_ptr(), count, ry, nx, ny_global, r0, b, t, p,
+                passes, exchange, *scalars, stream,
+            )
+        _build.check(rc, what)
+
+    dev = flat[0].device
+    if grouped and all(f.device == dev for f in flat):
+        a = torch.stack(flat)
+        other = torch.empty_like(a)
+        halos = (torch.empty((n, 9, t, nx), dtype=a.dtype, device=dev),
+                 torch.empty((n, 9, t, nx), dtype=a.dtype, device=dev))
+        av = torch.empty((n, npasses * t), dtype=torch.float32, device=dev)
+        call(dev, a, other, halos, torch.stack(nobs), torch.stack(nob_dn), torch.stack(nob_up),
+             av, n, 0, npasses, 1)
+        out = a if npasses % 2 == 0 else other
+        return [[out[z]] for z in range(n)], av
+    cur = [f.clone(memory_format=torch.contiguous_format) for f in flat]  # inputs stay unchanged
+    nxt = [torch.empty_like(f) for f in cur]
+    halos = [(torch.empty((9, t, nx), dtype=f.dtype, device=f.device),
+              torch.empty((9, t, nx), dtype=f.dtype, device=f.device)) for f in cur]
+    av = [torch.empty(npasses * t, dtype=torch.float32, device=f.device) for f in cur]
+    for q in range(npasses):
+        for z in range(n):
+            halos[z][0].copy_(cur[(z - 1) % n][:, ry - t:])
+            halos[z][1].copy_(cur[(z + 1) % n][:, :t])
+        for z in range(n):
+            call(cur[z].device, cur[z], nxt[z], halos[z], nobs[z].contiguous(),
+                 nob_dn[z].contiguous(), nob_up[z].contiguous(), av[z][q * t:], 1, z * ry, 1, 0)
+        cur, nxt = nxt, cur
+    return [[c] for c in cur], torch.stack([a.to(dev) for a in av])

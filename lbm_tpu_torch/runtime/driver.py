@@ -60,7 +60,8 @@ class SimulationResult:
     elapsed: float  # seconds of the compute loop (kernel build excluded)
     compile_time: float  # seconds spent building or loading the kernels
     route: str = "reference"  # the route that ran: a BACKENDS name other than "auto"
-    device: str = "cpu"  # the torch device the loop ran on
+    device: str = "cpu"  # the torch device the loop ran on (a mesh: its devices, comma-joined)
+    shard_devices: tuple = ()  # a mesh run: the device of each shard, in shard order
 
     def mlups(self, params: LBMParams) -> float:
         return params.nx * params.ny * params.max_iters / self.elapsed / 1e6

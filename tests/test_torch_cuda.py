@@ -1,6 +1,6 @@
-"""The CUDA kernels on the card: K1, K2, the band kernels K7, K9, K11 and
-the resident, temporal and deep kernels K4, K5, K6 against their plain
-versions.
+"""The CUDA kernels on the card: K1, K2, the band kernels K7, K9, K11, the
+resident, temporal and deep kernels K4, K5, K6 and the shard kernels K3,
+K12, K8, K10 against their plain versions.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -30,6 +30,7 @@ from lbm_tpu_torch.ops import band2 as tband2  # noqa: E402
 from lbm_tpu_torch.ops import band3 as tband3  # noqa: E402
 from lbm_tpu_torch.ops import deep as tdeep  # noqa: E402
 from lbm_tpu_torch.ops import resident as tres  # noqa: E402
+from lbm_tpu_torch.ops import shard_step as tshard  # noqa: E402
 from lbm_tpu_torch.ops import step as tstep  # noqa: E402
 from lbm_tpu_torch.ops import temporal as ttemp  # noqa: E402
 
@@ -199,3 +200,132 @@ def test_new_kernels_reject_other_collision_forms(cuda_device):
     for run, _, _ in TRAPEZOIDS.values():
         with pytest.raises(ValueError, match="fused"):
             run(cells, nobst, DENSITY, ACCEL, OMEGA, 8, 8, 4, panel=16, paired=True)
+
+
+def mesh_setup(device, nx, ny, py, px, seed):
+    """A random state and mask cut into a py x px mesh of shards on one card."""
+    cells, nobst = make_setup(device, nx, ny, seed)
+    ry, rx = ny // py, nx // px
+    shards = [[cells[:, i * ry:(i + 1) * ry, j * rx:(j + 1) * rx].contiguous() for j in range(px)]
+              for i in range(py)]
+    nob = [[nobst[i * ry:(i + 1) * ry, j * rx:(j + 1) * rx].contiguous() for j in range(px)]
+           for i in range(py)]
+    return cells, nobst, shards, nob
+
+
+def joined(shards):
+    return torch.cat([torch.cat(list(row), dim=2) for row in shards], dim=1)
+
+
+def assert_mesh_close(got, want):
+    (gs, ga), (ws, wa) = got, want
+    g, w = joined(gs), joined(ws)
+    assert float((g - w).abs().max()) < 1e-5 * float(w.abs().max())
+    np.testing.assert_allclose(ga.cpu().numpy(), wa.cpu().numpy(), rtol=1e-4)
+
+
+SHARD_KERNELS = {"K3": tshard.run_shard_step, "K12": tshard.run_shard_overlap}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [True, False], ids=["one-call", "per-shard"])
+@pytest.mark.parametrize("nx,ny,py,px", [(70, 96, 4, 1), (70, 96, 2, 2), (33, 6, 3, 3),
+                                         (4, 4, 4, 1), (4, 4, 4, 4), (70, 97, 1, 1)])
+@pytest.mark.parametrize("name", list(SHARD_KERNELS))
+def test_shard_kernels_match_plain_and_k1(cuda_device, name, nx, ny, py, px, grouped):
+    """K3 (any mesh) and K12 (1-D meshes) against the plain shard step, and
+    their joined state bitwise K1's on the whole grid; down to 1 x 1-cell
+    shards and a mesh of one; a second run is bitwise equal."""
+    if name == "K12" and px > 1:
+        pytest.skip("K12 runs on 1-D meshes only")
+    kernel = SHARD_KERNELS[name]
+    cells, nobst, shards, nob = mesh_setup(cuda_device, nx, ny, py, px, seed=py + px)
+    before = kernel.launches
+    got = kernel(shards, nob, DENSITY, ACCEL, OMEGA, 9, ny, grouped=grouped)
+    assert kernel.launches == before + 9
+    again = kernel(shards, nob, DENSITY, ACCEL, OMEGA, 9, ny, grouped=grouped)
+    assert torch.equal(joined(got[0]), joined(again[0])) and torch.equal(got[1], again[1])
+    assert_mesh_close(got, tshard.run_shard_step_plain(shards, nob, DENSITY, ACCEL, OMEGA, 9, ny))
+    k1, _ = tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 9, 1.0)
+    assert torch.equal(joined(got[0]), k1)
+
+
+SHARD_BANDS = {"K8": (tband.run_band_sharded, tband.run_band_sharded_plain),
+               "K10": (tband2.run_band2_sharded, tband2.run_band2_sharded_plain)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [True, False], ids=["one-call", "per-shard"])
+@pytest.mark.parametrize("iters,panel", [(8, 20), (19, 20), (11, None)])
+@pytest.mark.parametrize("name", list(SHARD_BANDS))
+def test_sharded_band_kernels_match_plain_and_k1(cuda_device, name, iters, panel, grouped):
+    """K8 and K10 on 4 row shards of a 100 x 70 grid: shards of 25 rows
+    under 16-row tiles (T 4, a ragged last tile), passes with and without a
+    K3 remainder; bitwise K1's joined state; a second run bitwise equal."""
+    kernel, plain = SHARD_BANDS[name]
+    ny, nx = 100, 70
+    cells, nobst, shards, nob = mesh_setup(cuda_device, nx, ny, 4, 1, seed=iters)
+    before = kernel.launches
+    got = kernel(shards, nob, DENSITY, ACCEL, OMEGA, iters, 16, 4, ny, panel=panel,
+                 grouped=grouped)
+    assert kernel.launches == before + iters // 4 * 4
+    again = kernel(shards, nob, DENSITY, ACCEL, OMEGA, iters, 16, 4, ny, panel=panel,
+                   grouped=grouped)
+    assert torch.equal(joined(got[0]), joined(again[0])) and torch.equal(got[1], again[1])
+    assert_mesh_close(got, plain(shards, nob, DENSITY, ACCEL, OMEGA, iters, 16, 4, ny,
+                                 panel=panel))
+    k1, _ = tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0)
+    assert torch.equal(joined(got[0]), k1)
+
+
+@pytest.mark.cuda
+def test_sharded_band_forcing_row_in_halo(cuda_device):
+    """4 shards of 8 rows, T 4: global row ny-2 lies in the last shard and in
+    shard 0's upper halo; bitwise K1."""
+    cells, nobst, shards, nob = mesh_setup(cuda_device, 40, 32, 4, 1, seed=3)
+    k1, _ = tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 8, 1.0)
+    for kernel, _ in SHARD_BANDS.values():
+        got, _ = kernel(shards, nob, DENSITY, ACCEL, OMEGA, 8, 8, 4, 32)
+        assert torch.equal(joined(got), k1)
+
+
+@pytest.mark.cuda
+def test_shard_kernels_refuse(cuda_device):
+    cells, nobst, shards, nob = mesh_setup(cuda_device, 40, 32, 8, 1, seed=3)
+    for kernel, _ in SHARD_BANDS.values():
+        with pytest.raises(ValueError, match="shallower"):  # 4-row shards, depth 8
+            kernel(shards, nob, DENSITY, ACCEL, OMEGA, 8, 16, 8, 32)
+        with pytest.raises(ValueError, match="fused"):
+            kernel(shards, nob, DENSITY, ACCEL, OMEGA, 8, 8, 4, 32, paired=True)
+    for kernel in SHARD_KERNELS.values():
+        with pytest.raises(ValueError, match="fused"):
+            kernel(shards, nob, DENSITY, ACCEL, OMEGA, 2, 32, paired=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,mesh", [("pallas", None), ("pallas-overlap", None),
+                                          ("band", None), ("band2", None), ("auto", "2d")])
+def test_mesh_across_cards(cuda_device, backend, mesh):
+    """A mesh over every card (two or more; 2 x n/2 for the 2-D case): the
+    per-shard launches, the ring and halo copies between cards and K12's
+    peer stores give the single-card K1 run bit for bit."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.parallel.sharded import run_simulation_sharded, run_simulation_sharded_2d
+    from lbm_tpu_torch.runtime.driver import run_simulation
+
+    n = torch.cuda.device_count()
+    if n < 2 or (mesh and n % 2):
+        pytest.skip("needs two or more CUDA devices (an even count for 2-D)")
+    params = LBMParams(nx=96, ny=32 * n, max_iters=23, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    obs = np.zeros((params.ny, params.nx), np.int32)
+    obs[0] = obs[-1] = 1
+    obs[np.random.RandomState(2).randint(1, params.ny - 1, 20), 7] = 1
+    want = run_simulation(params, obs, device="cuda:0", backend="pallas")
+    if mesh:
+        got = run_simulation_sharded_2d(params, obs, mesh_shape=(2, n // 2), backend=backend)
+    else:
+        got = run_simulation_sharded(params, obs, n_devices=n, backend=backend)
+    assert got.shard_devices == tuple(f"cuda:{i}" for i in range(n))
+    np.testing.assert_array_equal(got.cells, want.cells)
+    np.testing.assert_allclose(got.av_vels, want.av_vels, rtol=1e-5)

@@ -116,39 +116,35 @@ band_kernel(band::Source src, float* __restrict__ dst, float* __restrict__ parti
 }
 
 template <int MAXC, bool kSharded>
-int run(const band::Geom& g, int nshards, float* buf_a, float* buf_b, const band::Source& src,
-        float* halo_dn, float* halo_up, bool exchange, float* av, float* partials,
-        unsigned int* ticket, int n_passes, float w1a, float w2a, const lbm::Relax& rc,
-        float inv_tot, cudaStream_t st) {
+int run(const band::Geom& g, const band::Shards* sh, float* buf_a, float* buf_b,
+        const band::Source& src, float* av, float* partials, unsigned int* ticket, int n_passes,
+        float w1a, float w2a, const lbm::Relax& rc, float inv_tot, cudaStream_t st) {
   const size_t smem = band::smem_bytes(g, 1);
   const cudaError_t err = band::allow_smem(band_kernel<MAXC, kSharded>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(g.nty * g.ntx, nshards);
+  const dim3 grid(g.nty * g.ntx, kSharded ? sh->count : 1);
   auto launch = [&](const float* from, float* to, float* av_p, int) {
     band::Source s = src;
     s.cells = from;
     band_kernel<MAXC, kSharded><<<grid, band::kThreads, smem, st>>>(
         s, to, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot);
   };
-  if (kSharded) {
-    return band::run_sharded_passes(g, nshards, n_passes, buf_a, buf_b, halo_dn, halo_up, av,
-                                    exchange, st, launch);
-  }
+  if constexpr (kSharded) return band::run_sharded_passes(g, *sh, n_passes, buf_a, buf_b, av, st, launch);
   return band::run_passes(n_passes, g.T, buf_a, buf_b, av, launch);
 }
 
 template <bool kSharded>
-int run_any(const band::Geom& g, int nshards, float* buf_a, float* buf_b,
-            const band::Source& src, float* halo_dn, float* halo_up, bool exchange, float* av,
-            float* partials, unsigned int* ticket, int n_passes, float w1a, float w2a,
-            const lbm::Relax& rc, float inv_tot, cudaStream_t st) {
+int run_any(const band::Geom& g, const band::Shards* sh, float* buf_a, float* buf_b,
+            const band::Source& src, float* av, float* partials, unsigned int* ticket,
+            int n_passes, float w1a, float w2a, const lbm::Relax& rc, float inv_tot,
+            cudaStream_t st) {
   if (g.ncell <= 4 * band::kThreads) {
-    return run<4, kSharded>(g, nshards, buf_a, buf_b, src, halo_dn, halo_up, exchange, av,
-                            partials, ticket, n_passes, w1a, w2a, rc, inv_tot, st);
+    return run<4, kSharded>(g, sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a, w2a,
+                            rc, inv_tot, st);
   }
   if (g.ncell <= 8 * band::kThreads) {
-    return run<8, kSharded>(g, nshards, buf_a, buf_b, src, halo_dn, halo_up, exchange, av,
-                            partials, ticket, n_passes, w1a, w2a, rc, inv_tot, st);
+    return run<8, kSharded>(g, sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a, w2a,
+                            rc, inv_tot, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -168,37 +164,39 @@ extern "C" int lbm_band_run(float* buf_a, float* buf_b, const float* nobst, floa
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   const band::Source src{buf_a, nobst, nullptr, nullptr, nullptr, nullptr};
-  return run_any<false>(g, 1, buf_a, buf_b, src, nullptr, nullptr, false, av, partials, ticket,
-                        n_passes, w1a, w2a, rc, inv_tot, static_cast<cudaStream_t>(stream));
+  return run_any<false>(g, nullptr, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a, w2a,
+                        rc, inv_tot, static_cast<cudaStream_t>(stream));
 }
 
-// K8: n_passes passes over the nshards shards of a 1-D mesh stacked in
-// buf_a (nshards, 9, ny, nx), shard z holding global rows [r0 + z*ny,
-// r0 + (z+1)*ny) of ny_global. halo_dn, halo_up: (nshards, 9, depth, nx);
-// with ``exchange`` each pass first copies them from the pass's source
-// (nshards must then be the whole mesh), else the caller fills them (one
-// pass). nobst (nshards, ny, nx) and nob_dn, nob_up (nshards, depth, nx)
-// hold the mask and its halos. av receives nshards x (n_passes * depth)
-// values (shard-major); partials nshards * depth * lbm_band_num_tiles
-// floats; ticket nshards zeroed unsigned ints. Returns the first CUDA
-// error, or 0.
-extern "C" int lbm_band_sharded_run(float* buf_a, float* buf_b, float* halo_dn, float* halo_up,
-                                    const float* nobst, const float* nob_dn, const float* nob_up,
-                                    float* av, float* partials, unsigned int* ticket, int nshards,
-                                    int ny, int nx, int ny_global, int r0, int block, int depth,
-                                    int panel, int n_passes, int exchange, float w1a, float w2a,
-                                    float beta, float ow0, float ow1, float ow2, float inv_tot,
-                                    void* stream) {
-  band::Geom g = band::make_geom(ny, nx, block, depth, panel);
-  g.nyg = ny_global;
-  g.r0 = r0;
-  g.av_stride = n_passes * depth;
-  if (depth > ny) return static_cast<int>(cudaErrorInvalidValue);
+// K8: n_passes passes over shards [s0, s0 + count) of a 1-D mesh of
+// nshards shards of ny rows (shard z holds global rows [z*ny, (z+1)*ny)),
+// stacked in buf_a and buf_b (count, 9, ny, nx). The first pass reads
+// buf_a when parity is even, else buf_b; the passes alternate. table holds
+// 2 * nshards addresses on this card: each shard's two buffers, of this
+// call or another, on this card or a peer. Each pass first copies the
+// call's halo_dn, halo_up (count, 9, depth, nx) from the neighbour shards'
+// edge rows of the pass's source buffer. nobst (count, ny, nx) and nob_dn,
+// nob_up (count, depth, nx) hold the mask and its halos. av receives count
+// x (n_passes * depth) values (shard-major, av_stride apart); partials
+// count * depth * lbm_band_num_tiles floats; ticket count zeroed unsigned
+// ints. Returns the first CUDA error, or 0.
+extern "C" int lbm_band_sharded_run(const unsigned long long* table, int s0, int count,
+                                    int nshards, float* buf_a, float* buf_b, float* halo_dn,
+                                    float* halo_up, const float* nobst, const float* nob_dn,
+                                    const float* nob_up, float* av, int av_stride,
+                                    float* partials, unsigned int* ticket, int ny, int nx,
+                                    int block, int depth, int panel, int parity, int n_passes,
+                                    float w1a, float w2a, float beta, float ow0, float ow1,
+                                    float ow2, float inv_tot, void* stream) {
+  const band::Shards sh{table, s0, count, nshards, parity, halo_dn, halo_up};
+  const band::Geom g = band::make_sharded_geom(ny, nx, block, depth, panel, sh, av_stride);
+  if (depth > ny || count < 1 || s0 < 0 || s0 + count > nshards) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   const band::Source src{buf_a, nobst, halo_dn, halo_up, nob_dn, nob_up};
-  return run_any<true>(g, nshards, buf_a, buf_b, src, halo_dn, halo_up, exchange != 0, av,
-                       partials, ticket, n_passes, w1a, w2a, rc, inv_tot,
-                       static_cast<cudaStream_t>(stream));
+  return run_any<true>(g, &sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a, w2a, rc,
+                       inv_tot, static_cast<cudaStream_t>(stream));
 }
 
 // Output tiles of a band schedule (all three band kernels): one block each.

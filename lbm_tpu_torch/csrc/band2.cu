@@ -122,27 +122,26 @@ extern "C" int lbm_band2_run(float* buf_a, float* buf_b, const float* nobst, flo
 
 // K10: lbm_band_sharded_run's contract (band.cu) with the band2 pass
 // (depth even).
-extern "C" int lbm_band2_sharded_run(float* buf_a, float* buf_b, float* halo_dn, float* halo_up,
-                                     const float* nobst, const float* nob_dn,
-                                     const float* nob_up, float* av, float* partials,
-                                     unsigned int* ticket, int nshards, int ny, int nx,
-                                     int ny_global, int r0, int block, int depth, int panel,
-                                     int n_passes, int exchange, float w1a, float w2a, float beta,
-                                     float ow0, float ow1, float ow2, float inv_tot,
-                                     void* stream) {
-  band::Geom g = band::make_geom(ny, nx, block, depth, panel);
-  g.nyg = ny_global;
-  g.r0 = r0;
-  g.av_stride = n_passes * depth;
-  if (depth > ny) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int lbm_band2_sharded_run(const unsigned long long* table, int s0, int count,
+                                     int nshards, float* buf_a, float* buf_b, float* halo_dn,
+                                     float* halo_up, const float* nobst, const float* nob_dn,
+                                     const float* nob_up, float* av, int av_stride,
+                                     float* partials, unsigned int* ticket, int ny, int nx,
+                                     int block, int depth, int panel, int parity, int n_passes,
+                                     float w1a, float w2a, float beta, float ow0, float ow1,
+                                     float ow2, float inv_tot, void* stream) {
+  const band::Shards sh{table, s0, count, nshards, parity, halo_dn, halo_up};
+  const band::Geom g = band::make_sharded_geom(ny, nx, block, depth, panel, sh, av_stride);
+  if (depth > ny || count < 1 || s0 < 0 || s0 + count > nshards) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   const size_t smem = band::smem_bytes(g, 2);
   const cudaError_t err = band::allow_smem(band2_kernel<true>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(g.nty * g.ntx, nshards);
-  return band::run_sharded_passes(g, nshards, n_passes, buf_a, buf_b, halo_dn, halo_up, av,
-                                  exchange != 0, st,
+  const dim3 grid(g.nty * g.ntx, count);
+  return band::run_sharded_passes(g, sh, n_passes, buf_a, buf_b, av, st,
                                   [&](const float* src, float* dst, float* av_p, int) {
     const band::Source from{src, nobst, halo_dn, halo_up, nob_dn, nob_up};
     band2_kernel<true><<<grid, band::kThreads, smem, st>>>(from, dst, partials, ticket, av_p, g,

@@ -26,11 +26,13 @@
 //
 // Sharded form (K8 in band.cu, K10 in band2.cu): a 1-D mesh of shards, each
 // of ny rows of a grid of nyg rows, shard z starting at global row
-// r0 + z * ny. All shards of one device sit in one (nshards, 9, ny, nx)
-// array and one launch covers them (blockIdx.y = shard). A tile's window
-// rows come from three arrays instead of the wrapped grid: the previous
-// shard's last T rows (halo_dn), the shard's own rows and the next shard's
-// first T rows (halo_up), which halo_rows_kernel copies once per pass; x
+// r0 + z * ny. The shards of one call sit in one (count, 9, ny, nx) array
+// and one launch covers them (blockIdx.y = shard; r0 is the global row of
+// the call's first shard). A tile's window rows come from three arrays
+// instead of the wrapped grid: the previous shard's last T rows (halo_dn),
+// the shard's own rows and the next shard's first T rows (halo_up), which
+// halo_rows_kernel copies once per pass through a table of every shard's
+// addresses, so a neighbour may sit in another call or on another card; x
 // still wraps within the shard's full rows. The global row of every window
 // row, for the forcing test, is (r0 + z * ny + y0 - T + r) mod nyg.
 #pragma once
@@ -329,55 +331,75 @@ inline int run_passes(int n_passes, int T, float* a, float* b, float* av, Launch
   return 0;
 }
 
-// Sharded: copies the halo rows of every shard of ``cells`` (nshards, 9,
-// ny, nx): halo_dn[z] = the last T rows of shard z - 1, halo_up[z] = the
-// first T rows of shard z + 1, around the ring of shards. (Internal
-// linkage: every band source includes this header.)
-static __global__ void halo_rows_kernel(const float* __restrict__ cells,
+// Sharded: copies the halo rows of the launch's shards [s0, s0 + count)
+// of a ring of nshards shards: halo_dn[z] = the last T rows of shard z - 1,
+// halo_up[z] = the first T rows of shard z + 1. table holds, per shard,
+// the addresses of its two (9, ny, nx) buffers; ``which`` picks the one
+// read, on this card or another (peer addresses). (Internal linkage: every
+// band source includes this header.)
+static __global__ void halo_rows_kernel(const unsigned long long* __restrict__ table, int which,
+                                        int s0, int count, int nshards,
                                         float* __restrict__ halo_dn,
-                                        float* __restrict__ halo_up, int nshards, int ny,
-                                        int nx, int T) {
+                                        float* __restrict__ halo_up, int ny, int nx, int T) {
   const size_t per = (size_t)9 * T * nx;  // halo floats per shard and side
-  const size_t n = 2 * per * nshards;
+  const size_t n = 2 * per * count;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
-    const size_t side = i / (per * nshards);
-    const size_t j = i - side * per * nshards;
-    const int z = (int)(j / per);
-    const size_t e = j - (size_t)z * per;  // (k, row, col) within the halo
+    const size_t side = i / (per * count);
+    const size_t j = i - side * per * count;
+    const int z = s0 + (int)(j / per);
+    const size_t e = j - (size_t)(z - s0) * per;  // (k, row, col) within the halo
     const int k = (int)(e / ((size_t)T * nx));
     const size_t rc = e - (size_t)k * T * nx;
     const int nz = side == 0 ? (z == 0 ? nshards - 1 : z - 1) : (z == nshards - 1 ? 0 : z + 1);
+    const float* cells = reinterpret_cast<const float*>(table[2 * nz + which]);
     const size_t row0 = side == 0 ? (size_t)(ny - T) * nx : 0;
-    const float v = cells[((size_t)nz * 9 + k) * ny * nx + row0 + rc];
-    (side == 0 ? halo_dn : halo_up)[j] = v;
+    (side == 0 ? halo_dn : halo_up)[j] = cells[(size_t)k * ny * nx + row0 + rc];
   }
 }
 
-// Sharded: issues n_passes passes over all shards of a launch, each
-// preceded (``exchange``) by the halo copy from the pass's source buffer.
-// launch(src, dst, av + p * T, p) as run_passes. Returns the first launch
-// error, or 0.
+// Sharded: issues n_passes passes over the call's shards (Shards) stacked
+// in a and b, each preceded by the halo copy from the pass's source
+// buffer: pass p reads a when (parity + p) is even, else b.
+// launch(src, dst, av + p * T, p) as run_passes. The halo copy reads the
+// neighbour shards, so across calls the caller orders a pass after the
+// neighbours' previous one. Returns the first launch error, or 0.
+struct Shards {
+  const unsigned long long* table;  // 2 * nshards addresses: each shard's two buffers
+  int s0, count, nshards;           // the call's shards [s0, s0 + count) of the ring
+  int parity;                       // the first pass reads buffer a when even
+  float* halo_dn;                   // (count, 9, T, nx)
+  float* halo_up;                   // (count, 9, T, nx)
+};
+
 template <class Launch>
-inline int run_sharded_passes(const Geom& g, int nshards, int n_passes, float* a, float* b,
-                              float* halo_dn, float* halo_up, float* av, bool exchange,
-                              cudaStream_t st, Launch&& launch) {
+inline int run_sharded_passes(const Geom& g, const Shards& sh, int n_passes, float* a, float* b,
+                              float* av, cudaStream_t st, Launch&& launch) {
+  const size_t n = (size_t)2 * 9 * g.T * g.nx * sh.count;
+  const size_t want = (n + kThreads - 1) / kThreads;
+  const int blocks = (int)(want < 4096 ? want : 4096);
   for (int p = 0; p < n_passes; ++p) {
-    const float* src = (p & 1) ? b : a;
-    if (exchange) {
-      const size_t n = (size_t)2 * 9 * g.T * g.nx * nshards;
-      const size_t want = (n + kThreads - 1) / kThreads;
-      const int blocks = (int)(want < 4096 ? want : 4096);
-      halo_rows_kernel<<<blocks, kThreads, 0, st>>>(src, halo_dn, halo_up, nshards, g.ny, g.nx,
-                                                    g.T);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    launch(src, (p & 1) ? a : b, av + (size_t)p * g.T, p);
-    const cudaError_t err = cudaGetLastError();
+    const int w = (sh.parity + p) & 1;
+    halo_rows_kernel<<<blocks, kThreads, 0, st>>>(sh.table, w, sh.s0, sh.count, sh.nshards,
+                                                  sh.halo_dn, sh.halo_up, g.ny, g.nx, g.T);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    launch(w ? b : a, w ? a : b, av + (size_t)p * g.T, p);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// The geometry of a sharded call: its shards' rows, the global rows of the
+// ring of shards, and av_stride av values between two shards.
+inline Geom make_sharded_geom(int ny, int nx, int B, int T, int P, const Shards& sh,
+                              int av_stride) {
+  Geom g = make_geom(ny, nx, B, T, P);
+  g.nyg = sh.nshards * ny;
+  g.r0 = sh.s0 * ny;
+  g.av_stride = av_stride;
+  return g;
 }
 
 // Sets the opt-in dynamic shared memory of ``kernel`` when above 48 KB.

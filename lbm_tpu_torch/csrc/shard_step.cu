@@ -32,10 +32,12 @@
 // only a cell on global row ny-2 is ever forced. The result is bitwise
 // K1's on the whole grid.
 //
-// K3 between steps: ring_fill_kernel fills every shard's ring from its
-// neighbours' cells (2 (ry + rx) + 4 cells per plane, 9 planes), one launch
-// for all shards. A shard may be its own neighbour (px = 1, or a mesh of
-// one): its ring then holds its own opposite edges.
+// K3 before each step: ring_fill_kernel fills the rings of the launch's
+// shards from their neighbours' cells (2 (ry + rx) + 4 cells per plane, 9
+// planes), one launch for all of them; the neighbours may lie in another
+// call's shards or on another card (peer addresses). A shard may be its own
+// neighbour (px = 1, or a mesh of one): its ring then holds its own
+// opposite edges.
 //
 // K12: the threads that compute a shard's edge cells also store them
 // straight into the ghost ring of every shard that reads them next step
@@ -51,8 +53,10 @@
 //
 // What bounds it on the H100: bytes, as K1: 76 B per cell per step (9
 // planes in, 9 out, the mask), plus the ring, 2 (ry + rx) + 4 cells per
-// shard per step, small beside the interior. One launch covers all shards
-// of a device (blockIdx.z = shard), and one C call issues a whole chunk.
+// shard per step, small beside the interior. One launch covers the shards
+// of a call (blockIdx.z = shard). With every shard on one card, one C call
+// issues a whole chunk; across cards the caller issues one call per step
+// for each card's shards and orders the cards' streams with events.
 // Per-step sums: raw (unscaled) sums per shard through
 // lbm::grid_sum_last_block, reduced across shards by the caller in shard
 // order, so two runs give equal bits.
@@ -182,11 +186,12 @@ __global__ void ring_fill_kernel(const unsigned long long* __restrict__ table, i
   }
 }
 
-int fill(const unsigned long long* table, int count, int p, const Mesh& m, cudaStream_t st) {
+int fill(const unsigned long long* table, int s0, int count, int p, const Mesh& m,
+         cudaStream_t st) {
   const int nring = 2 * (m.rx + 2) + 2 * m.ry;
   const int per = (p == 2 ? 1 : 9) * nring;
   const dim3 grid((per + lbm::kThreads - 1) / lbm::kThreads, count);
-  ring_fill_kernel<<<grid, lbm::kThreads, 0, st>>>(table, 0, p, m);
+  ring_fill_kernel<<<grid, lbm::kThreads, 0, st>>>(table, s0, p, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -197,12 +202,13 @@ int fill(const unsigned long long* table, int count, int p, const Mesh& m, cudaS
 // column 0 of the shard at padded column lead. table: 3 * py * px addresses on the
 // launching device (buffer 0, buffer 1, padded not-obstacle plane of each
 // shard). Step t reads buffer (parity + t) % 2 and writes the other.
-// mode 0: the steps only (the caller fills the rings between steps);
-// mode 1 (K3): fill every ring after each step; mode 2 (K12): the step
-// kernel stores edge cells into the readers' rings. fill_first: fill the
-// not-obstacle and state rings before the first step (it and mode 1 need
-// count == py * px: they read every shard). av receives count x n_steps
-// raw sums (shard-major, av_stride apart); partials count x
+// mode 1 (K3): fill the call's state rings from the neighbours' cells
+// before each step; mode 2 (K12): the step kernel stores edge cells into
+// the readers' rings. fill_first: fill the call's not-obstacle rings (and,
+// in mode 2, its state rings) before the first step. A fill reads the
+// neighbours' cells, so the caller orders a call after the previous step
+// of the calls that hold its neighbours. av receives count x n_steps raw
+// sums (shard-major, av_stride apart); partials count x
 // lbm_step_num_blocks(ry, rx) floats; ticket count zeroed unsigned ints.
 // Returns the first CUDA error, or 0.
 extern "C" int lbm_shard_run(const unsigned long long* table, int s0, int count, int py, int px,
@@ -213,16 +219,15 @@ extern "C" int lbm_shard_run(const unsigned long long* table, int s0, int count,
                              float ow1, float ow2, void* stream) {
   const Mesh m{py, px, ry, rx, ny, pitch, lead, (size_t)(ry + 2) * pitch};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (count < 1 || s0 < 0 || s0 + count > py * px || mode < 0 || mode > 2 || lead < 1 ||
-      pitch < lead + rx + 1 ||
-      ((mode == 1 || fill_first) && (s0 != 0 || count != py * px))) {
+  if (count < 1 || s0 < 0 || s0 + count > py * px || mode < 1 || mode > 2 || lead < 1 ||
+      pitch < lead + rx + 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   int err = 0;
   if (fill_first) {
-    if ((err = fill(table, count, 2, m, st)) != 0) return err;
-    if ((err = fill(table, count, parity & 1, m, st)) != 0) return err;
+    if ((err = fill(table, s0, count, 2, m, st)) != 0) return err;
+    if (mode == 2 && (err = fill(table, s0, count, parity & 1, m, st)) != 0) return err;
   }
   dim3 grid = lbm::grid_for(ry, rx);
   grid.z = count;
@@ -233,11 +238,11 @@ extern "C" int lbm_shard_run(const unsigned long long* table, int s0, int count,
       shard_step_kernel<true><<<grid, block, 0, st>>>(table, s0, p, m, partials, ticket, av + t,
                                                       av_stride, w1a, w2a, rc);
     } else {
+      if ((err = fill(table, s0, count, p, m, st)) != 0) return err;
       shard_step_kernel<false><<<grid, block, 0, st>>>(table, s0, p, m, partials, ticket, av + t,
                                                        av_stride, w1a, w2a, rc);
     }
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-    if (mode == 1 && (err = fill(table, count, p ^ 1, m, st)) != 0) return err;
   }
   return 0;
 }

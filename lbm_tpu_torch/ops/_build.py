@@ -54,11 +54,13 @@ _RUN_ARGTYPES = {
     # partials, ticket, parity, n_steps, mode, fill_first, 6 scalars, stream)
     "lbm_shard_run": [_P] + [_I] * 9 + [_P, _I, _P, _P] + [_I] * 4 + [_F] * 6 + [_P],
     "lbm_enable_peer": [_I, _I],
-    # (buf_a, buf_b, halo_dn, halo_up, nobst, nob_dn, nob_up, av, partials,
-    # ticket, nshards, ny, nx, ny_global, r0, block, depth, panel, n_passes,
-    # exchange, 7 scalars, stream)
-    "lbm_band_sharded_run": [_P] * 10 + [_I] * 10 + [_F] * 7 + [_P],
-    "lbm_band2_sharded_run": [_P] * 10 + [_I] * 10 + [_F] * 7 + [_P],
+    # (table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst,
+    # nob_dn, nob_up, av, av_stride, partials, ticket, ny, nx, block, depth,
+    # panel, parity, n_passes, 7 scalars, stream)
+    "lbm_band_sharded_run": [_P] + [_I] * 3 + [_P] * 8 + [_I] + [_P] * 2 + [_I] * 7
+                            + [_F] * 7 + [_P],
+    "lbm_band2_sharded_run": [_P] + [_I] * 3 + [_P] * 8 + [_I] + [_P] * 2 + [_I] * 7
+                             + [_F] * 7 + [_P],
 }
 _COUNT_ARGTYPES = {
     "lbm_step_num_blocks": [_I, _I],

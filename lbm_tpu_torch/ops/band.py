@@ -32,8 +32,6 @@ pass, and the ``n_iters % T`` remainder runs on the shard step K3;
 
 from __future__ import annotations
 
-import torch
-
 from lbm_tpu_torch.ops import band_common as BC
 from lbm_tpu_torch.ops.step import forcing_weights
 
@@ -116,38 +114,8 @@ def run_band(cells, nobst, density, accel, omega, n_iters, block, depth, *, pane
 run_band.launches = 0  # steps K7 advanced in this process
 
 
-def _sharded_passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired, device,
-                    grouped=True):
-    """``run_passes`` of ``run_creep_sharded`` for the device of the shards."""
-    if device.type == "cpu":  # also the plain version's passes on any device
-        w1a, w2a = forcing_weights(density, accel)
-        return BC.plain_passes_sharded(nob_shards, ny, block, depth, panel,
-                                       BC.r_step_plain(float(omega), w1a, w2a, paired))
-    if device.type != "cuda":
-        raise ValueError(f"no band kernel for device {device}")
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA band kernel implements the fused collision form only")
-    b, p, t = BC.tile_shape(nob_shards[0][0].shape[1], block, depth, panel)
-    if (b + 2 * t) * (p + 2 * t) > MAX_WINDOW_CELLS:
-        raise ValueError(f"band kernel: a {b + 2 * t}x{p + 2 * t} window exceeds the "
-                         f"{MAX_WINDOW_CELLS} cells its threads hold in registers")
-
-    def run_passes(shards, npasses):
-        out = BC.launch_passes_sharded("lbm_band_sharded_run", "band sharded kernel", shards,
-                                       nob_shards, ny, density, accel, omega, block, depth, panel,
-                                       npasses, PLANE_COPIES, grouped)
-        run_band_sharded.launches += npasses * depth
-        return out
-
-    return run_passes
-
-
-def _check_sharded(shards, nob_shards, n_iters, block, depth, panel):
-    BC.check_sharded(shards, nob_shards, n_iters, block, depth, panel)
-    ry, nx = shards[0][0].shape[1:]
-    if not band_supported(ry, nx, block, depth, panel):
-        raise ValueError(f"band schedule unsupported on a {ry}x{nx} shard: block {block}, "
-                         f"depth {depth}, panel {panel}")
+_K8 = BC.ShardedKernel("band", "lbm_band_sharded_run", band_supported, PLANE_COPIES,
+                       MAX_WINDOW_CELLS)
 
 
 def step_band_sharded(shards, nob_shards, density, accel, omega, block, depth, ny, *,
@@ -155,37 +123,31 @@ def step_band_sharded(shards, nob_shards, density, accel, omega, block, depth, n
     """One pass of ``depth`` steps over a 1-D mesh of row shards (``shards[i][0]``
     holds global rows ``[i*ry, (i+1)*ry)`` of ``ny``): K8 on CUDA, the plain
     pass on CPU. Returns the shards and their raw sums ``(nshards, depth)``."""
-    _check_sharded(shards, nob_shards, depth, block, depth, panel)
-    return _sharded_passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
-                           shards[0][0].device)(shards, 1)
+    out = _K8.step(shards, nob_shards, density, accel, omega, block, depth, ny, panel, paired)
+    if shards[0][0].device.type == "cuda":
+        run_band_sharded.launches += depth
+    return out
 
 
 def run_band_sharded_plain(shards, nob_shards, density, accel, omega, n_iters, block, depth,
                            ny, *, panel=None, paired="fused"):
     """The sharded band schedule in plain PyTorch, the remainder on the
     plain shard step; returns the shards and their raw sums ``(nshards, n_iters)``."""
-    _check_sharded(shards, nob_shards, n_iters, block, depth, panel)
-    passes = _sharded_passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
-                             torch.device("cpu"))
-    return BC.run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny, depth,
-                                passes, paired, plain=True)
+    return _K8.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, panel,
+                   paired, plain=True)
 
 
 def run_band_sharded(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, *,
-                     panel=None, paired="fused", grouped=True):
+                     panel=None, paired="fused"):
     """Run ``n_iters`` steps of a 1-D mesh of row shards, ``depth`` per pass:
     kernel K8 on CUDA (the ``n_iters % depth`` remainder on K3),
     ``run_band_sharded_plain`` on CPU. Returns the shards and their raw sums
-    ``(nshards, n_iters)``. ``grouped=False`` launches each shard on its own
-    even when all share one device (the several-device path)."""
-    if shards[0][0].device.type == "cpu":
-        return run_band_sharded_plain(shards, nob_shards, density, accel, omega, n_iters, block,
-                                      depth, ny, panel=panel, paired=paired)
-    _check_sharded(shards, nob_shards, n_iters, block, depth, panel)
-    passes = _sharded_passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
-                             shards[0][0].device, grouped)
-    return BC.run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny, depth,
-                                passes, paired)
+    ``(nshards, n_iters)``."""
+    out = _K8.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, panel,
+                  paired)
+    if shards[0][0].device.type == "cuda":
+        run_band_sharded.launches += n_iters // depth * depth
+    return out
 
 
 run_band_sharded.launches = 0  # mesh steps K8 advanced in this process

@@ -30,8 +30,6 @@ pass, and the ``n_iters % T`` remainder runs on the shard step K3;
 
 from __future__ import annotations
 
-import torch
-
 from lbm_tpu_torch.ops import band_common as BC
 from lbm_tpu_torch.ops.step import forcing_weights
 
@@ -116,34 +114,7 @@ def run_band2(cells, nobst, density, accel, omega, n_iters, block, depth, *, pan
 run_band2.launches = 0  # steps K9 advanced in this process
 
 
-def _sharded_passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired, device,
-                    grouped=True):
-    """``run_passes`` of ``run_creep_sharded`` for the device of the shards."""
-    if device.type == "cpu":  # also the plain version's passes on any device
-        w1a, w2a = forcing_weights(density, accel)
-        return BC.plain_passes_sharded(nob_shards, ny, block, depth, panel,
-                                       BC.r_step_plain(float(omega), w1a, w2a, paired))
-    if device.type != "cuda":
-        raise ValueError(f"no band2 kernel for device {device}")
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA band2 kernel implements the fused collision form only")
-
-    def run_passes(shards, npasses):
-        out = BC.launch_passes_sharded("lbm_band2_sharded_run", "band2 sharded kernel", shards,
-                                       nob_shards, ny, density, accel, omega, block, depth, panel,
-                                       npasses, PLANE_COPIES, grouped)
-        run_band2_sharded.launches += npasses * depth
-        return out
-
-    return run_passes
-
-
-def _check_sharded(shards, nob_shards, n_iters, block, depth, panel):
-    BC.check_sharded(shards, nob_shards, n_iters, block, depth, panel)
-    ry, nx = shards[0][0].shape[1:]
-    if not band2_supported(ry, nx, block, depth, panel):
-        raise ValueError(f"band2 schedule unsupported on a {ry}x{nx} shard: block {block}, "
-                         f"depth {depth}, panel {panel}")
+_K10 = BC.ShardedKernel("band2", "lbm_band2_sharded_run", band2_supported, PLANE_COPIES)
 
 
 def step_band2_sharded(shards, nob_shards, density, accel, omega, block, depth, ny, *,
@@ -151,37 +122,32 @@ def step_band2_sharded(shards, nob_shards, density, accel, omega, block, depth, 
     """One pass of ``depth`` steps over a 1-D mesh of row shards (``shards[i][0]``
     holds global rows ``[i*ry, (i+1)*ry)`` of ``ny``): K10 on CUDA, the plain
     pass on CPU. Returns the shards and their raw sums ``(nshards, depth)``."""
-    _check_sharded(shards, nob_shards, depth, block, depth, panel)
-    return _sharded_passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
-                           shards[0][0].device)(shards, 1)
+    out = _K10.step(shards, nob_shards, density, accel, omega, block, depth, ny, panel,
+                    paired)
+    if shards[0][0].device.type == "cuda":
+        run_band2_sharded.launches += depth
+    return out
 
 
 def run_band2_sharded_plain(shards, nob_shards, density, accel, omega, n_iters, block, depth,
                             ny, *, panel=None, paired="fused"):
     """The sharded band2 schedule in plain PyTorch, the remainder on the
     plain shard step; returns the shards and their raw sums ``(nshards, n_iters)``."""
-    _check_sharded(shards, nob_shards, n_iters, block, depth, panel)
-    passes = _sharded_passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
-                             torch.device("cpu"))
-    return BC.run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny, depth,
-                                passes, paired, plain=True)
+    return _K10.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny,
+                    panel, paired, plain=True)
 
 
 def run_band2_sharded(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, *,
-                      panel=None, paired="fused", grouped=True):
+                      panel=None, paired="fused"):
     """Run ``n_iters`` steps of a 1-D mesh of row shards, ``depth`` per pass:
     kernel K10 on CUDA (the ``n_iters % depth`` remainder on K3),
     ``run_band2_sharded_plain`` on CPU. Returns the shards and their raw sums
-    ``(nshards, n_iters)``. ``grouped=False`` launches each shard on its own
-    even when all share one device (the several-device path)."""
-    if shards[0][0].device.type == "cpu":
-        return run_band2_sharded_plain(shards, nob_shards, density, accel, omega, n_iters, block,
-                                       depth, ny, panel=panel, paired=paired)
-    _check_sharded(shards, nob_shards, n_iters, block, depth, panel)
-    passes = _sharded_passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
-                             shards[0][0].device, grouped)
-    return BC.run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny, depth,
-                                passes, paired)
+    ``(nshards, n_iters)``."""
+    out = _K10.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny,
+                   panel, paired)
+    if shards[0][0].device.type == "cuda":
+        run_band2_sharded.launches += n_iters // depth * depth
+    return out
 
 
 run_band2_sharded.launches = 0  # mesh steps K10 advanced in this process

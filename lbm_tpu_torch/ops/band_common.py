@@ -32,8 +32,10 @@ between two halos of T rows, the previous shard's last T rows and the next
 shard's first T rows, exchanged once per pass; x wraps within the shard's
 full rows. ``creep_pass_plain(..., halo=...)`` is its plain pass,
 ``run_creep_sharded`` its pass loop with the remainder on the shard step
-K3 (``ops/shard_step.py``), ``launch_passes_sharded`` the kernels' passes.
-The per-step sums stay raw per shard; the mesh adds them up.
+K3 (``ops/shard_step.py``), ``launch_passes_sharded`` the kernels' passes,
+and ``ShardedKernel`` the wrappers that ``ops/band.py`` and
+``ops/band2.py`` name. The per-step sums stay raw per shard; the mesh adds
+them up.
 
 The TPU's BlockSpec strip views (``fullrow_specs``/``panel_specs``), the
 extended mask ``nobst_ext`` and the 128-lane halo H do not carry over: the
@@ -42,11 +44,17 @@ window gather replaces them, and every tile's x halo is T columns.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 
 from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
-from lbm_tpu_torch.ops.step import _CXS, _CYS, _OPP, check_inputs, kernel_scalars, run_step
+from lbm_tpu_torch.ops.shard_step import (address_table, device_runs, enable_peers, issue,
+                                          neighbour_runs, run_shard_step, run_shard_step_plain)
+from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, check_inputs, forcing_weights,
+                                    kernel_scalars, run_step)
 
 CYS, CXS, OPP = _CYS, _CXS, _OPP
 # The forcing planes as (plane, sign, weight kind): kind 1 -> w1a, 2 -> w2a
@@ -259,25 +267,6 @@ def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, in
     return (a if npasses % 2 == 0 else other), av
 
 
-def check_sharded(shards, nob_shards, n_iters, block, depth, panel) -> None:
-    """A 1-D mesh of f32 shards of at least ``depth`` rows, one device
-    type; the schedule as ``check_schedule``."""
-    if any(len(row) != 1 for row in shards) or len(nob_shards) != len(shards):
-        raise ValueError("the sharded band routes take a 1-D mesh of row shards")
-    for row, nob_row in zip(shards, nob_shards):
-        check_inputs(row[0], nob_row[0], max(n_iters, 1), 1)
-    if len({tuple(row[0].shape) for row in shards}) != 1:
-        raise ValueError("shards differ in shape")
-    if len({row[0].device.type for row in shards}) != 1:
-        raise ValueError("shards on more than one kind of device")
-    if block < 1 or depth < 1 or (panel is not None and panel < 1):
-        raise ValueError(f"bad band schedule: block {block}, depth {depth}, panel {panel}")
-    ry, nx = shards[0][0].shape[1:]
-    if depth > ry:
-        raise ValueError(f"local grid {ry}x{nx} is shallower than the band depth {depth}: "
-                         "the halo of a pass must come from the neighbour shards")
-
-
 def neighbour_rows(flat, depth):
     """``(dn, up)``: per shard, the previous shard's last ``depth`` rows and
     the next shard's first ``depth`` rows, on the shard's device."""
@@ -317,35 +306,32 @@ def run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny_glo
     (``ops/shard_step.py::run_shard_step``, kernel K3 on CUDA; with
     ``plain``, its plain version on any device). Returns the shards and the
     raw per-shard sums ``(nshards, n_iters)``."""
-    from lbm_tpu_torch.ops.shard_step import run_shard_step, run_shard_step_plain
-
-    def remainder(shards, nob_shards, density, accel, omega, rem, ny_global, paired):
-        if plain:
-            return run_shard_step_plain(shards, nob_shards, density, accel, omega, rem,
-                                        ny_global, paired)
-        return run_shard_step(shards, nob_shards, density, accel, omega, rem, ny_global,
-                              paired=paired)
-
     npasses, rem = divmod(n_iters, depth)
     parts = []
     if npasses:
         shards, sums = run_passes(shards, npasses)
         parts.append(sums)
     if rem:
-        shards, sums = remainder(shards, nob_shards, density, accel, omega, rem, ny_global,
-                                 paired)
+        if plain:
+            shards, sums = run_shard_step_plain(shards, nob_shards, density, accel, omega, rem,
+                                                ny_global, paired)
+        else:
+            shards, sums = run_shard_step(shards, nob_shards, density, accel, omega, rem,
+                                          ny_global, paired=paired)
         parts.append(sums)
     return shards, torch.cat(parts, dim=1)
 
 
-def launch_passes_sharded(entry: str, what: str, shards, nob_shards, ny_global, density, accel,
-                          omega, block, depth, panel, npasses, plane_copies, grouped=True):
-    """Issue ``npasses`` passes of a sharded band kernel (K8, K10). With all
-    shards on one device (and ``grouped``), one C call stacks them and
-    issues every pass: the halo copy, then one launch over all shards.
-    Otherwise each pass copies the halos between the devices with
-    ``Tensor.copy_`` and launches each shard on its own device. Returns the
-    shards and their raw sums ``(nshards, npasses * depth)``."""
+def launch_passes_sharded(entry: str, what: str, shards, nob_shards, density, accel, omega,
+                          block, depth, panel, npasses, plane_copies):
+    """Issue ``npasses`` passes of a sharded band kernel (K8, K10) over a
+    1-D mesh. Each run of consecutive shards on one device
+    (``shard_step.device_runs``) is stacked and launched together; each pass
+    first copies its halos from the neighbour shards' edge rows, on the
+    card or through peer addresses. With one device one C call issues every
+    pass; across devices one call per run per pass, ordered by
+    ``shard_step.issue``. Returns the shards and their raw sums
+    ``(nshards, npasses * depth)`` on the first shard's device."""
     flat = [row[0] for row in shards]
     nobs = [row[0] for row in nob_shards]
     n = len(flat)
@@ -355,43 +341,118 @@ def launch_passes_sharded(entry: str, what: str, shards, nob_shards, ny_global, 
     lib = _build.library()
     ntiles = lib.lbm_band_num_tiles(ry, nx, b, p)
     scalars = kernel_scalars(density, accel, omega, 1.0)
-    nob_dn, nob_up = neighbour_rows(nobs, t)
+    nob_dn, nob_up = neighbour_rows(nobs, t)  # the mask's halos, once per call
+    runs = device_runs([f.device for f in flat])
+    near = neighbour_runs(runs, n, 1)
+    state = []  # per run: a, other, halo_dn, halo_up, nob, nob_dn, nob_up, av, partials, ticket
+    for s0, count, dev in runs:
+        part = slice(s0, s0 + count)
+        a = torch.stack(flat[part])  # a copy: the input shards stay unchanged
+        state.append((a, torch.empty_like(a),
+                      torch.empty((count, 9, t, nx), dtype=a.dtype, device=dev),
+                      torch.empty((count, 9, t, nx), dtype=a.dtype, device=dev),
+                      torch.stack(nobs[part]), torch.stack(nob_dn[part]),
+                      torch.stack(nob_up[part]),
+                      torch.empty((count, npasses * t), dtype=torch.float32, device=dev),
+                      torch.empty(count * t * ntiles, dtype=torch.float32, device=dev),
+                      torch.zeros(count, dtype=torch.int32, device=dev)))
+    entries = [(st[0][z], st[1][z]) for st, (_, count, _) in zip(state, runs) for z in range(count)]
+    tables = {d: address_table(entries, d) for _, _, d in runs}
+    if len(runs) > 1:
+        enable_peers(lib, runs, near)
 
-    def call(dev, a, other, halos, nob, ndn, nup, av, count, r0, passes, exchange):
-        partials = torch.empty(count * t * ntiles, dtype=torch.float32, device=dev)
-        ticket = torch.zeros(count, dtype=torch.int32, device=dev)
+    def call(r, q, k):
+        s0, count, dev = runs[r]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            a, other, hdn, hup, nob, ndn, nup, av, partials, ticket = state[r]
             rc = getattr(lib, entry)(
-                a.data_ptr(), other.data_ptr(), halos[0].data_ptr(), halos[1].data_ptr(),
-                nob.data_ptr(), ndn.data_ptr(), nup.data_ptr(), av.data_ptr(),
-                partials.data_ptr(), ticket.data_ptr(), count, ry, nx, ny_global, r0, b, t, p,
-                passes, exchange, *scalars, stream,
+                tables[dev].data_ptr(), s0, count, n, a.data_ptr(), other.data_ptr(),
+                hdn.data_ptr(), hup.data_ptr(), nob.data_ptr(), ndn.data_ptr(), nup.data_ptr(),
+                av.data_ptr() + 4 * q * t, npasses * t, partials.data_ptr(), ticket.data_ptr(),
+                ry, nx, b, t, p, q % 2, k, *scalars, stream,
             )
         _build.check(rc, what)
 
-    dev = flat[0].device
-    if grouped and all(f.device == dev for f in flat):
-        a = torch.stack(flat)
-        other = torch.empty_like(a)
-        halos = (torch.empty((n, 9, t, nx), dtype=a.dtype, device=dev),
-                 torch.empty((n, 9, t, nx), dtype=a.dtype, device=dev))
-        av = torch.empty((n, npasses * t), dtype=torch.float32, device=dev)
-        call(dev, a, other, halos, torch.stack(nobs), torch.stack(nob_dn), torch.stack(nob_up),
-             av, n, 0, npasses, 1)
-        out = a if npasses % 2 == 0 else other
-        return [[out[z]] for z in range(n)], av
-    cur = [f.clone(memory_format=torch.contiguous_format) for f in flat]  # inputs stay unchanged
-    nxt = [torch.empty_like(f) for f in cur]
-    halos = [(torch.empty((9, t, nx), dtype=f.dtype, device=f.device),
-              torch.empty((9, t, nx), dtype=f.dtype, device=f.device)) for f in cur]
-    av = [torch.empty(npasses * t, dtype=torch.float32, device=f.device) for f in cur]
-    for q in range(npasses):
-        for z in range(n):
-            halos[z][0].copy_(cur[(z - 1) % n][:, ry - t:])
-            halos[z][1].copy_(cur[(z + 1) % n][:, :t])
-        for z in range(n):
-            call(cur[z].device, cur[z], nxt[z], halos[z], nobs[z].contiguous(),
-                 nob_dn[z].contiguous(), nob_up[z].contiguous(), av[z][q * t:], 1, z * ry, 1, 0)
-        cur, nxt = nxt, cur
-    return [[c] for c in cur], torch.stack([a.to(dev) for a in av])
+    issue(runs, near, npasses, call)
+    out = [st[npasses % 2][z] for st, (_, count, _) in zip(state, runs) for z in range(count)]
+    return [[o] for o in out], torch.cat([st[7].to(flat[0].device) for st in state])
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedKernel:
+    """The wrappers of a sharded band kernel (K8, K10): its name, its C
+    entry, its schedule check ``supported(ny, nx, block, depth, panel)``,
+    the copies of the window's 9 planes in shared memory, and a cap on the
+    window's cells (None: shared memory only)."""
+
+    name: str
+    entry: str
+    supported: Callable[..., bool]
+    plane_copies: int
+    max_window: int | None = None
+
+    def check(self, shards, nob_shards, n_iters, block, depth, panel) -> None:
+        """A 1-D mesh of f32 shards of at least ``depth`` rows, one device
+        type, and a schedule the kernel takes on one shard."""
+        if any(len(row) != 1 for row in shards) or len(nob_shards) != len(shards):
+            raise ValueError("the sharded band routes take a 1-D mesh of row shards")
+        for row, nob_row in zip(shards, nob_shards):
+            check_inputs(row[0], nob_row[0], max(n_iters, 1), 1)
+        if len({tuple(row[0].shape) for row in shards}) != 1:
+            raise ValueError("shards differ in shape")
+        if len({row[0].device.type for row in shards}) != 1:
+            raise ValueError("shards on more than one kind of device")
+        if block < 1 or depth < 1 or (panel is not None and panel < 1):
+            raise ValueError(f"bad band schedule: block {block}, depth {depth}, panel {panel}")
+        ry, nx = shards[0][0].shape[1:]
+        if depth > ry:
+            raise ValueError(f"local grid {ry}x{nx} is shallower than the band depth {depth}: "
+                             "the halo of a pass must come from the neighbour shards")
+        if not self.supported(ry, nx, block, depth, panel):
+            raise ValueError(f"{self.name} schedule unsupported on a {ry}x{nx} shard: block "
+                             f"{block}, depth {depth}, panel {panel}")
+
+    def passes(self, nob_shards, ny, density, accel, omega, block, depth, panel, paired,
+               device):
+        """``run_passes`` of ``run_creep_sharded`` for ``device``: the plain
+        passes on the CPU, the kernel's on CUDA."""
+        if device.type == "cpu":
+            w1a, w2a = forcing_weights(density, accel)
+            return plain_passes_sharded(nob_shards, ny, block, depth, panel,
+                                        r_step_plain(float(omega), w1a, w2a, paired))
+        if device.type != "cuda":
+            raise ValueError(f"no {self.name} kernel for device {device}")
+        if not (isinstance(paired, str) and paired.startswith("fused")):
+            raise ValueError(f"the CUDA {self.name} kernel implements the fused collision form "
+                             "only")
+        b, p, t = tile_shape(nob_shards[0][0].shape[1], block, depth, panel)
+        if self.max_window is not None and (b + 2 * t) * (p + 2 * t) > self.max_window:
+            raise ValueError(f"{self.name} kernel: a {b + 2 * t}x{p + 2 * t} window exceeds the "
+                             f"{self.max_window} cells its threads hold in registers")
+
+        def run_passes(shards, npasses):
+            return launch_passes_sharded(self.entry, f"{self.name} sharded kernel", shards,
+                                         nob_shards, density, accel, omega, block, depth, panel,
+                                         npasses, self.plane_copies)
+
+        return run_passes
+
+    def step(self, shards, nob_shards, density, accel, omega, block, depth, ny, panel, paired):
+        """One pass of ``depth`` steps; the shards and their raw sums
+        ``(nshards, depth)``."""
+        self.check(shards, nob_shards, depth, block, depth, panel)
+        return self.passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
+                           shards[0][0].device)(shards, 1)
+
+    def run(self, shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, panel,
+            paired, plain=False):
+        """``n_iters`` steps, ``depth`` per pass, the remainder on the shard
+        step: the kernel's passes on CUDA, the plain ones on the CPU or
+        with ``plain``. The shards and their raw sums ``(nshards, n_iters)``."""
+        self.check(shards, nob_shards, n_iters, block, depth, panel)
+        device = torch.device("cpu") if plain else shards[0][0].device
+        passes = self.passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
+                             device)
+        return run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny, depth,
+                                 passes, paired, plain=plain or device.type == "cpu")

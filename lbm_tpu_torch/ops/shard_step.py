@@ -19,21 +19,23 @@ the mask from that cell's own values; so the owner gate and the pre-forced edge 
 splices of the TPU path are not needed, and the result is K1's on the
 whole grid. A shard may be its own neighbour (``px = 1``, a mesh of one).
 
-- K3 (``run_shard_step``, ``csrc/shard_step.cu``): the ring is refilled
-  between steps (one fill launch for all shards);
+- K3 (``run_shard_step``, ``csrc/shard_step.cu``): the rings are refilled
+  from the neighbours' cells before each step (one fill launch);
 - K12 (``run_shard_overlap``, ``--backend pallas-overlap``, 1-D meshes):
   the kernel stores each shard's new edge cells straight into the rings
   that read them next step; nothing runs between steps. On one card that
   shows K12's result, not an overlap of exchange and compute.
 
-With every shard on one device, one C call issues a whole chunk: one
-launch per step covers all shards. Shards on several cards take one launch
-per shard per step; K3 then refills the rings with ``Tensor.copy_`` (peer
-copies), and K12 stores through peer addresses, which it requires
-(``cudaDeviceEnablePeerAccess``; without peer access it raises), its
-streams ordered with events. On CPU tensors both run ``run_shard_step_plain``,
-the same function in plain PyTorch; any other device raises, and CUDA
-tensors never run the plain version.
+The shards of a mesh fall into runs of consecutive shards on one device
+(``device_runs``); each run's shards share one allocation and one launch.
+With every shard on one device there is one run, and one C call issues a
+whole chunk. Across cards (``issue``) each run takes one C call per step,
+its stream first waiting for the previous step of the runs that hold its
+neighbours; the fills read and K12 stores through peer addresses, which
+both require (``cudaDeviceEnablePeerAccess``; without peer access they
+raise). On CPU tensors both run ``run_shard_step_plain``, the same function
+in plain PyTorch; any other device raises, and CUDA tensors never run the
+plain version.
 
 The TPU kernel's ``nx % 128`` and ``rows % 8`` do not carry over: any local
 grid of at least 1 x 1 cells works, on a global grid of ``ny >= 2``.
@@ -84,26 +86,6 @@ def with_ring(shards):
             row.append(torch.cat([top, mid, bot], dim=1))
         out.append(row)
     return out
-
-
-def fill_rings(padded):
-    """Refill, in place, the rings of a mesh of ringed shards from their
-    neighbours' cells: the columns first, then whole rows (their ends, the
-    corners, from the columns just filled). ``Tensor.copy_`` orders the
-    copies between devices."""
-    py, px = mesh_of(padded)
-    for i in range(py):
-        for j in range(px):
-            p = padded[i][j]
-            rx = p.shape[2] - 2
-            p[:, 1:-1, 0].copy_(padded[i][(j - 1) % px][:, 1:-1, rx])
-            p[:, 1:-1, rx + 1].copy_(padded[i][(j + 1) % px][:, 1:-1, 1])
-    for i in range(py):
-        for j in range(px):
-            p = padded[i][j]
-            ry = p.shape[1] - 2
-            p[:, 0, :].copy_(padded[(i - 1) % py][j][:, ry, :])
-            p[:, ry + 1, :].copy_(padded[(i + 1) % py][j][:, 1, :])
 
 
 def shard_step_plain(padded, nob_padded, r0, ny, w1a, w2a, omega, paired="fused"):
@@ -175,44 +157,87 @@ def run_shard_step_plain(shards, nob_shards, density, accel, omega, n_steps, ny,
     return shards, sums
 
 
-def _table(bufs, nobs, device):
-    """Addresses of buffer 0, buffer 1 and the padded mask of each shard, on
+def device_runs(devices):
+    """Maximal runs of consecutive shards on one device: ``[(s0, count,
+    device)]``."""
+    runs = []
+    for z, d in enumerate(devices):
+        if runs and runs[-1][2] == d:
+            runs[-1] = (runs[-1][0], runs[-1][1] + 1, d)
+        else:
+            runs.append((z, 1, d))
+    return runs
+
+
+def neighbour_runs(runs, py, px):
+    """Per run, the runs on other devices that hold a neighbour (rows,
+    columns, corners, wrapped) of one of its shards of a py x px mesh."""
+    owner = [r for r, (_, count, _) in enumerate(runs) for _ in range(count)]
+    near = []
+    for s0, count, dev in runs:
+        found = set()
+        for z in range(s0, s0 + count):
+            i, j = divmod(z, px)
+            for di in (-1, 0, 1):
+                for dj in (-1, 0, 1):
+                    q = owner[((i + di) % py) * px + (j + dj) % px]
+                    if runs[q][2] != dev:
+                        found.add(q)
+        near.append(sorted(found))
+    return near
+
+
+def enable_peers(lib, runs, near):
+    """Peer access from each run's card to the cards of its neighbour runs."""
+    for (_, _, dev), others in zip(runs, near):
+        for q in others:
+            other = runs[q][2]
+            if not torch.cuda.can_device_access_peer(dev, other):
+                raise RuntimeError(f"the shards on {dev} read and write the shards on {other}, "
+                                   "but that card has no peer access to it")
+            _build.check(lib.lbm_enable_peer(dev.index, other.index), "peer access")
+
+
+def sync(devices) -> None:
+    """Wait for the work queued on every CUDA device of ``devices``."""
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def issue(runs, near, n, call) -> None:
+    """Issue ``n`` steps (or passes) of every run: ``call(r, t, k)`` issues
+    ``k`` steps of run r from step ``t`` on its device's current stream. With one
+    run, one call for all ``n``. Across devices, one call per run per step,
+    each run's stream first waiting for the previous step of its neighbour
+    runs, which read and write its buffers; every device is synchronised
+    before (the inputs are in place) and after (no card still reads or
+    writes another's buffers)."""
+    if len(runs) == 1:
+        call(0, 0, n)
+        return
+    devices = [d for _, _, d in runs]
+    events = [[torch.cuda.Event() for _ in runs] for _ in range(2)]
+    sync(devices)
+    for t in range(n):
+        for r, dev in enumerate(devices):
+            stream = torch.cuda.current_stream(dev)
+            if t:
+                for q in near[r]:
+                    stream.wait_event(events[(t - 1) % 2][q])
+            call(r, t, 1)
+            events[t % 2][r].record(stream)
+    sync(devices)
+
+
+def address_table(entries, device):
+    """The addresses of each shard's buffers, one row per shard, on
     ``device``."""
-    return torch.tensor([[b0.data_ptr(), b1.data_ptr(), n.data_ptr()]
-                         for (b0, b1), n in zip(bufs, nobs)], dtype=torch.int64, device=device)
+    return torch.tensor([[e.data_ptr() for e in row] for row in entries], dtype=torch.int64,
+                        device=device)
 
 
-def _launch(lib, table, s0, count, py, px, ry, rx, ny, av, av_stride, parity, n_steps, mode,
-            fill_first, scalars, device, what):
-    """One C call of ``lbm_shard_run`` on ``device``'s current stream."""
-    nblocks = lib.lbm_step_num_blocks(ry, rx)
-    partials = torch.empty(count * nblocks, dtype=torch.float32, device=device)
-    ticket = torch.zeros(count, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.lbm_shard_run(table.data_ptr(), s0, count, py, px, ry, rx, ny, pitch_of(rx),
-                               LEAD, av, av_stride, partials.data_ptr(), ticket.data_ptr(),
-                               parity, n_steps, mode, fill_first, *scalars, stream)
-    _build.check(rc, what)
-
-
-def _enable_peers(lib, devices, py, px):
-    """Peer access from each shard's card to its ring neighbours' cards."""
-    for z, dev in enumerate(devices):
-        i, j = divmod(z, px)
-        for di in (-1, 0, 1):
-            for dj in (-1, 0, 1):
-                other = devices[((i + di) % py) * px + (j + dj) % px]
-                if other == dev:
-                    continue
-                if not torch.cuda.can_device_access_peer(dev, other):
-                    raise RuntimeError(f"pallas-overlap stores into the shard on {other} from "
-                                       f"{dev}, which has no peer access to it")
-                _build.check(lib.lbm_enable_peer(dev.index, other.index), "peer access")
-
-
-def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap, grouped,
-                what):
+def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap, what):
     check_mesh(shards, nob_shards, n_steps, ny)
     if not (isinstance(paired, str) and paired.startswith("fused")):
         raise ValueError("the CUDA shard kernels implement the fused collision form only")
@@ -220,69 +245,48 @@ def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, 
     ry, rx = shards[0][0].shape[1:]
     flat = [s for row in shards for s in row]
     nobs = [n for row in nob_shards for n in row]
-    devices = [s.device for s in flat]
     lib = _build.library()
     scalars = kernel_scalars(density, accel, omega, 1.0)[:6]
-    mode = 2 if overlap else 1
-    dev = devices[0]
+    nblocks = lib.lbm_step_num_blocks(ry, rx)
+    runs = device_runs([s.device for s in flat])
+    near = neighbour_runs(runs, py, px)
     pitch, cells = pitch_of(rx), slice(LEAD, LEAD + rx)
-    if grouped and all(d == dev for d in devices):
-        bufs = torch.empty((2, py * px, 9, ry + 2, pitch), dtype=torch.float32, device=dev)
-        nob = torch.empty((py * px, ry + 2, pitch), dtype=torch.float32, device=dev)
-        for z in range(py * px):
-            bufs[0, z, :, 1:-1, cells] = flat[z]
-            nob[z, 1:-1, cells] = nobs[z]
-        table = _table([(bufs[0, z], bufs[1, z]) for z in range(py * px)], nob, dev)
-        av = torch.empty((py * px, n_steps), dtype=torch.float32, device=dev)
-        _launch(lib, table, 0, py * px, py, px, ry, rx, ny, av.data_ptr(), n_steps, 0, n_steps,
-                mode, 1, scalars, dev, what)
-        out = bufs[n_steps % 2]
-        return [[out[i * px + j, :, 1:-1, cells] for j in range(px)] for i in range(py)], av
-    # One launch per shard per step, the rings across devices.
-    if overlap:
-        _enable_peers(lib, devices, py, px)
-    ring = slice(LEAD - 1, LEAD + rx + 1)
-    ringed = [p for row in with_ring(shards) for p in row]
-    nob_ringed = [n[0] for row in with_ring([[n[None] for n in r] for r in nob_shards])
-                  for n in row]
-    bufs, nob_ring = [], []
-    for c, n in zip(ringed, nob_ringed):
-        b0 = torch.empty((9, ry + 2, pitch), dtype=torch.float32, device=c.device)
-        b0[:, :, ring] = c
-        nob = torch.empty((ry + 2, pitch), dtype=torch.float32, device=c.device)
-        nob[:, ring] = n
-        bufs.append((b0, torch.empty_like(b0)))
-        nob_ring.append(nob)
-    tables = {d: _table(bufs, nob_ring, d) for d in set(devices)}
-    av = [torch.empty(n_steps, dtype=torch.float32, device=d) for d in devices]
-    events = [None] * (py * px)
-    for t in range(n_steps):
-        parity = t % 2
-        done = []
-        for z, d in enumerate(devices):
-            if overlap:  # wait for the neighbours' previous step (they read and write our rings)
-                i = z // px
-                for nz in (((i - 1) % py) * px + z % px, ((i + 1) % py) * px + z % px):
-                    if events[nz] is not None and devices[nz] != d:
-                        torch.cuda.current_stream(d).wait_event(events[nz])
-            _launch(lib, tables[d], z, 1, py, px, ry, rx, ny, av[z].data_ptr() + 4 * t, 1,
-                    parity, 1, 2 if overlap else 0, 0, scalars, d, what)
-            if overlap:
-                ev = torch.cuda.Event()
-                ev.record(torch.cuda.current_stream(d))
-                done.append(ev)
-        if overlap:
-            events = done
-        else:
-            fill_rings([[bufs[i * px + j][1 - parity][:, :, ring] for j in range(px)]
-                        for i in range(py)])
-    final = [b[n_steps % 2][:, 1:-1, cells] for b in bufs]
-    out = [[final[i * px + j] for j in range(px)] for i in range(py)]
-    return out, torch.stack([a.to(dev) for a in av])
+    state = []  # per run: (buffers, padded masks, av, partials, ticket)
+    for s0, count, dev in runs:
+        bufs = torch.empty((2, count, 9, ry + 2, pitch), dtype=torch.float32, device=dev)
+        nob = torch.empty((count, ry + 2, pitch), dtype=torch.float32, device=dev)
+        for z in range(count):
+            bufs[0, z, :, 1:-1, cells] = flat[s0 + z]
+            nob[z, 1:-1, cells] = nobs[s0 + z]
+        state.append((bufs, nob, torch.empty((count, n_steps), dtype=torch.float32, device=dev),
+                      torch.empty(count * nblocks, dtype=torch.float32, device=dev),
+                      torch.zeros(count, dtype=torch.int32, device=dev)))
+    entries = [(bufs[0, z], bufs[1, z], nob[z])
+               for (bufs, nob, *_), (_, count, _) in zip(state, runs) for z in range(count)]
+    tables = {d: address_table(entries, d) for _, _, d in runs}
+    if len(runs) > 1:
+        enable_peers(lib, runs, near)
+
+    def call(r, t, k):
+        s0, count, dev = runs[r]
+        _, _, av, partials, ticket = state[r]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.lbm_shard_run(tables[dev].data_ptr(), s0, count, py, px, ry, rx, ny, pitch,
+                                   LEAD, av.data_ptr() + 4 * t, n_steps, partials.data_ptr(),
+                                   ticket.data_ptr(), t % 2, k, 2 if overlap else 1, int(t == 0),
+                                   *scalars, stream)
+        _build.check(rc, what)
+
+    issue(runs, near, n_steps, call)
+    final = [bufs[n_steps % 2, z, :, 1:-1, cells] for (bufs, *_), (_, count, _) in zip(state, runs)
+             for z in range(count)]
+    dev = flat[0].device
+    sums = torch.cat([av.to(dev) for _, _, av, _, _ in state])
+    return [[final[i * px + j] for j in range(px)] for i in range(py)], sums
 
 
-def _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap, grouped,
-              what):
+def _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap, what):
     dev = shards[0][0].device
     if dev.type == "cpu":
         return run_shard_step_plain(shards, nob_shards, density, accel, omega, n_steps, ny,
@@ -290,32 +294,29 @@ def _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, ov
     if dev.type != "cuda":
         raise ValueError(f"no shard kernel for device {dev}")
     return _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap,
-                       grouped, what)
+                       what)
 
 
-def run_shard_step(shards, nob_shards, density, accel, omega, n_steps, ny, *, paired="fused",
-                   grouped=True):
+def run_shard_step(shards, nob_shards, density, accel, omega, n_steps, ny, *, paired="fused"):
     """``n_steps`` fused steps of a mesh of shards: kernel K3 on CUDA,
     ``run_shard_step_plain`` on CPU. Returns ``(shards, sums)``, the raw
-    per-shard sums ``(py*px, n_steps)`` on the first shard's device.
-    ``grouped=False`` takes the several-device path (one launch per shard
-    per step, rings refilled by copies) even on one device. The input
-    shards are left unchanged; the returned ones may be views of one
+    per-shard sums ``(py*px, n_steps)`` on the first shard's device. The
+    input shards are left unchanged; the returned ones may be views of one
     buffer."""
     out = _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, False,
-                    grouped, "shard step kernel")
+                    "shard step kernel")
     if shards[0][0].device.type == "cuda":
         run_shard_step.launches += n_steps
     return out
 
 
 def run_shard_overlap(shards, nob_shards, density, accel, omega, n_steps, ny, *,
-                      paired="fused", grouped=True):
+                      paired="fused"):
     """``run_shard_step``'s function with kernel K12 on CUDA: each shard's
     edge cells are stored into the rings that read them by the kernel
     itself. Its plain version is ``run_shard_step_plain``."""
     out = _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, True,
-                    grouped, "shard overlap kernel")
+                    "shard overlap kernel")
     if shards[0][0].device.type == "cuda":
         run_shard_overlap.launches += n_steps
     return out

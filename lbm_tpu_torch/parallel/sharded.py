@@ -11,7 +11,8 @@ the first four cards.
 - Shard ``(i, j)`` owns global rows ``[i*ry, (i+1)*ry)`` and columns
   ``[j*rx, (j+1)*rx)`` of all 9 planes (``split``, ``gather``); ``ny % py``
   and ``nx % px`` must be 0.
-- ``--backend reference`` runs ``lbm_step_sharded(_2d)``: the forcing by
+- ``--backend reference`` runs ``lbm_step_sharded_2d`` (a 1-D mesh is its
+  ``px = 1`` case, x wrapping within each shard): the forcing by
   the owner of global row ny-2 through a global-row mask, streaming that
   splices in the neighbours' edge rows, columns and corners, the BGK
   collision of ``ops/reference.py``.
@@ -44,7 +45,7 @@ import torch
 from lbm_tpu_torch.models.d2q9 import CX, CY, D2Q9, LBMParams
 from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import collide
-from lbm_tpu_torch.ops.shard_step import with_ring
+from lbm_tpu_torch.ops.shard_step import sync, with_ring
 from lbm_tpu_torch.runtime.device import list_devices
 from lbm_tpu_torch.runtime.driver import SimulationResult, compute_chunk_sizes
 
@@ -136,7 +137,7 @@ def _stream_local_2d(padded):
 
 
 def lbm_step_sharded_2d(shards, obst_shards, density, accel, omega, ny_global):
-    """One timestep of every shard of a 2-D mesh: forcing by the owner of
+    """One timestep of every shard of a mesh (1-D: ``px = 1``): forcing by the owner of
     global row ny-2, streaming across the shard edges, collision. Returns
     the new shards and the raw per-shard sums of ``nobst * |u|`` as one
     ``(py*px,)`` tensor on the first shard's device."""
@@ -154,12 +155,6 @@ def lbm_step_sharded_2d(shards, obst_shards, density, accel, omega, ny_global):
             sums.append(tot.to(shards[0][0].device))
         new.append(row)
     return new, torch.stack(sums)
-
-
-def lbm_step_sharded(shards, obst_shards, density, accel, omega, ny_global):
-    """``lbm_step_sharded_2d`` on a 1-D row mesh (``shards[i][0]``): x wraps
-    within each shard."""
-    return lbm_step_sharded_2d(shards, obst_shards, density, accel, omega, ny_global)
 
 
 def mesh_totals(sums: torch.Tensor, inv_tot_cells) -> torch.Tensor:
@@ -180,13 +175,13 @@ def _storage(dtype):
     return dtype
 
 
-def pick_shard_step(params: LBMParams, mesh, backend: str, dtype, schedule=None):
+def pick_shard_step(params: LBMParams, mesh, backend: str, dtype):
     """Resolve ``backend`` on a mesh (an int: a 1-D mesh of that many row
     shards; a ``(py, px)`` pair: a 2-D mesh) to ``(route, schedule)``: route
     ``reference``, ``pallas`` (K3), ``pallas-overlap`` (K12), ``band`` (K8)
-    or ``band2`` (K10), schedule ``(block, depth, panel)`` for the band
-    routes. ``schedule`` overrides the single-device picker's. Refusals
-    raise ``ValueError`` with the JAX package's wording."""
+    or ``band2`` (K10), schedule ``(block, depth, panel)`` of the band
+    routes from the single-device picker. Refusals raise ``ValueError``
+    with the JAX package's wording."""
     from lbm_tpu_torch.runtime.driver import BACKENDS, band2_config, band_config
 
     two_d = isinstance(mesh, tuple)
@@ -229,7 +224,7 @@ def pick_shard_step(params: LBMParams, mesh, backend: str, dtype, schedule=None)
     from lbm_tpu_torch.ops.band2 import band2_supported
 
     supported = band_supported if backend == "band" else band2_supported
-    cfg = schedule or (band_config if backend == "band" else band2_config)(params, dtype)
+    cfg = (band_config if backend == "band" else band2_config)(params, dtype)
     if not (cfg[1] <= rows and supported(rows, cols, *cfg)):
         alt = "pallas" if backend == "band" else "band/pallas"
         raise ValueError(f"local grid {rows}x{cols} unsupported by the {backend} kernel; use "
@@ -237,16 +232,9 @@ def pick_shard_step(params: LBMParams, mesh, backend: str, dtype, schedule=None)
     return backend, tuple(cfg)
 
 
-def _sync(devices) -> None:
-    for d in dict.fromkeys(devices):
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
-
-
 def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_step,
-         av_vels_prefix, checkpoint_every, checkpoint_path, checkpoint_format, schedule):
-    route, cfg = pick_shard_step(params, mesh.shape if two_d else mesh.size, backend, dtype,
-                                 schedule)
+         av_vels_prefix, checkpoint_every, checkpoint_path, checkpoint_format):
+    route, cfg = pick_shard_step(params, mesh.shape if two_d else mesh.size, backend, dtype)
     if checkpoint_format != "npz":
         raise ValueError("orbax checkpoints are JAX-only (lbm_tpu); use checkpoint_format='npz'")
     kinds = {d.type for d in mesh.flat}
@@ -301,11 +289,11 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
     elapsed = 0.0
     step = start_step
     for n in compute_chunk_sizes(start_step, params.max_iters, checkpoint_every):
-        _sync(mesh.flat)
+        sync(mesh.flat)
         t0 = time.perf_counter()
         shards, sums = advance(shards, n)
         av = mesh_totals(sums, inv_np)
-        _sync(mesh.flat)
+        sync(mesh.flat)
         elapsed += time.perf_counter() - t0
         av_chunks.append(av.cpu().numpy())
         step += n
@@ -340,18 +328,15 @@ def run_simulation_sharded(
     checkpoint_every: int = 0,
     checkpoint_path: str | None = None,
     checkpoint_format: str = "npz",
-    schedule: tuple[int, int, int | None] | None = None,
 ) -> SimulationResult:
     """Run steps ``start_step .. params.max_iters`` over a 1-D row mesh
     (``make_mesh(n_devices, devices)``); ``ny`` must divide by its size.
-    Checkpoint and resume as ``runtime/driver.py::run_simulation``.
-    ``schedule`` is the ``(block, depth, panel)`` of ``band``/``band2``
-    (default: the single-device picker's)."""
+    Checkpoint and resume as ``runtime/driver.py::run_simulation``."""
     mesh = make_mesh(n_devices, devices)
     if params.ny % mesh.size != 0:
         raise ValueError(f"ny={params.ny} not divisible by {mesh.size} devices")
     return _run(params, obstacles, mesh, False, backend, dtype, initial_cells, start_step,
-                av_vels_prefix, checkpoint_every, checkpoint_path, checkpoint_format, schedule)
+                av_vels_prefix, checkpoint_every, checkpoint_path, checkpoint_format)
 
 
 def run_simulation_sharded_2d(
@@ -376,4 +361,4 @@ def run_simulation_sharded_2d(
     if params.ny % py != 0 or params.nx % px != 0:
         raise ValueError(f"grid {params.ny}x{params.nx} not divisible by mesh {py}x{px}")
     return _run(params, obstacles, mesh, True, backend, dtype, initial_cells, start_step,
-                av_vels_prefix, checkpoint_every, checkpoint_path, checkpoint_format, None)
+                av_vels_prefix, checkpoint_every, checkpoint_path, checkpoint_format)

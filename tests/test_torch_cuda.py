@@ -228,11 +228,10 @@ SHARD_KERNELS = {"K3": tshard.run_shard_step, "K12": tshard.run_shard_overlap}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("grouped", [True, False], ids=["one-call", "per-shard"])
 @pytest.mark.parametrize("nx,ny,py,px", [(70, 96, 4, 1), (70, 96, 2, 2), (33, 6, 3, 3),
                                          (4, 4, 4, 1), (4, 4, 4, 4), (70, 97, 1, 1)])
 @pytest.mark.parametrize("name", list(SHARD_KERNELS))
-def test_shard_kernels_match_plain_and_k1(cuda_device, name, nx, ny, py, px, grouped):
+def test_shard_kernels_match_plain_and_k1(cuda_device, name, nx, ny, py, px):
     """K3 (any mesh) and K12 (1-D meshes) against the plain shard step, and
     their joined state bitwise K1's on the whole grid; down to 1 x 1-cell
     shards and a mesh of one; a second run is bitwise equal."""
@@ -241,9 +240,9 @@ def test_shard_kernels_match_plain_and_k1(cuda_device, name, nx, ny, py, px, gro
     kernel = SHARD_KERNELS[name]
     cells, nobst, shards, nob = mesh_setup(cuda_device, nx, ny, py, px, seed=py + px)
     before = kernel.launches
-    got = kernel(shards, nob, DENSITY, ACCEL, OMEGA, 9, ny, grouped=grouped)
+    got = kernel(shards, nob, DENSITY, ACCEL, OMEGA, 9, ny)
     assert kernel.launches == before + 9
-    again = kernel(shards, nob, DENSITY, ACCEL, OMEGA, 9, ny, grouped=grouped)
+    again = kernel(shards, nob, DENSITY, ACCEL, OMEGA, 9, ny)
     assert torch.equal(joined(got[0]), joined(again[0])) and torch.equal(got[1], again[1])
     assert_mesh_close(got, tshard.run_shard_step_plain(shards, nob, DENSITY, ACCEL, OMEGA, 9, ny))
     k1, _ = tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 9, 1.0)
@@ -255,10 +254,9 @@ SHARD_BANDS = {"K8": (tband.run_band_sharded, tband.run_band_sharded_plain),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("grouped", [True, False], ids=["one-call", "per-shard"])
 @pytest.mark.parametrize("iters,panel", [(8, 20), (19, 20), (11, None)])
 @pytest.mark.parametrize("name", list(SHARD_BANDS))
-def test_sharded_band_kernels_match_plain_and_k1(cuda_device, name, iters, panel, grouped):
+def test_sharded_band_kernels_match_plain_and_k1(cuda_device, name, iters, panel):
     """K8 and K10 on 4 row shards of a 100 x 70 grid: shards of 25 rows
     under 16-row tiles (T 4, a ragged last tile), passes with and without a
     K3 remainder; bitwise K1's joined state; a second run bitwise equal."""
@@ -266,11 +264,9 @@ def test_sharded_band_kernels_match_plain_and_k1(cuda_device, name, iters, panel
     ny, nx = 100, 70
     cells, nobst, shards, nob = mesh_setup(cuda_device, nx, ny, 4, 1, seed=iters)
     before = kernel.launches
-    got = kernel(shards, nob, DENSITY, ACCEL, OMEGA, iters, 16, 4, ny, panel=panel,
-                 grouped=grouped)
+    got = kernel(shards, nob, DENSITY, ACCEL, OMEGA, iters, 16, 4, ny, panel=panel)
     assert kernel.launches == before + iters // 4 * 4
-    again = kernel(shards, nob, DENSITY, ACCEL, OMEGA, iters, 16, 4, ny, panel=panel,
-                   grouped=grouped)
+    again = kernel(shards, nob, DENSITY, ACCEL, OMEGA, iters, 16, 4, ny, panel=panel)
     assert torch.equal(joined(got[0]), joined(again[0])) and torch.equal(got[1], again[1])
     assert_mesh_close(got, plain(shards, nob, DENSITY, ACCEL, OMEGA, iters, 16, 4, ny,
                                  panel=panel))
@@ -303,12 +299,16 @@ def test_shard_kernels_refuse(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("repeat", [1, 2], ids=["once", "twice"])
 @pytest.mark.parametrize("backend,mesh", [("pallas", None), ("pallas-overlap", None),
                                           ("band", None), ("band2", None), ("auto", "2d")])
-def test_mesh_across_cards(cuda_device, backend, mesh):
-    """A mesh over every card (two or more; 2 x n/2 for the 2-D case): the
-    per-shard launches, the ring and halo copies between cards and K12's
-    peer stores give the single-card K1 run bit for bit."""
+def test_mesh_across_cards(cuda_device, backend, mesh, repeat):
+    """A mesh over every card (two or more; 2 x n/2 for the 2-D case), each
+    card holding one shard or, ``twice``, two shards that are not
+    neighbours in shard order: one call per run of shards per step (or
+    pass) ordered by events, the ring fills and halo copies reading the
+    neighbour cards and K12's peer stores give the single-card K1 run bit
+    for bit."""
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.parallel.sharded import run_simulation_sharded, run_simulation_sharded_2d
     from lbm_tpu_torch.runtime.driver import run_simulation
@@ -316,16 +316,18 @@ def test_mesh_across_cards(cuda_device, backend, mesh):
     n = torch.cuda.device_count()
     if n < 2 or (mesh and n % 2):
         pytest.skip("needs two or more CUDA devices (an even count for 2-D)")
-    params = LBMParams(nx=96, ny=32 * n, max_iters=23, reynolds_dim=10, density=DENSITY,
-                       accel=ACCEL, omega=OMEGA)
+    devices = [f"cuda:{i}" for i in range(n)] * repeat
+    params = LBMParams(nx=96, ny=32 * n * repeat, max_iters=23, reynolds_dim=10,
+                       density=DENSITY, accel=ACCEL, omega=OMEGA)
     obs = np.zeros((params.ny, params.nx), np.int32)
     obs[0] = obs[-1] = 1
     obs[np.random.RandomState(2).randint(1, params.ny - 1, 20), 7] = 1
     want = run_simulation(params, obs, device="cuda:0", backend="pallas")
     if mesh:
-        got = run_simulation_sharded_2d(params, obs, mesh_shape=(2, n // 2), backend=backend)
+        got = run_simulation_sharded_2d(params, obs, mesh_shape=(2, n * repeat // 2),
+                                        devices=devices, backend=backend)
     else:
-        got = run_simulation_sharded(params, obs, n_devices=n, backend=backend)
-    assert got.shard_devices == tuple(f"cuda:{i}" for i in range(n))
+        got = run_simulation_sharded(params, obs, devices=devices, backend=backend)
+    assert got.shard_devices == tuple(devices)
     np.testing.assert_array_equal(got.cells, want.cells)
     np.testing.assert_allclose(got.av_vels, want.av_vels, rtol=1e-5)

@@ -3,8 +3,9 @@ port's sharded path against the JAX package's ``run_simulation_sharded`` on
 the 8 virtual CPU devices of tests/conftest.py, whose sharded band kernels
 run in interpret mode.
 
-Both packages get the same schedule: the port through ``schedule=``, the
-JAX package through ``LBM_BAND_BLOCK``/``LBM_BAND_DEPTH`` (and
+Both packages get the same schedule: the port through its pickers
+``runtime.driver.band_config``/``band2_config``, patched here, the JAX
+package through ``LBM_BAND_BLOCK``/``LBM_BAND_DEPTH`` (and
 ``LBM_BAND_PANEL`` for its panel kernels, whose 128-column x halo the port
 replaces by a T-column one: the same function). The port's shards lie on
 the CPU, where the routes run their plain versions. Tolerances are
@@ -43,16 +44,22 @@ def band_case(ny, nx, iters, n):
     return params, obs
 
 
+def use_schedule(monkeypatch, block, depth, panel):
+    """The port's band pickers return ``(block, depth, panel)``."""
+    for name in ("band_config", "band2_config"):
+        monkeypatch.setattr(tdriver, name, lambda params, dtype: (block, depth, panel))
+
+
 def run_both(monkeypatch, backend, ny, nx, iters, n, block, depth, panel=None):
     params, obs = band_case(ny, nx, iters, n)
+    use_schedule(monkeypatch, block, depth, panel)
     monkeypatch.setenv("LBM_BAND_BLOCK", str(block))
     monkeypatch.setenv("LBM_BAND_DEPTH", str(depth))
     if panel is not None:
         monkeypatch.setenv("LBM_BAND_PANEL", str(panel))
     want = jsh.run_simulation_sharded(JParams(**dataclasses.asdict(params)), obs, n_devices=n,
                                       backend=backend, dtype=jnp.float32)
-    got = tsh.run_simulation_sharded(params, obs, devices=["cpu"] * n, backend=backend,
-                                     schedule=(block, depth, panel))
+    got = tsh.run_simulation_sharded(params, obs, devices=["cpu"] * n, backend=backend)
     assert got.route == backend
     np.testing.assert_allclose(got.cells, np.asarray(want.cells), atol=CELLS_ATOL)
     np.testing.assert_allclose(got.av_vels, np.asarray(want.av_vels), rtol=AV_RTOL,
@@ -85,7 +92,7 @@ def test_band2_panel_forcing_row_in_a_halo_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("route", ["band", "band2"])
 @pytest.mark.parametrize("schedule", [(8, 4, None), (5, 2, 7), (16, 4, 40)])
-def test_ragged_schedules_are_k1_plain(route, schedule):
+def test_ragged_schedules_are_k1_plain(monkeypatch, route, schedule):
     """Shards of 25 rows under tiles that do not divide them, where the JAX
     kernels cannot go: bitwise the single-device K1 plain step, the av series
     within f32 summation order."""
@@ -93,8 +100,8 @@ def test_ragged_schedules_are_k1_plain(route, schedule):
     if route == "band2" and block < 2 * depth:
         block = 2 * depth
     params, obs = band_case(100, 30, 11, 4)
-    got = tsh.run_simulation_sharded(params, obs, devices=["cpu"] * 4, backend=route,
-                                     schedule=(block, depth, panel))
+    use_schedule(monkeypatch, block, depth, panel)
+    got = tsh.run_simulation_sharded(params, obs, devices=["cpu"] * 4, backend=route)
     want = tdriver.run_simulation(params, obs, device="cpu", backend="pallas")
     np.testing.assert_array_equal(got.cells, want.cells)
     np.testing.assert_allclose(got.av_vels, want.av_vels, rtol=1e-5)

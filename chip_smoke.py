@@ -35,7 +35,8 @@ PyTorch built for CUDA. Phases, each printing what it found:
    ``band``, ``band2`` and ``band3`` through the 1% gate, and the 1000^2 x
    1001 (ragged tiles, a K1 remainder), 2048^2 x 2048 and 4096^2 x 1024
    "walls" decks (rows 0 and ny-1 blocked) with
-   ``aa``, each band backend and (but on 4096^2) ``auto``; each of the latter is held
+   ``aa``, each band backend and ``auto`` (on 4096^2 ``aa`` and ``band3``,
+   auto's route there, only); each of the latter is held
    against the ``aa`` run through ``utils/checker.check_files`` at 1% and
    directly (av series at rtol 1e-4, final_state identical bytes or within
    the kernel tolerances). The counters, zeroed just before, must account
@@ -69,19 +70,46 @@ PyTorch built for CUDA. Phases, each printing what it found:
    1% gate; a 256^2 ``--mesh 4`` run resumed from a step-30,001 checkpoint
    with ``--checkpoint-every``, whose files must be the bytes of the
    uninterrupted run. The counters, zeroed just before, must account for
-   every step.
+   every step;
+15. the c16 forms (int16 companded storage, ``ops/devspace.py``) of K1, K2,
+   K11 and K7 against their plain versions at 1024^2 and 1000^2 (K2 both
+   exit parities; K11 and K7 one pass, two passes and a K1 remainder, K11
+   three and four passes), two K2 c16 runs bitwise equal; time per step of
+   each beside its f32 form (K1, K2 at 1024^2, K11 at 2048^2 and 4096^2);
+16. the slab kernel K13 (``csrc/band.cu``, slab mode) at f32 and c16
+   against its plain version at 1024^2 and 1024 x 1000 over one generation,
+   two and a remainder (K7 passes and K1); at f32 against K1 over 1000
+   steps on the 2048^2 walls mask (bitwise), two runs of each form bitwise
+   equal; the (K, S) sweep, K in {1, 2, 4} and S in {128, 256, 512, 1024}
+   (and 2048 at 4096^2), per step at 2048^2 and 4096^2 on the walls mask
+   beside K7 and K11 in the same loop, and the default (K, S) at c16;
+17. the c16 and slab path through ``cli.main``: the 256^2 and 1024^2 decks
+   with ``--precision c16`` under ``auto`` (K1), ``aa`` (K2) and ``pallas``
+   (K1) through the 1% gate, and under ``band3`` (K11); the 1024^2 deck
+   with ``band`` (K7) at c16 and, with ``LBM_ENABLE_SLAB=1``, ``slab``
+   (K13) at f32 through the 1% gate and at c16. The band kernels round
+   their codes once per pass, so their c16 runs print the 1% verdict and
+   are held at ``PASS_GATE_C16`` (5%); ``slab`` at f32 on phase 8's 2048^2
+   walls deck held against its ``aa`` run; a 256^2 ``aa`` c16 run resumed from a step-30,001
+   checkpoint, whose files must be the bytes of the uninterrupted c16 run. The counters, f32
+   and c16 apart, zeroed just before, must account for every step.
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
-kernels and another summation order); golden gate 1% (the reference's
-checker). Any failure exits non-zero before the last line. The last two
-lines are the kernel report and ``{"ok": true, "device": {...}}``. In the
-report ``ms``/``plain_ms`` are per step (K1, K2 and K4 at 1024^2, the
-others at 2048^2, the shard kernels with 4 shards); ``bound_ms`` is the
-least time of that step on an H100 at this run's shape: the larger of its
-bytes (76 B per cell per launch of a one-step kernel and per pass of a
-T-step one: 9 planes read and written and the mask, each once) over 3.35
-TB/s and its f32 operations (``FLOPS_PER_CELL_STEP``) over 67 TFLOP/s;
+kernels and another summation order); at c16 the decoded cells within
+5e-6 and the av series at rtol 1e-3 (FMA contraction can move a code by
+one quantum at a rounding tie, and a moved code feeds the next steps);
+golden gate 1% (the reference's checker). Any failure exits non-zero
+before the last line. The last two lines are the kernel report and
+``{"ok": true, "device": {...}}``. In the report ``ms``/``plain_ms`` are
+per step (K1, K2 and K4 at 1024^2, the others at 2048^2, the shard kernels
+with 4 shards); ``bound_ms`` is the least time of that step on an H100 at
+this run's shape: the larger of its bytes over 3.35 TB/s and its f32
+operations (``FLOPS_PER_CELL_STEP``) over 67 TFLOP/s. The bytes: 76 B per
+cell (9 f32 planes read and written and the f32 mask, each once) or 40 B
+at c16 (9 int16 planes), per launch of a one-step kernel and per pass of a
+T-step one; for K13 those bytes times (S + 2KT) / S per generation of K*T
+steps, the HBM traffic when a slab's inner passes stay in L2.
 ``library_ms`` is null, as no single PyTorch call computes these steps.
 """
 
@@ -97,12 +125,18 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL_CELLS = 1e-5
 TOL_AV = 1e-4
+TOL_C16_CELLS = 5e-6  # absolute, on decoded cells
+TOL_C16_AV = 1e-3
+# The checker's limit (percent) for the band kernels at c16, which round
+# once per pass (phase 17); the 1% verdict is printed beside it.
+PASS_GATE_C16 = 5.0
 DENSITY, ACCEL, OMEGA = 0.1, 0.005, 1.85
 # An H100 SXM's peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 BYTES_PER_CELL = 76  # 9 f32 planes read, 9 written, the f32 mask read
+BYTES_PER_CELL_C16 = 40  # 9 int16 planes read, 9 written, the f32 mask read
 # f32 operations of one cell-step of collide_fused (lbm_common.cuh: 9-value
 # moments, the four paired relaxations, the select) with the forcing test
 # and the |u| sum: counted from the source, about 70.
@@ -176,18 +210,26 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def compare(torch, name, got, want):
+def compare(torch, name, got, want, spec=None):
+    """Kernel against plain version; ``spec``: c16 codes, compared decoded."""
     (gc, ga), (wc, wa) = got, want
     torch.cuda.synchronize()
+    if spec is not None:
+        from lbm_tpu_torch.ops.devspace import decode_state
+
+        check(gc.dtype == torch.int16, f"{name}: c16 output is {gc.dtype}")
+        gc, wc = decode_state(gc, spec), decode_state(wc, spec)
     check(bool(torch.isfinite(gc).all()) and bool(torch.isfinite(ga).all()),
           f"{name}: non-finite output")
     err = float((gc - wc).abs().max())
     scale = float(wc.abs().max())
+    lim_cells = TOL_CELLS * scale if spec is None else TOL_C16_CELLS
+    lim_av = TOL_AV if spec is None else TOL_C16_AV
     av_rel = float(((ga.double() - wa.double()).abs() / wa.double().abs()).max())
-    log(f"  {name}: max|cells diff| {err:.3e} (limit {TOL_CELLS * scale:.3e}), "
-        f"max av rel diff {av_rel:.3e} (limit {TOL_AV})")
-    check(err <= TOL_CELLS * scale, f"{name}: cells differ by {err}")
-    check(av_rel <= TOL_AV, f"{name}: av series differs by {av_rel}")
+    log(f"  {name}: max|cells diff| {err:.3e} (limit {lim_cells:.3e}), "
+        f"max av rel diff {av_rel:.3e} (limit {lim_av})")
+    check(err <= lim_cells, f"{name}: cells differ by {err}")
+    check(av_rel <= lim_av, f"{name}: av series differs by {av_rel}")
     return err
 
 
@@ -215,11 +257,11 @@ def kernel_phase(torch, label, kernel, plain, parity_steps):
     return max(errs), per_step[1024][0], per_step[1024][1]
 
 
-def bound(cells, depth=1):
+def bound(cells, depth=1, bytes_per_cell=BYTES_PER_CELL):
     """``(bound_ms, bound_by)`` of one step over ``cells`` cells on an H100:
-    a one-step kernel (depth 1) moves 76 B per cell, a T-step pass 76 B per
-    cell per T steps."""
-    bytes_ms = 1e3 * cells * BYTES_PER_CELL / depth / HBM_BYTES_S
+    a one-step kernel (depth 1) moves ``bytes_per_cell`` (76 at f32, 40 at
+    c16), a T-step pass that many per cell per T steps."""
+    bytes_ms = 1e3 * cells * bytes_per_cell / depth / HBM_BYTES_S
     ops_ms = 1e3 * cells * FLOPS_PER_CELL_STEP / F32_FLOPS
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
@@ -245,9 +287,11 @@ def write_gold(npz_path, out_dir):
     return av_path, fs_path
 
 
-def run_deck(cli, tag, backend, work, gpu_line, mesh=None):
+def run_deck(cli, tag, backend, work, gpu_line, mesh=None, precision="f32", gate=1.0):
     """One official deck through ``cli.main``; ``mesh`` adds ``--mesh mesh
-    --device 0``."""
+    --device 0``, ``precision`` ``--precision`` (f32 adds nothing). Where
+    there is a gold, the run must pass the checker at ``gate`` percent (the
+    reference's 1% unless stated); the 1% verdict is printed either way."""
     import numpy as np
 
     from lbm_tpu_torch.utils import geometry
@@ -255,7 +299,10 @@ def run_deck(cli, tag, backend, work, gpu_line, mesh=None):
 
     fields, geo, kw = DECKS[tag]
     extra = [] if mesh is None else ["--mesh", mesh, "--device", "0"]
-    deck_dir = os.path.join(work, f"{tag}-{backend}" + ("" if mesh is None else f"-mesh{mesh}"))
+    if precision != "f32":
+        extra += ["--precision", precision]
+    deck_dir = os.path.join(work, f"{tag}-{backend}" + ("" if mesh is None else f"-mesh{mesh}")
+                            + ("" if precision == "f32" else f"-{precision}"))
     os.makedirs(deck_dir)
     params_path = os.path.join(deck_dir, f"input_{tag}.params")
     obst_path = os.path.join(deck_dir, f"obstacles_{tag}.dat")
@@ -278,13 +325,15 @@ def run_deck(cli, tag, backend, work, gpu_line, mesh=None):
     if os.path.exists(gold):
         gav, gfs = write_gold(gold, deck_dir)
         res = check_files(os.path.join(deck_dir, "av_vels.dat"),
-                          os.path.join(deck_dir, "final_state.dat"), gav, gfs, tolerance=1.0)
+                          os.path.join(deck_dir, "final_state.dat"), gav, gfs, tolerance=gate)
+        at_1 = max(abs(res.av_vels.max_diff_pcnt), abs(res.final_state.max_diff_pcnt)) <= 1.0
         line += (f"\n    golden gate (1%): av_vels max diff {res.av_vels.max_diff_pcnt:.4g}% "
                  f"at step {res.av_vels.max_index}, pressure max diff "
                  f"{res.final_state.max_diff_pcnt:.4g}% at ({res.final_state.coord_x},"
-                 f"{res.final_state.coord_y}): {'PASS' if res.passed else 'FAIL'}")
+                 f"{res.final_state.coord_y}): {'PASS' if at_1 else 'FAIL'}"
+                 + ("" if gate == 1.0 else f" (held at {gate}%: {'PASS' if res.passed else 'FAIL'})"))
         log(line)
-        check(res.passed, f"{tag} --backend {backend} fails the golden gate")
+        check(res.passed, f"{tag} --backend {backend} fails the golden gate at {gate}%")
     else:
         log(line)
     return stats
@@ -500,20 +549,23 @@ def scheduled_phase(torch, label, kernel, plain, step_counts, depth, k11):
     return max(errs), per_step
 
 
-def resume_run(cli, work, gpu_line, backend="resident", mesh=None):
+def resume_run(cli, work, gpu_line, backend="resident", mesh=None, precision="f32"):
     """The 256^2 deck from a checkpoint at step 30,001 of 80,000 (taken by
     run_simulation, or run_simulation_sharded on ``mesh`` shards of
     ``cuda:0``) through ``cli.main --resume --checkpoint-every 25000``: its
-    files must be the bytes of the uninterrupted run of ``backend`` in
-    ``work`` (run_deck's directory). Returns the steps run."""
+    files must be the bytes of the uninterrupted run of ``backend`` at
+    ``precision`` in ``work`` (run_deck's directory). Returns the step
+    counts of the runs made: the head run's, then each resumed chunk's."""
     import dataclasses
+
+    import torch
 
     from lbm_tpu_torch.io import read_obstacles, read_params
     from lbm_tpu_torch.parallel.sharded import run_simulation_sharded
     from lbm_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
-    from lbm_tpu_torch.runtime.driver import run_simulation
+    from lbm_tpu_torch.runtime.driver import compute_chunk_sizes, run_simulation
 
-    tail = "" if mesh is None else f"-mesh{mesh}"
+    tail = ("" if mesh is None else f"-mesh{mesh}") + ("" if precision == "f32" else f"-{precision}")
     full = os.path.join(work, f"256x256-{backend}{tail}")
     params_path = os.path.join(full, "input_256x256.params")
     obst_path = os.path.join(full, "obstacles_256x256.dat")
@@ -522,7 +574,8 @@ def resume_run(cli, work, gpu_line, backend="resident", mesh=None):
     start, every = params.max_iters * 3 // 8 + 1, params.max_iters * 5 // 16
     head = dataclasses.replace(params, max_iters=start)
     if mesh is None:
-        part = run_simulation(head, obstacles, device="cuda:0", backend=backend)
+        part = run_simulation(head, obstacles, device="cuda:0", backend=backend,
+                              dtype="c16" if precision == "c16" else torch.float32)
     else:
         part = run_simulation_sharded(head, obstacles, devices=["cuda:0"] * int(mesh),
                                       backend=backend)
@@ -530,6 +583,8 @@ def resume_run(cli, work, gpu_line, backend="resident", mesh=None):
     ckpt = os.path.join(out, "checkpoint.npz")
     save_checkpoint(ckpt, params, part.cells, part.av_vels, start)
     extra = [] if mesh is None else ["--mesh", mesh, "--device", "0"]
+    if precision != "f32":
+        extra += ["--precision", precision]
     rc = cli.main([params_path, obst_path, "--backend", backend, "--resume", "--checkpoint-every",
                    str(every), "--checkpoint-path", ckpt, "--out-dir", out, *extra])
     check(rc == 0, f"resumed 256^2 run: cli.main returned {rc}")
@@ -542,7 +597,7 @@ def resume_run(cli, work, gpu_line, backend="resident", mesh=None):
         f"last checkpoint at step {step} [{gpu_line}]")
     check(all(same), "the resumed 256^2 run's files differ from the uninterrupted run's")
     check(step == params.max_iters, f"the last checkpoint is at step {step}")
-    return params.max_iters
+    return [start] + compute_chunk_sizes(start, params.max_iters, every)
 
 
 # The shard kernels: name -> (name in the report, source, the TPU kernel it
@@ -712,7 +767,7 @@ def mesh_phases(torch, cli, run_step, gpu_line):
                   f"--mesh {mesh} auto routed {stats['route']}, not pallas (K3)")
             account_mesh(stats)
         account_mesh(run_deck(cli, "256x256", "auto", work, gpu_line, mesh="4"))
-        want_mesh["pallas"] += resume_run(cli, work, gpu_line, backend="auto", mesh="4")
+        want_mesh["pallas"] += sum(resume_run(cli, work, gpu_line, backend="auto", mesh="4"))
     got_mesh = {route: fn.launches for route, fn in mesh_counters.items()}
     log(f"  launch counters: K3 {got_mesh['pallas']} mesh steps (want {want_mesh['pallas']}), "
         f"K12 {got_mesh['pallas-overlap']} (want {want_mesh['pallas-overlap']}), K8 "
@@ -723,6 +778,265 @@ def mesh_phases(torch, cli, run_step, gpu_line):
               "ran in its kernel")
 
     return shard, shard_res, got_mesh
+
+
+# The c16 forms and the slab kernel: name -> (name in the report, source,
+# the TPU kernel it replaces).
+C16_KERNELS = {
+    "K1": ("K1 fused step, c16", "lbm_tpu_torch/csrc/step.cu", "lbm_tpu/ops/pallas_step.py:164"),
+    "K2": ("K2 in-place AA, c16", "lbm_tpu_torch/csrc/aa.cu", "lbm_tpu/ops/pallas_aa.py:163"),
+    "K11": ("K11 band3 (one in-place AA window), c16", "lbm_tpu_torch/csrc/band3.cu",
+            "lbm_tpu/ops/pallas_band3.py:306"),
+    "K7": ("K7 band (values in registers), c16", "lbm_tpu_torch/csrc/band.cu",
+           "lbm_tpu/ops/pallas_band.py:172"),
+}
+SLAB = ("K13 slab (band passes over y-slabs)", "lbm_tpu_torch/csrc/band.cu",
+        "lbm_tpu/ops/pallas_slab.py:76")
+
+
+def walls_setup(torch, n, seed):
+    """A random state on the n x n walls mask (rows 0 and n-1 blocked)."""
+    cells, nobst = random_setup(torch, n, n, seed=seed)
+    nobst.fill_(1.0)
+    nobst[0].zero_()
+    nobst[-1].zero_()
+    return cells, nobst
+
+
+def c16_phase(torch, spec, routes):
+    """Phase 15; returns {name: (max_abs_err, ms, plain_ms, f32 ms)} at the
+    report's shape (K1, K2 1024^2; K11, K7 2048^2)."""
+    from lbm_tpu_torch.ops import devspace
+    from lbm_tpu_torch.ops.aa import run_aa, run_aa_plain
+    from lbm_tpu_torch.ops.step import run_step, run_step_plain
+
+    def steps(fn):
+        return lambda c, o, n, dev=None: fn(c, o, DENSITY, ACCEL, OMEGA, n, 1.0, dev=dev)
+
+    def passes(fn, cfg):
+        block, depth, panel = cfg
+        return lambda c, o, n, dev=None: fn(c, o, DENSITY, ACCEL, OMEGA, n, block, depth,
+                                            panel=panel, dev=dev)
+
+    k11, k7 = routes["band3"], routes["band"]
+    t11, t7 = k11[3][1], k7[3][1]
+    kernels = {"K1": (steps(run_step), steps(run_step_plain), (50,)),
+               "K2": (steps(run_aa), steps(run_aa_plain), (50, 51)),
+               "K11": (passes(k11[1], k11[3]), passes(k11[2], k11[3]),
+                       (t11, 2 * t11 + 3, 3 * t11, 4 * t11)),
+               "K7": (passes(k7[1], k7[3]), passes(k7[2], k7[3]), (t7, 2 * t7 + 3))}
+    out = {}
+    for name, (kernel, plain, counts) in kernels.items():
+        errs = []
+        for (nx, ny) in ((1024, 1024), (1000, 1000)):
+            cells, nobst = random_setup(torch, nx, ny, seed=nx + 3)
+            q = devspace.encode_state(cells, spec)
+            for n in counts:
+                errs.append(compare(torch, f"{name} c16 {nx}x{ny} {n} steps",
+                                    kernel(q, nobst, n, spec), plain(q, nobst, n, spec), spec))
+        out[name] = [max(errs)]
+    cells, nobst = random_setup(torch, 1024, 1024, seed=23)
+    q = devspace.encode_state(cells, spec)
+    (c1, a1), (c2, a2) = (run_aa(q, nobst, DENSITY, ACCEL, OMEGA, 301, 1.0, dev=spec)
+                          for _ in range(2))
+    torch.cuda.synchronize()
+    check(torch.equal(c1, c2) and torch.equal(a1, a2), "K2 c16 is not run-to-run deterministic")
+    log("  K2 c16 determinism: two 301-step runs give bitwise-equal av series and codes")
+    for name, (kernel, plain, counts) in kernels.items():
+        for nx, n_kernel in (((1024, 1000),) if name in ("K1", "K2") else ((2048, 800), (4096, 200))):
+            cells, nobst = random_setup(torch, nx, nx, seed=7)
+            q = devspace.encode_state(cells, spec)
+            n_plain = 50 if name in ("K1", "K2") else 2 * counts[0]
+            kernel(cells, nobst, 10 * counts[0])  # warm up, the allocator included
+            kernel(q, nobst, 10 * counts[0], spec)
+            _, f_ms = timed(torch, lambda: kernel(cells, nobst, n_kernel))
+            _, k_ms = timed(torch, lambda: kernel(q, nobst, n_kernel, spec))
+            p_ms = None
+            if nx <= 2048:
+                plain(q, nobst, counts[0], spec)
+                _, p_ms = timed(torch, lambda: plain(q, nobst, n_plain, spec))
+                p_ms /= n_plain
+            log(f"  {name} c16 {nx}x{nx}: kernel {1e3 * k_ms / n_kernel:.2f} us/step "
+                f"({nx * nx * n_kernel / k_ms / 1e3:.1f} MLUPS), f32 form {1e3 * f_ms / n_kernel:.2f}"
+                f" us/step" + (f", plain {1e3 * p_ms:.2f} us/step" if p_ms else ""))
+            if nx in (1024, 2048):
+                out[name] += [k_ms / n_kernel, p_ms, f_ms / n_kernel]
+        del cells, nobst, q
+    return out
+
+
+def slab_phase(torch, spec, routes):
+    """Phase 16; returns (the default schedule at 2048^2, err, c16 err,
+    {(n, K, S): ms}, plain ms and c16 plain ms at 2048^2, {n: (K7, K11, K13
+    c16, K7 c16) ms})."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import devspace, slab
+    from lbm_tpu_torch.ops.step import run_step
+    from lbm_tpu_torch.runtime.driver import slab_config
+
+    def cfg_for(n):
+        return slab_config(LBMParams(nx=n, ny=n, max_iters=1, reynolds_dim=10, density=DENSITY,
+                                     accel=ACCEL, omega=OMEGA), torch.float32)
+
+    def k13(c, o, n, cfg, dev=None, fn=slab.run_band_slab):
+        block, depth, panel, kp, sb = cfg
+        return fn(c, o, DENSITY, ACCEL, OMEGA, n, block, depth, kp, sb, panel=panel, dev=dev)
+
+    cfg = cfg_for(1024)
+    kt, depth = cfg[3] * cfg[1], cfg[1]
+    log(f"  default schedule at 1024^2: block {cfg[0]}, depth {depth}, panel {cfg[2]}, K "
+        f"{cfg[3]}, S {cfg[4]}; at 2048^2 S {cfg_for(2048)[4]}, at 4096^2 S {cfg_for(4096)[4]}")
+    errs = {None: [], "c16": []}
+    for (nx, ny) in ((1024, 1024), (1000, 1024)):
+        cells, nobst = random_setup(torch, nx, ny, seed=nx + 5)
+        for dev in (None, spec):
+            x = cells if dev is None else devspace.encode_state(cells, spec)
+            for n in (kt, 2 * kt, 2 * kt + depth + 3):
+                errs[None if dev is None else "c16"].append(compare(
+                    torch, f"K13 {'c16' if dev else 'f32'} {nx} cols x {ny} rows {n} steps",
+                    k13(x, nobst, n, cfg, dev), k13(x, nobst, n, cfg, dev, slab.run_band_slab_plain),
+                    dev))
+    cells, nobst = walls_setup(torch, 2048, 29)
+    cfg2 = cfg_for(2048)
+    k1 = run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 1000, 1.0)
+    (c1, a1), (c2, a2) = (k13(cells, nobst, 1000, cfg2) for _ in range(2))
+    torch.cuda.synchronize()
+    log(f"  K13 vs K1: final state bitwise equal: {torch.equal(c1, k1[0])}, max diff "
+        f"{float((c1 - k1[0]).abs().max()):.3e}")
+    compare(torch, "K13 vs K1 2048x2048 walls 1000 steps", (c1, a1), k1)
+    check(torch.equal(c1, k1[0]), "K13: final state differs from K1's")
+    check(torch.equal(c1, c2) and torch.equal(a1, a2), "K13 is not run-to-run deterministic")
+    q = devspace.encode_state(cells, spec)
+    (c1, a1), (c2, a2) = (k13(q, nobst, 1000, cfg2, spec) for _ in range(2))
+    torch.cuda.synchronize()
+    check(torch.equal(c1, c2) and torch.equal(a1, a2), "K13 c16 is not run-to-run deterministic")
+    log("  K13 determinism: two 1000-step runs of each form give bitwise-equal av series and "
+        "state")
+    del cells, nobst, k1, c1, c2, q
+    band_run, band_cfg = routes["band"][1], routes["band"][3]
+    b3_run, b3_cfg = routes["band3"][1], routes["band3"][3]
+
+    def band(fn, cfg, c, o, n, dev=None):
+        return fn(c, o, DENSITY, ACCEL, OMEGA, n, cfg[0], cfg[1], panel=cfg[2], dev=dev)
+
+    sweep, beside = {}, {}
+    plain_ms = plain_c16_ms = None
+    for n, steps in ((2048, 512), (4096, 128)):
+        cells, nobst = walls_setup(torch, n, 7)
+        q = devspace.encode_state(cells, spec)
+        base = cfg_for(n)
+        band(band_run, band_cfg, cells, nobst, 16)
+        band(b3_run, b3_cfg, cells, nobst, 16)
+        _, k7_ms = timed(torch, lambda: band(band_run, band_cfg, cells, nobst, steps))
+        _, k11_ms = timed(torch, lambda: band(b3_run, b3_cfg, cells, nobst, steps))
+        for kp in (1, 2, 4):
+            for sb in (128, 256, 512, 1024) + ((2048,) if n == 4096 else ()):
+                c = base[:3] + (kp, sb)
+                k13(cells, nobst, 16, c)
+                _, ms = timed(torch, lambda: k13(cells, nobst, steps, c))
+                sweep[n, kp, sb] = ms / steps
+                log(f"  K13 {n}x{n} walls K {kp} S {sb}: {1e3 * ms / steps:.2f} us/step "
+                    f"({n * n * steps / ms / 1e3:.1f} MLUPS)")
+        k13(q, nobst, 16, base, spec)
+        band(band_run, band_cfg, q, nobst, 16, spec)
+        _, c16_ms = timed(torch, lambda: k13(q, nobst, steps, base, spec))
+        _, k7c_ms = timed(torch, lambda: band(band_run, band_cfg, q, nobst, steps, spec))
+        beside[n] = (k7_ms / steps, k11_ms / steps, c16_ms / steps, k7c_ms / steps)
+        log(f"  {n}x{n} walls, same loop: K7 {1e3 * k7_ms / steps:.2f}, K11 "
+            f"{1e3 * k11_ms / steps:.2f}, K13 default (K {base[3]}, S {base[4]}) "
+            f"{1e3 * sweep[n, base[3], base[4]]:.2f}, K13 c16 {1e3 * c16_ms / steps:.2f}, K7 c16 "
+            f"{1e3 * k7c_ms / steps:.2f} us/step")
+        if n == 2048:
+            n_plain = base[3] * base[1]
+            k13(cells, nobst, n_plain, base, fn=slab.run_band_slab_plain)
+            _, plain_ms = timed(torch, lambda: k13(cells, nobst, n_plain, base,
+                                                   fn=slab.run_band_slab_plain))
+            _, plain_c16_ms = timed(torch, lambda: k13(q, nobst, n_plain, base, spec,
+                                                       slab.run_band_slab_plain))
+            plain_ms, plain_c16_ms = plain_ms / n_plain, plain_c16_ms / n_plain
+            log(f"  K13 plain 2048x2048: {1e3 * plain_ms:.2f} us/step, c16 "
+                f"{1e3 * plain_c16_ms:.2f} us/step")
+        del cells, nobst, q
+    ranked = sorted(sweep, key=lambda key: (key[0], sweep[key]))
+    for n in (2048, 4096):
+        top = [key for key in ranked if key[0] == n][:3]
+        log(f"  K13 sweep {n}^2, fastest first: " + ", ".join(
+            f"K {kp} S {sb} {1e3 * sweep[n, kp, sb]:.2f}" for _, kp, sb in top))
+    return cfg2, max(errs[None]), max(errs["c16"]), sweep, plain_ms, plain_c16_ms, beside
+
+
+def c16_path_phase(torch, cli, gpu_line, walls_ref):
+    """Phase 17; returns {counter name: launches}."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import aa, band, band3, slab, step
+    from lbm_tpu_torch.runtime.driver import band_config, slab_config
+
+    fns = {"K1": step.run_step, "K2": aa.run_aa, "K11": band3.run_band3, "K7": band.run_band,
+           "K13": slab.run_band_slab}
+    for fn in fns.values():
+        fn.launches = fn.launches_c16 = 0
+    want = {f"{name}{tail}": 0 for name in fns for tail in ("", " c16")}
+    depth = band_config(None, torch.float32)[1]
+
+    def split(route, n, tail, ny):
+        if route == "slab":
+            params = LBMParams(nx=ny, ny=ny, max_iters=1, reynolds_dim=10, density=DENSITY,
+                               accel=ACCEL, omega=OMEGA)
+            kt = slab_config(params, torch.float32)[3] * depth
+            want["K13" + tail] += n // kt * kt
+            n %= kt
+            route = "band"
+        name = {"band3": "K11", "band": "K7", "aa": "K2", "pallas": "K1"}[route]
+        if route.startswith("band"):
+            want[name + tail] += n // depth * depth
+            want["K1" + tail] += n % depth
+        else:
+            want[name + tail] += n
+
+    def account(stats, chunks=None):
+        tail = " c16" if stats["precision"] == "c16" else ""
+        for n in chunks or (stats["max_iters"],):
+            split(stats["route"], n, tail, stats["ny"])
+
+    with tempfile.TemporaryDirectory() as work:
+        for tag in ("256x256", "1024x1024"):
+            for backend in ("auto", "aa", "pallas"):
+                stats = run_deck(cli, tag, backend, work, gpu_line, precision="c16")
+                check(backend != "auto" or stats["route"] == "pallas",
+                      f"{tag} c16: auto routed {stats['route']}, not pallas (K1)")
+                account(stats)
+            # The band kernels round once per pass (T steps), as the JAX
+            # package's do: that cadence drifts past the 1% gate on the
+            # 256^2 deck, so these runs are held at PASS_GATE_C16 percent,
+            # which a saturated or broken run exceeds many times over.
+            account(run_deck(cli, tag, "band3", work, gpu_line, precision="c16",
+                             gate=PASS_GATE_C16))
+        account(run_deck(cli, "1024x1024", "band", work, gpu_line, precision="c16",
+                         gate=PASS_GATE_C16))
+        os.environ["LBM_ENABLE_SLAB"] = "1"  # the quarantined route
+        try:
+            for precision in ("f32", "c16"):
+                account(run_deck(cli, "1024x1024", "slab", work, gpu_line, precision=precision,
+                                 gate=1.0 if precision == "f32" else PASS_GATE_C16))
+            deck, ref = walls_ref
+            out, stats = run_walls(cli, deck, "slab", work, 2048, gpu_line)
+            account(stats)
+            hold_against(out, ref, "walls 2048^2 --backend slab")
+            shutil.rmtree(out)
+        finally:
+            del os.environ["LBM_ENABLE_SLAB"]
+        # K2 rounds its codes every step, so chunk boundaries anywhere give
+        # the same bits; the band kernels round once per pass.
+        for n in resume_run(cli, work, gpu_line, backend="aa", precision="c16"):
+            split("aa", n, " c16", 256)
+    got = {f"{name}{tail}": getattr(fn, "launches" if not tail else "launches_c16")
+           for name, fn in fns.items() for tail in ("", " c16")}
+    log("  launch counters: " + ", ".join(f"{k} {got[k]} steps (want {want[k]})" for k in got))
+    for k in got:
+        check(got[k] == want[k], f"{k}: not every step of the c16 and slab path ran in its kernel")
+    check(all(got[k] > 0 for k in ("K1 c16", "K2 c16", "K11 c16", "K7 c16", "K13", "K13 c16")),
+          "a kernel of the c16 and slab path was never launched")
+    return got
 
 
 def main():
@@ -851,8 +1165,10 @@ def main():
             deck = write_walls_deck(keep if n == 2048 else work, n, iters)
             ref, stats = run_walls(cli, deck, "aa", keep if n == 2048 else work, n, gpu_line)
             account(stats)
-            # auto routes 4096^2 to band3, as it does 2048^2: that run is not repeated.
-            for backend in (*counters, "auto") if n < 4096 else counters:
+            # On 4096^2 only band3, the route auto takes there as on 2048^2:
+            # K7 and K9 ran that size in phase 6, and writing and checking the
+            # deck's 16.7M-line outputs is most of this phase's time.
+            for backend in (*counters, "auto") if n < 4096 else ("band3",):
                 out, stats = run_walls(cli, deck, backend, work, n, gpu_line)
                 account(stats)
                 check(backend != "auto" or stats["route"] == "band3",
@@ -921,14 +1237,13 @@ def main():
         for tag in ("256x256", "1024x1024"):
             for route in sched_counters:
                 account_sched(run_deck(cli, tag, route, work, gpu_line))
-        want["resident"] += resume_run(cli, work, gpu_line)
+        want["resident"] += sum(resume_run(cli, work, gpu_line))
         deck, ref = walls_ref[2048]  # phase 8's deck and K2 run
         for route in sched_counters:
             out, stats = run_walls(cli, deck, route, work, 2048, gpu_line)
             account_sched(stats)
             hold_against(out, ref, f"walls 2048^2 --backend {route}")
             shutil.rmtree(out)
-    shutil.rmtree(keep)
     got_sched = {route: fn.launches for route, fn in sched_counters.items()}
     log(f"  launch counters: K4 {got_sched['resident']} steps (want {want['resident']}), K5 "
         f"{got_sched['temporal']} (want {want['temporal']}), K6 {got_sched['deep']} (want "
@@ -939,8 +1254,22 @@ def main():
 
     shard, shard_res, got_mesh = mesh_phases(torch, cli, run_step, gpu_line)
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1):
-        bound_ms, bound_by = bound(cells, depth)
+    from lbm_tpu_torch.ops.devspace import DevSpec
+
+    spec = DevSpec.for_params(DENSITY, ACCEL)
+    phase("15. c16 kernels K1, K2, K11, K7 vs their plain versions")
+    c16_res = c16_phase(torch, spec, routes)
+    phase("16. K13 slab kernel at f32 and c16: vs its plain version, vs K1, the (K, S) sweep")
+    slab_cfg, slab_err, slab_c16_err, sweep, slab_plain, slab_plain_c16, beside = slab_phase(
+        torch, spec, routes)
+    phase("17. the c16 and slab path: lbm_tpu_torch.cli.main --precision c16, "
+          "LBM_ENABLE_SLAB=1 --backend slab, and --resume")
+    got_c16 = c16_path_phase(torch, cli, gpu_line, walls_ref[2048])
+    shutil.rmtree(keep)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1,
+              bytes_per_cell=BYTES_PER_CELL):
+        bound_ms, bound_by = bound(cells, depth, bytes_per_cell)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
@@ -950,6 +1279,9 @@ def main():
     shard_launches = {"K3": got_mesh["pallas"], "K12": got_mesh["pallas-overlap"],
                       "K8": got_mesh["band"], "K10": got_mesh["band2"]}
     band_depth = {route: routes[route][3][1] for route in BANDS}
+    kt, sb = slab_cfg[3] * slab_cfg[1], slab_cfg[4]
+    slab_bytes = (sb + 2 * kt) / sb
+    slab_ms = sweep[2048, slab_cfg[3], sb]
     report = {"kernels": [
         entry("K1 fused step", "lbm_tpu_torch/csrc/step.cu", "lbm_tpu/ops/pallas_step.py:164",
               step_launches, k1_err, k1_ms, k1_plain_ms, 1024 * 1024),
@@ -969,6 +1301,17 @@ def main():
         entry(*SHARDED[name], shard_launches[name], shard_res[name][0],
               *shard_res[name][1][(4, 1), 2048][:2], 2048 * 2048, shard[name][4])
         for name in SHARDED
+    ] + [
+        entry(*C16_KERNELS[name], got_c16[name + " c16"], c16_res[name][0], c16_res[name][1],
+              c16_res[name][2], (1024 if name in ("K1", "K2") else 2048) ** 2,
+              1 if name in ("K1", "K2") else band_depth["band3" if name == "K11" else "band"],
+              BYTES_PER_CELL_C16)
+        for name in C16_KERNELS
+    ] + [
+        entry(*SLAB, got_c16["K13"], slab_err, slab_ms, slab_plain, 2048 * 2048, kt,
+              BYTES_PER_CELL * slab_bytes),
+        entry(SLAB[0] + ", c16", *SLAB[1:], got_c16["K13 c16"], slab_c16_err, beside[2048][2],
+              slab_plain_c16, 2048 * 2048, kt, BYTES_PER_CELL_C16 * slab_bytes),
     ]}
     log(gpu_line)
     log(json.dumps(report))

@@ -9,6 +9,7 @@
     sim.write_outputs(result, out_dir=".")
     sim.run(mesh=4, device="cuda:0")       # four row shards on one card
     sim.run(mesh=(2, 2), devices=["cpu"] * 4)
+    sim.run(device="cuda:0", dtype="c16")  # int16 companded state, decoded result
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ class Simulation:
         (``$LBM_DEVICE``, else ``cuda:0``; the CPU only when named).
         ``mesh`` shards the run over N row shards (int) or a 2-D ``(py,
         px)`` mesh, on ``devices`` (one per shard), else every shard on
-        ``device`` when it is given, else the first cards."""
+        ``device`` when it is given, else the first cards. ``dtype`` is a
+        torch dtype or ``"c16"`` (``runtime/driver.py``)."""
         if isinstance(mesh, tuple) or (mesh and mesh > 1):
             from lbm_tpu_torch.parallel import sharded
 

@@ -34,6 +34,9 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     from lbm_tpu_torch.runtime.driver import BACKENDS
 
+    # The slab route is quarantined as in the JAX package: it is a choice
+    # only with LBM_ENABLE_SLAB=1 (lbm_tpu/cli.py:39-45).
+    backends = [b for b in BACKENDS if b != "slab" or os.environ.get("LBM_ENABLE_SLAB") == "1"]
     p = argparse.ArgumentParser(
         prog="lbm_tpu_torch",
         description="D2Q9 BGK lattice-Boltzmann solver on PyTorch and CUDA",
@@ -42,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("obstaclefile", help="obstacle list file ('x y 1' per line)")
     p.add_argument(
         "--backend",
-        choices=list(BACKENDS) + ["pallas-overlap"],
+        choices=backends + ["pallas-overlap"],
         default="auto",
         help="auto: resident up to 384x384 cells, band3 above (f32), "
         "reference (f64); aa: in-place AA kernel on one state copy; pallas: fused "
@@ -54,10 +57,16 @@ def build_parser() -> argparse.ArgumentParser:
         "shrinking trapezoid in shared memory, halo rows from carried row "
         "packs or straight from the state, remainder on the step kernel; "
         "reference: plain PyTorch step; pallas-overlap (--mesh N only): the "
-        "shard step kernel storing its edge rows into the neighbour shards",
+        "shard step kernel storing its edge rows into the neighbour shards"
+        + ("; slab (quarantined, LBM_ENABLE_SLAB=1): band passes over y-slabs, "
+           "K per slab visit" if "slab" in backends else ""),
     )
-    p.add_argument("--precision", choices=["f32", "f64"], default="f32",
-                   help="state dtype (f64 runs the reference step)")
+    p.add_argument("--precision", choices=["f32", "f64", "c16"], default="f32",
+                   help="state storage: f32; f64 (runs the reference step); c16 (int16 "
+                   "companded deviations from the rest state: 40 B per cell per step "
+                   "instead of 76, the physics at f32; auto runs pallas, and aa, band, "
+                   "band3, slab and reference take it; the band routes round once per "
+                   "pass and may miss the 1%% gate)")
     p.add_argument(
         "--mesh",
         default="0",
@@ -124,7 +133,7 @@ def main(argv=None) -> int:
         obstacles = read_obstacles(args.obstaclefile, params)
     except (InputError, OSError) as e:
         return _error(e)
-    dtype = {"f32": torch.float32, "f64": torch.float64}[args.precision]
+    dtype = {"f32": torch.float32, "f64": torch.float64, "c16": "c16"}[args.precision]
     if args.verbose:
         print(
             f"[lbm_tpu_torch] grid {params.nx}x{params.ny}, {params.max_iters} iters, "

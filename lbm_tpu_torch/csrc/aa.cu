@@ -30,6 +30,14 @@
 //   odd (C space, pallas_aa.py:309-314): cell-local at row ny-2, slot opp(k).
 // Entry (R -> S) and exit (S -> R or the opp permutation) are plain torch
 // outside the loop (ops/aa.py). Needs ny >= 3.
+//
+// c16 storage (pallas_aa.py:225-244): the planes are int16 codes, decoded
+// on every read and encoded on every write, keyed by SLOT, which is right
+// in both arrangements because bg[opp(k)] == bg[k]. The JAX kernel keeps
+// the codes in VMEM and re-encodes each forcing row when it writes it back,
+// so the forcing launches decode, add and encode exactly the rows and slots
+// the JAX kernel stores (one row of each of the six forced slots). 40 B per
+// cell per step; a warp reads 64 B of a plane, half a line.
 #include "lbm_common.cuh"
 
 namespace {
@@ -38,49 +46,51 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
 }
 
-__global__ void force_even_kernel(float* __restrict__ s, const float* __restrict__ nobst,
-                                  int ny, int nx, float w1a, float w2a) {
+template <class S>
+__global__ void force_even_kernel(typename S::T* __restrict__ s, const float* __restrict__ nobst,
+                                  int ny, int nx, float w1a, float w2a, S st) {
   const int xp = blockIdx.x * blockDim.x + threadIdx.x;  // pre-stream lane x'
   if (xp >= nx) return;
   const size_t plane = (size_t)ny * nx;
   const int xm = wrap(xp - 1, nx);
   const int r = ny - 2;
-  const float m = lbm::force_mask(s[3 * plane + (size_t)r * nx + xm],
-                                  s[6 * plane + (size_t)(ny - 1) * nx + xm],
-                                  s[7 * plane + (size_t)(ny - 3) * nx + xm],
+  const float m = lbm::force_mask(st.load(s[3 * plane + (size_t)r * nx + xm], 3),
+                                  st.load(s[6 * plane + (size_t)(ny - 1) * nx + xm], 6),
+                                  st.load(s[7 * plane + (size_t)(ny - 3) * nx + xm], 7),
                                   nobst[(size_t)r * nx + xp], w1a, w2a);
   const float fw[9] = {0.0f, w1a, 0.0f, -w1a, 0.0f, w2a, -w2a, -w2a, w2a};
 #pragma unroll
   for (int k = 1; k < 9; ++k) {
     if (k == 2 || k == 4) continue;
     const size_t a = k * plane + (size_t)wrap(r + lbm::cy(k), ny) * nx + wrap(xp + lbm::cx(k), nx);
-    s[a] = s[a] + m * fw[k];
+    s[a] = st.store(st.load(s[a], k) + m * fw[k], k);
   }
 }
 
-__global__ void force_odd_kernel(float* __restrict__ s, const float* __restrict__ nobst,
-                                 int ny, int nx, float w1a, float w2a) {
+template <class S>
+__global__ void force_odd_kernel(typename S::T* __restrict__ s, const float* __restrict__ nobst,
+                                 int ny, int nx, float w1a, float w2a, S st) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= nx) return;
   const size_t plane = (size_t)ny * nx;
   const size_t c = (size_t)(ny - 2) * nx + x;
   // Plane i lives in slot opp(i): f3 in slot 1, f6 in slot 8, f7 in slot 5.
-  const float m = lbm::force_mask(s[1 * plane + c], s[8 * plane + c], s[5 * plane + c],
-                                  nobst[c], w1a, w2a);
+  const float m = lbm::force_mask(st.load(s[1 * plane + c], 1), st.load(s[8 * plane + c], 8),
+                                  st.load(s[5 * plane + c], 5), nobst[c], w1a, w2a);
   const float fw[9] = {0.0f, w1a, 0.0f, -w1a, 0.0f, w2a, -w2a, -w2a, w2a};
 #pragma unroll
   for (int k = 1; k < 9; ++k) {
     if (k == 2 || k == 4) continue;
     const size_t a = lbm::opp(k) * plane + c;
-    s[a] = s[a] + m * fw[k];
+    s[a] = st.store(st.load(s[a], lbm::opp(k)) + m * fw[k], lbm::opp(k));
   }
 }
 
-template <bool kOdd>
+template <bool kOdd, class S>
 __global__ void __launch_bounds__(lbm::kThreads)
-aa_step_kernel(float* s, const float* __restrict__ nobst, float* __restrict__ partials,
+aa_step_kernel(typename S::T* s, const float* __restrict__ nobst, float* __restrict__ partials,
                unsigned int* __restrict__ ticket, float* __restrict__ av_out, int ny, int nx,
-               lbm::Relax rc, float inv_tot) {
+               lbm::Relax rc, float inv_tot, S st) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const bool inside = x < nx && y < ny;
@@ -93,12 +103,12 @@ aa_step_kernel(float* s, const float* __restrict__ nobst, float* __restrict__ pa
       for (int k = 0; k < 9; ++k) {
         const int sy = wrap(y - lbm::cy(k), ny);
         const int sx = wrap(x - lbm::cx(k), nx);
-        t[k] = s[lbm::opp(k) * plane + (size_t)sy * nx + sx];
+        t[k] = st.load(s[lbm::opp(k) * plane + (size_t)sy * nx + sx], lbm::opp(k));
       }
     } else {
       const size_t c = (size_t)y * nx + x;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) t[k] = s[k * plane + c];
+      for (int k = 0; k < 9; ++k) t[k] = st.load(s[k * plane + c], k);
     }
     const float nob = nobst[(size_t)y * nx + x];
     const float usq = lbm::collide_fused(t, nob, rc);
@@ -108,15 +118,44 @@ aa_step_kernel(float* s, const float* __restrict__ nobst, float* __restrict__ pa
       for (int k = 0; k < 9; ++k) {
         const int dy = wrap(y + lbm::cy(k), ny);
         const int dx = wrap(x + lbm::cx(k), nx);
-        s[k * plane + (size_t)dy * nx + dx] = t[k];
+        s[k * plane + (size_t)dy * nx + dx] = st.store(t[k], k);
       }
     } else {
       const size_t c = (size_t)y * nx + x;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) s[lbm::opp(k) * plane + c] = t[k];
+      for (int k = 0; k < 9; ++k) s[lbm::opp(k) * plane + c] = st.store(t[k], lbm::opp(k));
     }
   }
   lbm::grid_sum_last_block(u, partials, ticket, inv_tot, av_out);
+}
+
+template <class S>
+int run(typename S::T* state, const float* nobst, float* av, float* partials,
+        unsigned int* ticket, int ny, int nx, int n_steps, float w1a, float w2a,
+        const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& stor) {
+  const dim3 block(lbm::kBlockX, lbm::kBlockY);
+  const dim3 grid = lbm::grid_for(ny, nx);
+  const int fthreads = 256;
+  const dim3 fgrid((nx + fthreads - 1) / fthreads);
+  for (int t = 0; t < n_steps; ++t) {
+    if (t & 1) {
+      force_odd_kernel<S><<<fgrid, fthreads, 0, st>>>(state, nobst, ny, nx, w1a, w2a, stor);
+    } else {
+      force_even_kernel<S><<<fgrid, fthreads, 0, st>>>(state, nobst, ny, nx, w1a, w2a, stor);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (t & 1) {
+      aa_step_kernel<true, S><<<grid, block, 0, st>>>(state, nobst, partials, ticket, av + t, ny,
+                                                      nx, rc, inv_tot, stor);
+    } else {
+      aa_step_kernel<false, S><<<grid, block, 0, st>>>(state, nobst, partials, ticket, av + t, ny,
+                                                       nx, rc, inv_tot, stor);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -124,37 +163,21 @@ aa_step_kernel(float* s, const float* __restrict__ nobst, float* __restrict__ pa
 // Runs n_steps AA steps in place on ``state``, which must hold the S
 // arrangement on entry. After an even n_steps it holds S, after an odd one
 // C. av receives n_steps values; partials needs one float per block of
-// grid_for(ny, nx); ticket one zeroed unsigned int. Returns the first CUDA
-// error, or 0.
-extern "C" int lbm_aa_run(float* state, const float* nobst, float* av, float* partials,
+// grid_for(ny, nx); ticket one zeroed unsigned int. codec: null for f32
+// planes, else the 12 floats of c16 storage (DevSpec.codec) and int16
+// planes. Returns the first CUDA error, or 0.
+extern "C" int lbm_aa_run(void* state, const float* nobst, float* av, float* partials,
                           unsigned int* ticket, int ny, int nx, int n_steps, float w1a,
                           float w2a, float beta, float ow0, float ow1, float ow2,
-                          float inv_tot, void* stream) {
+                          float inv_tot, const float* codec, void* stream) {
   const lbm::Relax rc{beta, ow0, ow1, ow2};
-  const dim3 block(lbm::kBlockX, lbm::kBlockY);
-  const dim3 grid = lbm::grid_for(ny, nx);
-  const int fthreads = 256;
-  const dim3 fgrid((nx + fthreads - 1) / fthreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int t = 0; t < n_steps; ++t) {
-    if (t & 1) {
-      force_odd_kernel<<<fgrid, fthreads, 0, st>>>(state, nobst, ny, nx, w1a, w2a);
-    } else {
-      force_even_kernel<<<fgrid, fthreads, 0, st>>>(state, nobst, ny, nx, w1a, w2a);
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (t & 1) {
-      aa_step_kernel<true><<<grid, block, 0, st>>>(state, nobst, partials, ticket, av + t, ny,
-                                                   nx, rc, inv_tot);
-    } else {
-      aa_step_kernel<false><<<grid, block, 0, st>>>(state, nobst, partials, ticket, av + t, ny,
-                                                    nx, rc, inv_tot);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (codec != nullptr) {
+    return run(static_cast<int16_t*>(state), nobst, av, partials, ticket, ny, nx, n_steps, w1a,
+               w2a, rc, inv_tot, st, lbm::make_c16(codec));
   }
-  return 0;
+  return run(static_cast<float*>(state), nobst, av, partials, ticket, ny, nx, n_steps, w1a, w2a,
+             rc, inv_tot, st, lbm::F32());
 }
 
 extern "C" unsigned int lbm_aa_num_blocks(int ny, int nx) {

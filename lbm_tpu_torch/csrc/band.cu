@@ -31,19 +31,58 @@
 // forcing at every window row whose global row is ny-2. Bound as K7: the
 // halo copy adds 2T rows per shard per pass, 2T/ny_shard of the pass's
 // bytes.
+//
+// K7 at c16 (pallas_band.py, ``dev=``): the same pass with int16 codes in
+// device memory, decoded by the loader and encoded by the store.
+//
+// K13: the same pass over a y-slab (kSlab). Replaces
+// lbm_tpu/ops/pallas_slab.py::_kernel_slab (:76), at f32 and c16. A
+// generation of K*T steps cuts the grid into ny/S slabs of S rows; slab j's
+// buffer holds global rows [j*S - KT, j*S + S + KT), KT = K*T, and takes K
+// passes over its whole height, the buffer's edge rows wrapping within the
+// buffer (garbage creeps T rows per pass from each edge, so its S central
+// rows stay genuine). Its first pass reads its rows straight from the state
+// (global row (r0 + row) mod ny, r0 = j*S - KT, negative for slab 0), its
+// last pass stores the S central rows straight into the next state, and the
+// passes between them ping-pong between two slab buffers; so every slab of
+// a generation reads the same input state and the slabs write disjoint rows
+// (pallas_slab.py:295-325) without a copy of the state. The forcing is by
+// global row at every window row, so the copies of row ny-2 in the
+// neighbours' halo rows are forced too (:104-107); each slab sums only its
+// owned rows [KT, KT + S) (:99-102), and slab j > 0 adds its sums to
+// slab j-1's in slab order, so the series is deterministic. The slabs run
+// one after another: the bet is that a slab's two buffers,
+// 2 (S + 2KT) nx 36 B at f32, stay in the 50 MB L2 across its K passes, so
+// HBM sees about 76 (S + 2KT) / S B per cell per K*T steps.
 #include "band_common.cuh"
 
 namespace {
 
-template <int MAXC, bool kSharded>
+enum class Mode { kGrid, kSharded, kSlab };
+
+// One pass of the slab kernel (K13): where it reads, which buffer rows it
+// stores and where, and which rows it sums. Buffer row y is global row
+// r0 + y (mod ny) of the grid.
+struct SlabIO {
+  int in_r0, in_rows;    // the source row of buffer row y: (in_r0 + y) mod in_rows
+  int out_lo, out_hi;    // buffer rows stored, into destination row out_r0 + y
+  int out_r0, out_rows;  // ... of a destination of out_rows rows
+  int own_lo, own_hi;    // buffer rows whose |u| the pass sums
+  int accumulate;        // add the sums to av (every slab but the first)
+};
+
+template <int MAXC, Mode kMode, class S>
 __global__ void __launch_bounds__(band::kThreads)
-band_kernel(band::Source src, float* __restrict__ dst, float* __restrict__ partials,
-            unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, float w1a,
-            float w2a, lbm::Relax rc, float inv_tot) {
+band_kernel(band::SourceT<typename S::T> src, typename S::T* __restrict__ dst,
+            float* __restrict__ partials, unsigned int* __restrict__ ticket,
+            float* __restrict__ av, band::Geom g, float w1a, float w2a, lbm::Relax rc,
+            float inv_tot, SlabIO io, S st) {
+  constexpr bool kSharded = kMode == Mode::kSharded;
+  constexpr bool kSlab = kMode == Mode::kSlab;
   extern __shared__ float smem[];
   const band::Smem s = band::carve(smem, g, 1);
   const size_t plane = (size_t)g.ny * g.nx;
-  const size_t z = blockIdx.y;  // the shard (0 on one grid)
+  const size_t z = blockIdx.y;  // the shard (0 on one grid and on a slab)
   src = band::shard(g, src);
   dst += z * 9 * plane;
   partials += z * g.T * g.nty * g.ntx;
@@ -64,13 +103,25 @@ band_kernel(band::Source src, float* __restrict__ dst, float* __restrict__ parti
     if (i < n) {
       rr[j] = i / g.WW;
       cc[j] = i - rr[j] * g.WW;
-      s.nob[i] = band::load_cell<kSharded>(g, s, src, y0, rr[j], cc[j], v[j]);
+      if constexpr (kSlab) {
+        const int row = band::wrap_mod(io.in_r0 + y0 - g.T + rr[j], io.in_rows);
+        const size_t gi = (size_t)row * g.nx + s.gcol[cc[j]];
+        const size_t in_plane = (size_t)io.in_rows * g.nx;
+#pragma unroll
+        for (int k = 0; k < 9; ++k) v[j][k] = st.load(src.cells[k * in_plane + gi], k);
+        s.nob[i] = src.nobst[(size_t)s.grow[rr[j]] * g.nx + s.gcol[cc[j]]];
+      } else {
+        s.nob[i] = band::load_cell<kSharded>(g, s, src, y0, rr[j], cc[j], v[j], st);
+      }
     }
   }
   __syncthreads();
-  const band::Central cen = band::central(g, y0, x0);
+  const band::Central cen = kSlab ? band::central_rows(g, y0, x0, io.own_lo, io.own_hi)
+                                  : band::central(g, y0, x0);
+  const band::Central out = kSlab ? band::central_rows(g, y0, x0, io.out_lo, io.out_hi)
+                                  : band::central(g, y0, x0);
   const int frow = g.nyg - 2;
-  for (int st = 0; st < g.T; ++st) {
+  for (int stp = 0; stp < g.T; ++stp) {
 #pragma unroll
     for (int j = 0; j < MAXC; ++j) {  // force, then publish
       if (rr[j] < 0) continue;
@@ -102,49 +153,124 @@ band_kernel(band::Source src, float* __restrict__ dst, float* __restrict__ parti
       const float usq = lbm::collide_fused(v[j], nob, rc);
       if (cen.has(rr[j], cc[j])) acc += nob * sqrtf(usq);
     }
-    band::step_partial(s, st, acc);
+    band::step_partial(s, stp, acc);
   }
+  // Store the central cells from registers (the slab: rows [out_lo, out_hi)
+  // of the buffer, at out_r0 + row of a destination of out_rows rows).
+  const size_t out_plane = kSlab ? (size_t)io.out_rows * g.nx : plane;
+  const int out_r0 = kSlab ? io.out_r0 : 0;
 #pragma unroll
-  for (int j = 0; j < MAXC; ++j) {  // store the central cells from registers
-    if (rr[j] < 0 || !cen.has(rr[j], cc[j])) continue;
-    const size_t gi = (size_t)(y0 + rr[j] - g.T) * g.nx + (x0 + cc[j] - g.T);
+  for (int j = 0; j < MAXC; ++j) {
+    if (rr[j] < 0 || !out.has(rr[j], cc[j])) continue;
+    const size_t gi = (size_t)(out_r0 + y0 + rr[j] - g.T) * g.nx + (x0 + cc[j] - g.T);
 #pragma unroll
-    for (int k = 0; k < 9; ++k) dst[k * plane + gi] = v[j][k];
+    for (int k = 0; k < 9; ++k) dst[k * out_plane + gi] = st.store(v[j][k], k);
   }
   __syncthreads();
-  band::finish_sums(g, s, partials, ticket, inv_tot, av);
+  band::finish_sums(g, s, partials, ticket, inv_tot, av, kSlab && io.accumulate);
 }
 
-template <int MAXC, bool kSharded>
-int run(const band::Geom& g, const band::Shards* sh, float* buf_a, float* buf_b,
-        const band::Source& src, float* av, float* partials, unsigned int* ticket, int n_passes,
-        float w1a, float w2a, const lbm::Relax& rc, float inv_tot, cudaStream_t st) {
+template <int MAXC, Mode kMode, class S>
+int run_fixed(const band::Geom& g, const band::Shards* sh, typename S::T* buf_a,
+              typename S::T* buf_b, const band::SourceT<typename S::T>& src, float* av,
+              float* partials, unsigned int* ticket, int n_passes, float w1a, float w2a,
+              const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& stor) {
+  using T = typename S::T;
   const size_t smem = band::smem_bytes(g, 1);
-  const cudaError_t err = band::allow_smem(band_kernel<MAXC, kSharded>, smem);
+  const cudaError_t err = band::allow_smem(band_kernel<MAXC, kMode, S>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(g.nty * g.ntx, kSharded ? sh->count : 1);
-  auto launch = [&](const float* from, float* to, float* av_p, int) {
-    band::Source s = src;
+  const dim3 grid(g.nty * g.ntx, kMode == Mode::kSharded ? sh->count : 1);
+  auto launch = [&](const T* from, T* to, float* av_p, int) {
+    band::SourceT<T> s = src;
     s.cells = from;
-    band_kernel<MAXC, kSharded><<<grid, band::kThreads, smem, st>>>(
-        s, to, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot);
+    band_kernel<MAXC, kMode, S><<<grid, band::kThreads, smem, st>>>(
+        s, to, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot, SlabIO{}, stor);
   };
-  if constexpr (kSharded) return band::run_sharded_passes(g, *sh, n_passes, buf_a, buf_b, av, st, launch);
+  if constexpr (kMode == Mode::kSharded) {
+    return band::run_sharded_passes(g, *sh, n_passes, buf_a, buf_b, av, st, launch);
+  }
   return band::run_passes(n_passes, g.T, buf_a, buf_b, av, launch);
 }
 
-template <bool kSharded>
-int run_any(const band::Geom& g, const band::Shards* sh, float* buf_a, float* buf_b,
-            const band::Source& src, float* av, float* partials, unsigned int* ticket,
-            int n_passes, float w1a, float w2a, const lbm::Relax& rc, float inv_tot,
-            cudaStream_t st) {
+// The register budget of g's window: 4 or 8 cells a thread; a larger
+// window is cudaErrorInvalidValue.
+template <Mode kMode, class S>
+int run(const band::Geom& g, const band::Shards* sh, typename S::T* buf_a, typename S::T* buf_b,
+        const band::SourceT<typename S::T>& src, float* av, float* partials,
+        unsigned int* ticket, int n_passes, float w1a, float w2a, const lbm::Relax& rc,
+        float inv_tot, cudaStream_t st, const S& stor) {
   if (g.ncell <= 4 * band::kThreads) {
-    return run<4, kSharded>(g, sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a, w2a,
-                            rc, inv_tot, st);
+    return run_fixed<4, kMode>(g, sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a,
+                               w2a, rc, inv_tot, st, stor);
   }
   if (g.ncell <= 8 * band::kThreads) {
-    return run<8, kSharded>(g, sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a, w2a,
-                            rc, inv_tot, st);
+    return run_fixed<8, kMode>(g, sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a,
+                               w2a, rc, inv_tot, st, stor);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K13: n_gens generations of K passes over each of the ny / S slabs, slab
+// after slab; see the top of the file.
+template <int MAXC, class S>
+int run_slab_fixed(band::Geom g, typename S::T* state, typename S::T* next,
+                   typename S::T* slab_a, typename S::T* slab_b, const float* nobst, float* av,
+                   float* partials, unsigned int* ticket, int kpasses, int sblock, int n_gens,
+                   float w1a, float w2a, const lbm::Relax& rc, float inv_tot, cudaStream_t st,
+                   const S& stor) {
+  using T = typename S::T;
+  const int ny = g.nyg, kt = kpasses * g.T, rows = g.ny;
+  const size_t smem = band::smem_bytes(g, 1);
+  const cudaError_t err = band::allow_smem(band_kernel<MAXC, Mode::kSlab, S>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  T* cur = state;
+  T* nxt = next;
+  T* bufs[2] = {slab_a, slab_b};
+  for (int gen = 0; gen < n_gens; ++gen) {
+    for (int j = 0; j < ny / sblock; ++j) {
+      const int r0 = j * sblock - kt;
+      g.r0 = r0;
+      for (int p = 0; p < kpasses; ++p) {
+        const bool first = p == 0, last = p == kpasses - 1;
+        const SlabIO io{first ? r0 : 0, first ? ny : rows,
+                        last ? kt : 0, last ? kt + sblock : rows,
+                        last ? r0 : 0, last ? ny : rows,
+                        kt, kt + sblock, j > 0};
+        const band::SourceT<T> src{first ? cur : bufs[(p + 1) & 1], nobst,
+                                   nullptr, nullptr, nullptr, nullptr};
+        band_kernel<MAXC, Mode::kSlab, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
+            src, last ? nxt : bufs[p & 1], partials, ticket,
+            av + (size_t)gen * kt + (size_t)p * g.T, g, w1a, w2a, rc, inv_tot, io, stor);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+      }
+    }
+    T* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  return 0;
+}
+
+template <class S>
+int run_slab(typename S::T* state, typename S::T* next, typename S::T* slab_a,
+             typename S::T* slab_b, const float* nobst, float* av, float* partials,
+             unsigned int* ticket, int ny, int nx, int block, int depth, int panel, int kpasses,
+             int sblock, int n_gens, float w1a, float w2a, const lbm::Relax& rc, float inv_tot,
+             cudaStream_t st, const S& stor) {
+  const int kt = kpasses * depth;
+  if (kpasses < 1 || sblock < 1 || ny % sblock != 0 || ny <= sblock || kt > sblock) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  band::Geom g = band::make_geom(sblock + 2 * kt, nx, block, depth, panel);
+  g.nyg = ny;
+  if (g.ncell <= 4 * band::kThreads) {
+    return run_slab_fixed<4>(g, state, next, slab_a, slab_b, nobst, av, partials, ticket,
+                             kpasses, sblock, n_gens, w1a, w2a, rc, inv_tot, st, stor);
+  }
+  if (g.ncell <= 8 * band::kThreads) {
+    return run_slab_fixed<8>(g, state, next, slab_a, slab_b, nobst, av, partials, ticket,
+                             kpasses, sblock, n_gens, w1a, w2a, rc, inv_tot, st, stor);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -155,17 +281,28 @@ int run_any(const band::Geom& g, const band::Shards* sh, float* buf_a, float* bu
 // (B + 2T) x (P + 2T) may hold at most 8 * 512 cells. buf_a holds the
 // initial state; pass p reads buf[p % 2] and writes buf[(p + 1) % 2]. av
 // receives n_passes * depth values; partials needs depth *
-// lbm_band_num_tiles floats; ticket one zeroed unsigned int. Returns the
-// first CUDA error (cudaErrorInvalidValue for a window too large), or 0.
-extern "C" int lbm_band_run(float* buf_a, float* buf_b, const float* nobst, float* av,
+// lbm_band_num_tiles floats; ticket one zeroed unsigned int. codec: null
+// for f32 planes, else the 12 floats of c16 storage (DevSpec.codec) and
+// int16 planes. Returns the first CUDA error (cudaErrorInvalidValue for a
+// window too large), or 0.
+extern "C" int lbm_band_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                             float* partials, unsigned int* ticket, int ny, int nx, int block,
                             int depth, int panel, int n_passes, float w1a, float w2a, float beta,
-                            float ow0, float ow1, float ow2, float inv_tot, void* stream) {
+                            float ow0, float ow1, float ow2, float inv_tot, const float* codec,
+                            void* stream) {
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
-  const band::Source src{buf_a, nobst, nullptr, nullptr, nullptr, nullptr};
-  return run_any<false>(g, nullptr, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a, w2a,
-                        rc, inv_tot, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (codec != nullptr) {
+    int16_t* a = static_cast<int16_t*>(buf_a);
+    const band::SourceT<int16_t> src{a, nobst, nullptr, nullptr, nullptr, nullptr};
+    return run<Mode::kGrid>(g, nullptr, a, static_cast<int16_t*>(buf_b), src, av, partials,
+                            ticket, n_passes, w1a, w2a, rc, inv_tot, st, lbm::make_c16(codec));
+  }
+  float* a = static_cast<float*>(buf_a);
+  const band::Source src{a, nobst, nullptr, nullptr, nullptr, nullptr};
+  return run<Mode::kGrid>(g, nullptr, a, static_cast<float*>(buf_b), src, av, partials, ticket,
+                          n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
 }
 
 // K8: n_passes passes over shards [s0, s0 + count) of a 1-D mesh of
@@ -195,8 +332,38 @@ extern "C" int lbm_band_sharded_run(const unsigned long long* table, int s0, int
   }
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   const band::Source src{buf_a, nobst, halo_dn, halo_up, nob_dn, nob_up};
-  return run_any<true>(g, &sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a, w2a, rc,
-                       inv_tot, static_cast<cudaStream_t>(stream));
+  return run<Mode::kSharded>(g, &sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a, w2a,
+                             rc, inv_tot, static_cast<cudaStream_t>(stream), lbm::F32());
+}
+
+// K13: n_gens generations of the slab schedule on a (9, ny, nx) grid, each
+// kpasses passes of ``depth`` steps over every slab of sblock rows (ny a
+// multiple of sblock larger than it, kpasses * depth <= sblock). state holds
+// the initial state; generation g reads state when g is even, else next,
+// and writes the other. slab_a and slab_b hold (9, sblock + 2 * kpasses *
+// depth, nx) each. av receives n_gens * kpasses * depth values; partials
+// needs depth * lbm_band_num_tiles(sblock + 2 * kpasses * depth, nx, block,
+// panel) floats; ticket one zeroed unsigned int. codec as lbm_band_run.
+// Returns the first CUDA error (cudaErrorInvalidValue for a window too
+// large or a slab schedule the grid cannot take), or 0.
+extern "C" int lbm_slab_run(void* state, void* next, void* slab_a, void* slab_b,
+                            const float* nobst, float* av, float* partials, unsigned int* ticket,
+                            int ny, int nx, int block, int depth, int panel, int kpasses,
+                            int sblock, int n_gens, float w1a, float w2a, float beta, float ow0,
+                            float ow1, float ow2, float inv_tot, const float* codec,
+                            void* stream) {
+  const lbm::Relax rc{beta, ow0, ow1, ow2};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (codec != nullptr) {
+    return run_slab(static_cast<int16_t*>(state), static_cast<int16_t*>(next),
+                    static_cast<int16_t*>(slab_a), static_cast<int16_t*>(slab_b), nobst, av,
+                    partials, ticket, ny, nx, block, depth, panel, kpasses, sblock, n_gens, w1a,
+                    w2a, rc, inv_tot, st, lbm::make_c16(codec));
+  }
+  return run_slab(static_cast<float*>(state), static_cast<float*>(next),
+                  static_cast<float*>(slab_a), static_cast<float*>(slab_b), nobst, av, partials,
+                  ticket, ny, nx, block, depth, panel, kpasses, sblock, n_gens, w1a, w2a, rc,
+                  inv_tot, st, lbm::F32());
 }
 
 // Output tiles of a band schedule (all three band kernels): one block each.

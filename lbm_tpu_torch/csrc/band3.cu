@@ -41,22 +41,30 @@
 // What the design does about it: one thread per window cell in each sweep,
 // consecutive threads on consecutive columns; in place, so no second
 // buffer. TMA, clusters and register tiling are later work.
+//
+// c16 storage (pallas_band3.py:330-372, :427-470): device memory holds int16
+// codes of the S arrangement, keyed by slot; the window loader decodes and
+// the tile store encodes (band_common.cuh), and the window stays f32. The
+// run's first forcing decodes, forces and re-encodes rows ny-3..ny-1 outside
+// the kernel (ops/band3.py::force_s). 40 B per cell per pass.
 #include "band_common.cuh"
 
 namespace {
 
+template <class S>
 __global__ void __launch_bounds__(band::kThreads)
-band3_kernel(const float* __restrict__ src, float* __restrict__ dst,
+band3_kernel(const typename S::T* __restrict__ src, typename S::T* __restrict__ dst,
              const float* __restrict__ nobst, float* __restrict__ partials,
              unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, float w1a,
-             float w2a, lbm::Relax rc, float inv_tot, int fuse_last) {
+             float w2a, lbm::Relax rc, float inv_tot, int fuse_last, S st) {
   extern __shared__ float smem[];
   const band::Smem s = band::carve(smem, g, 1);
   int y0, x0;
   band::fill_tables(g, s, y0, x0);
   __syncthreads();
   float* w = s.planes;
-  band::load_window(g, s, w, src, nobst);
+  band::load_window<false>(
+      g, s, w, band::SourceT<typename S::T>{src, nobst, nullptr, nullptr, nullptr, nullptr}, 0, st);
   __syncthreads();
   const band::Central cen = band::central(g, y0, x0);
   const int frow = g.ny - 2;
@@ -106,8 +114,23 @@ band3_kernel(const float* __restrict__ src, float* __restrict__ dst,
     band::step_partial(s, 2 * h + 1, acc);
     __syncthreads();
   }
-  band::store_tile(g, w, dst, y0, x0);
+  band::store_tile(g, w, dst, y0, x0, st);
   band::finish_sums(g, s, partials, ticket, inv_tot, av);
+}
+
+template <class S>
+int run(typename S::T* buf_a, typename S::T* buf_b, const float* nobst, float* av,
+        float* partials, unsigned int* ticket, const band::Geom& g, int n_passes, float w1a,
+        float w2a, const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& stor) {
+  const size_t smem = band::smem_bytes(g, 1);
+  const cudaError_t err = band::allow_smem(band3_kernel<S>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return band::run_passes(n_passes, g.T, buf_a, buf_b, av,
+                          [&](const typename S::T* src, typename S::T* dst, float* av_p, int p) {
+    band3_kernel<S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
+        src, dst, nobst, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot, p + 1 < n_passes,
+        stor);
+  });
 }
 
 }  // namespace
@@ -117,20 +140,21 @@ band3_kernel(const float* __restrict__ src, float* __restrict__ dst,
 // buf[p % 2] and writes buf[(p + 1) % 2], both in S. Every pass but the
 // last fuses the next pass's first forcing. av receives n_passes * depth
 // values; partials needs depth * lbm_band_num_tiles floats; ticket one
-// zeroed unsigned int. Returns the first CUDA error, or 0.
-extern "C" int lbm_band3_run(float* buf_a, float* buf_b, const float* nobst, float* av,
+// zeroed unsigned int. codec: null for f32 planes, else the 12 floats of
+// c16 storage (DevSpec.codec) and int16 planes. Returns the first CUDA
+// error, or 0.
+extern "C" int lbm_band3_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                              float* partials, unsigned int* ticket, int ny, int nx, int block,
                              int depth, int panel, int n_passes, float w1a, float w2a, float beta,
-                             float ow0, float ow1, float ow2, float inv_tot, void* stream) {
+                             float ow0, float ow1, float ow2, float inv_tot, const float* codec,
+                             void* stream) {
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
-  const size_t smem = band::smem_bytes(g, 1);
-  const cudaError_t err = band::allow_smem(band3_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return band::run_passes(n_passes, depth, buf_a, buf_b, av,
-                          [&](const float* src, float* dst, float* av_p, int p) {
-    band3_kernel<<<g.nty * g.ntx, band::kThreads, smem, st>>>(
-        src, dst, nobst, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot, p + 1 < n_passes);
-  });
+  if (codec != nullptr) {
+    return run(static_cast<int16_t*>(buf_a), static_cast<int16_t*>(buf_b), nobst, av, partials,
+               ticket, g, n_passes, w1a, w2a, rc, inv_tot, st, lbm::make_c16(codec));
+  }
+  return run(static_cast<float*>(buf_a), static_cast<float*>(buf_b), nobst, av, partials, ticket,
+             g, n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
 }

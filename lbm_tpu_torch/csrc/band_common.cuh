@@ -24,6 +24,11 @@
 // finish (an integer ticket, no float atomics) reduces partials[s][0..ntiles)
 // in a fixed order into av[s] * inv_tot, so two runs are bitwise equal.
 //
+// Storage: the window is f32 in shared memory; the loader decodes and the
+// store encodes the planes of device memory through a storage type of
+// lbm_common.cuh (F32, or C16 for int16 codes), so c16 changes only the
+// bytes of the load and the store.
+//
 // Sharded form (K8 in band.cu, K10 in band2.cu): a 1-D mesh of shards, each
 // of ny rows of a grid of nyg rows, shard z starting at global row
 // r0 + z * ny. The shards of one call sit in one (count, 9, ny, nx) array
@@ -140,16 +145,20 @@ __device__ __forceinline__ void fill_tables(const Geom& g, const Smem& s, int& y
 // Where the windows of a launch read: the grid (halo_dn null), or the
 // shards' rows between their halos, each array with all shards of the
 // launch stacked; the launch's shard blockIdx.y is picked by ``shard``.
-struct Source {
-  const float* cells;    // (9, ny, nx) per shard
+// T is the storage's raw type (float, or int16_t codes).
+template <class T>
+struct SourceT {
+  const T* cells;        // (9, ny, nx) per shard
   const float* nobst;    // (ny, nx) per shard
-  const float* halo_dn;  // (9, T, nx) per shard: previous shard's last T rows
-  const float* halo_up;  // (9, T, nx) per shard: next shard's first T rows
+  const T* halo_dn;      // (9, T, nx) per shard: previous shard's last T rows
+  const T* halo_up;      // (9, T, nx) per shard: next shard's first T rows
   const float* nob_dn;   // (T, nx) per shard
   const float* nob_up;   // (T, nx) per shard
 };
+using Source = SourceT<float>;
 
-__device__ __forceinline__ Source shard(const Geom& g, Source src) {
+template <class T>
+__device__ __forceinline__ SourceT<T> shard(const Geom& g, SourceT<T> src) {
   const size_t z = blockIdx.y;
   const size_t plane = (size_t)g.ny * g.nx, hplane = (size_t)g.T * g.nx;
   src.cells += z * 9 * plane;
@@ -168,10 +177,11 @@ __device__ __forceinline__ Source shard(const Geom& g, Source src) {
 // of the shard's rows with T halo rows on each side (wrapped within those
 // ny + 2T rows: the rows beyond them only feed garbage that never reaches
 // the central cells).
-template <bool kSharded>
-__device__ __forceinline__ float load_cell(const Geom& g, const Smem& s, const Source& src, int y0,
-                                           int r, int c, float v[9]) {
-  const float* base = src.cells;
+template <bool kSharded, class S = lbm::F32>
+__device__ __forceinline__ float load_cell(const Geom& g, const Smem& s,
+                                           const SourceT<typename S::T>& src, int y0, int r,
+                                           int c, float v[9], const S& st = S()) {
+  const typename S::T* base = src.cells;
   const float* nbase = src.nobst;
   size_t plane = (size_t)g.ny * g.nx;
   int row = s.grow[r];
@@ -195,33 +205,30 @@ __device__ __forceinline__ float load_cell(const Geom& g, const Smem& s, const S
   }
   const size_t gi = (size_t)row * g.nx + s.gcol[c];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) v[k] = base[k * plane + gi];
+  for (int k = 0; k < 9; ++k) v[k] = st.load(base[k * plane + gi], k);
   return nbase[gi];
 }
 
 // Loads the window's 9 planes into ``win`` (9 x ncell) and its
 // not-obstacle plane into s.nob.
-template <bool kSharded>
+template <bool kSharded, class S = lbm::F32>
 __device__ __forceinline__ void load_window(const Geom& g, const Smem& s, float* win,
-                                            const Source& src, int y0) {
+                                            const SourceT<typename S::T>& src, int y0,
+                                            const S& st = S()) {
   for_cells(g.WH, g.WW, [&](int r, int c) {
     const int i = r * g.WW + c;
     float v[9];
-    s.nob[i] = load_cell<kSharded>(g, s, src, y0, r, c, v);
+    s.nob[i] = load_cell<kSharded>(g, s, src, y0, r, c, v, st);
 #pragma unroll
     for (int k = 0; k < 9; ++k) win[k * g.ncell + i] = v[k];
   });
 }
 
-__device__ __forceinline__ void load_window(const Geom& g, const Smem& s, float* win,
-                                            const float* __restrict__ src,
-                                            const float* __restrict__ nobst) {
-  load_window<false>(g, s, win, Source{src, nobst, nullptr, nullptr, nullptr, nullptr}, 0);
-}
-
 // Stores the central cells of ``win`` that lie inside the grid.
-__device__ __forceinline__ void store_tile(const Geom& g, const float* win, float* __restrict__ dst,
-                                           int y0, int x0) {
+template <class S = lbm::F32>
+__device__ __forceinline__ void store_tile(const Geom& g, const float* win,
+                                           typename S::T* __restrict__ dst, int y0, int x0,
+                                           const S& st = S()) {
   const size_t plane = (size_t)g.ny * g.nx;
   const int rows = min(g.B, g.ny - y0);
   const int cols = min(g.P, g.nx - x0);
@@ -229,20 +236,29 @@ __device__ __forceinline__ void store_tile(const Geom& g, const float* win, floa
     const int i = (r + g.T) * g.WW + (c + g.T);
     const size_t gi = (size_t)(y0 + r) * g.nx + (x0 + c);
 #pragma unroll
-    for (int k = 0; k < 9; ++k) dst[k * plane + gi] = win[k * g.ncell + i];
+    for (int k = 0; k < 9; ++k) dst[k * plane + gi] = st.store(win[k * g.ncell + i], k);
   });
 }
 
-// Central cells inside the grid: window rows [T, rhi), columns [T, chi).
+// Central cells inside the grid: window rows [rlo, rhi), columns [T, chi).
 struct Central {
-  int rhi, chi, T;
+  int rlo, rhi, chi, T;
   __device__ __forceinline__ bool has(int r, int c) const {
-    return r >= T && r < rhi && c >= T && c < chi;
+    return r >= rlo && r < rhi && c >= T && c < chi;
   }
 };
 
 __device__ __forceinline__ Central central(const Geom& g, int y0, int x0) {
-  return Central{g.T + min(g.B, g.ny - y0), g.T + min(g.P, g.nx - x0), g.T};
+  return Central{g.T, g.T + min(g.B, g.ny - y0), g.T + min(g.P, g.nx - x0), g.T};
+}
+
+// The central cells of rows [lo, hi) of the grid only (the slab kernel's
+// owned rows).
+__device__ __forceinline__ Central central_rows(const Geom& g, int y0, int x0, int lo, int hi) {
+  Central c = central(g, y0, x0);
+  c.rlo = max(c.rlo, lo - y0 + g.T);
+  c.rhi = min(c.rhi, hi - y0 + g.T);
+  return c;
 }
 
 // Warp-reduces one thread's step sum in a fixed tree into red[s][warp].
@@ -269,10 +285,12 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
 
 // After the pass (and a __syncthreads() since the last step_partial):
 // writes this tile's T partials, and the last block to finish reduces all
-// tiles' partials into av[0..T) * inv_tot. partials: T x ntiles floats;
-// ticket: one zeroed unsigned int, reset to 0 for the next pass.
+// tiles' partials into av[0..T) * inv_tot, or adds them to av with
+// ``accumulate``. partials: T x ntiles floats; ticket: one zeroed unsigned
+// int, reset to 0 for the next pass.
 __device__ __forceinline__ void finish_sums(const Geom& g, const Smem& s, float* partials,
-                                            unsigned int* ticket, float inv_tot, float* av) {
+                                            unsigned int* ticket, float inv_tot, float* av,
+                                            bool accumulate = false) {
   __shared__ float scratch[kWarps];
   __shared__ bool is_last;
   const int ntiles = g.nty * g.ntx;
@@ -294,7 +312,7 @@ __device__ __forceinline__ void finish_sums(const Geom& g, const Smem& s, float*
     float acc = 0.0f;
     for (int i = threadIdx.x; i < ntiles; i += kThreads) acc += __ldcg(partials + (size_t)st * ntiles + i);
     const float total = block_sum(acc, scratch);
-    if (threadIdx.x == 0) av[st] = total * inv_tot;
+    if (threadIdx.x == 0) av[st] = (accumulate ? av[st] : 0.0f) + total * inv_tot;
   }
   if (threadIdx.x == 0) *ticket = 0u;
 }
@@ -321,8 +339,8 @@ __device__ __forceinline__ void force_cell(float v[9], float nob, float w1a, flo
 // Issues n_passes passes on one stream: launch(src, dst, av + p * T, p)
 // with pass p reading buf[p % 2] and writing buf[(p + 1) % 2]. Returns the
 // first launch error, or 0.
-template <class Launch>
-inline int run_passes(int n_passes, int T, float* a, float* b, float* av, Launch&& launch) {
+template <class E, class Launch>
+inline int run_passes(int n_passes, int T, E* a, E* b, float* av, Launch&& launch) {
   for (int p = 0; p < n_passes; ++p) {
     launch((p & 1) ? b : a, (p & 1) ? a : b, av + (size_t)p * T, p);
     const cudaError_t err = cudaGetLastError();

@@ -9,6 +9,11 @@
 // balance. At 1024^2 the two copies of the state (75.5 MB) do not fit the
 // 50 MB L2, so each step streams from HBM.
 //
+// c16 storage (pallas_step.py:198-243): the planes are int16 codes
+// (lbm_common.cuh::C16), decoded as they are read and encoded as they are
+// written, 40 B per cell per step; the physics and the mask stay f32. A
+// warp then reads and writes 64 B of a plane, half a 128-byte line.
+//
 // What the design does about it: one thread per cell with threadIdx.x along
 // x, so each warp reads and writes whole 128-byte lines of one plane (the
 // (9, ny, nx) structure-of-arrays layout); every value is read once and
@@ -24,11 +29,12 @@
 
 namespace {
 
+template <class S>
 __global__ void __launch_bounds__(lbm::kThreads)
-step_kernel(const float* __restrict__ src, float* __restrict__ dst,
+step_kernel(const typename S::T* __restrict__ src, typename S::T* __restrict__ dst,
             const float* __restrict__ nobst, float* __restrict__ partials,
             unsigned int* __restrict__ ticket, float* __restrict__ av_out,
-            int ny, int nx, float w1a, float w2a, lbm::Relax rc, float inv_tot) {
+            int ny, int nx, float w1a, float w2a, lbm::Relax rc, float inv_tot, S st) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const bool inside = x < nx && y < ny;
@@ -36,13 +42,31 @@ step_kernel(const float* __restrict__ src, float* __restrict__ dst,
   float u = 0.0f;
   if (inside) {
     float t[9];
-    const float usq = lbm::pull_collide<false>(src, nobst, ny, nx, y, x, w1a, w2a, rc, t);
+    const float usq = lbm::pull_collide<false>(src, nobst, ny, nx, y, x, w1a, w2a, rc, t, st);
     const size_t c = (size_t)y * nx + x;
     u = nobst[c] * sqrtf(usq);
 #pragma unroll
-    for (int k = 0; k < 9; ++k) dst[k * plane + c] = t[k];
+    for (int k = 0; k < 9; ++k) dst[k * plane + c] = st.store(t[k], k);
   }
   lbm::grid_sum_last_block(u, partials, ticket, inv_tot, av_out);
+}
+
+template <class S>
+int run(void* buf_a, void* buf_b, const float* nobst, float* av, float* partials,
+        unsigned int* ticket, int ny, int nx, int n_steps, float w1a, float w2a,
+        const lbm::Relax& rc, float inv_tot, cudaStream_t s, const S& st) {
+  using T = typename S::T;
+  const dim3 block(lbm::kBlockX, lbm::kBlockY);
+  const dim3 grid = lbm::grid_for(ny, nx);
+  for (int t = 0; t < n_steps; ++t) {
+    const T* src = static_cast<const T*>((t & 1) ? buf_b : buf_a);
+    T* dst = static_cast<T*>((t & 1) ? buf_a : buf_b);
+    step_kernel<S><<<grid, block, 0, s>>>(src, dst, nobst, partials, ticket, av + t, ny, nx,
+                                          w1a, w2a, rc, inv_tot, st);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -51,24 +75,22 @@ step_kernel(const float* __restrict__ src, float* __restrict__ dst,
 // buf[t % 2] and writes buf[(t + 1) % 2], so the final state is in
 // buf_a for even n_steps and in buf_b for odd. av receives n_steps values.
 // partials needs one float per block of grid_for(ny, nx); ticket one
-// zeroed unsigned int. Returns the first CUDA error, or 0.
-extern "C" int lbm_step_run(float* buf_a, float* buf_b, const float* nobst, float* av,
+// zeroed unsigned int. codec: null for f32 planes, else the 12 floats of
+// c16 storage (DevSpec.codec) and int16 planes. Returns the first CUDA
+// error, or 0.
+extern "C" int lbm_step_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                             float* partials, unsigned int* ticket, int ny, int nx,
                             int n_steps, float w1a, float w2a, float beta, float ow0,
-                            float ow1, float ow2, float inv_tot, void* stream) {
+                            float ow1, float ow2, float inv_tot, const float* codec,
+                            void* stream) {
   const lbm::Relax rc{beta, ow0, ow1, ow2};
-  const dim3 block(lbm::kBlockX, lbm::kBlockY);
-  const dim3 grid = lbm::grid_for(ny, nx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int t = 0; t < n_steps; ++t) {
-    const float* src = (t & 1) ? buf_b : buf_a;
-    float* dst = (t & 1) ? buf_a : buf_b;
-    step_kernel<<<grid, block, 0, s>>>(src, dst, nobst, partials, ticket, av + t, ny, nx,
-                                       w1a, w2a, rc, inv_tot);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (codec != nullptr) {
+    return run(buf_a, buf_b, nobst, av, partials, ticket, ny, nx, n_steps, w1a, w2a, rc,
+               inv_tot, s, lbm::make_c16(codec));
   }
-  return 0;
+  return run(buf_a, buf_b, nobst, av, partials, ticket, ny, nx, n_steps, w1a, w2a, rc, inv_tot,
+             s, lbm::F32());
 }
 
 extern "C" unsigned int lbm_step_num_blocks(int ny, int nx) {

@@ -34,14 +34,18 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_C = ctypes.POINTER(ctypes.c_float)  # the codec: NULL (f32 storage) or 12 floats (c16)
 _RUN_ARGTYPES = {
-    "lbm_step_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_P],
-    "lbm_aa_run": [_P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_P],
+    "lbm_step_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_C, _P],
+    "lbm_aa_run": [_P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_C, _P],
     # band kernels: (buf_a, buf_b, nobst, av, partials, ticket, ny, nx,
-    # block, depth, panel, n_passes, 7 scalars, stream)
-    "lbm_band_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+    # block, depth, panel, n_passes, 7 scalars[, codec], stream)
+    "lbm_band_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_C, _P],
     "lbm_band2_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
-    "lbm_band3_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+    "lbm_band3_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_C, _P],
+    # (state, next, slab_a, slab_b, nobst, av, partials, ticket, ny, nx,
+    # block, depth, panel, kpasses, sblock, n_gens, 7 scalars, codec, stream)
+    "lbm_slab_run": [_P] * 8 + [_I] * 8 + [_F] * 7 + [_C, _P],
     "lbm_deep_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
     # (state_a, state_b, last_a, first_a, last_b, first_b, nobst, av,
     # partials, ticket, ny, nx, block, depth, panel, n_passes, 7 scalars, stream)
@@ -67,6 +71,16 @@ _COUNT_ARGTYPES = {
     "lbm_aa_num_blocks": [_I, _I],
     "lbm_band_num_tiles": [_I, _I, _I, _I],  # (ny, nx, block, panel)
 }
+
+
+# Entry points that take c16 storage (a ``codec`` argument before the stream).
+CODEC_ENTRIES = ("lbm_step_run", "lbm_aa_run", "lbm_band_run", "lbm_band3_run", "lbm_slab_run")
+
+
+def codec(dev):
+    """The ``codec`` argument of an entry point for a run's storage: None
+    (NULL) for f32, the 12 floats of ``DevSpec.codec()`` for c16."""
+    return None if dev is None else (ctypes.c_float * 12)(*dev.codec())
 
 
 class BuildError(RuntimeError):

@@ -25,6 +25,13 @@ The TPU kernel's gates (``aa_supported``: ``nx % 128``, the VMEM budget
 ``_MAX_STATE_BYTES``, ``_pick_tile`` and the 254-step ``_CHUNK_STEPS``
 calls) exist for VMEM and Mosaic and are not ported: K2 needs only
 ``ny >= 3`` and device memory for one state.
+
+c16 storage (``dev``): the state is int16 codes, keyed by slot
+(``bg[opp(k)] == bg[k]``), and the arrangements move raw codes. Each step
+decodes every slot it reads and encodes every slot it writes; the forcing
+decodes, adds and re-encodes one row of each of the six forced slots,
+exactly the rows the JAX kernel stores (``pallas_aa.py:297-314``), so the
+rest of the state keeps its codes.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 
 from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
+from lbm_tpu_torch.ops.devspace import decode_plane, decode_state, encode_plane, encode_state
 from lbm_tpu_torch.ops.step import (
     _CXS, _CYS, _OPP, check_inputs, force_deltas, forcing_weights, kernel_scalars,
 )
@@ -53,28 +61,38 @@ def _mask(f3, f6, f7, nob_row, w1a, w2a):
     return ok.to(f3.dtype) * nob_row
 
 
-def force_even_plain(state, nobst, w1a, w2a):
+def _rows(state, dev):
+    """``(read, write)`` of one row of one slot as f32 values: the identity
+    for f32 storage, decode and encode for c16."""
+    if dev is None:
+        return (lambda k, r: state[k, r]), (lambda v, k: v)
+    return (lambda k, r: decode_plane(state[k, r], k, dev)), (lambda v, k: encode_plane(v, k, dev))
+
+
+def force_even_plain(state, nobst, w1a, w2a, dev=None):
     """Forcing in S space: the pre-stream delta of speed k on row ny-2 lands
     at row ``ny-2+cy_k``, shifted by ``cx_k``, in slot k; the mask reads
     planes 3/6/7 through the same shift."""
     ny = state.shape[1]
     r = ny - 2
-    m = _mask(torch.roll(state[3, r], 1), torch.roll(state[6, ny - 1], 1),
-              torch.roll(state[7, ny - 3], 1), nobst[r], w1a, w2a)
+    read, write = _rows(state, dev)
+    m = _mask(torch.roll(read(3, r), 1), torch.roll(read(6, ny - 1), 1),
+              torch.roll(read(7, ny - 3), 1), nobst[r], w1a, w2a)
     out = state.clone()
     for k, w in force_deltas(w1a, w2a):
         row = (r + _CYS[k]) % ny
-        out[k, row] = state[k, row] + torch.roll(m, _CXS[k]) * w
+        out[k, row] = write(read(k, row) + torch.roll(m, _CXS[k]) * w, k)
     return out
 
 
-def force_odd_plain(state, nobst, w1a, w2a):
+def force_odd_plain(state, nobst, w1a, w2a, dev=None):
     """Forcing in C space: plane i lives in slot opp(i), row ny-2."""
     r = state.shape[1] - 2
-    m = _mask(state[_OPP[3], r], state[_OPP[6], r], state[_OPP[7], r], nobst[r], w1a, w2a)
+    read, write = _rows(state, dev)
+    m = _mask(read(_OPP[3], r), read(_OPP[6], r), read(_OPP[7], r), nobst[r], w1a, w2a)
     out = state.clone()
     for k, w in force_deltas(w1a, w2a):
-        out[_OPP[k], r] = state[_OPP[k], r] + m * w
+        out[_OPP[k], r] = write(read(_OPP[k], r) + m * w, _OPP[k])
     return out
 
 
@@ -108,39 +126,42 @@ def unarrange(state, n_steps: int):
 
 
 def run_aa_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
-                 paired="fused"):
-    """The AA schedule in plain PyTorch; returns ``(cells, av)``."""
-    check_inputs(cells, nobst, n_steps, MIN_NY)
+                 paired="fused", dev=None):
+    """The AA schedule in plain PyTorch; returns ``(cells, av)``. With
+    ``dev`` each step decodes the whole state and encodes its result."""
+    check_inputs(cells, nobst, n_steps, MIN_NY, dev)
     w1a, w2a = forcing_weights(density, accel)
     omega = float(omega)
     inv = torch.tensor(inv_tot_cells, dtype=torch.float32, device=cells.device)
     av = torch.empty(n_steps, dtype=torch.float32, device=cells.device)
     state = stream_planes(cells)
     for t in range(n_steps):
-        if t % 2:
-            state = force_odd_plain(state, nobst, w1a, w2a)
-            state, tot = odd_step_plain(state, nobst, omega, paired)
-        else:
-            state = force_even_plain(state, nobst, w1a, w2a)
-            state, tot = even_step_plain(state, nobst, omega, paired)
+        force, step = ((force_odd_plain, odd_step_plain) if t % 2
+                       else (force_even_plain, even_step_plain))
+        state = force(state, nobst, w1a, w2a, dev)
+        full = state if dev is None else decode_state(state, dev)
+        full, tot = step(full, nobst, omega, paired)
+        state = full if dev is None else encode_state(full, dev)
         av[t] = tot * inv
     return unarrange(state, n_steps), av
 
 
-def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="fused"):
+def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="fused",
+           dev=None):
     """Run ``n_steps`` AA steps: kernel K2 on CUDA, ``run_aa_plain`` on CPU.
 
     ``cells`` is left unchanged. ``inv_tot_cells`` is the f32 value of
     1 / (unblocked cells). The kernel implements the fused collision form.
+    ``dev``: c16 storage (int16 ``cells``).
     """
     if cells.device.type == "cpu":
         return run_aa_plain(cells, nobst, density, accel, omega, n_steps,
-                            inv_tot_cells, paired)
+                            inv_tot_cells, paired, dev)
     if cells.device.type != "cuda":
         raise ValueError(f"no AA kernel for device {cells.device}")
     if not (isinstance(paired, str) and paired.startswith("fused")):
         raise ValueError("the CUDA AA kernel implements the fused collision form only")
-    check_inputs(cells, nobst, n_steps, MIN_NY)
+    check_inputs(cells, nobst, n_steps, MIN_NY, dev)
     lib = _build.library()
     _, ny, nx = cells.shape
     state = stream_planes(cells).contiguous()  # R -> S, once per run
@@ -154,11 +175,15 @@ def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="
         rc = lib.lbm_aa_run(
             state.data_ptr(), nobst.data_ptr(), av.data_ptr(), partials.data_ptr(),
             ticket.data_ptr(), ny, nx, n_steps,
-            *kernel_scalars(density, accel, omega, inv_tot_cells), stream,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
         )
     _build.check(rc, "AA kernel")
-    run_aa.launches += n_steps
+    if dev is None:
+        run_aa.launches += n_steps
+    else:
+        run_aa.launches_c16 += n_steps
     return unarrange(state, n_steps), av
 
 
 run_aa.launches = 0  # K2 steps launched in this process
+run_aa.launches_c16 = 0  # K2 steps launched at c16

@@ -22,6 +22,11 @@ holds at most ``MAX_WINDOW_CELLS`` window cells (its register budget).
 ``LBM_BAND_ROWFORCE`` and ``LBM_BAND_UNROLL`` are TPU A/B plumbing and are
 not ported.
 
+c16 storage (``dev``): K7 decodes its window and encodes its tile (one
+rounding point per pass, ``pallas_band.py``'s ``dev=``), the plain passes
+decode and encode around each pass, and the remainder runs on K1 at c16.
+The slab route K13 (``ops/slab.py``) runs its remainder here.
+
 ``run_band_sharded`` runs the same passes over a 1-D mesh of row shards
 (``parallel/sharded.py``, ``--mesh N --backend band``): kernel K8, the
 counterpart of ``pallas_band.py::_kernel_sharded`` and ``_kernel_sharded_panel``, takes each
@@ -47,71 +52,83 @@ def band_supported(ny: int, nx: int, block: int, depth: int, panel: int | None =
     return ny >= 2 and depth >= 1 and block >= 1 and (panel is None or panel >= 1)
 
 
-def _check(cells, nobst, n_iters, block, depth, panel):
-    BC.check_schedule(cells, nobst, n_iters, block, depth, panel)
+def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
+    BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
     _, ny, nx = cells.shape
     if not band_supported(ny, nx, block, depth, panel):
         raise ValueError(f"band schedule unsupported: grid {ny}x{nx}, block {block}, "
                          f"depth {depth}, panel {panel}")
 
 
-def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired):
+def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
+                  dev=None):
     w1a, w2a = forcing_weights(density, accel)
     step = BC.r_step_plain(float(omega), w1a, w2a, paired)
-    return BC.plain_passes(nobst, inv_tot_cells, block, depth, panel, lambda p, n: step)
+    return BC.plain_passes(nobst, inv_tot_cells, block, depth, panel, lambda p, n: step, dev)
 
 
-def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired, device):
+def check_window(block, depth, panel, nx):
+    """Raise if the kernel's threads cannot hold a window in registers."""
+    b, p, t = BC.tile_shape(nx, block, depth, panel)
+    if (b + 2 * t) * (p + 2 * t) > MAX_WINDOW_CELLS:
+        raise ValueError(f"band kernel: a {b + 2 * t}x{p + 2 * t} window exceeds the "
+                         f"{MAX_WINDOW_CELLS} cells its threads hold in registers")
+
+
+def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired, device,
+            dev=None):
     """``run_passes`` of ``run_creep`` for the device of the state."""
     if device.type == "cpu":
         return _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
-                             paired)
+                             paired, dev)
     if device.type != "cuda":
         raise ValueError(f"no band kernel for device {device}")
     if not (isinstance(paired, str) and paired.startswith("fused")):
         raise ValueError("the CUDA band kernel implements the fused collision form only")
 
-    b, p, t = BC.tile_shape(nobst.shape[1], block, depth, panel)
-    if (b + 2 * t) * (p + 2 * t) > MAX_WINDOW_CELLS:
-        raise ValueError(f"band kernel: a {b + 2 * t}x{p + 2 * t} window exceeds the "
-                         f"{MAX_WINDOW_CELLS} cells its threads hold in registers")
+    check_window(block, depth, panel, nobst.shape[1])
 
     def run_passes(cells, npasses):
         out = BC.launch_passes("lbm_band_run", "band kernel", cells.contiguous().clone(), nobst,
                                density, accel, omega, inv_tot_cells, block, depth, panel,
-                               npasses, PLANE_COPIES)
-        run_band.launches += npasses * depth
+                               npasses, PLANE_COPIES, dev)
+        if dev is None:
+            run_band.launches += npasses * depth
+        else:
+            run_band.launches_c16 += npasses * depth
         return out
 
     return run_passes
 
 
 def run_band_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-                   inv_tot_cells=1.0, paired="fused"):
+                   inv_tot_cells=1.0, paired="fused", dev=None):
     """The band schedule in plain PyTorch; returns ``(cells, av)``."""
-    _check(cells, nobst, n_iters, block, depth, panel)
+    _check(cells, nobst, n_iters, block, depth, panel, dev)
     passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
-                           paired)
+                           paired, dev)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired)
+                        passes, paired, dev)
 
 
 def run_band(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-             inv_tot_cells=1.0, paired="fused"):
+             inv_tot_cells=1.0, paired="fused", dev=None):
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K7 on CUDA (and K1
     for the remainder), ``run_band_plain`` on CPU. ``cells`` is left
-    unchanged. The kernel implements the fused collision form."""
+    unchanged. The kernel implements the fused collision form. ``dev``:
+    c16 storage (int16 ``cells``)."""
     if cells.device.type == "cpu":
         return run_band_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
-                              panel=panel, inv_tot_cells=inv_tot_cells, paired=paired)
-    _check(cells, nobst, n_iters, block, depth, panel)
+                              panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
+    _check(cells, nobst, n_iters, block, depth, panel, dev)
     passes = _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
-                     cells.device)
+                     cells.device, dev)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired)
+                        passes, paired, dev)
 
 
 run_band.launches = 0  # steps K7 advanced in this process
+run_band.launches_c16 = 0  # steps K7 advanced at c16
 
 
 _K8 = BC.ShardedKernel("band", "lbm_band_sharded_run", band_supported, PLANE_COPIES,

@@ -37,6 +37,15 @@ and ``ShardedKernel`` the wrappers that ``ops/band.py`` and
 ``ops/band2.py`` name. The per-step sums stay raw per shard; the mesh adds
 them up.
 
+The slab form (K13, ``ops/slab.py``): ``creep_pass_plain(..., r0=,
+ny_global=, own=)`` runs a pass over one y-slab that wraps within itself,
+its rows at global rows ``r0 + row`` for the forcing test, and sums only
+the owned rows ``own``.
+
+c16 storage (``dev``): the passes decode the state before a pass and
+encode its result (``plain_passes``), and ``launch_passes`` hands the
+kernel the codec; the window itself stays f32, as in the TPU kernels.
+
 The TPU's BlockSpec strip views (``fullrow_specs``/``panel_specs``), the
 extended mask ``nobst_ext`` and the 128-lane halo H do not carry over: the
 window gather replaces them, and every tile's x halo is T columns.
@@ -83,8 +92,8 @@ def smem_bytes(plane_copies: int, nx: int, block: int, depth: int, panel: int | 
     return (9 * plane_copies + 1) * 4 * wh * ww + 4 * (wh + ww) + 4 * _WARPS * t
 
 
-def check_schedule(cells, nobst, n_iters, block, depth, panel):
-    check_inputs(cells, nobst, n_iters, 2)
+def check_schedule(cells, nobst, n_iters, block, depth, panel, dev=None):
+    check_inputs(cells, nobst, n_iters, 2, dev)
     if block < 1 or depth < 1 or (panel is not None and panel < 1):
         raise ValueError(f"bad band schedule: block {block}, depth {depth}, panel {panel}")
 
@@ -119,7 +128,7 @@ def scatter_central(win, ny: int, nx: int, block: int, depth: int, panel: int | 
 
 
 def creep_pass_plain(state, nobst, block, depth, panel, step, *, halo=None, r0=0,
-                     ny_global=None):
+                     ny_global=None, own=None):
     """One band pass of ``depth`` steps in plain PyTorch on all windows.
 
     ``step(s, planes, nob, frow)`` advances the 9 window planes (each
@@ -132,37 +141,43 @@ def creep_pass_plain(state, nobst, block, depth, panel, step, *, halo=None, r0=0
     ``halo=(dn, up, nob_dn, nob_up)``: ``state`` is one shard whose first
     row is global row ``r0`` of ``ny_global``; window rows come from its
     rows between the T rows ``dn`` above and ``up`` below (wrapped within
-    those ``ry + 2T`` rows, beyond which only garbage is fed)."""
+    those ``ry + 2T`` rows, beyond which only garbage is fed).
+
+    Without ``halo``, ``r0`` and ``ny_global`` (the slab form) place the
+    state's rows at global rows ``r0 + row`` of ``ny_global`` for the
+    forcing test, the windows still wrapping within the state; ``own=(lo,
+    hi)`` sums only the central cells of rows ``[lo, hi)``."""
     _, ny, nx = state.shape
     b, p, t = tile_shape(nx, block, depth, panel)
     rows, cols = window_indices(ny, nx, block, depth, panel, state.device)
     nty, ntx = rows.shape[0], cols.shape[0]
+    base = (torch.arange(nty, device=state.device)[:, None] * b
+            + torch.arange(b + 2 * t, device=state.device)[None, :])
     if halo is None:
-        src, nob_src, grows = state, nobst, rows
+        src, nob_src = state, nobst
     else:
         dn, up, nob_dn, nob_up = halo
         src = torch.cat([dn, state, up], dim=1)
         nob_src = torch.cat([nob_dn, nobst, nob_up], dim=0)
-        base = (torch.arange(nty, device=state.device)[:, None] * b
-                + torch.arange(b + 2 * t, device=state.device)[None, :])
         rows = base % (ny + 2 * t)
-        grows = (base + (r0 - t)) % ny_global
-        ny = ny_global
+    grows = (base + (r0 - t)) % (ny if ny_global is None else ny_global)
     win = gather_windows(src, rows, cols)
     nob = gather_windows(nob_src[None], rows, cols)[:, 0]
-    frow = (grows == ny - 2).to(state.dtype)[:, None, :, None].expand(nty, ntx, b + 2 * t, 1)
+    frow_at = (ny if ny_global is None else ny_global) - 2
+    frow = (grows == frow_at).to(win.dtype)[:, None, :, None].expand(nty, ntx, b + 2 * t, 1)
     frow = frow.reshape(nty * ntx, b + 2 * t, 1)
-    ny = state.shape[1]
-    # Central cells inside the grid: the ragged last tiles store and sum
-    # only those.
-    valid_y = (torch.arange(nty, device=state.device)[:, None] * b
-               + torch.arange(b, device=state.device)[None, :]) < ny
+    # Central cells inside the grid (the owned rows): the ragged last tiles
+    # store and sum only those.
+    lo, hi = (0, ny) if own is None else own
+    row_of = (torch.arange(nty, device=state.device)[:, None] * b
+              + torch.arange(b, device=state.device)[None, :])
+    valid_y = (row_of < ny) & (row_of >= lo) & (row_of < hi)
     valid_x = (torch.arange(ntx, device=state.device)[:, None] * p
                + torch.arange(p, device=state.device)[None, :]) < nx
     valid = (valid_y[:, None, :, None] & valid_x[None, :, None, :]).reshape(nty * ntx, b, p)
-    nob_mid = nob[:, t:t + b, t:t + p] * valid.to(state.dtype)
+    nob_mid = nob[:, t:t + b, t:t + p] * valid.to(win.dtype)
     planes = list(win.unbind(1))
-    sums = torch.empty(depth, dtype=state.dtype, device=state.device)
+    sums = torch.empty(depth, dtype=win.dtype, device=state.device)
     for s in range(depth):
         planes, u_sq = step(s, planes, nob, frow)
         # Central band sliced before any arithmetic: edge garbage never
@@ -200,7 +215,7 @@ def r_step_plain(omega, w1a, w2a, paired):
 
 
 def run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-              run_passes, paired="fused"):
+              run_passes, paired="fused", dev=None):
     """The family's pass loop: ``run_passes(cells, n_iters // depth)`` returns
     the state and the per-step av of the passes, then the ``n_iters % depth``
     remainder runs on ``ops/step.py::run_step`` (kernel K1 on CUDA)."""
@@ -210,11 +225,25 @@ def run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth
         cells, av[:npasses * depth] = run_passes(cells, npasses)
     if rem:
         cells, av[npasses * depth:] = run_step(cells, nobst, density, accel, omega, rem,
-                                               inv_tot_cells, paired)
+                                               inv_tot_cells, paired, dev)
     return cells, av
 
 
-def plain_passes(nobst, inv_tot_cells, block, depth, panel, step_for):
+def coded(dev, fn):
+    """``fn(state) -> (state, ...)`` on f32 values: with ``dev`` (c16) the
+    state is decoded before and encoded after (a pass's rounding points)."""
+    if dev is None:
+        return fn
+    from lbm_tpu_torch.ops.devspace import decode_state, encode_state
+
+    def run(state):
+        out, *rest = fn(decode_state(state, dev))
+        return (encode_state(out, dev), *rest)
+
+    return run
+
+
+def plain_passes(nobst, inv_tot_cells, block, depth, panel, step_for, dev=None):
     """``run_passes`` for the plain versions: ``step_for(p, npasses)`` gives
     pass p's step function."""
 
@@ -222,7 +251,8 @@ def plain_passes(nobst, inv_tot_cells, block, depth, panel, step_for):
         inv = torch.tensor(inv_tot_cells, dtype=torch.float32, device=state.device)
         av = []
         for p in range(npasses):
-            state, sums = creep_pass_plain(state, nobst, block, depth, panel, step_for(p, npasses))
+            state, sums = coded(dev, lambda s: creep_pass_plain(
+                s, nobst, block, depth, panel, step_for(p, npasses)))(state)
             av.append(sums * inv)
         return state, torch.cat(av)
 
@@ -241,10 +271,11 @@ def check_smem(what: str, plane_copies: int, nx: int, block: int, depth: int,
 
 
 def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, inv_tot_cells,
-                  block, depth, panel, npasses, plane_copies):
+                  block, depth, panel, npasses, plane_copies, dev=None):
     """Issue ``npasses`` passes of a band kernel (K7, K9, K11) or of the deep
     kernel K6 through one C call on the current stream. ``state`` is consumed (the kernel ping-pongs between it
-    and a second copy); returns ``(state, av)``."""
+    and a second copy); returns ``(state, av)``. ``dev``: c16 storage (K7
+    and K11 only)."""
     _, ny, nx = state.shape
     b, p, t = tile_shape(nx, block, depth, panel)
     check_smem(what, plane_copies, nx, block, depth, panel)
@@ -261,7 +292,8 @@ def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, in
         rc = getattr(lib, entry)(
             a.data_ptr(), other.data_ptr(), nobst.data_ptr(), av.data_ptr(),
             partials.data_ptr(), ticket.data_ptr(), ny, nx, b, t, p, npasses,
-            *kernel_scalars(density, accel, omega, inv_tot_cells), stream,
+            *kernel_scalars(density, accel, omega, inv_tot_cells),
+            *((_build.codec(dev),) if entry in _build.CODEC_ENTRIES else ()), stream,
         )
     _build.check(rc, what)
     return (a if npasses % 2 == 0 else other), av

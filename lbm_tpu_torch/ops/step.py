@@ -13,6 +13,11 @@ never falls back to the plain version.
 The TPU kernel's tiling constraints (``nx % 128``, ``ny`` a multiple of the
 row block) and its halo carry do not apply: K1 needs ``ny >= 2`` and
 device memory for two states.
+
+c16 storage (``dev``, an ``ops/devspace.py::DevSpec``): the state is int16
+codes; K1 decodes each value it reads and encodes each value it writes
+(``pallas_step.py:198-243``), and the plain version is decode,
+``step_plain``, encode: the same rounding point, once per step.
 """
 
 from __future__ import annotations
@@ -49,11 +54,18 @@ def kernel_scalars(density: float, accel: float, omega: float, inv_tot_cells: fl
             float(inv_tot_cells))
 
 
-def check_inputs(cells: torch.Tensor, nobst: torch.Tensor, n_steps: int, min_ny: int) -> None:
+def check_inputs(cells: torch.Tensor, nobst: torch.Tensor, n_steps: int, min_ny: int,
+                 dev=None) -> None:
+    """Shapes, dtypes and devices a kernel takes; ``dev`` (c16) wants int16 codes."""
     if cells.dim() != 3 or cells.shape[0] != 9:
         raise ValueError(f"state must be (9, ny, nx), got {tuple(cells.shape)}")
-    if cells.dtype != torch.float32 or nobst.dtype != torch.float32:
-        raise ValueError("the kernels take f32 state and an f32 not-obstacle plane")
+    if dev is not None:
+        if cells.dtype != torch.int16 or nobst.dtype != torch.float32:
+            raise ValueError("c16 storage takes an int16 state and an f32 not-obstacle plane")
+    elif cells.dtype != torch.float32 or nobst.dtype != torch.float32:
+        raise ValueError("the kernels take f32 state and an f32 not-obstacle plane"
+                         + (" (int16 c16 codes need a DevSpec)" if cells.dtype == torch.int16
+                            else ""))
     if tuple(nobst.shape) != tuple(cells.shape[1:]):
         raise ValueError(f"nobst {tuple(nobst.shape)} does not match the grid {tuple(cells.shape[1:])}")
     if nobst.device != cells.device:
@@ -84,32 +96,39 @@ def step_plain(cells, nobst, w1a, w2a, omega, paired="fused"):
 
 
 def run_step_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
-                   paired="fused"):
-    """``n_steps`` of ``step_plain``; returns ``(cells, av)``."""
-    check_inputs(cells, nobst, n_steps, 2)
+                   paired="fused", dev=None):
+    """``n_steps`` of ``step_plain`` (with ``dev``, each between a decode and
+    an encode); returns ``(cells, av)``."""
+    from lbm_tpu_torch.ops.devspace import decode_state, encode_state
+
+    check_inputs(cells, nobst, n_steps, 2, dev)
     w1a, w2a = forcing_weights(density, accel)
     inv = torch.tensor(inv_tot_cells, dtype=torch.float32, device=cells.device)
     av = torch.empty(n_steps, dtype=torch.float32, device=cells.device)
     for t in range(n_steps):
-        cells, tot = step_plain(cells, nobst, w1a, w2a, float(omega), paired)
+        full = cells if dev is None else decode_state(cells, dev)
+        full, tot = step_plain(full, nobst, w1a, w2a, float(omega), paired)
+        cells = full if dev is None else encode_state(full, dev)
         av[t] = tot * inv
     return cells, av
 
 
-def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="fused"):
+def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="fused",
+             dev=None):
     """Run ``n_steps`` fused steps: kernel K1 on CUDA, ``run_step_plain`` on CPU.
 
     ``cells`` is left unchanged. ``inv_tot_cells`` is the f32 value of
     1 / (unblocked cells). The kernel implements the fused collision form.
+    ``dev``: c16 storage (int16 ``cells``).
     """
     if cells.device.type == "cpu":
         return run_step_plain(cells, nobst, density, accel, omega, n_steps,
-                              inv_tot_cells, paired)
+                              inv_tot_cells, paired, dev)
     if cells.device.type != "cuda":
         raise ValueError(f"no step kernel for device {cells.device}")
     if not (isinstance(paired, str) and paired.startswith("fused")):
         raise ValueError("the CUDA step kernel implements the fused collision form only")
-    check_inputs(cells, nobst, n_steps, 2)
+    check_inputs(cells, nobst, n_steps, 2, dev)
     lib = _build.library()
     _, ny, nx = cells.shape
     a = cells.contiguous().clone()
@@ -124,11 +143,15 @@ def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired
         rc = lib.lbm_step_run(
             a.data_ptr(), b.data_ptr(), nobst.data_ptr(), av.data_ptr(),
             partials.data_ptr(), ticket.data_ptr(), ny, nx, n_steps,
-            *kernel_scalars(density, accel, omega, inv_tot_cells), stream,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
         )
     _build.check(rc, "step kernel")
-    run_step.launches += n_steps
+    if dev is None:
+        run_step.launches += n_steps
+    else:
+        run_step.launches_c16 += n_steps
     return (a if n_steps % 2 == 0 else b), av
 
 
 run_step.launches = 0  # K1 steps launched in this process
+run_step.launches_c16 = 0  # K1 steps launched at c16

@@ -50,7 +50,7 @@ from lbm_tpu_torch.runtime.device import list_devices
 from lbm_tpu_torch.runtime.driver import SimulationResult, compute_chunk_sizes
 
 # Backends the single-device driver runs and a mesh refuses.
-SINGLE_DEVICE_BACKENDS = ("resident", "aa", "temporal", "deep")
+SINGLE_DEVICE_BACKENDS = ("resident", "aa", "temporal", "deep", "slab")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,7 +169,8 @@ def mesh_totals(sums: torch.Tensor, inv_tot_cells) -> torch.Tensor:
 def _storage(dtype):
     """The torch dtype of a run, or raise for a storage mode not ported."""
     if isinstance(dtype, str) or dtype in (torch.bfloat16, torch.int16):
-        raise ValueError(f"{dtype} storage under a mesh is not yet ported; use f32 or f64")
+        raise ValueError(f"{dtype} storage under a mesh is not yet ported (the sharded c16 "
+                         "path is the next slice); use f32 or f64")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {dtype}; use float32 or float64")
     return dtype

@@ -24,7 +24,27 @@ Routes (``select_route``), as in the JAX package:
   plain versions), on the schedules of ``temporal_config`` and
   ``deep_config``, the remainder on K1;
 - ``reference`` -> the plain step of ``ops/reference.py``;
+- ``slab`` -> K*T steps per generation over y-slabs (kernel K13 / its plain
+  version), the remainder on K7 and K1; quarantined as in the JAX package:
+  it runs only with ``LBM_ENABLE_SLAB=1``;
 - f64 -> ``reference``; an explicit kernel backend with f64 raises.
+
+``dtype="c16"`` stores the state as int16 companded deviations
+(``ops/devspace.py``; driver.py:1309-1372 of the JAX package): the state is
+encoded on upload, the kernels decode and encode at their loads and
+stores, checkpoints and ``result.cells`` hold the decoded f32 state, and
+every c16 run ends with the saturation check (one on-device max of |code|
+and one scalar fetched). ``auto`` at c16 runs ``pallas`` (K1), as the JAX
+package's auto does on the official decks (its band and temporal routes
+start at 1536 columns, and the resident kernel never takes c16): K1 and K2
+round the codes every step and pass the 1% gate, while the band kernels
+round once per pass of T steps, as the JAX kernels do, and that cadence
+drifts (1.68% on the 256^2 deck with K11 on an H100, PERF.md; the JAX
+package's study of T-step rounding, BENCHMARKS.md round 3). ``aa``,
+``band``, ``band3``, ``slab`` and ``reference`` take c16 when named;
+``resident`` raises as in the JAX package, and ``band2``, ``temporal`` and
+``deep`` raise "not yet ported": a backend that names a kernel never runs
+another.
 
 ``run_simulation`` runs ``[start_step, max_iters)`` in chunks whose
 boundaries fall on every multiple of ``checkpoint_every``, writing a
@@ -35,22 +55,33 @@ chunks' compute time only.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from lbm_tpu_torch.models.d2q9 import D2Q9, LBMParams, obstacles_from_numpy
 from lbm_tpu_torch.ops.aa import MIN_NY as AA_MIN_NY
+from lbm_tpu_torch.ops import devspace
 from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import lbm_step_reference
 from lbm_tpu_torch.ops.resident import resident_supported
 
 BACKENDS = ("auto", "aa", "pallas", "reference", "band", "band2", "band3", "resident",
-            "temporal", "deep")
+            "temporal", "deep", "slab")
 # Routes of T steps per pass with the remainder on K1, run by ``pass_schedule``.
 PASS_BACKENDS = ("band", "band2", "band3", "temporal", "deep")
-KERNEL_BACKENDS = ("aa", "pallas", "resident") + PASS_BACKENDS
+KERNEL_BACKENDS = ("aa", "pallas", "resident", "slab") + PASS_BACKENDS
+# The storage that names c16 (int16 companded deviations, ops/devspace.py).
+C16 = "c16"
+# Backends whose kernels take c16 storage.
+C16_BACKENDS = ("auto", "aa", "pallas", "reference", "band", "band3", "slab")
+
+
+def is_c16(dtype) -> bool:
+    return isinstance(dtype, str) and dtype == C16
 
 
 @dataclasses.dataclass
@@ -105,9 +136,9 @@ _RESIDENT_AUTO_MAX_STATE = 9 * 384 * 384 * 4
 
 def band_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The band kernel's schedule ``(block, depth, panel)`` (driver.py:468-498
-    of the JAX package), or None for a dtype it does not store."""
+    of the JAX package), or None for a dtype it does not store (f32 and c16)."""
     del params
-    return _BAND_SCHEDULE if dtype == torch.float32 else None
+    return _BAND_SCHEDULE if is_c16(dtype) or dtype == torch.float32 else None
 
 
 def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
@@ -119,9 +150,41 @@ def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
 
 def band3_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The band3 kernel's schedule ``(block, depth, panel)`` (driver.py:691-720),
-    or None for a dtype it does not store."""
+    or None for a dtype it does not store (f32 and c16)."""
     del params
-    return _BAND3_SCHEDULE if dtype == torch.float32 else None
+    return _BAND3_SCHEDULE if is_c16(dtype) or dtype == torch.float32 else None
+
+
+# K13: passes per slab visit (the JAX package's default).
+_SLAB_K = 4
+
+
+def slab_config(params: LBMParams, dtype) -> tuple[int, int, int | None, int, int] | None:
+    """The slab kernel's schedule ``(block, depth, panel, kpasses, sblock)``
+    (driver.py:501-529 of the JAX package), or None. The pass is K7's
+    (``band_config``); ``LBM_SLAB_K`` sets the passes per slab visit
+    (default 4) and ``LBM_SLAB_S`` the slab rows. The default S is the
+    largest divisor of ny below ny: on an H100 the sweep (PERF.md, K13) ran
+    fastest at S = ny/2 at 2048^2 and 4096^2 for every K, the larger the
+    slab the faster (not the TPU's 4,194,304-cell slab, nor a slab whose
+    two buffers fit the 50 MB L2: those ran 1.3-1.5x slower)."""
+    from lbm_tpu_torch.ops.slab import slab_supported
+
+    cfg = band_config(params, dtype)
+    if cfg is None:
+        return None
+    block, depth, panel = cfg
+    k = int(os.environ.get("LBM_SLAB_K", str(_SLAB_K)))
+    ov_s = os.environ.get("LBM_SLAB_S")
+    if ov_s:
+        s = int(ov_s)
+        ok = slab_supported(params.ny, params.nx, block, depth, k, s, panel)
+        return (block, depth, panel, k, s) if ok else None
+    best = None
+    for s in range(1, params.ny):
+        if slab_supported(params.ny, params.nx, block, depth, k, s, panel):
+            best = s
+    return None if best is None else (block, depth, panel, k, best)
 
 
 def resident_config(params: LBMParams, dtype) -> int | None:
@@ -171,6 +234,17 @@ def pass_schedule(route: str, params: LBMParams, dtype):
     return run, cfg
 
 
+def select_slab(params: LBMParams, dtype):
+    """The slab schedule for ``--backend slab`` (driver.py:532-559); raises
+    for a grid the schedule cannot cut into slabs."""
+    cfg = slab_config(params, dtype)
+    if cfg is None:
+        raise ValueError(
+            f"grid {params.ny}x{params.nx} unsupported by the slab kernel (needs ny divisible "
+            "into >1 slabs of at least LBM_SLAB_K * depth rows; tune LBM_SLAB_S / LBM_SLAB_K)")
+    return cfg
+
+
 def select_route(params: LBMParams, backend: str, dtype) -> str:
     """Resolve ``backend`` and ``dtype`` to a route: a ``BACKENDS`` name other
     than ``"auto"`` (driver.py:96-118, :365-430, :613-1007 of the JAX
@@ -178,10 +252,22 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
     kernel cannot take; it never routes elsewhere."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {dtype}; use float32 or float64")
+    c16 = is_c16(dtype)
+    if not c16 and dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {dtype}; use float32, float64 or 'c16'")
+    if backend == "slab" and os.environ.get("LBM_ENABLE_SLAB") != "1":
+        raise ValueError(
+            "slab backend is quarantined (a documented negative result on the TPU, where "
+            "it loses to band/band2 everywhere, BENCHMARKS.md); set LBM_ENABLE_SLAB=1 to "
+            "run it anyway")
     if backend == "reference":
         return "reference"
+    if c16 and backend == "resident":
+        raise ValueError("resident backend does not support c16 storage (use "
+                         "auto/aa/pallas/band/band3/slab/reference)")
+    if c16 and backend not in C16_BACKENDS:
+        raise ValueError(f"c16 storage is not yet ported for the {backend} kernel; use "
+                         "--precision f32, or auto/aa/pallas/band/band3/slab/reference at c16")
     if dtype == torch.float64:
         if backend in KERNEL_BACKENDS:
             raise ValueError(
@@ -198,9 +284,13 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
                          "(ny < 2)")
     if backend in PASS_BACKENDS:
         pass_schedule(backend, params, dtype)  # raises with the reason
+    if backend == "slab":
+        select_slab(params, dtype)
     if backend == "auto":
         if not resident_supported(params.ny, params.nx):
             return "reference"
+        if c16:
+            return "pallas"
         return "resident" if 9 * params.ny * params.nx * 4 <= _RESIDENT_AUTO_MAX_STATE else "band3"
     return backend
 
@@ -223,6 +313,17 @@ def compute_chunk_sizes(
     return sizes
 
 
+def warn_saturation(maxq: int, spec) -> None:
+    """The c16 saturation check of every c16 run (driver.py:1585-1605): H
+    leaves about 4x headroom over the deviations the decks reach, so a
+    state whose largest code decodes above H/2 may have been clamped."""
+    md = devspace.saturation(maxq, spec)
+    if md > 0.5 * spec.h:
+        warnings.warn(
+            f"c16 deviations reached {md:.3g} (companding range H={spec.h:.3g}) — results "
+            "may have saturated; rerun with f32 or a larger LBM_C16_H", stacklevel=3)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -234,7 +335,7 @@ def run_simulation(
     *,
     device: torch.device | str,
     backend: str = "auto",
-    dtype=torch.float32,
+    dtype: torch.dtype | str = torch.float32,
     initial_cells: np.ndarray | None = None,
     start_step: int = 0,
     av_vels_prefix: np.ndarray | None = None,
@@ -250,7 +351,8 @@ def run_simulation(
     av series the result's begins with. ``checkpoint_every`` > 0 splits the
     run into chunks ending on its multiples, and with ``checkpoint_path``
     each chunk's end (and the run's) writes a checkpoint there.
-    ``fetch_final=False`` leaves ``result.cells`` None.
+    ``fetch_final=False`` leaves ``result.cells`` None. ``dtype="c16"``
+    runs on c16 storage (module docstring).
     """
     device = torch.device(device)
     if device.type not in ("cpu", "cuda"):
@@ -261,10 +363,14 @@ def run_simulation(
         raise ValueError(f"obstacle mask {obstacles.shape} != grid ({params.ny}, {params.nx})")
     if start_step >= params.max_iters:
         raise ValueError("start_step is beyond max_iters")
+    spec = devspace.DevSpec.for_params(params.density, params.accel) if is_c16(dtype) else None
+    full_dtype = torch.float32 if spec is not None else dtype
     if initial_cells is None:
-        cells = D2Q9.initial_state(params, dtype=dtype, device=device)
+        cells = D2Q9.initial_state(params, dtype=full_dtype, device=device)
     else:
-        cells = torch.as_tensor(np.asarray(initial_cells)).to(device=device, dtype=dtype)
+        cells = torch.as_tensor(np.asarray(initial_cells)).to(device=device, dtype=full_dtype)
+    if spec is not None:
+        cells = devspace.encode_state(cells, spec)  # the rest state encodes to 0
     obst = obstacles_from_numpy(obstacles, device)
     tot_cells = int(np.sum(obstacles == 0))  # d2q9-bgk.c:146-152
     # The f32 (or f64) value of 1/tot_cells multiplies each step's sum, so
@@ -273,20 +379,31 @@ def run_simulation(
     paired = paired_default()  # read once, outside the loop
     nobst = (obst == 0).to(torch.float32)
     scalars = (params.density, params.accel, params.omega)
+    # Only the routes that take c16 get ``dev`` (select_route refused the others).
+    kw = dict(paired=paired) if spec is None else dict(paired=paired, dev=spec)
 
     def advance(cells, n):
         """``n`` steps of the route; returns ``(cells, av)``."""
         if route == "reference":
             inv = torch.tensor(inv_np, device=device)
-            av = torch.empty(n, dtype=dtype, device=device)
+            av = torch.empty(n, dtype=full_dtype, device=device)
             for t in range(n):
-                cells, tot_u = lbm_step_reference(cells, obst, *scalars)
+                if spec is None:
+                    cells, tot_u = lbm_step_reference(cells, obst, *scalars)
+                else:
+                    cells, tot_u = devspace.lbm_step_reference_c16(cells, obst, *scalars, spec)
                 av[t] = tot_u * inv
             return cells, av
         if route in PASS_BACKENDS:
             run, (block, depth, panel) = pass_schedule(route, params, dtype)
             return run(cells, nobst, *scalars, n, block, depth, panel=panel,
-                       inv_tot_cells=float(inv_np), paired=paired)
+                       inv_tot_cells=float(inv_np), **kw)
+        if route == "slab":
+            from lbm_tpu_torch.ops.slab import run_band_slab
+
+            block, depth, panel, kpasses, sblock = select_slab(params, dtype)
+            return run_band_slab(cells, nobst, *scalars, n, block, depth, kpasses, sblock,
+                                 panel=panel, inv_tot_cells=float(inv_np), **kw)
         if route == "resident":
             from lbm_tpu_torch.ops.resident import run_resident
 
@@ -296,7 +413,11 @@ def run_simulation(
             from lbm_tpu_torch.ops.aa import run_aa as run
         else:
             from lbm_tpu_torch.ops.step import run_step as run
-        return run(cells, nobst, *scalars, n, float(inv_np), paired=paired)
+        return run(cells, nobst, *scalars, n, float(inv_np), **kw)
+
+    def as_full(cells):
+        """The observer's view of the state: c16 codes decode to f32."""
+        return cells if spec is None else devspace.decode_state(cells, spec)
 
     t0 = time.perf_counter()
     if route != "reference" and device.type == "cuda":
@@ -320,11 +441,16 @@ def run_simulation(
                 step % checkpoint_every == 0 or step == params.max_iters):
             from lbm_tpu_torch.runtime.checkpoint import save_checkpoint
 
-            save_checkpoint(checkpoint_path, params, cells.cpu().numpy(),
+            # c16 checkpoints hold the decoded f32 state, the format of
+            # either package; a resume re-encodes it to the same values.
+            save_checkpoint(checkpoint_path, params, as_full(cells).cpu().numpy(),
                             np.concatenate(av_chunks), step)
 
+    final = as_full(cells).cpu().numpy() if fetch_final else None
+    if spec is not None:
+        warn_saturation(devspace.max_abs_code(cells), spec)
     return SimulationResult(
-        cells=cells.cpu().numpy() if fetch_final else None,
+        cells=final,
         av_vels=np.concatenate(av_chunks),
         elapsed=elapsed,
         compile_time=compile_time,

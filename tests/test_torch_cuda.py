@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: K1, K2, the band kernels K7, K9, K11, the
-resident, temporal and deep kernels K4, K5, K6 and the shard kernels K3,
-K12, K8, K10 against their plain versions.
+resident, temporal and deep kernels K4, K5, K6, the shard kernels K3,
+K12, K8, K10, the slab kernel K13 and the c16 forms of K1, K2, K7, K11 and
+K13 against their plain versions.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -11,7 +12,9 @@ dependencies exist. On the card, from the repository root:
 (``--noconftest`` because tests/conftest.py sets up JAX for the other tests.)
 Tolerances: cells within 1e-5 of the state's scale and the av series at
 rtol 1e-4 (the kernels contract multiply-adds into FMAs and sum in another
-order than PyTorch).
+order than PyTorch); at c16 the decoded cells within 5e-6 and the av
+series at rtol 1e-3 (an FMA can move a code by one quantum at a rounding
+tie).
 """
 
 import os
@@ -29,8 +32,10 @@ from lbm_tpu_torch.ops import band as tband  # noqa: E402
 from lbm_tpu_torch.ops import band2 as tband2  # noqa: E402
 from lbm_tpu_torch.ops import band3 as tband3  # noqa: E402
 from lbm_tpu_torch.ops import deep as tdeep  # noqa: E402
+from lbm_tpu_torch.ops import devspace as tdev  # noqa: E402
 from lbm_tpu_torch.ops import resident as tres  # noqa: E402
 from lbm_tpu_torch.ops import shard_step as tshard  # noqa: E402
+from lbm_tpu_torch.ops import slab as tslab  # noqa: E402
 from lbm_tpu_torch.ops import step as tstep  # noqa: E402
 from lbm_tpu_torch.ops import temporal as ttemp  # noqa: E402
 
@@ -58,6 +63,80 @@ def assert_close(got, want):
     (gc, ga), (wc, wa) = got, want
     assert float((gc - wc).abs().max()) < 1e-5 * float(wc.abs().max())
     np.testing.assert_allclose(ga.cpu().numpy(), wa.cpu().numpy(), rtol=1e-4)
+
+
+SPEC = tdev.DevSpec.for_params(DENSITY, ACCEL)
+
+
+def assert_c16_close(got, want):
+    (gc, ga), (wc, wa) = got, want
+    assert gc.dtype == torch.int16
+    assert float((tdev.decode_state(gc, SPEC) - tdev.decode_state(wc, SPEC)).abs().max()) < 5e-6
+    np.testing.assert_allclose(ga.cpu().numpy(), wa.cpu().numpy(), rtol=1e-3)
+
+
+C16_KERNELS = {
+    "K1": (tstep.run_step, tstep.run_step_plain, None),
+    "K2": (taa.run_aa, taa.run_aa_plain, None),
+    "K7": (tband.run_band, tband.run_band_plain, (24, 4, 20)),
+    "K11": (tband3.run_band3, tband3.run_band3_plain, (24, 4, 20)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [8, 19])
+@pytest.mark.parametrize("name", list(C16_KERNELS))
+def test_c16_kernel_matches_plain_and_repeats(cuda_device, name, iters):
+    """The c16 forms on a ragged 97 x 70 grid (band kernels under 24 x 20
+    tiles, T 4: passes and a K1 remainder); the c16 counter, not the f32
+    one, counts them; a second run is bitwise equal."""
+    kernel, plain, cfg = C16_KERNELS[name]
+    cells, nobst = make_setup(cuda_device, 70, 97, seed=iters)
+    q = tdev.encode_state(cells, SPEC)
+
+    def run(fn):
+        if cfg is None:
+            return fn(q, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0, dev=SPEC)
+        return fn(q, nobst, DENSITY, ACCEL, OMEGA, iters, cfg[0], cfg[1], panel=cfg[2], dev=SPEC)
+
+    before, before_c16 = kernel.launches, kernel.launches_c16
+    got = run(kernel)
+    assert kernel.launches == before
+    assert kernel.launches_c16 == before_c16 + (iters if cfg is None else iters // 4 * 4)
+    again = run(kernel)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert_c16_close(got, run(plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c16", [False, True], ids=["f32", "c16"])
+@pytest.mark.parametrize("kpasses,sblock,iters", [(1, 8, 13), (2, 12, 35), (4, 16, 32)])
+def test_slab_kernel_matches_plain_and_repeats(cuda_device, kpasses, sblock, iters, c16):
+    """K13 on a 96 x 70 grid under 24 x 20 tiles, T 4: whole generations and
+    a remainder (K7 passes and K1); at f32 K1's state bit for bit; a second
+    run is bitwise equal."""
+    cells, nobst = make_setup(cuda_device, 70, 96, seed=iters)
+    dev = SPEC if c16 else None
+    x = tdev.encode_state(cells, SPEC) if c16 else cells
+
+    def run(fn):
+        return fn(x, nobst, DENSITY, ACCEL, OMEGA, iters, 24, 4, kpasses, sblock, panel=20,
+                  dev=dev)
+
+    counter = "launches_c16" if c16 else "launches"
+    before = getattr(tslab.run_band_slab, counter)
+    got = run(tslab.run_band_slab)
+    kt = kpasses * 4
+    assert getattr(tslab.run_band_slab, counter) == before + iters // kt * kt
+    again = run(tslab.run_band_slab)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = run(tslab.run_band_slab_plain)
+    if c16:
+        assert_c16_close(got, want)
+    else:
+        assert_close(got, want)
+        k1 = tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0)
+        assert torch.equal(got[0], k1[0])
 
 
 @pytest.mark.cuda

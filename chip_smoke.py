@@ -92,19 +92,42 @@ PyTorch built for CUDA. Phases, each printing what it found:
    are held at ``PASS_GATE_C16`` (5%); ``slab`` at f32 on phase 8's 2048^2
    walls deck held against its ``aa`` run; a 256^2 ``aa`` c16 run resumed from a step-30,001
    checkpoint, whose files must be the bytes of the uninterrupted c16 run. The counters, f32
-   and c16 apart, zeroed just before, must account for every step.
+   and c16 apart, zeroed just before, must account for every step;
+18. the c16 forms of K9, K5, K6 (``csrc/band2.cu``,
+   ``temporal.cu``, ``deep.cu``) at 1024^2 and on the ragged 1000^2 walls
+   mask, and K3, K8, K10 with 4 row shards on ``cuda:0``, against their
+   plain versions over T and 2T+3 steps (K3 50); time per step of each
+   beside its f32 form in the same loop at 2048^2; two runs of K9 c16 and
+   of K3 c16 bitwise equal;
+19. the c16 path through ``cli.main``: ``--precision c16`` with ``band2``,
+   ``temporal`` and ``deep`` on the 256^2 and 1024^2 decks, ``--mesh 4
+   --device 0`` on 1024^2 under ``auto``, ``pallas`` (K3), ``band`` (K8)
+   and ``band2`` (K10) and on 256^2 under ``auto``, a 256^2 ``--mesh 4`` c16
+   run resumed from a step-30,001 checkpoint (the uninterrupted bytes),
+   and ``--mesh 2x2 --device 0`` (its plain-torch c16 step) on a 128^2 box
+   cut to ``MESH_2D_ITERS`` steps, held against the one-device K1 c16 run of
+   that deck through the checker at 1%. K3 and the 2-D step round every
+   step and are held at 1%; the pass routes print the 1% verdict and are
+   held at ``PASS_GATE_C16``. The c16 counters, zeroed just before, must
+   account for every step;
+20. the gate per T: K9 and K11 at c16 with T 4, 8 and 16 on the 256^2 and
+   1024^2 decks, called with explicit schedules (T 16 with 32-row tiles and
+   the widest panel that fits shared memory), through the checker against
+   ``tests/golden/``: a measurement, printed, held only to finite output.
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
 kernels and another summation order); at c16 the decoded cells within
 5e-6 and the av series at rtol 1e-3 (FMA contraction can move a code by
 one quantum at a rounding tie, and a moved code feeds the next steps);
-golden gate 1% (the reference's checker). Any failure exits non-zero
+golden gate 1% (the reference's checker; the pass routes at c16:
+``PASS_GATE_C16``). Any failure exits non-zero
 before the last line. The last two lines are the kernel report and
 ``{"ok": true, "device": {...}}``. In the report ``ms``/``plain_ms`` are
-per step (K1, K2 and K4 at 1024^2, the others at 2048^2, the shard kernels
-with 4 shards); ``bound_ms`` is the least time of that step on an H100 at
-this run's shape: the larger of its bytes over 3.35 TB/s and its f32
+per step (K1, K2 and K4 at 1024^2, the c16 forms of K1 and K2 too, the
+others at 2048^2, the shard kernels with 4 shards); ``bound_ms`` is the
+least time of that step on an H100 at this run's shape: the larger of its
+bytes over 3.35 TB/s and its f32
 operations (``FLOPS_PER_CELL_STEP``) over 67 TFLOP/s. The bytes: 76 B per
 cell (9 f32 planes read and written and the f32 mask, each once) or 40 B
 at c16 (9 int16 planes), per launch of a one-step kernel and per pass of a
@@ -128,8 +151,11 @@ TOL_AV = 1e-4
 TOL_C16_CELLS = 5e-6  # absolute, on decoded cells
 TOL_C16_AV = 1e-3
 # The checker's limit (percent) for the band kernels at c16, which round
-# once per pass (phase 17); the 1% verdict is printed beside it.
+# once per pass (phases 17 and 19); the 1% verdict is printed beside it.
 PASS_GATE_C16 = 5.0
+# Steps of phase 19's 2-D mesh c16 deck: its step is plain PyTorch, one
+# launch per operation.
+MESH_2D_ITERS = 1000
 DENSITY, ACCEL, OMEGA = 0.1, 0.005, 1.85
 # An H100 SXM's peaks (NVIDIA's data sheet): HBM3 bytes/s and f32 FLOP/s
 # outside the tensor cores.
@@ -573,12 +599,12 @@ def resume_run(cli, work, gpu_line, backend="resident", mesh=None, precision="f3
     obstacles = read_obstacles(obst_path, params)
     start, every = params.max_iters * 3 // 8 + 1, params.max_iters * 5 // 16
     head = dataclasses.replace(params, max_iters=start)
+    dtype = "c16" if precision == "c16" else torch.float32
     if mesh is None:
-        part = run_simulation(head, obstacles, device="cuda:0", backend=backend,
-                              dtype="c16" if precision == "c16" else torch.float32)
+        part = run_simulation(head, obstacles, device="cuda:0", backend=backend, dtype=dtype)
     else:
         part = run_simulation_sharded(head, obstacles, devices=["cuda:0"] * int(mesh),
-                                      backend=backend)
+                                      backend=backend, dtype=dtype)
     out = os.path.join(work, f"256x256-resumed{tail}")
     ckpt = os.path.join(out, "checkpoint.npz")
     save_checkpoint(ckpt, params, part.cells, part.av_vels, start)
@@ -1039,6 +1065,290 @@ def c16_path_phase(torch, cli, gpu_line, walls_ref):
     return got
 
 
+# The c16 forms of K9, K5, K6, K3, K8 and K10: name -> (name in the report,
+# source, the TPU kernel it replaces).
+C16_MORE = {
+    "K9": (BANDS["band2"][0] + ", c16", *BANDS["band2"][1:]),
+    "K5": (SCHEDULED["temporal"][0] + ", c16", *SCHEDULED["temporal"][1:]),
+    "K6": (SCHEDULED["deep"][0] + ", c16", *SCHEDULED["deep"][1:]),
+    "K3": (SHARDED["K3"][0] + ", c16 (1-D mesh)", *SHARDED["K3"][1:]),
+    "K8": (SHARDED["K8"][0] + ", c16", *SHARDED["K8"][1:]),
+    "K10": (SHARDED["K10"][0] + ", c16", *SHARDED["K10"][1:]),
+}
+C16_MORE_ROUTES = {"K9": "band2", "K5": "temporal", "K6": "deep"}
+
+
+def c16_more_forms():
+    """name -> (kernel, plain, depth, on shards): single-device forms take
+    (cells, nobst, n, dev), the mesh forms (shards, nob_shards, n, ny, dev),
+    with the driver's schedules."""
+    import torch
+
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band, band2, deep, shard_step, temporal
+    from lbm_tpu_torch.runtime.driver import band2_config, band_config, pass_schedule
+
+    params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    plains = {"band2": band2.run_band2_plain, "temporal": temporal.run_temporal_plain,
+              "deep": deep.run_deep_plain}
+    out = {}
+    for name, route in C16_MORE_ROUTES.items():
+        run, (block, depth, panel) = pass_schedule(route, params, "c16")
+
+        def bind(fn, block=block, depth=depth, panel=panel):
+            return lambda c, o, n, dev=None: fn(c, o, DENSITY, ACCEL, OMEGA, n, block, depth,
+                                                panel=panel, dev=dev)
+
+        out[name] = (bind(run), bind(plains[route]), depth, False)
+
+    def steps(fn):
+        return lambda s, o, n, ny, dev=None: fn(s, o, DENSITY, ACCEL, OMEGA, n, ny, dev=dev)
+
+    out["K3"] = (steps(shard_step.run_shard_step), steps(shard_step.run_shard_step_plain), 1,
+                 True)
+    for name, mod, run, cfg in (("K8", band, "run_band_sharded", band_config(params, "c16")),
+                                ("K10", band2, "run_band2_sharded",
+                                 band2_config(params, "c16"))):
+        block, depth, panel = cfg
+
+        def bind(fn, block=block, depth=depth, panel=panel):
+            return lambda s, o, n, ny, dev=None: fn(s, o, DENSITY, ACCEL, OMEGA, n, block, depth,
+                                                    ny, panel=panel, dev=dev)
+
+        out[name] = (bind(getattr(mod, run)), bind(getattr(mod, run + "_plain")), depth, True)
+    return out
+
+
+def c16_more_phase(torch, spec, forms):
+    """Phase 18; returns {name: (max_abs_err, ms, plain_ms, f32 ms)} per step
+    at 2048^2 (the mesh forms with 4 row shards on cuda:0)."""
+    from lbm_tpu_torch.ops import devspace
+    from lbm_tpu_torch.ops.step import run_step
+
+    def call(fn, on_shards, x, o, n, dev=None):
+        """fn on a grid, or on its 4 row shards joined (state, av)."""
+        if not on_shards:
+            return fn(x, o, n, dev)
+        return joined(torch, fn(x, o, n, x[0][0].shape[1] * 4, dev))
+
+    out = {}
+    for name, (kernel, plain, depth, on_shards) in forms.items():
+        errs = []
+        for nx, ny in ((1024, 1024), (1000, 1000)):
+            cells, nobst = (random_setup(torch, nx, ny, seed=nx + 31) if nx == 1024
+                            else walls_setup(torch, nx, 41))
+            x, o = devspace.encode_state(cells, spec), nobst
+            if on_shards:
+                x, o = on_mesh(x, o, 4, 1)
+            for n in ((50,) if depth == 1 else (depth, 2 * depth + 3)):
+                errs.append(compare(torch, f"{name} c16 {nx}x{ny} {n} steps",
+                                    call(kernel, on_shards, x, o, n, spec),
+                                    call(plain, on_shards, x, o, n, spec), spec))
+        out[name] = [max(errs)]
+    cells, nobst = random_setup(torch, 1024, 1024, seed=37)
+    q = devspace.encode_state(cells, spec)
+    for name in ("K9", "K3"):
+        kernel, _, _, on_shards = forms[name]
+        x, o = on_mesh(q, nobst, 4, 1) if on_shards else (q, nobst)
+        (c1, a1), (c2, a2) = (call(kernel, on_shards, x, o, 301, spec) for _ in range(2))
+        torch.cuda.synchronize()
+        check(torch.equal(c1, c2) and torch.equal(a1, a2),
+              f"{name} c16 is not run-to-run deterministic")
+        log(f"  {name} c16 determinism: two 301-step runs give bitwise-equal av series and codes")
+    s, o = on_mesh(q, nobst, 4, 1)
+    k3 = call(forms["K3"][0], True, s, o, 50, spec)
+    k1 = run_step(q, nobst, DENSITY, ACCEL, OMEGA, 50, 1.0, dev=spec)
+    log(f"  K3 c16 (4 shards) vs K1 c16 over 50 steps: codes bitwise equal: "
+        f"{torch.equal(k3[0], k1[0])}")
+    compare(torch, "K3 c16 vs K1 c16 1024x1024 50 steps", k3, k1, spec)
+    del cells, nobst, q, s, o, k3, k1
+    cells, nobst = random_setup(torch, 2048, 2048, seed=7)
+    q = devspace.encode_state(cells, spec)
+    for name, (kernel, plain, depth, on_shards) in forms.items():
+        n = 400 if on_shards else 800
+        xf, xq, o = cells, q, nobst
+        if on_shards:
+            (xf, o), (xq, _) = on_mesh(cells, nobst, 4, 1), on_mesh(q, nobst, 4, 1)
+        call(kernel, on_shards, xf, o, 2 * depth)  # warm up, the allocator included
+        call(kernel, on_shards, xq, o, 2 * depth, spec)
+        _, f_ms = timed(torch, lambda: call(kernel, on_shards, xf, o, n))
+        _, k_ms = timed(torch, lambda: call(kernel, on_shards, xq, o, n, spec))
+        n_plain = 2 * depth
+        call(plain, on_shards, xq, o, depth, spec)
+        _, p_ms = timed(torch, lambda: call(plain, on_shards, xq, o, n_plain, spec))
+        out[name] += [k_ms / n, p_ms / n_plain, f_ms / n]
+        log(f"  {name} c16 2048x2048{' (4 shards)' if on_shards else ''}: kernel "
+            f"{1e3 * k_ms / n:.2f} us/step ({2048 * 2048 * n / k_ms / 1e3:.1f} MLUPS), f32 form "
+            f"{1e3 * f_ms / n:.2f} us/step, plain {1e3 * p_ms / n_plain:.2f} us/step")
+        del xf, xq, o
+    del cells, nobst, q
+    return out
+
+
+def mesh_2d_c16_run(cli, work, gpu_line):
+    """``--mesh 2x2 --device 0 --precision c16`` (auto: the plain-torch c16
+    step) on a 128^2 box cut to MESH_2D_ITERS steps, held against the
+    one-device ``pallas`` (K1) c16 run of the same deck through the checker
+    at 1%. Returns the two stats."""
+    import numpy as np
+
+    from lbm_tpu_torch.utils import geometry
+    from lbm_tpu_torch.utils.checker import check_files
+
+    deck = os.path.join(work, "box128-c16")
+    os.makedirs(deck)
+    params_path = os.path.join(deck, "input.params")
+    obst_path = os.path.join(deck, "obstacles.dat")
+    geometry.write_params_file(params_path, 128, 128, MESH_2D_ITERS, 10, DENSITY, ACCEL, OMEGA)
+    geometry.write_obstacle_file(obst_path, geometry.box(128, 128))
+    stats, outs = [], []
+    for extra in (["--mesh", "2x2", "--backend", "auto"], ["--backend", "pallas"]):
+        out = os.path.join(deck, extra[1])
+        stats_path = os.path.join(out, "stats.json")
+        os.makedirs(out)
+        rc = cli.main([params_path, obst_path, "--device", "0", "--precision", "c16",
+                       "--out-dir", out, "--stats-json", stats_path, *extra])
+        check(rc == 0, f"128^2 c16 {' '.join(extra)}: cli.main returned {rc}")
+        with open(stats_path) as f:
+            stats.append(json.load(f))
+        outs.append(out)
+        log(f"  box 128x128 x {MESH_2D_ITERS} c16 {' '.join(extra)} --device 0: route "
+            f"{stats[-1]['route']}, loop {stats[-1]['loop_s']:.4f} s, {stats[-1]['mlups']:.1f} "
+            f"MLUPS [{gpu_line}]")
+    check(stats[0]["route"] == "reference" and stats[1]["route"] == "pallas",
+          f"2-D c16 routes {stats[0]['route']}, {stats[1]['route']}")
+    files = [os.path.join(d, f) for d in outs for f in ("av_vels.dat", "final_state.dat")]
+    res = check_files(*files, tolerance=1.0)
+    av, av_ref = (np.loadtxt(f, usecols=[1]) for f in (files[0], files[2]))
+    log(f"    2x2 vs K1 c16: checker av_vels {res.av_vels.max_diff_pcnt:.4g}%, pressure "
+        f"{res.final_state.max_diff_pcnt:.4g}%: {'PASS' if res.passed else 'FAIL'}; av max rel "
+        f"diff {float((np.abs(av - av_ref) / np.abs(av_ref)).max()):.3e}")
+    check(bool(np.isfinite(av).all()) and res.passed, "the 2x2 c16 run fails the 1% checker")
+    return stats
+
+
+def c16_mesh_path_phase(torch, cli, gpu_line, forms):
+    """Phase 19; returns {counter name: launches}."""
+    from lbm_tpu_torch.ops import band, band2, deep, shard_step, step, temporal
+
+    fns = {"K9": band2.run_band2, "K5": temporal.run_temporal, "K6": deep.run_deep,
+           "K1": step.run_step, "K3": shard_step.run_shard_step, "K8": band.run_band_sharded,
+           "K10": band2.run_band2_sharded}
+    for fn in fns.values():
+        fn.launches = fn.launches_c16 = 0
+    want = dict.fromkeys(fns, 0)
+    kernel_of = {"band2": "K9", "temporal": "K5", "deep": "K6"}
+    mesh_kernel_of = {"pallas": "K3", "band": "K8", "band2": "K10"}
+
+    def account(stats):
+        route, n = stats["route"], stats["max_iters"]
+        if stats["mesh"] == "0":
+            check(route in kernel_of or route == "pallas", f"unexpected c16 route {route}")
+            name, rem = kernel_of.get(route, "K1"), "K1"
+        elif "x" in stats["mesh"]:
+            check(route == "reference", f"--mesh {stats['mesh']} c16 routed {route}")
+            return
+        else:
+            check(all(sh["device"] == "cuda:0" for sh in stats["shards"]),
+                  f"shards not all on cuda:0: {stats['shards']}")
+            name, rem = mesh_kernel_of[route], "K3"
+        depth = forms[name][2] if name in forms else 1
+        want[name] += n // depth * depth
+        want[rem] += n % depth
+
+    with tempfile.TemporaryDirectory() as work:
+        for tag in ("256x256", "1024x1024"):
+            for backend in ("band2", "temporal", "deep"):
+                account(run_deck(cli, tag, backend, work, gpu_line, precision="c16",
+                                 gate=PASS_GATE_C16))
+        for backend in ("auto", "pallas", "band", "band2"):
+            stats = run_deck(cli, "1024x1024", backend, work, gpu_line, mesh="4", precision="c16",
+                             gate=1.0 if backend in ("auto", "pallas") else PASS_GATE_C16)
+            check(backend != "auto" or stats["route"] == "pallas",
+                  f"--mesh 4 c16 auto routed {stats['route']}, not pallas (K3)")
+            account(stats)
+        account(run_deck(cli, "256x256", "auto", work, gpu_line, mesh="4", precision="c16"))
+        # K3 rounds its codes every step, so the resumed run gives the bits.
+        want["K3"] += sum(resume_run(cli, work, gpu_line, backend="auto", mesh="4",
+                                     precision="c16"))
+        for stats in mesh_2d_c16_run(cli, work, gpu_line):
+            account(stats)
+    got = {f"{name} c16": fn.launches_c16 for name, fn in fns.items()}
+    got_f32 = {name: fn.launches for name, fn in fns.items()}
+    log("  launch counters: " + ", ".join(f"{k} {got[k]} steps (want {want[k.split()[0]]})"
+                                          for k in got))
+    for k, n in got.items():
+        check(n == want[k.split()[0]], f"{k}: not every step of the c16 path ran in its kernel")
+        check(n > 0, f"{k}: a kernel of the c16 path was never launched")
+    check(not any(got_f32.values()), f"an f32 counter moved on the c16 path: {got_f32}")
+    return got
+
+
+def t16_panel(plane_copies, block, depth):
+    """The widest panel whose window fits the shared memory of a block."""
+    from lbm_tpu_torch.ops.band_common import SMEM_LIMIT, smem_bytes
+
+    panel = 1
+    while smem_bytes(plane_copies, 4096, block, depth, panel + 1) <= SMEM_LIMIT:
+        panel += 1
+    return panel
+
+
+def gate_per_t_phase(torch, gpu_line):
+    """Phase 20; returns {(kernel, T, deck): (av %, pressure %, loop s)}."""
+    import numpy as np
+
+    from lbm_tpu_torch.io import write_av_vels, write_final_state
+    from lbm_tpu_torch.models.d2q9 import D2Q9, LBMParams
+    from lbm_tpu_torch.ops import band2, band3, devspace
+    from lbm_tpu_torch.utils import geometry
+    from lbm_tpu_torch.utils.checker import check_files
+
+    kernels = {"K9": (band2.run_band2, band2.PLANE_COPIES, (24, 24)),
+               "K11": (band3.run_band3, band3.PLANE_COPIES, (24, 56))}
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        for tag in ("256x256", "1024x1024"):
+            fields, geo, kw = DECKS[tag]
+            params = LBMParams(*fields)
+            obstacles = getattr(geometry, geo)(fields[0], fields[1], **kw)
+            gold = write_gold(os.path.join(ROOT, "tests", "golden", f"{tag}.golden.npz"), work)
+            dev = torch.device("cuda", 0)
+            spec = devspace.DevSpec.for_params(params.density, params.accel)  # the deck's H
+            nobst = torch.as_tensor((obstacles == 0).astype(np.float32)).to(dev)
+            q0 = devspace.encode_state(D2Q9.initial_state(params, dtype=torch.float32,
+                                                          device=dev), spec)
+            inv = float(np.float32(1.0 / int(np.sum(obstacles == 0))))
+            for name, (run, copies, (block, panel)) in kernels.items():
+                for depth in (4, 8, 16):
+                    b, p = (block, panel) if depth < 16 else (2 * depth, t16_panel(copies, 32, 16))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    cells, av = run(q0, nobst, params.density, params.accel, params.omega,
+                                    params.max_iters, b, depth, panel=p, inv_tot_cells=inv,
+                                    dev=spec)
+                    torch.cuda.synchronize()
+                    loop = time.perf_counter() - t0
+                    d = os.path.join(work, f"{tag}-{name}-T{depth}")
+                    os.makedirs(d)
+                    write_av_vels(os.path.join(d, "av_vels.dat"), av.cpu().numpy())
+                    write_final_state(os.path.join(d, "final_state.dat"), params,
+                                      devspace.decode_state(cells, spec).cpu().numpy(), obstacles)
+                    res = check_files(os.path.join(d, "av_vels.dat"),
+                                      os.path.join(d, "final_state.dat"), *gold, tolerance=1.0)
+                    check(bool(torch.isfinite(av).all()), f"{name} T {depth} {tag}: non-finite av")
+                    out[name, depth, tag] = (res.av_vels.max_diff_pcnt,
+                                             res.final_state.max_diff_pcnt, loop)
+                    log(f"  {name} c16 T {depth} (block {b}, panel {p}) {tag} x "
+                        f"{params.max_iters}: av_vels {res.av_vels.max_diff_pcnt:.4g}% at step "
+                        f"{res.av_vels.max_index}, pressure {res.final_state.max_diff_pcnt:.4g}%:"
+                        f" 1% gate {'PASS' if res.passed else 'FAIL'}; loop {loop:.3f} s "
+                        f"[{gpu_line}]")
+                    shutil.rmtree(d)
+    return out
+
+
 def main():
     try:
         import torch
@@ -1266,6 +1576,14 @@ def main():
           "LBM_ENABLE_SLAB=1 --backend slab, and --resume")
     got_c16 = c16_path_phase(torch, cli, gpu_line, walls_ref[2048])
     shutil.rmtree(keep)
+    phase("18. c16 forms K9, K5, K6, K3, K8, K10 vs their plain versions and f32 forms")
+    more = c16_more_forms()
+    more_res = c16_more_phase(torch, spec, more)
+    phase("19. the c16 path: lbm_tpu_torch.cli.main --precision c16 with band2, temporal, deep, "
+          "--mesh 4 and 2x2 --device 0, and --resume")
+    got_more = c16_mesh_path_phase(torch, cli, gpu_line, more)
+    phase("20. the gate per T: K9 and K11 at c16 with T 4, 8 and 16 on the 256^2 and 1024^2 decks")
+    gate_per_t_phase(torch, gpu_line)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1,
               bytes_per_cell=BYTES_PER_CELL):
@@ -1312,6 +1630,10 @@ def main():
               BYTES_PER_CELL * slab_bytes),
         entry(SLAB[0] + ", c16", *SLAB[1:], got_c16["K13 c16"], slab_c16_err, beside[2048][2],
               slab_plain_c16, 2048 * 2048, kt, BYTES_PER_CELL_C16 * slab_bytes),
+    ] + [
+        entry(*C16_MORE[name], got_more[name + " c16"], *more_res[name][:3], 2048 * 2048,
+              more[name][2], BYTES_PER_CELL_C16)
+        for name in C16_MORE
     ]}
     log(gpu_line)
     log(json.dumps(report))

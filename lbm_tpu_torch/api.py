@@ -42,14 +42,16 @@ class Simulation:
         params = read_params(paramfile)
         return cls(params, read_obstacles(obstaclefile, params))
 
-    def run(self, *, device=None, backend: str = "auto", dtype=torch.float32,
+    def run(self, *, device=None, backend: str = "auto", dtype=None,
             mesh: int | tuple[int, int] = 0, devices=None, **kwargs) -> SimulationResult:
         """Run ``max_iters`` steps. ``device`` defaults as ``--device`` does
         (``$LBM_DEVICE``, else ``cuda:0``; the CPU only when named).
         ``mesh`` shards the run over N row shards (int) or a 2-D ``(py,
         px)`` mesh, on ``devices`` (one per shard), else every shard on
         ``device`` when it is given, else the first cards. ``dtype`` is a
-        torch dtype or ``"c16"`` (``runtime/driver.py``)."""
+        torch dtype or ``"c16"`` (``runtime/driver.py``), None for f32.
+        Other keywords pass through to the runner (checkpoints, resume,
+        ``chunk_every``/``on_chunk`` on one device)."""
         if isinstance(mesh, tuple) or (mesh and mesh > 1):
             from lbm_tpu_torch.parallel import sharded
 
@@ -63,10 +65,6 @@ class Simulation:
             return sharded.run_simulation_sharded(
                 self.params, self.obstacles, n_devices=mesh, devices=devices, backend=backend,
                 dtype=dtype, **kwargs)
-        if device is None:
-            from lbm_tpu_torch.runtime.device import select_device
-
-            device = select_device(None)
         return run_simulation(self.params, self.obstacles, device=device,
                               backend=backend, dtype=dtype, **kwargs)
 

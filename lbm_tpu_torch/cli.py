@@ -64,9 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", choices=["f32", "f64", "c16"], default="f32",
                    help="state storage: f32; f64 (runs the reference step); c16 (int16 "
                    "companded deviations from the rest state: 40 B per cell per step "
-                   "instead of 76, the physics at f32; auto runs pallas, and aa, band, "
-                   "band3, slab and reference take it; the band routes round once per "
-                   "pass and may miss the 1%% gate)")
+                   "instead of 76, the physics at f32; auto runs pallas, every other "
+                   "backend but resident takes it, with --mesh too but pallas-overlap "
+                   "and 2-D pallas; the T-step routes round once per pass and may miss "
+                   "the 1%% gate)")
     p.add_argument(
         "--mesh",
         default="0",

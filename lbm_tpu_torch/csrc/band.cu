@@ -32,8 +32,10 @@
 // halo copy adds 2T rows per shard per pass, 2T/ny_shard of the pass's
 // bytes.
 //
-// K7 at c16 (pallas_band.py, ``dev=``): the same pass with int16 codes in
-// device memory, decoded by the loader and encoded by the store.
+// K7 and K8 at c16 (pallas_band.py, ``dev=``): the same pass with int16
+// codes in device memory, decoded by the loader and encoded by the store,
+// once per pass; K8's halo copy moves the neighbours' codes untouched (the
+// JAX package's ppermutes move them so), half the bytes of f32 halos.
 //
 // K13: the same pass over a y-slab (kSlab). Replaces
 // lbm_tpu/ops/pallas_slab.py::_kernel_slab (:76), at f32 and c16. A
@@ -171,7 +173,7 @@ band_kernel(band::SourceT<typename S::T> src, typename S::T* __restrict__ dst,
 }
 
 template <int MAXC, Mode kMode, class S>
-int run_fixed(const band::Geom& g, const band::Shards* sh, typename S::T* buf_a,
+int run_fixed(const band::Geom& g, const band::ShardsT<typename S::T>* sh, typename S::T* buf_a,
               typename S::T* buf_b, const band::SourceT<typename S::T>& src, float* av,
               float* partials, unsigned int* ticket, int n_passes, float w1a, float w2a,
               const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& stor) {
@@ -195,7 +197,8 @@ int run_fixed(const band::Geom& g, const band::Shards* sh, typename S::T* buf_a,
 // The register budget of g's window: 4 or 8 cells a thread; a larger
 // window is cudaErrorInvalidValue.
 template <Mode kMode, class S>
-int run(const band::Geom& g, const band::Shards* sh, typename S::T* buf_a, typename S::T* buf_b,
+int run(const band::Geom& g, const band::ShardsT<typename S::T>* sh, typename S::T* buf_a,
+        typename S::T* buf_b,
         const band::SourceT<typename S::T>& src, float* av, float* partials,
         unsigned int* ticket, int n_passes, float w1a, float w2a, const lbm::Relax& rc,
         float inv_tot, cudaStream_t st, const S& stor) {
@@ -275,6 +278,24 @@ int run_slab(typename S::T* state, typename S::T* next, typename S::T* slab_a,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K8 on storage S: lbm_band_sharded_run below.
+template <class S>
+int run_sharded(const unsigned long long* table, int s0, int count, int nshards, void* buf_a,
+                void* buf_b, void* halo_dn, void* halo_up, const float* nobst,
+                const float* nob_dn, const float* nob_up, float* av, int av_stride,
+                float* partials, unsigned int* ticket, int ny, int nx, int block, int depth,
+                int panel, int parity, int n_passes, float w1a, float w2a, const lbm::Relax& rc,
+                float inv_tot, cudaStream_t st, const S& stor) {
+  using T = typename S::T;
+  const band::ShardsT<T> sh{table, s0, count, nshards, parity, static_cast<T*>(halo_dn),
+                            static_cast<T*>(halo_up)};
+  const band::Geom g = band::make_sharded_geom(ny, nx, block, depth, panel, sh, av_stride);
+  T* a = static_cast<T*>(buf_a);
+  const band::SourceT<T> src{a, nobst, sh.halo_dn, sh.halo_up, nob_dn, nob_up};
+  return run<Mode::kSharded>(g, &sh, a, static_cast<T*>(buf_b), src, av, partials, ticket,
+                             n_passes, w1a, w2a, rc, inv_tot, st, stor);
+}
+
 }  // namespace
 
 // Runs n_passes band passes of ``depth`` steps on B x P tiles; the window
@@ -316,24 +337,29 @@ extern "C" int lbm_band_run(void* buf_a, void* buf_b, const float* nobst, float*
 // nob_up (count, depth, nx) hold the mask and its halos. av receives count
 // x (n_passes * depth) values (shard-major, av_stride apart); partials
 // count * depth * lbm_band_num_tiles floats; ticket count zeroed unsigned
-// ints. Returns the first CUDA error, or 0.
+// ints. codec as lbm_band_run: with it the buffers and halos hold int16
+// codes. Returns the first CUDA error, or 0.
 extern "C" int lbm_band_sharded_run(const unsigned long long* table, int s0, int count,
-                                    int nshards, float* buf_a, float* buf_b, float* halo_dn,
-                                    float* halo_up, const float* nobst, const float* nob_dn,
+                                    int nshards, void* buf_a, void* buf_b, void* halo_dn,
+                                    void* halo_up, const float* nobst, const float* nob_dn,
                                     const float* nob_up, float* av, int av_stride,
                                     float* partials, unsigned int* ticket, int ny, int nx,
                                     int block, int depth, int panel, int parity, int n_passes,
                                     float w1a, float w2a, float beta, float ow0, float ow1,
-                                    float ow2, float inv_tot, void* stream) {
-  const band::Shards sh{table, s0, count, nshards, parity, halo_dn, halo_up};
-  const band::Geom g = band::make_sharded_geom(ny, nx, block, depth, panel, sh, av_stride);
+                                    float ow2, float inv_tot, const float* codec, void* stream) {
   if (depth > ny || count < 1 || s0 < 0 || s0 + count > nshards) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const lbm::Relax rc{beta, ow0, ow1, ow2};
-  const band::Source src{buf_a, nobst, halo_dn, halo_up, nob_dn, nob_up};
-  return run<Mode::kSharded>(g, &sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a, w2a,
-                             rc, inv_tot, static_cast<cudaStream_t>(stream), lbm::F32());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (codec != nullptr) {
+    return run_sharded(table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst, nob_dn,
+                       nob_up, av, av_stride, partials, ticket, ny, nx, block, depth, panel,
+                       parity, n_passes, w1a, w2a, rc, inv_tot, st, lbm::make_c16(codec));
+  }
+  return run_sharded(table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst, nob_dn,
+                     nob_up, av, av_stride, partials, ticket, ny, nx, block, depth, panel, parity,
+                     n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
 }
 
 // K13: n_gens generations of the slab schedule on a (9, ny, nx) grid, each

@@ -32,15 +32,24 @@
 // pass, the forcing at every window row whose global row is ny-2. The JAX
 // package's two protocol variants (LBM_SHARD_LEAN, LBM_SHARD_FORCE) compute
 // this same function in other TPU layouts; there is one here.
+//
+// K9 and K10 at c16 (pallas_band2.py:319-326 and :497-504, ``dev=``): the
+// kernel is templated on the storage of lbm_common.cuh. Device memory holds
+// int16 codes; the window loader decodes them and the tile store encodes
+// (one rounding per pass of T steps, as the JAX kernels encode only at
+// their tile store), the windows and the steps stay f32, and K10's halo
+// copy moves the neighbours' codes untouched. A pass then moves 40 B per
+// cell instead of 76.
 #include "band_common.cuh"
 
 namespace {
 
-template <bool kSharded>
+template <bool kSharded, class S>
 __global__ void __launch_bounds__(band::kThreads)
-band2_kernel(band::Source src, float* __restrict__ dst, float* __restrict__ partials,
-             unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, float w1a,
-             float w2a, lbm::Relax rc, float inv_tot) {
+band2_kernel(band::SourceT<typename S::T> src, typename S::T* __restrict__ dst,
+             float* __restrict__ partials, unsigned int* __restrict__ ticket,
+             float* __restrict__ av, band::Geom g, float w1a, float w2a, lbm::Relax rc,
+             float inv_tot, S io) {
   extern __shared__ float smem[];
   const band::Smem s = band::carve(smem, g, 2);
   const size_t z = blockIdx.y;  // the shard (0 on one grid)
@@ -54,7 +63,7 @@ band2_kernel(band::Source src, float* __restrict__ dst, float* __restrict__ part
   __syncthreads();
   float* a = s.planes;
   float* b = s.planes + 9 * g.ncell;
-  band::load_window<kSharded>(g, s, a, src, y0);
+  band::load_window<kSharded>(g, s, a, src, y0, io);
   __syncthreads();
   const band::Central cen = band::central(g, y0, x0);
   const int frow = g.nyg - 2;
@@ -90,8 +99,49 @@ band2_kernel(band::Source src, float* __restrict__ dst, float* __restrict__ part
     band::step_partial(s, st, acc);
     __syncthreads();
   }
-  band::store_tile(g, a, dst, y0, x0);
+  band::store_tile(g, a, dst, y0, x0, io);
   band::finish_sums(g, s, partials, ticket, inv_tot, av);
+}
+
+// K9 on storage S: lbm_band2_run below.
+template <class S>
+int run_grid(typename S::T* buf_a, typename S::T* buf_b, const float* nobst, float* av,
+             float* partials, unsigned int* ticket, const band::Geom& g, int n_passes, float w1a,
+             float w2a, const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& io) {
+  using T = typename S::T;
+  const size_t smem = band::smem_bytes(g, 2);
+  const cudaError_t err = band::allow_smem(band2_kernel<false, S>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return band::run_passes(n_passes, g.T, buf_a, buf_b, av,
+                          [&](const T* src, T* dst, float* av_p, int) {
+    const band::SourceT<T> from{src, nobst, nullptr, nullptr, nullptr, nullptr};
+    band2_kernel<false, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
+        from, dst, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot, io);
+  });
+}
+
+// K10 on storage S: lbm_band2_sharded_run below.
+template <class S>
+int run_sharded(const unsigned long long* table, int s0, int count, int nshards, void* buf_a,
+                void* buf_b, void* halo_dn, void* halo_up, const float* nobst,
+                const float* nob_dn, const float* nob_up, float* av, int av_stride,
+                float* partials, unsigned int* ticket, int ny, int nx, int block, int depth,
+                int panel, int parity, int n_passes, float w1a, float w2a, const lbm::Relax& rc,
+                float inv_tot, cudaStream_t st, const S& io) {
+  using T = typename S::T;
+  const band::ShardsT<T> sh{table, s0, count, nshards, parity, static_cast<T*>(halo_dn),
+                            static_cast<T*>(halo_up)};
+  const band::Geom g = band::make_sharded_geom(ny, nx, block, depth, panel, sh, av_stride);
+  const size_t smem = band::smem_bytes(g, 2);
+  const cudaError_t err = band::allow_smem(band2_kernel<true, S>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(g.nty * g.ntx, count);
+  return band::run_sharded_passes(g, sh, n_passes, static_cast<T*>(buf_a), static_cast<T*>(buf_b),
+                                  av, st, [&](const T* src, T* dst, float* av_p, int) {
+    const band::SourceT<T> from{src, nobst, sh.halo_dn, sh.halo_up, nob_dn, nob_up};
+    band2_kernel<true, S><<<grid, band::kThreads, smem, st>>>(from, dst, partials, ticket, av_p,
+                                                              g, w1a, w2a, rc, inv_tot, io);
+  });
 }
 
 }  // namespace
@@ -100,51 +150,46 @@ band2_kernel(band::Source src, float* __restrict__ dst, float* __restrict__ part
 // buf_a holds the initial state; pass p reads buf[p % 2] and writes
 // buf[(p + 1) % 2]. av receives n_passes * depth values; partials needs
 // depth * lbm_band_num_tiles floats; ticket one zeroed unsigned int.
-// Returns the first CUDA error, or 0.
-extern "C" int lbm_band2_run(float* buf_a, float* buf_b, const float* nobst, float* av,
+// codec: null for f32 planes, else the 12 floats of c16 storage
+// (DevSpec.codec) and int16 planes. Returns the first CUDA error, or 0.
+extern "C" int lbm_band2_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                              float* partials, unsigned int* ticket, int ny, int nx, int block,
                              int depth, int panel, int n_passes, float w1a, float w2a, float beta,
-                             float ow0, float ow1, float ow2, float inv_tot, void* stream) {
+                             float ow0, float ow1, float ow2, float inv_tot, const float* codec,
+                             void* stream) {
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
-  const size_t smem = band::smem_bytes(g, 2);
-  const cudaError_t err = band::allow_smem(band2_kernel<false>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return band::run_passes(n_passes, depth, buf_a, buf_b, av,
-                          [&](const float* src, float* dst, float* av_p, int) {
-    const band::Source from{src, nobst, nullptr, nullptr, nullptr, nullptr};
-    band2_kernel<false><<<g.nty * g.ntx, band::kThreads, smem, st>>>(from, dst, partials, ticket,
-                                                                     av_p, g, w1a, w2a, rc,
-                                                                     inv_tot);
-  });
+  if (codec != nullptr) {
+    return run_grid(static_cast<int16_t*>(buf_a), static_cast<int16_t*>(buf_b), nobst, av,
+                    partials, ticket, g, n_passes, w1a, w2a, rc, inv_tot, st,
+                    lbm::make_c16(codec));
+  }
+  return run_grid(static_cast<float*>(buf_a), static_cast<float*>(buf_b), nobst, av, partials,
+                  ticket, g, n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
 }
 
 // K10: lbm_band_sharded_run's contract (band.cu) with the band2 pass
-// (depth even).
+// (depth even), codec included.
 extern "C" int lbm_band2_sharded_run(const unsigned long long* table, int s0, int count,
-                                     int nshards, float* buf_a, float* buf_b, float* halo_dn,
-                                     float* halo_up, const float* nobst, const float* nob_dn,
+                                     int nshards, void* buf_a, void* buf_b, void* halo_dn,
+                                     void* halo_up, const float* nobst, const float* nob_dn,
                                      const float* nob_up, float* av, int av_stride,
                                      float* partials, unsigned int* ticket, int ny, int nx,
                                      int block, int depth, int panel, int parity, int n_passes,
                                      float w1a, float w2a, float beta, float ow0, float ow1,
-                                     float ow2, float inv_tot, void* stream) {
-  const band::Shards sh{table, s0, count, nshards, parity, halo_dn, halo_up};
-  const band::Geom g = band::make_sharded_geom(ny, nx, block, depth, panel, sh, av_stride);
+                                     float ow2, float inv_tot, const float* codec, void* stream) {
   if (depth > ny || count < 1 || s0 < 0 || s0 + count > nshards) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const lbm::Relax rc{beta, ow0, ow1, ow2};
-  const size_t smem = band::smem_bytes(g, 2);
-  const cudaError_t err = band::allow_smem(band2_kernel<true>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(g.nty * g.ntx, count);
-  return band::run_sharded_passes(g, sh, n_passes, buf_a, buf_b, av, st,
-                                  [&](const float* src, float* dst, float* av_p, int) {
-    const band::Source from{src, nobst, halo_dn, halo_up, nob_dn, nob_up};
-    band2_kernel<true><<<grid, band::kThreads, smem, st>>>(from, dst, partials, ticket, av_p, g,
-                                                           w1a, w2a, rc, inv_tot);
-  });
+  if (codec != nullptr) {
+    return run_sharded(table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst, nob_dn,
+                       nob_up, av, av_stride, partials, ticket, ny, nx, block, depth, panel,
+                       parity, n_passes, w1a, w2a, rc, inv_tot, st, lbm::make_c16(codec));
+  }
+  return run_sharded(table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst, nob_dn,
+                     nob_up, av, av_stride, partials, ticket, ny, nx, block, depth, panel, parity,
+                     n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
 }

@@ -27,7 +27,7 @@
 // Storage: the window is f32 in shared memory; the loader decodes and the
 // store encodes the planes of device memory through a storage type of
 // lbm_common.cuh (F32, or C16 for int16 codes), so c16 changes only the
-// bytes of the load and the store.
+// bytes of the load and the store. The sharded halos carry the raw codes.
 //
 // Sharded form (K8 in band.cu, K10 in band2.cu): a 1-D mesh of shards, each
 // of ny rows of a grid of nyg rows, shard z starting at global row
@@ -353,13 +353,14 @@ inline int run_passes(int n_passes, int T, E* a, E* b, float* av, Launch&& launc
 // of a ring of nshards shards: halo_dn[z] = the last T rows of shard z - 1,
 // halo_up[z] = the first T rows of shard z + 1. table holds, per shard,
 // the addresses of its two (9, ny, nx) buffers; ``which`` picks the one
-// read, on this card or another (peer addresses). (Internal linkage: every
-// band source includes this header.)
+// read, on this card or another (peer addresses). E is the raw element
+// (float, or int16_t c16 codes, copied as they are: no decode, and half
+// the bytes). (Internal linkage: every band source includes this header.)
+template <class E>
 static __global__ void halo_rows_kernel(const unsigned long long* __restrict__ table, int which,
-                                        int s0, int count, int nshards,
-                                        float* __restrict__ halo_dn,
-                                        float* __restrict__ halo_up, int ny, int nx, int T) {
-  const size_t per = (size_t)9 * T * nx;  // halo floats per shard and side
+                                        int s0, int count, int nshards, E* __restrict__ halo_dn,
+                                        E* __restrict__ halo_up, int ny, int nx, int T) {
+  const size_t per = (size_t)9 * T * nx;  // halo elements per shard and side
   const size_t n = 2 * per * count;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -370,36 +371,39 @@ static __global__ void halo_rows_kernel(const unsigned long long* __restrict__ t
     const int k = (int)(e / ((size_t)T * nx));
     const size_t rc = e - (size_t)k * T * nx;
     const int nz = side == 0 ? (z == 0 ? nshards - 1 : z - 1) : (z == nshards - 1 ? 0 : z + 1);
-    const float* cells = reinterpret_cast<const float*>(table[2 * nz + which]);
+    const E* cells = reinterpret_cast<const E*>(table[2 * nz + which]);
     const size_t row0 = side == 0 ? (size_t)(ny - T) * nx : 0;
     (side == 0 ? halo_dn : halo_up)[j] = cells[(size_t)k * ny * nx + row0 + rc];
   }
 }
 
-// Sharded: issues n_passes passes over the call's shards (Shards) stacked
+// Sharded: issues n_passes passes over the call's shards (ShardsT) stacked
 // in a and b, each preceded by the halo copy from the pass's source
 // buffer: pass p reads a when (parity + p) is even, else b.
 // launch(src, dst, av + p * T, p) as run_passes. The halo copy reads the
 // neighbour shards, so across calls the caller orders a pass after the
-// neighbours' previous one. Returns the first launch error, or 0.
-struct Shards {
+// neighbours' previous one. Returns the first launch error, or 0. E is the
+// raw element of the state planes and halos (the not-obstacle halos stay
+// f32).
+template <class E>
+struct ShardsT {
   const unsigned long long* table;  // 2 * nshards addresses: each shard's two buffers
   int s0, count, nshards;           // the call's shards [s0, s0 + count) of the ring
   int parity;                       // the first pass reads buffer a when even
-  float* halo_dn;                   // (count, 9, T, nx)
-  float* halo_up;                   // (count, 9, T, nx)
+  E* halo_dn;                       // (count, 9, T, nx)
+  E* halo_up;                       // (count, 9, T, nx)
 };
 
-template <class Launch>
-inline int run_sharded_passes(const Geom& g, const Shards& sh, int n_passes, float* a, float* b,
+template <class E, class Launch>
+inline int run_sharded_passes(const Geom& g, const ShardsT<E>& sh, int n_passes, E* a, E* b,
                               float* av, cudaStream_t st, Launch&& launch) {
   const size_t n = (size_t)2 * 9 * g.T * g.nx * sh.count;
   const size_t want = (n + kThreads - 1) / kThreads;
   const int blocks = (int)(want < 4096 ? want : 4096);
   for (int p = 0; p < n_passes; ++p) {
     const int w = (sh.parity + p) & 1;
-    halo_rows_kernel<<<blocks, kThreads, 0, st>>>(sh.table, w, sh.s0, sh.count, sh.nshards,
-                                                  sh.halo_dn, sh.halo_up, g.ny, g.nx, g.T);
+    halo_rows_kernel<E><<<blocks, kThreads, 0, st>>>(sh.table, w, sh.s0, sh.count, sh.nshards,
+                                                     sh.halo_dn, sh.halo_up, g.ny, g.nx, g.T);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     launch(w ? b : a, w ? a : b, av + (size_t)p * g.T, p);
@@ -411,7 +415,8 @@ inline int run_sharded_passes(const Geom& g, const Shards& sh, int n_passes, flo
 
 // The geometry of a sharded call: its shards' rows, the global rows of the
 // ring of shards, and av_stride av values between two shards.
-inline Geom make_sharded_geom(int ny, int nx, int B, int T, int P, const Shards& sh,
+template <class E>
+inline Geom make_sharded_geom(int ny, int nx, int B, int T, int P, const ShardsT<E>& sh,
                               int av_stride) {
   Geom g = make_geom(ny, nx, B, T, P);
   g.nyg = sh.nshards * ny;

@@ -19,15 +19,21 @@
 // them and do not apply). The central cells go to the other state buffer,
 // every pass of a run is issued by one C call, and the per-step sums are
 // reduced in a fixed order (band_common.cuh::finish_sums).
+//
+// K6 at c16 (pallas_deep.py:114-116, :157-163, ``dev=``): templated on the
+// storage of lbm_common.cuh. The window, halos included, is decoded from
+// the int16 input state as it is read and the tile encoded as it is stored:
+// one rounding per pass of T steps, 40 B per cell per pass.
 #include "trapezoid.cuh"
 
 namespace {
 
+template <class S>
 __global__ void __launch_bounds__(band::kThreads)
-deep_kernel(const float* __restrict__ src, float* __restrict__ dst,
+deep_kernel(const typename S::T* __restrict__ src, typename S::T* __restrict__ dst,
             const float* __restrict__ nobst, float* __restrict__ partials,
             unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, float w1a,
-            float w2a, lbm::Relax rc, float inv_tot) {
+            float w2a, lbm::Relax rc, float inv_tot, S io) {
   extern __shared__ float smem[];
   const band::Smem s = band::carve(smem, g, 2);
   const trap::Tile tl = trap::begin(g, s);
@@ -39,13 +45,28 @@ deep_kernel(const float* __restrict__ src, float* __restrict__ dst,
     const size_t gi = (size_t)s.grow[r] * g.nx + s.gcol[c];
     const int i = r * g.WW + c;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) a[k * g.ncell + i] = src[k * plane + gi];
+    for (int k = 0; k < 9; ++k) a[k * g.ncell + i] = io.load(src[k * plane + gi], k);
     s.nob[i] = nobst[gi];
   });
   __syncthreads();
   const float* out = trap::steps(g, s, tl, a, b, w1a, w2a, rc);
-  band::store_tile(g, out, dst, tl.y0, tl.x0);
+  band::store_tile(g, out, dst, tl.y0, tl.x0, io);
   band::finish_sums(g, s, partials, ticket, inv_tot, av);
+}
+
+template <class S>
+int run(typename S::T* buf_a, typename S::T* buf_b, const float* nobst, float* av,
+        float* partials, unsigned int* ticket, const band::Geom& g, int n_passes, float w1a,
+        float w2a, const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& io) {
+  using T = typename S::T;
+  const size_t smem = band::smem_bytes(g, 2);
+  const cudaError_t err = band::allow_smem(deep_kernel<S>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return band::run_passes(n_passes, g.T, buf_a, buf_b, av,
+                          [&](const T* src, T* dst, float* av_p, int) {
+    deep_kernel<S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(src, dst, nobst, partials, ticket,
+                                                                av_p, g, w1a, w2a, rc, inv_tot, io);
+  });
 }
 
 }  // namespace
@@ -53,21 +74,21 @@ deep_kernel(const float* __restrict__ src, float* __restrict__ dst,
 // Runs n_passes passes of ``depth`` steps on B x P tiles. buf_a holds the
 // initial state; pass p reads buf[p % 2] and writes buf[(p + 1) % 2]. av
 // receives n_passes * depth values; partials needs depth *
-// lbm_band_num_tiles floats; ticket one zeroed unsigned int. Returns the
-// first CUDA error, or 0.
-extern "C" int lbm_deep_run(float* buf_a, float* buf_b, const float* nobst, float* av,
+// lbm_band_num_tiles floats; ticket one zeroed unsigned int. codec: null
+// for f32 planes, else the 12 floats of c16 storage (DevSpec.codec) and
+// int16 planes. Returns the first CUDA error, or 0.
+extern "C" int lbm_deep_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                             float* partials, unsigned int* ticket, int ny, int nx, int block,
                             int depth, int panel, int n_passes, float w1a, float w2a, float beta,
-                            float ow0, float ow1, float ow2, float inv_tot, void* stream) {
+                            float ow0, float ow1, float ow2, float inv_tot, const float* codec,
+                            void* stream) {
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
-  const size_t smem = band::smem_bytes(g, 2);
-  const cudaError_t err = band::allow_smem(deep_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return band::run_passes(n_passes, depth, buf_a, buf_b, av,
-                          [&](const float* src, float* dst, float* av_p, int) {
-    deep_kernel<<<g.nty * g.ntx, band::kThreads, smem, st>>>(src, dst, nobst, partials, ticket,
-                                                             av_p, g, w1a, w2a, rc, inv_tot);
-  });
+  if (codec != nullptr) {
+    return run(static_cast<int16_t*>(buf_a), static_cast<int16_t*>(buf_b), nobst, av, partials,
+               ticket, g, n_passes, w1a, w2a, rc, inv_tot, st, lbm::make_c16(codec));
+  }
+  return run(static_cast<float*>(buf_a), static_cast<float*>(buf_b), nobst, av, partials, ticket,
+             g, n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
 }

@@ -39,32 +39,34 @@ _RUN_ARGTYPES = {
     "lbm_step_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_C, _P],
     "lbm_aa_run": [_P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_C, _P],
     # band kernels: (buf_a, buf_b, nobst, av, partials, ticket, ny, nx,
-    # block, depth, panel, n_passes, 7 scalars[, codec], stream)
+    # block, depth, panel, n_passes, 7 scalars, codec, stream)
     "lbm_band_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_C, _P],
-    "lbm_band2_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+    "lbm_band2_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_C, _P],
     "lbm_band3_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_C, _P],
     # (state, next, slab_a, slab_b, nobst, av, partials, ticket, ny, nx,
     # block, depth, panel, kpasses, sblock, n_gens, 7 scalars, codec, stream)
     "lbm_slab_run": [_P] * 8 + [_I] * 8 + [_F] * 7 + [_C, _P],
-    "lbm_deep_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+    "lbm_deep_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_C, _P],
     # (state_a, state_b, last_a, first_a, last_b, first_b, nobst, av,
-    # partials, ticket, ny, nx, block, depth, panel, n_passes, 7 scalars, stream)
-    "lbm_temporal_run": [_P] * 10 + [_I] * 6 + [_F] * 7 + [_P],
+    # partials, ticket, ny, nx, block, depth, panel, n_passes, 7 scalars,
+    # codec, stream)
+    "lbm_temporal_run": [_P] * 10 + [_I] * 6 + [_F] * 7 + [_C, _P],
     # (buf_a, buf_b, nobst, av, partials, ny, nx, n_steps, chunk, blocks,
     # 7 scalars, stream)
     "lbm_resident_run": [_P] * 5 + [_I] * 5 + [_F] * 7 + [_P],
     "lbm_resident_max_blocks": [],
     # (table, s0, count, py, px, ry, rx, ny, pitch, lead, av, av_stride,
-    # partials, ticket, parity, n_steps, mode, fill_first, 6 scalars, stream)
-    "lbm_shard_run": [_P] + [_I] * 9 + [_P, _I, _P, _P] + [_I] * 4 + [_F] * 6 + [_P],
+    # partials, ticket, parity, n_steps, mode, fill_first, 6 scalars, codec,
+    # stream)
+    "lbm_shard_run": [_P] + [_I] * 9 + [_P, _I, _P, _P] + [_I] * 4 + [_F] * 6 + [_C, _P],
     "lbm_enable_peer": [_I, _I],
     # (table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst,
     # nob_dn, nob_up, av, av_stride, partials, ticket, ny, nx, block, depth,
-    # panel, parity, n_passes, 7 scalars, stream)
+    # panel, parity, n_passes, 7 scalars, codec, stream)
     "lbm_band_sharded_run": [_P] + [_I] * 3 + [_P] * 8 + [_I] + [_P] * 2 + [_I] * 7
-                            + [_F] * 7 + [_P],
+                            + [_F] * 7 + [_C, _P],
     "lbm_band2_sharded_run": [_P] + [_I] * 3 + [_P] * 8 + [_I] + [_P] * 2 + [_I] * 7
-                             + [_F] * 7 + [_P],
+                             + [_F] * 7 + [_C, _P],
 }
 _COUNT_ARGTYPES = {
     "lbm_step_num_blocks": [_I, _I],
@@ -73,13 +75,11 @@ _COUNT_ARGTYPES = {
 }
 
 
-# Entry points that take c16 storage (a ``codec`` argument before the stream).
-CODEC_ENTRIES = ("lbm_step_run", "lbm_aa_run", "lbm_band_run", "lbm_band3_run", "lbm_slab_run")
-
-
 def codec(dev):
     """The ``codec`` argument of an entry point for a run's storage: None
-    (NULL) for f32, the 12 floats of ``DevSpec.codec()`` for c16."""
+    (NULL) for f32, the 12 floats of ``DevSpec.codec()`` for c16. Every
+    entry point that runs steps takes it before the stream, but K4's,
+    which stores f32 only as in the JAX package."""
     return None if dev is None else (ctypes.c_float * 12)(*dev.codec())
 
 

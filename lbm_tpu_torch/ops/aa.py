@@ -42,7 +42,7 @@ from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
 from lbm_tpu_torch.ops.devspace import decode_plane, decode_state, encode_plane, encode_state
 from lbm_tpu_torch.ops.step import (
-    _CXS, _CYS, _OPP, check_inputs, force_deltas, forcing_weights, kernel_scalars,
+    _CXS, _CYS, _OPP, check_inputs, count_launches, force_deltas, forcing_weights, kernel_scalars,
 )
 
 MIN_NY = 3
@@ -178,10 +178,7 @@ def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="
             *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
         )
     _build.check(rc, "AA kernel")
-    if dev is None:
-        run_aa.launches += n_steps
-    else:
-        run_aa.launches_c16 += n_steps
+    count_launches(run_aa, n_steps, dev)
     return unarrange(state, n_steps), av
 
 

@@ -32,13 +32,15 @@ The slab route K13 (``ops/slab.py``) runs its remainder here.
 counterpart of ``pallas_band.py::_kernel_sharded`` and ``_kernel_sharded_panel``, takes each
 shard's window rows between its neighbours' T edge rows, copied once per
 pass, and the ``n_iters % T`` remainder runs on the shard step K3;
-``run_band_sharded_plain`` is its plain version.
+``run_band_sharded_plain`` is its plain version. At c16 (``dev``) K8
+decodes and encodes as K7 does, its halos carry the neighbours' codes,
+and the remainder runs on K3 at c16.
 """
 
 from __future__ import annotations
 
 from lbm_tpu_torch.ops import band_common as BC
-from lbm_tpu_torch.ops.step import forcing_weights
+from lbm_tpu_torch.ops.step import count_launches, forcing_weights
 
 PLANE_COPIES = 1  # one exchange window of the 9 planes per block
 MAX_WINDOW_CELLS = 4096  # 512 threads x 8 cells held in registers (csrc/band.cu)
@@ -92,10 +94,7 @@ def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, pa
         out = BC.launch_passes("lbm_band_run", "band kernel", cells.contiguous().clone(), nobst,
                                density, accel, omega, inv_tot_cells, block, depth, panel,
                                npasses, PLANE_COPIES, dev)
-        if dev is None:
-            run_band.launches += npasses * depth
-        else:
-            run_band.launches_c16 += npasses * depth
+        count_launches(run_band, npasses * depth, dev)
         return out
 
     return run_passes
@@ -136,35 +135,38 @@ _K8 = BC.ShardedKernel("band", "lbm_band_sharded_run", band_supported, PLANE_COP
 
 
 def step_band_sharded(shards, nob_shards, density, accel, omega, block, depth, ny, *,
-                      panel=None, paired="fused"):
+                      panel=None, paired="fused", dev=None):
     """One pass of ``depth`` steps over a 1-D mesh of row shards (``shards[i][0]``
     holds global rows ``[i*ry, (i+1)*ry)`` of ``ny``): K8 on CUDA, the plain
-    pass on CPU. Returns the shards and their raw sums ``(nshards, depth)``."""
-    out = _K8.step(shards, nob_shards, density, accel, omega, block, depth, ny, panel, paired)
+    pass on CPU. Returns the shards and their raw sums ``(nshards, depth)``.
+    ``dev``: c16 storage (int16 shards)."""
+    out = _K8.step(shards, nob_shards, density, accel, omega, block, depth, ny, panel, paired,
+                   dev)
     if shards[0][0].device.type == "cuda":
-        run_band_sharded.launches += depth
+        count_launches(run_band_sharded, depth, dev)
     return out
 
 
 def run_band_sharded_plain(shards, nob_shards, density, accel, omega, n_iters, block, depth,
-                           ny, *, panel=None, paired="fused"):
+                           ny, *, panel=None, paired="fused", dev=None):
     """The sharded band schedule in plain PyTorch, the remainder on the
     plain shard step; returns the shards and their raw sums ``(nshards, n_iters)``."""
     return _K8.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, panel,
-                   paired, plain=True)
+                   paired, plain=True, dev=dev)
 
 
 def run_band_sharded(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, *,
-                     panel=None, paired="fused"):
+                     panel=None, paired="fused", dev=None):
     """Run ``n_iters`` steps of a 1-D mesh of row shards, ``depth`` per pass:
     kernel K8 on CUDA (the ``n_iters % depth`` remainder on K3),
     ``run_band_sharded_plain`` on CPU. Returns the shards and their raw sums
-    ``(nshards, n_iters)``."""
+    ``(nshards, n_iters)``. ``dev``: c16 storage (int16 shards)."""
     out = _K8.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, panel,
-                  paired)
+                  paired, dev=dev)
     if shards[0][0].device.type == "cuda":
-        run_band_sharded.launches += n_iters // depth * depth
+        count_launches(run_band_sharded, n_iters // depth * depth, dev)
     return out
 
 
 run_band_sharded.launches = 0  # mesh steps K8 advanced in this process
+run_band_sharded.launches_c16 = 0  # mesh steps K8 advanced at c16

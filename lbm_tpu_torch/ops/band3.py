@@ -49,7 +49,7 @@ from lbm_tpu_torch.ops import band_common as BC
 from lbm_tpu_torch.ops.aa import force_even_plain, stream_planes
 from lbm_tpu_torch.ops.collision import bgk_relax
 from lbm_tpu_torch.ops.devspace import decode_state, encode_state
-from lbm_tpu_torch.ops.step import forcing_weights
+from lbm_tpu_torch.ops.step import count_launches, forcing_weights
 
 PLANE_COPIES = 1  # one window of the 9 planes per block, updated in place
 
@@ -148,10 +148,7 @@ def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, pa
         out = BC.launch_passes("lbm_band3_run", "band3 kernel", state, nobst, density, accel,
                                omega, inv_tot_cells, block, depth, panel, npasses, PLANE_COPIES,
                                dev)
-        if dev is None:
-            run_band3.launches += npasses * depth
-        else:
-            run_band3.launches_c16 += npasses * depth
+        count_launches(run_band3, npasses * depth, dev)
         return out
 
     return _in_s_space(nobst, density, accel, s_passes, dev)

@@ -43,8 +43,11 @@ its rows at global rows ``r0 + row`` for the forcing test, and sums only
 the owned rows ``own``.
 
 c16 storage (``dev``): the passes decode the state before a pass and
-encode its result (``plain_passes``), and ``launch_passes`` hands the
-kernel the codec; the window itself stays f32, as in the TPU kernels.
+encode its result (``plain_passes``, ``plain_passes_sharded``: one
+rounding per pass), and ``launch_passes``/``launch_passes_sharded`` hand
+the kernel the codec; the window itself stays f32, as in the TPU kernels.
+The sharded halos hold the neighbours' codes, as the JAX package's
+ppermutes move them; the not-obstacle halos stay f32.
 
 The TPU's BlockSpec strip views (``fullrow_specs``/``panel_specs``), the
 extended mask ``nobst_ext`` and the 128-lane halo H do not carry over: the
@@ -273,9 +276,9 @@ def check_smem(what: str, plane_copies: int, nx: int, block: int, depth: int,
 def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, inv_tot_cells,
                   block, depth, panel, npasses, plane_copies, dev=None):
     """Issue ``npasses`` passes of a band kernel (K7, K9, K11) or of the deep
-    kernel K6 through one C call on the current stream. ``state`` is consumed (the kernel ping-pongs between it
-    and a second copy); returns ``(state, av)``. ``dev``: c16 storage (K7
-    and K11 only)."""
+    kernel K6 through one C call on the current stream. ``state`` is
+    consumed (the kernel ping-pongs between it and a second copy); returns
+    ``(state, av)``. ``dev``: c16 storage (int16 ``state``)."""
     _, ny, nx = state.shape
     b, p, t = tile_shape(nx, block, depth, panel)
     check_smem(what, plane_copies, nx, block, depth, panel)
@@ -292,8 +295,7 @@ def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, in
         rc = getattr(lib, entry)(
             a.data_ptr(), other.data_ptr(), nobst.data_ptr(), av.data_ptr(),
             partials.data_ptr(), ticket.data_ptr(), ny, nx, b, t, p, npasses,
-            *kernel_scalars(density, accel, omega, inv_tot_cells),
-            *((_build.codec(dev),) if entry in _build.CODEC_ENTRIES else ()), stream,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
         )
     _build.check(rc, what)
     return (a if npasses % 2 == 0 else other), av
@@ -308,10 +310,14 @@ def neighbour_rows(flat, depth):
     return dn, up
 
 
-def plain_passes_sharded(nob_shards, ny_global, block, depth, panel, step):
+def plain_passes_sharded(nob_shards, ny_global, block, depth, panel, step, dev=None):
     """``run_passes`` of ``run_creep_sharded`` in plain PyTorch: each pass
     takes the halos from the neighbour shards, then runs
-    ``creep_pass_plain`` on every shard. Sums raw, ``(nshards, T)`` per pass."""
+    ``creep_pass_plain`` on every shard. Sums raw, ``(nshards, T)`` per pass.
+    ``dev`` (c16): the shards, halo codes included, decoded before the
+    pass and its results encoded after."""
+    from lbm_tpu_torch.ops.devspace import decode_state, encode_state
+
     nobs = [row[0] for row in nob_shards]
     nob_dn, nob_up = neighbour_rows(nobs, depth)
 
@@ -320,11 +326,13 @@ def plain_passes_sharded(nob_shards, ny_global, block, depth, panel, step):
         ry = flat[0].shape[1]
         sums = []
         for _ in range(npasses):
+            if dev is not None:
+                flat = [decode_state(f, dev) for f in flat]
             dn, up = neighbour_rows(flat, depth)
             out = [creep_pass_plain(flat[z], nobs[z], block, depth, panel, step,
                                     halo=(dn[z], up[z], nob_dn[z], nob_up[z]), r0=z * ry,
                                     ny_global=ny_global) for z in range(len(flat))]
-            flat = [o[0] for o in out]
+            flat = [o[0] if dev is None else encode_state(o[0], dev) for o in out]
             sums.append(torch.stack([o[1].to(flat[0].device) for o in out]))
         return [[f] for f in flat], torch.cat(sums, dim=1)
 
@@ -332,12 +340,12 @@ def plain_passes_sharded(nob_shards, ny_global, block, depth, panel, step):
 
 
 def run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny_global, depth,
-                      run_passes, paired="fused", plain=False):
+                      run_passes, paired="fused", plain=False, dev=None):
     """The sharded pass loop: ``run_passes(shards, n_iters // depth)``, then
     the ``n_iters % depth`` remainder on the shard step
     (``ops/shard_step.py::run_shard_step``, kernel K3 on CUDA; with
-    ``plain``, its plain version on any device). Returns the shards and the
-    raw per-shard sums ``(nshards, n_iters)``."""
+    ``plain``, its plain version on any device), at c16 with ``dev``.
+    Returns the shards and the raw per-shard sums ``(nshards, n_iters)``."""
     npasses, rem = divmod(n_iters, depth)
     parts = []
     if npasses:
@@ -346,24 +354,25 @@ def run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny_glo
     if rem:
         if plain:
             shards, sums = run_shard_step_plain(shards, nob_shards, density, accel, omega, rem,
-                                                ny_global, paired)
+                                                ny_global, paired, dev)
         else:
             shards, sums = run_shard_step(shards, nob_shards, density, accel, omega, rem,
-                                          ny_global, paired=paired)
+                                          ny_global, paired=paired, dev=dev)
         parts.append(sums)
     return shards, torch.cat(parts, dim=1)
 
 
 def launch_passes_sharded(entry: str, what: str, shards, nob_shards, density, accel, omega,
-                          block, depth, panel, npasses, plane_copies):
+                          block, depth, panel, npasses, plane_copies, dev=None):
     """Issue ``npasses`` passes of a sharded band kernel (K8, K10) over a
     1-D mesh. Each run of consecutive shards on one device
     (``shard_step.device_runs``) is stacked and launched together; each pass
     first copies its halos from the neighbour shards' edge rows, on the
     card or through peer addresses. With one device one C call issues every
     pass; across devices one call per run per pass, ordered by
-    ``shard_step.issue``. Returns the shards and their raw sums
-    ``(nshards, npasses * depth)`` on the first shard's device."""
+    ``shard_step.issue``. ``dev``: c16 storage (int16 shards and halos).
+    Returns the shards and their raw sums ``(nshards, npasses * depth)``
+    on the first shard's device."""
     flat = [row[0] for row in shards]
     nobs = [row[0] for row in nob_shards]
     n = len(flat)
@@ -373,6 +382,7 @@ def launch_passes_sharded(entry: str, what: str, shards, nob_shards, density, ac
     lib = _build.library()
     ntiles = lib.lbm_band_num_tiles(ry, nx, b, p)
     scalars = kernel_scalars(density, accel, omega, 1.0)
+    codec = _build.codec(dev)
     nob_dn, nob_up = neighbour_rows(nobs, t)  # the mask's halos, once per call
     runs = device_runs([f.device for f in flat])
     near = neighbour_runs(runs, n, 1)
@@ -402,7 +412,7 @@ def launch_passes_sharded(entry: str, what: str, shards, nob_shards, density, ac
                 tables[dev].data_ptr(), s0, count, n, a.data_ptr(), other.data_ptr(),
                 hdn.data_ptr(), hup.data_ptr(), nob.data_ptr(), ndn.data_ptr(), nup.data_ptr(),
                 av.data_ptr() + 4 * q * t, npasses * t, partials.data_ptr(), ticket.data_ptr(),
-                ry, nx, b, t, p, q % 2, k, *scalars, stream,
+                ry, nx, b, t, p, q % 2, k, *scalars, codec, stream,
             )
         _build.check(rc, what)
 
@@ -424,13 +434,14 @@ class ShardedKernel:
     plane_copies: int
     max_window: int | None = None
 
-    def check(self, shards, nob_shards, n_iters, block, depth, panel) -> None:
-        """A 1-D mesh of f32 shards of at least ``depth`` rows, one device
-        type, and a schedule the kernel takes on one shard."""
+    def check(self, shards, nob_shards, n_iters, block, depth, panel, dev=None) -> None:
+        """A 1-D mesh of f32 (with ``dev``: int16) shards of at least
+        ``depth`` rows, one device type, and a schedule the kernel takes on
+        one shard."""
         if any(len(row) != 1 for row in shards) or len(nob_shards) != len(shards):
             raise ValueError("the sharded band routes take a 1-D mesh of row shards")
         for row, nob_row in zip(shards, nob_shards):
-            check_inputs(row[0], nob_row[0], max(n_iters, 1), 1)
+            check_inputs(row[0], nob_row[0], max(n_iters, 1), 1, dev)
         if len({tuple(row[0].shape) for row in shards}) != 1:
             raise ValueError("shards differ in shape")
         if len({row[0].device.type for row in shards}) != 1:
@@ -446,13 +457,13 @@ class ShardedKernel:
                              f"{block}, depth {depth}, panel {panel}")
 
     def passes(self, nob_shards, ny, density, accel, omega, block, depth, panel, paired,
-               device):
+               device, dev=None):
         """``run_passes`` of ``run_creep_sharded`` for ``device``: the plain
         passes on the CPU, the kernel's on CUDA."""
         if device.type == "cpu":
             w1a, w2a = forcing_weights(density, accel)
             return plain_passes_sharded(nob_shards, ny, block, depth, panel,
-                                        r_step_plain(float(omega), w1a, w2a, paired))
+                                        r_step_plain(float(omega), w1a, w2a, paired), dev)
         if device.type != "cuda":
             raise ValueError(f"no {self.name} kernel for device {device}")
         if not (isinstance(paired, str) and paired.startswith("fused")):
@@ -466,25 +477,27 @@ class ShardedKernel:
         def run_passes(shards, npasses):
             return launch_passes_sharded(self.entry, f"{self.name} sharded kernel", shards,
                                          nob_shards, density, accel, omega, block, depth, panel,
-                                         npasses, self.plane_copies)
+                                         npasses, self.plane_copies, dev)
 
         return run_passes
 
-    def step(self, shards, nob_shards, density, accel, omega, block, depth, ny, panel, paired):
+    def step(self, shards, nob_shards, density, accel, omega, block, depth, ny, panel, paired,
+             dev=None):
         """One pass of ``depth`` steps; the shards and their raw sums
         ``(nshards, depth)``."""
-        self.check(shards, nob_shards, depth, block, depth, panel)
+        self.check(shards, nob_shards, depth, block, depth, panel, dev)
         return self.passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
-                           shards[0][0].device)(shards, 1)
+                           shards[0][0].device, dev)(shards, 1)
 
     def run(self, shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, panel,
-            paired, plain=False):
+            paired, plain=False, dev=None):
         """``n_iters`` steps, ``depth`` per pass, the remainder on the shard
         step: the kernel's passes on CUDA, the plain ones on the CPU or
-        with ``plain``. The shards and their raw sums ``(nshards, n_iters)``."""
-        self.check(shards, nob_shards, n_iters, block, depth, panel)
+        with ``plain``; ``dev``: c16 storage. The shards and their raw sums
+        ``(nshards, n_iters)``."""
+        self.check(shards, nob_shards, n_iters, block, depth, panel, dev)
         device = torch.device("cpu") if plain else shards[0][0].device
         passes = self.passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
-                             device)
+                             device, dev)
         return run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny, depth,
-                                 passes, paired, plain=plain or device.type == "cpu")
+                                 passes, paired, plain=plain or device.type == "cpu", dev=dev)

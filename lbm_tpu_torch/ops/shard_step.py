@@ -12,8 +12,8 @@ n_steps)`` (shard ``i*px + j``), for the mesh to add up in shard order.
 
 Both kernels hold each shard with a one-cell ghost ring filled from the
 neighbours' cells, corners included (``with_ring``), in a ``(9, ry+2,
-pitch)`` buffer whose rows of cells start at column ``LEAD``, 128-byte
-aligned, so the kernels' stores are whole lines. The step pulls inside the
+pitch)`` buffer whose rows of cells start at column ``lead_of(dtype)``,
+128-byte aligned, so the kernels' stores are whole lines. The step pulls inside the
 ring with no wrap and forces every source cell whose global row is ny-2,
 the mask from that cell's own values; so the owner gate and the pre-forced edge columns and corner
 splices of the TPU path are not needed, and the result is K1's on the
@@ -39,6 +39,13 @@ plain version.
 
 The TPU kernel's ``nx % 128`` and ``rows % 8`` do not carry over: any local
 grid of at least 1 x 1 cells works, on a global grid of ``ny >= 2``.
+
+c16 storage (``dev``, K3 only; the JAX package runs its per-shard fused
+kernel at c16 on 1-D meshes and refuses ``pallas-overlap`` at c16): the
+shards are int16 codes; K3 decodes each value it reads and encodes each it
+writes, K1's rounding point once per step, and its ring fill copies codes.
+``run_shard_step_plain(..., dev)`` decodes, steps and encodes every step,
+the JAX package's ``make_sharded_c16_jnp_step``.
 """
 
 from __future__ import annotations
@@ -47,16 +54,24 @@ import torch
 
 from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
-from lbm_tpu_torch.ops.step import _CXS, _CYS, _OPP, force_deltas, forcing_weights, kernel_scalars
+from lbm_tpu_torch.ops.devspace import decode_state, encode_state
+from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, check_inputs, count_launches,
+                                    force_deltas, forcing_weights, kernel_scalars)
+
+LINE = 128  # bytes: every ringed row of cells starts on a line
 
 
-LEAD = 32  # padded column of a shard's column 0: one 128-byte line of f32
+def lead_of(dtype: torch.dtype) -> int:
+    """Padded column of a shard's column 0, in elements: one 128-byte line
+    (32 f32 values, 64 int16 codes)."""
+    return LINE // torch.empty((), dtype=dtype).element_size()
 
 
-def pitch_of(rx: int) -> int:
-    """Row pitch of a ringed shard of ``rx`` columns: the ring's right
-    column fits, and rows stay 128-byte aligned."""
-    return -(-(LEAD + rx + 1) // 32) * 32
+def pitch_of(rx: int, dtype: torch.dtype = torch.float32) -> int:
+    """Row pitch of a ringed shard of ``rx`` columns, in elements: the
+    ring's right column fits, and rows stay 128-byte aligned."""
+    lead = lead_of(dtype)
+    return -(-(lead + rx + 1) // lead) * lead
 
 
 def mesh_of(shards):
@@ -109,7 +124,7 @@ def shard_step_plain(padded, nob_padded, r0, ny, w1a, w2a, omega, paired="fused"
     return out, torch.sum(nob * u_mag(u_sq))
 
 
-def check_mesh(shards, nob_shards, n_steps, ny) -> None:
+def check_mesh(shards, nob_shards, n_steps, ny, dev=None) -> None:
     py, px = mesh_of(shards)
     if py < 1 or px < 1 or any(len(row) != px for row in shards) or mesh_of(nob_shards) != (py, px):
         raise ValueError("shards and nob_shards must be one py x px mesh")
@@ -119,10 +134,7 @@ def check_mesh(shards, nob_shards, n_steps, ny) -> None:
             if tuple(s.shape) != shape or s.dim() != 3 or s.shape[0] != 9:
                 raise ValueError(f"shards must all be one (9, ry, rx), got {tuple(s.shape)} "
                                  f"and {shape}")
-            if s.dtype != torch.float32 or nob.dtype != torch.float32:
-                raise ValueError("the shard kernels take f32 state and an f32 not-obstacle plane")
-            if tuple(nob.shape) != shape[1:] or nob.device != s.device:
-                raise ValueError("each nob shard must be (ry, rx) on its shard's device")
+            check_inputs(s, nob, max(n_steps, 1), 1, dev)
     if len({s.device.type for row in shards for s in row}) != 1:
         raise ValueError("shards on more than one kind of device")
     if py * shape[1] != ny or ny < 2:
@@ -132,26 +144,28 @@ def check_mesh(shards, nob_shards, n_steps, ny) -> None:
 
 
 def run_shard_step_plain(shards, nob_shards, density, accel, omega, n_steps, ny,
-                         paired="fused"):
+                         paired="fused", dev=None):
     """``n_steps`` of ``shard_step_plain`` on every shard, the rings rebuilt
-    from the neighbours between steps. Returns ``(shards, sums)``."""
-    check_mesh(shards, nob_shards, n_steps, ny)
+    from the neighbours between steps; with ``dev`` (c16) each step between
+    a decode and an encode. Returns ``(shards, sums)``."""
+    check_mesh(shards, nob_shards, n_steps, ny, dev)
     py, px = mesh_of(shards)
     w1a, w2a = forcing_weights(density, accel)
     ry = shards[0][0].shape[1]
     nob_ring = with_ring([[n[None] for n in row] for row in nob_shards])
-    dev = shards[0][0].device
-    sums = torch.empty((py * px, n_steps), dtype=torch.float32, device=dev)
+    device = shards[0][0].device
+    sums = torch.empty((py * px, n_steps), dtype=torch.float32, device=device)
     for t in range(n_steps):
-        padded = with_ring(shards)
+        padded = with_ring(shards if dev is None else
+                           [[decode_state(s, dev) for s in row] for row in shards])
         new = []
         for i in range(py):
             row = []
             for j in range(px):
                 cells, tot = shard_step_plain(padded[i][j], nob_ring[i][j][0], i * ry, ny, w1a,
                                               w2a, float(omega), paired)
-                sums[i * px + j, t] = tot.to(dev)
-                row.append(cells)
+                sums[i * px + j, t] = tot.to(device)
+                row.append(cells if dev is None else encode_state(cells, dev))
             new.append(row)
         shards = new
     return shards, sums
@@ -237,8 +251,9 @@ def address_table(entries, device):
                         device=device)
 
 
-def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap, what):
-    check_mesh(shards, nob_shards, n_steps, ny)
+def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap, what,
+                dev):
+    check_mesh(shards, nob_shards, n_steps, ny, dev)
     if not (isinstance(paired, str) and paired.startswith("fused")):
         raise ValueError("the CUDA shard kernels implement the fused collision form only")
     py, px = mesh_of(shards)
@@ -250,17 +265,20 @@ def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, 
     nblocks = lib.lbm_step_num_blocks(ry, rx)
     runs = device_runs([s.device for s in flat])
     near = neighbour_runs(runs, py, px)
-    pitch, cells = pitch_of(rx), slice(LEAD, LEAD + rx)
+    dtype = flat[0].dtype
+    lead, pitch = lead_of(dtype), pitch_of(rx, dtype)
+    cells = slice(lead, lead + rx)
+    codec = _build.codec(dev)
     state = []  # per run: (buffers, padded masks, av, partials, ticket)
-    for s0, count, dev in runs:
-        bufs = torch.empty((2, count, 9, ry + 2, pitch), dtype=torch.float32, device=dev)
-        nob = torch.empty((count, ry + 2, pitch), dtype=torch.float32, device=dev)
+    for s0, count, device in runs:
+        bufs = torch.empty((2, count, 9, ry + 2, pitch), dtype=dtype, device=device)
+        nob = torch.empty((count, ry + 2, pitch), dtype=torch.float32, device=device)
         for z in range(count):
             bufs[0, z, :, 1:-1, cells] = flat[s0 + z]
             nob[z, 1:-1, cells] = nobs[s0 + z]
-        state.append((bufs, nob, torch.empty((count, n_steps), dtype=torch.float32, device=dev),
-                      torch.empty(count * nblocks, dtype=torch.float32, device=dev),
-                      torch.zeros(count, dtype=torch.int32, device=dev)))
+        state.append((bufs, nob, torch.empty((count, n_steps), dtype=torch.float32, device=device),
+                      torch.empty(count * nblocks, dtype=torch.float32, device=device),
+                      torch.zeros(count, dtype=torch.int32, device=device)))
     entries = [(bufs[0, z], bufs[1, z], nob[z])
                for (bufs, nob, *_), (_, count, _) in zip(state, runs) for z in range(count)]
     tables = {d: address_table(entries, d) for _, _, d in runs}
@@ -268,45 +286,47 @@ def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, 
         enable_peers(lib, runs, near)
 
     def call(r, t, k):
-        s0, count, dev = runs[r]
+        s0, count, device = runs[r]
         _, _, av, partials, ticket = state[r]
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.lbm_shard_run(tables[dev].data_ptr(), s0, count, py, px, ry, rx, ny, pitch,
-                                   LEAD, av.data_ptr() + 4 * t, n_steps, partials.data_ptr(),
-                                   ticket.data_ptr(), t % 2, k, 2 if overlap else 1, int(t == 0),
-                                   *scalars, stream)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.lbm_shard_run(tables[device].data_ptr(), s0, count, py, px, ry, rx, ny,
+                                   pitch, lead, av.data_ptr() + 4 * t, n_steps,
+                                   partials.data_ptr(), ticket.data_ptr(), t % 2, k,
+                                   2 if overlap else 1, int(t == 0), *scalars, codec, stream)
         _build.check(rc, what)
 
     issue(runs, near, n_steps, call)
     final = [bufs[n_steps % 2, z, :, 1:-1, cells] for (bufs, *_), (_, count, _) in zip(state, runs)
              for z in range(count)]
-    dev = flat[0].device
-    sums = torch.cat([av.to(dev) for _, _, av, _, _ in state])
+    device = flat[0].device
+    sums = torch.cat([av.to(device) for _, _, av, _, _ in state])
     return [[final[i * px + j] for j in range(px)] for i in range(py)], sums
 
 
-def _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap, what):
-    dev = shards[0][0].device
-    if dev.type == "cpu":
+def _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap, what,
+              dev=None):
+    device = shards[0][0].device
+    if device.type == "cpu":
         return run_shard_step_plain(shards, nob_shards, density, accel, omega, n_steps, ny,
-                                    paired)
-    if dev.type != "cuda":
-        raise ValueError(f"no shard kernel for device {dev}")
+                                    paired, dev)
+    if device.type != "cuda":
+        raise ValueError(f"no shard kernel for device {device}")
     return _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap,
-                       what)
+                       what, dev)
 
 
-def run_shard_step(shards, nob_shards, density, accel, omega, n_steps, ny, *, paired="fused"):
+def run_shard_step(shards, nob_shards, density, accel, omega, n_steps, ny, *, paired="fused",
+                   dev=None):
     """``n_steps`` fused steps of a mesh of shards: kernel K3 on CUDA,
     ``run_shard_step_plain`` on CPU. Returns ``(shards, sums)``, the raw
     per-shard sums ``(py*px, n_steps)`` on the first shard's device. The
     input shards are left unchanged; the returned ones may be views of one
-    buffer."""
+    buffer. ``dev``: c16 storage (int16 shards)."""
     out = _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, False,
-                    "shard step kernel")
+                    "shard step kernel", dev)
     if shards[0][0].device.type == "cuda":
-        run_shard_step.launches += n_steps
+        count_launches(run_shard_step, n_steps, dev)
     return out
 
 
@@ -316,11 +336,12 @@ def run_shard_overlap(shards, nob_shards, density, accel, omega, n_steps, ny, *,
     edge cells are stored into the rings that read them by the kernel
     itself. Its plain version is ``run_shard_step_plain``."""
     out = _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, True,
-                    "shard overlap kernel")
+                    "shard overlap kernel", None)
     if shards[0][0].device.type == "cuda":
         run_shard_overlap.launches += n_steps
     return out
 
 
 run_shard_step.launches = 0  # mesh steps K3 advanced in this process
+run_shard_step.launches_c16 = 0  # mesh steps K3 advanced at c16
 run_shard_overlap.launches = 0  # mesh steps K12 advanced in this process

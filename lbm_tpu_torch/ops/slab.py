@@ -41,7 +41,7 @@ import torch
 from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops import band as B
 from lbm_tpu_torch.ops import band_common as BC
-from lbm_tpu_torch.ops.step import forcing_weights, kernel_scalars
+from lbm_tpu_torch.ops.step import count_launches, forcing_weights, kernel_scalars
 
 
 def slab_supported(ny: int, nx: int, block: int, depth: int, kpasses: int, sblock: int,
@@ -156,10 +156,7 @@ def run_band_slab(cells, nobst, density, accel, omega, n_iters, block, depth, kp
                 *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
             )
         _build.check(rc, "slab kernel")
-        if dev is None:
-            run_band_slab.launches += ngens * kt
-        else:
-            run_band_slab.launches_c16 += ngens * kt
+        count_launches(run_band_slab, ngens * kt, dev)
         cells = state if ngens % 2 == 0 else other
     if rem:
         cells, av[ngens * kt:] = B.run_band(cells, nobst, density, accel, omega, rem, block,

@@ -54,6 +54,15 @@ def kernel_scalars(density: float, accel: float, omega: float, inv_tot_cells: fl
             float(inv_tot_cells))
 
 
+def count_launches(wrapper, steps: int, dev) -> None:
+    """Add ``steps`` to a kernel wrapper's launch count: ``launches`` at
+    f32, ``launches_c16`` at c16 (``dev``)."""
+    if dev is None:
+        wrapper.launches += steps
+    else:
+        wrapper.launches_c16 += steps
+
+
 def check_inputs(cells: torch.Tensor, nobst: torch.Tensor, n_steps: int, min_ny: int,
                  dev=None) -> None:
     """Shapes, dtypes and devices a kernel takes; ``dev`` (c16) wants int16 codes."""
@@ -146,10 +155,7 @@ def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired
             *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
         )
     _build.check(rc, "step kernel")
-    if dev is None:
-        run_step.launches += n_steps
-    else:
-        run_step.launches_c16 += n_steps
+    count_launches(run_step, n_steps, dev)
     return (a if n_steps % 2 == 0 else b), av
 
 

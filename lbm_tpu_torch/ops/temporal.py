@@ -30,6 +30,12 @@ falls back.
 The TPU kernel's ``B % 8``, ``nx % 128`` and ``B | ny`` are Mosaic
 constraints and are not ported. A block's packs are its own rows, so T may
 not exceed any block's height, the last one of a ragged grid included.
+
+c16 storage (``dev``, ``pallas_temporal.py``'s ``dev=``): the state and the
+packs hold int16 codes (``make_halos_t`` packs the input's codes); K5 and
+``step_t_plain`` decode the window's three sources as they read them and
+encode the pass's output once, the packs from the same codes as the state
+rows they copy (one rounding per pass of T steps).
 """
 
 from __future__ import annotations
@@ -39,7 +45,9 @@ import torch
 from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops import band_common as BC
 from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
-from lbm_tpu_torch.ops.step import _CXS, _CYS, _OPP, forcing_weights, kernel_scalars
+from lbm_tpu_torch.ops.devspace import decode_state, encode_state
+from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, count_launches, forcing_weights,
+                                    kernel_scalars)
 
 PLANE_COPIES = 2  # the window's two ping-pong copies (csrc/trapezoid.cuh)
 
@@ -60,8 +68,8 @@ def temporal_supported(ny: int, nx: int, block: int, depth: int, panel: int | No
     return depth <= min(block, block_heights(ny, block)[1])
 
 
-def _check(cells, nobst, n_iters, block, depth, panel):
-    BC.check_schedule(cells, nobst, n_iters, block, depth, panel)
+def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
+    BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
     _, ny, nx = cells.shape
     if not temporal_supported(ny, nx, block, depth, panel):
         raise ValueError(f"temporal schedule unsupported: grid {ny}x{nx}, block {block}, "
@@ -130,10 +138,17 @@ def blocks_to_state(out, ny):
     return out.permute(1, 0, 2, 3).reshape(9, nblk * b, nx)[:, :ny].contiguous()
 
 
+def on_planes(codec, blocks, dev):
+    """``codec`` (``decode_state`` or ``encode_state``) on ``(nblk, 9, ...)``
+    blocks; unchanged without ``dev``."""
+    return blocks if dev is None else codec(blocks.transpose(0, 1), dev).transpose(0, 1)
+
+
 def step_t_plain(state, nobst, density, accel, omega, block, depth, *, inv_tot_cells=1.0,
-                 paired="fused"):
+                 paired="fused", dev=None):
     """One pass of ``depth`` steps in plain PyTorch (``step_t_pallas``).
-    Returns ``((cells, last_o, first_o), av)`` with ``depth`` av values."""
+    Returns ``((cells, last_o, first_o), av)`` with ``depth`` av values.
+    ``dev``: c16 storage (int16 state and packs)."""
     cells, last_t, first_t = state
     _, ny, nx = cells.shape
     nblk, last = block_heights(ny, block)
@@ -146,8 +161,9 @@ def step_t_plain(state, nobst, density, accel, omega, block, depth, *, inv_tot_c
     win[:, :, :t] = above
     win[:-1, :, t + block:2 * t + block] = below[:-1]
     win[-1, :, t + last:2 * t + last] = below[-1]
-    out, sums = trapezoid_plain(win, nobst[rows], rows, ny, block, depth, float(omega),
-                                w1a, w2a, paired)
+    out, sums = trapezoid_plain(on_planes(decode_state, win, dev), nobst[rows], rows, ny, block,
+                                depth, float(omega), w1a, w2a, paired)
+    out = on_planes(encode_state, out, dev)
     first_o = out[:, :, :t].reshape(nblk, 9 * t, nx)
     last_o = torch.cat([out[:-1, :, block - t:block], out[-1:, :, last - t:last]])
     last_o = last_o.reshape(nblk, 9 * t, nx)
@@ -155,20 +171,21 @@ def step_t_plain(state, nobst, density, accel, omega, block, depth, *, inv_tot_c
     return (blocks_to_state(out, ny), last_o.contiguous(), first_o.contiguous()), sums * inv
 
 
-def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired):
+def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired, dev=None):
     def run_passes(cells, npasses):
         state = (cells, *make_halos_t(cells, block, depth))
         av = []
         for _ in range(npasses):
             state, a = step_t_plain(state, nobst, density, accel, omega, block, depth,
-                                    inv_tot_cells=inv_tot_cells, paired=paired)
+                                    inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
             av.append(a)
         return state[0], torch.cat(av)
 
     return run_passes
 
 
-def _launch(state, nobst, density, accel, omega, inv_tot_cells, block, depth, panel, npasses):
+def _launch(state, nobst, density, accel, omega, inv_tot_cells, block, depth, panel, npasses,
+            dev=None):
     """``npasses`` passes of K5 from one C call; returns ``(state, av)``."""
     cells, last_t, first_t = (x.contiguous() for x in state)
     _, ny, nx = cells.shape
@@ -187,10 +204,10 @@ def _launch(state, nobst, density, accel, omega, inv_tot_cells, block, depth, pa
         rc = lib.lbm_temporal_run(
             *(x.data_ptr() for x in bufs), nobst.data_ptr(), av.data_ptr(),
             partials.data_ptr(), ticket.data_ptr(), ny, nx, b, t, p, npasses,
-            *kernel_scalars(density, accel, omega, inv_tot_cells), stream,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
         )
     _build.check(rc, "temporal kernel")
-    run_temporal.launches += npasses * t
+    count_launches(run_temporal, npasses * t, dev)
     o = npasses % 2  # the buffers of the last pass's output
     return (bufs[o], bufs[2 + 2 * o], bufs[3 + 2 * o]), av
 
@@ -203,47 +220,52 @@ def _device_check(device, paired):
 
 
 def step_t(state, nobst, density, accel, omega, block, depth, *, panel=None, inv_tot_cells=1.0,
-           paired="fused"):
+           paired="fused", dev=None):
     """One pass of ``depth`` steps on ``(cells, last_t, first_t)``: kernel K5
     on CUDA, ``step_t_plain`` on CPU. Returns ``((cells, last_o, first_o),
-    av)``."""
+    av)``. ``dev``: c16 storage (int16 state and packs)."""
     cells = state[0]
-    _check(cells, nobst, depth, block, depth, panel)
+    _check(cells, nobst, depth, block, depth, panel, dev)
     if cells.device.type == "cpu":
         return step_t_plain(state, nobst, density, accel, omega, block, depth,
-                            inv_tot_cells=inv_tot_cells, paired=paired)
+                            inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
     _device_check(cells.device, paired)
-    return _launch(state, nobst, density, accel, omega, inv_tot_cells, block, depth, panel, 1)
+    return _launch(state, nobst, density, accel, omega, inv_tot_cells, block, depth, panel, 1,
+                   dev)
 
 
 def run_temporal_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-                       inv_tot_cells=1.0, paired="fused"):
+                       inv_tot_cells=1.0, paired="fused", dev=None):
     """The temporal schedule in plain PyTorch; returns ``(cells, av)``."""
-    _check(cells, nobst, n_iters, block, depth, panel)
-    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired)
+    _check(cells, nobst, n_iters, block, depth, panel, dev)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired,
+                           dev)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired)
+                        passes, paired, dev)
 
 
 def run_temporal(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-                 inv_tot_cells=1.0, paired="fused"):
+                 inv_tot_cells=1.0, paired="fused", dev=None):
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K5 on CUDA (and K1
     for the remainder), ``run_temporal_plain`` on CPU. ``cells`` is left
-    unchanged. The kernel implements the fused collision form."""
+    unchanged. The kernel implements the fused collision form. ``dev``:
+    c16 storage (int16 ``cells``)."""
     if cells.device.type == "cpu":
         return run_temporal_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
-                                  panel=panel, inv_tot_cells=inv_tot_cells, paired=paired)
-    _check(cells, nobst, n_iters, block, depth, panel)
+                                  panel=panel, inv_tot_cells=inv_tot_cells, paired=paired,
+                                  dev=dev)
+    _check(cells, nobst, n_iters, block, depth, panel, dev)
     _device_check(cells.device, paired)
 
     def run_passes(c, npasses):
         state = (c, *make_halos_t(c, block, depth))
         (c, _, _), av = _launch(state, nobst, density, accel, omega, inv_tot_cells, block, depth,
-                                panel, npasses)
+                                panel, npasses, dev)
         return c, av
 
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        run_passes, paired)
+                        run_passes, paired, dev)
 
 
 run_temporal.launches = 0  # steps K5 advanced in this process
+run_temporal.launches_c16 = 0  # steps K5 advanced at c16

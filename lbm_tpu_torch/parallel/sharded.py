@@ -28,6 +28,15 @@ the first four cards.
   ``psum`` and multiply; no float atomics, so two runs give equal bits.
 - The state is gathered to the host and saved with
   ``runtime/checkpoint.py`` after each chunk when checkpointing.
+- ``dtype="c16"`` (``ops/devspace.py``, the JAX package's
+  ``run_simulation_sharded(_2d)(dtype="c16")``): the state is encoded on
+  upload and every shard holds int16 codes; checkpoints and the result
+  hold the decoded f32 state, and one saturation check covers the largest
+  code of every shard. On a 1-D mesh ``auto``/``pallas`` run K3 at c16,
+  ``band``/``band2`` K8/K10 at c16 and ``reference`` the plain c16 step
+  (``lbm_step_sharded_c16``); on a 2-D mesh ``auto`` and ``reference`` run
+  that plain step and ``pallas`` raises, as the JAX package's 2-D mesh
+  has no c16 kernel; ``pallas-overlap`` raises at c16.
 
 A backend that names a kernel never runs something else. The JAX package
 quietly runs its jnp step for ``band3`` under a 1-D mesh and for ``band2``
@@ -43,11 +52,13 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch.models.d2q9 import CX, CY, D2Q9, LBMParams
+from lbm_tpu_torch.ops import devspace
 from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import collide
 from lbm_tpu_torch.ops.shard_step import sync, with_ring
 from lbm_tpu_torch.runtime.device import list_devices
-from lbm_tpu_torch.runtime.driver import SimulationResult, compute_chunk_sizes
+from lbm_tpu_torch.runtime.driver import (SimulationResult, compute_chunk_sizes, is_c16,
+                                          warn_saturation)
 
 # Backends the single-device driver runs and a mesh refuses.
 SINGLE_DEVICE_BACKENDS = ("resident", "aa", "temporal", "deep", "slab")
@@ -157,6 +168,18 @@ def lbm_step_sharded_2d(shards, obst_shards, density, accel, omega, ny_global):
     return new, torch.stack(sums)
 
 
+def lbm_step_sharded_c16(shards, obst_shards, density, accel, omega, ny_global, spec):
+    """``lbm_step_sharded_2d`` on c16 shards: decode, step, encode (one
+    rounding per step), the JAX package's ``make_sharded_c16_jnp_step`` and
+    ``make_sharded_c16_jnp_step_2d``. It is plain PyTorch on every device by
+    design: the JAX package computes this step outside any Pallas kernel
+    (its 2-D mesh has no c16 kernel), so plain torch ops are its
+    counterpart, not a kernel's plain version standing in for a kernel."""
+    full = [[devspace.decode_state(s, spec) for s in row] for row in shards]
+    new, sums = lbm_step_sharded_2d(full, obst_shards, density, accel, omega, ny_global)
+    return [[devspace.encode_state(c, spec) for c in row] for row in new], sums
+
+
 def mesh_totals(sums: torch.Tensor, inv_tot_cells) -> torch.Tensor:
     """Per-step totals of the raw per-shard sums ``(nshards, n)``: added in
     shard-index order, then multiplied by ``inv_tot_cells`` in their type."""
@@ -167,12 +190,17 @@ def mesh_totals(sums: torch.Tensor, inv_tot_cells) -> torch.Tensor:
 
 
 def _storage(dtype):
-    """The torch dtype of a run, or raise for a storage mode not ported."""
-    if isinstance(dtype, str) or dtype in (torch.bfloat16, torch.int16):
-        raise ValueError(f"{dtype} storage under a mesh is not yet ported (the sharded c16 "
-                         "path is the next slice); use f32 or f64")
+    """The storage of a run (a torch dtype or ``"c16"``), or raise for one
+    not ported."""
+    if dtype is None:
+        return torch.float32
+    if is_c16(dtype):
+        return dtype
+    if dtype in (torch.bfloat16, torch.int16):
+        raise ValueError(f"{dtype} storage under a mesh is not yet ported; use f32, f64 or "
+                         "c16")
     if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {dtype}; use float32 or float64")
+        raise ValueError(f"unsupported dtype {dtype}; use float32, float64 or 'c16'")
     return dtype
 
 
@@ -182,7 +210,9 @@ def pick_shard_step(params: LBMParams, mesh, backend: str, dtype):
     ``reference``, ``pallas`` (K3), ``pallas-overlap`` (K12), ``band`` (K8)
     or ``band2`` (K10), schedule ``(block, depth, panel)`` of the band
     routes from the single-device picker. Refusals raise ``ValueError``
-    with the JAX package's wording."""
+    with the JAX package's wording. At c16 every route but
+    ``pallas-overlap`` takes the codes on a 1-D mesh; a 2-D mesh runs the
+    plain c16 step (``reference``)."""
     from lbm_tpu_torch.runtime.driver import BACKENDS, band2_config, band_config
 
     two_d = isinstance(mesh, tuple)
@@ -207,6 +237,13 @@ def pick_shard_step(params: LBMParams, mesh, backend: str, dtype):
     if backend == "band3":
         raise ValueError("band3 backend has no sharded kernel; use --backend "
                          "auto/pallas/pallas-overlap/band/band2/reference with --mesh")
+    if is_c16(dtype):
+        if backend == "pallas-overlap":
+            raise ValueError("pallas-overlap does not support c16 storage yet")
+        if two_d:
+            if backend == "pallas":
+                raise ValueError("2-D-mesh pallas backend is f32-only")
+            return "reference", None
     if backend == "reference" or (backend == "auto" and dtype == torch.float64):
         return "reference", None
     rows, cols = params.ny // py, params.nx // px
@@ -246,10 +283,15 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
         raise ValueError(f"obstacle mask {obstacles.shape} != grid ({params.ny}, {params.nx})")
     if start_step >= params.max_iters:
         raise ValueError("start_step is beyond max_iters")
+    dtype = _storage(dtype)
+    spec = devspace.DevSpec.for_params(params.density, params.accel) if is_c16(dtype) else None
+    full_dtype = torch.float32 if spec is not None else dtype
     if initial_cells is None:
-        full = D2Q9.initial_state(params, dtype=dtype)
+        full = D2Q9.initial_state(params, dtype=full_dtype)
     else:
-        full = torch.as_tensor(np.asarray(initial_cells)).to(dtype)
+        full = torch.as_tensor(np.asarray(initial_cells)).to(full_dtype)
+    if spec is not None:
+        full = devspace.encode_state(full, spec)  # the rest state encodes to 0
     obst = torch.as_tensor((obstacles != 0).astype(np.int32))
     shards = split(full, mesh)
     obst_shards = split(obst, mesh)
@@ -258,12 +300,17 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
     inv_np = np.asarray(1.0 / tot_cells, dtype=np.float64 if dtype == torch.float64 else np.float32)
     paired = paired_default()
     scalars = (params.density, params.accel, params.omega)
+    kw = dict(paired=paired) if spec is None else dict(paired=paired, dev=spec)
 
     def advance(shards, n):
         if route == "reference":
             sums = []
             for _ in range(n):
-                shards, s = lbm_step_sharded_2d(shards, obst_shards, *scalars, params.ny)
+                if spec is None:
+                    shards, s = lbm_step_sharded_2d(shards, obst_shards, *scalars, params.ny)
+                else:
+                    shards, s = lbm_step_sharded_c16(shards, obst_shards, *scalars, params.ny,
+                                                     spec)
                 sums.append(s)
             return shards, torch.stack(sums, dim=1)
         if route in ("band", "band2"):
@@ -273,11 +320,17 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
             run = run_band_sharded if route == "band" else run_band2_sharded
             block, depth, panel = cfg
             return run(shards, nob_shards, *scalars, n, block, depth, params.ny, panel=panel,
-                       paired=paired)
+                       **kw)
         from lbm_tpu_torch.ops.shard_step import run_shard_overlap, run_shard_step
 
         run = run_shard_overlap if route == "pallas-overlap" else run_shard_step
-        return run(shards, nob_shards, *scalars, n, params.ny, paired=paired)
+        return run(shards, nob_shards, *scalars, n, params.ny, **kw)
+
+    def as_full(shards):
+        """The host's view of the state: c16 codes decode to f32."""
+        if spec is not None:
+            shards = [[devspace.decode_state(s, spec) for s in row] for row in shards]
+        return gather(shards).numpy()
 
     t0 = time.perf_counter()
     if route != "reference" and "cuda" in kinds:
@@ -301,11 +354,14 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
         if checkpoint_path is not None and checkpoint_every:
             from lbm_tpu_torch.runtime.checkpoint import save_checkpoint
 
-            save_checkpoint(checkpoint_path, params, gather(shards).numpy(),
-                            np.concatenate(av_chunks), step)
+            # c16 checkpoints hold the decoded f32 state, as on one device.
+            save_checkpoint(checkpoint_path, params, as_full(shards), np.concatenate(av_chunks),
+                            step)
+    if spec is not None:
+        warn_saturation(max(devspace.max_abs_code(s) for row in shards for s in row), spec)
     devices = [str(d) for d in mesh.flat]
     return SimulationResult(
-        cells=gather(shards).numpy(),
+        cells=as_full(shards),
         av_vels=np.concatenate(av_chunks),
         elapsed=elapsed,
         compile_time=compile_time,

@@ -37,19 +37,19 @@ every c16 run ends with the saturation check (one on-device max of |code|
 and one scalar fetched). ``auto`` at c16 runs ``pallas`` (K1), as the JAX
 package's auto does on the official decks (its band and temporal routes
 start at 1536 columns, and the resident kernel never takes c16): K1 and K2
-round the codes every step and pass the 1% gate, while the band kernels
-round once per pass of T steps, as the JAX kernels do, and that cadence
-drifts (1.68% on the 256^2 deck with K11 on an H100, PERF.md; the JAX
-package's study of T-step rounding, BENCHMARKS.md round 3). ``aa``,
-``band``, ``band3``, ``slab`` and ``reference`` take c16 when named;
-``resident`` raises as in the JAX package, and ``band2``, ``temporal`` and
-``deep`` raise "not yet ported": a backend that names a kernel never runs
-another.
+round the codes every step and pass the 1% gate, while the T-step kernels
+(K5, K6, K7, K9, K11, K13) round once per pass of T steps, as the JAX
+kernels do, and that cadence drifts (1.68% on the 256^2 deck with K11 on
+an H100, PERF.md; the JAX package's study of T-step rounding,
+BENCHMARKS.md round 3). Every other backend takes c16 when named but
+``resident``, which raises as in the JAX package: a backend that names a
+kernel never runs another.
 
 ``run_simulation`` runs ``[start_step, max_iters)`` in chunks whose
-boundaries fall on every multiple of ``checkpoint_every``, writing a
-checkpoint (``runtime/checkpoint.py``) after each; ``elapsed`` sums the
-chunks' compute time only.
+boundaries fall on every multiple of ``checkpoint_every`` and of
+``chunk_every``, writing a checkpoint (``runtime/checkpoint.py``) at each
+multiple of ``checkpoint_every`` and calling ``on_chunk`` after every
+chunk; ``elapsed`` sums the chunks' compute time only.
 """
 
 from __future__ import annotations
@@ -76,8 +76,6 @@ PASS_BACKENDS = ("band", "band2", "band3", "temporal", "deep")
 KERNEL_BACKENDS = ("aa", "pallas", "resident", "slab") + PASS_BACKENDS
 # The storage that names c16 (int16 companded deviations, ops/devspace.py).
 C16 = "c16"
-# Backends whose kernels take c16 storage.
-C16_BACKENDS = ("auto", "aa", "pallas", "reference", "band", "band3", "slab")
 
 
 def is_c16(dtype) -> bool:
@@ -143,9 +141,9 @@ def band_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
 
 def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The band2 kernel's schedule ``(block, depth, panel)`` (driver.py:590-610),
-    or None for a dtype it does not store."""
+    or None for a dtype it does not store (f32 and c16)."""
     del params
-    return _BAND2_SCHEDULE if dtype == torch.float32 else None
+    return _BAND2_SCHEDULE if is_c16(dtype) or dtype == torch.float32 else None
 
 
 def band3_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
@@ -197,16 +195,17 @@ def resident_config(params: LBMParams, dtype) -> int | None:
 def temporal_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The temporal kernel's schedule ``(block, depth, panel)``
     (``pick_block``/``pick_depth`` of the JAX package), or None for a dtype
-    it does not store."""
+    it does not store (f32 and c16)."""
     del params
-    return _TEMPORAL_SCHEDULE if dtype == torch.float32 else None
+    return _TEMPORAL_SCHEDULE if is_c16(dtype) or dtype == torch.float32 else None
 
 
 def deep_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The deep kernel's schedule ``(block, depth, panel)``
-    (``pallas_deep.pick_config``), or None for a dtype it does not store."""
+    (``pallas_deep.pick_config``), or None for a dtype it does not store
+    (f32 and c16)."""
     del params
-    return _DEEP_SCHEDULE if dtype == torch.float32 else None
+    return _DEEP_SCHEDULE if is_c16(dtype) or dtype == torch.float32 else None
 
 
 def pass_schedule(route: str, params: LBMParams, dtype):
@@ -230,7 +229,7 @@ def pass_schedule(route: str, params: LBMParams, dtype):
         cfg, need = deep_config(params, dtype), "ny >= 2"
     if cfg is None or not supported(params.ny, params.nx, *cfg):
         raise ValueError(f"grid {params.ny}x{params.nx} unsupported by the {route} kernel "
-                         f"(schedule {cfg}; it needs f32 and {need})")
+                         f"(schedule {cfg}; it needs f32 or c16 and {need})")
     return run, cfg
 
 
@@ -253,6 +252,8 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     c16 = is_c16(dtype)
+    if dtype == torch.bfloat16:
+        raise ValueError("bf16 storage is not yet ported; use float32, float64 or 'c16'")
     if not c16 and dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {dtype}; use float32, float64 or 'c16'")
     if backend == "slab" and os.environ.get("LBM_ENABLE_SLAB") != "1":
@@ -264,10 +265,7 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
         return "reference"
     if c16 and backend == "resident":
         raise ValueError("resident backend does not support c16 storage (use "
-                         "auto/aa/pallas/band/band3/slab/reference)")
-    if c16 and backend not in C16_BACKENDS:
-        raise ValueError(f"c16 storage is not yet ported for the {backend} kernel; use "
-                         "--precision f32, or auto/aa/pallas/band/band3/slab/reference at c16")
+                         "auto/pallas/temporal/deep/band/aa)")
     if dtype == torch.float64:
         if backend in KERNEL_BACKENDS:
             raise ValueError(
@@ -333,30 +331,48 @@ def run_simulation(
     params: LBMParams,
     obstacles: np.ndarray,
     *,
-    device: torch.device | str,
     backend: str = "auto",
-    dtype: torch.dtype | str = torch.float32,
+    dtype: torch.dtype | str | None = torch.float32,
     initial_cells: np.ndarray | None = None,
     start_step: int = 0,
     av_vels_prefix: np.ndarray | None = None,
     checkpoint_every: int = 0,
     checkpoint_path: str | None = None,
+    checkpoint_format: str = "npz",
+    chunk_every: int = 0,
+    on_chunk=None,
+    device: torch.device | str | None = None,
     fetch_final: bool = True,
 ) -> SimulationResult:
     """Run steps ``start_step .. params.max_iters`` on ``device`` and return
-    the result (driver.py:1272-1611 of the JAX package).
+    the result (driver.py:1272-1611 of the JAX package, whose keywords it
+    takes).
 
-    ``initial_cells`` replaces the equilibrium-at-rest start state;
-    ``start_step`` and ``av_vels_prefix`` resume from a checkpoint, whose
-    av series the result's begins with. ``checkpoint_every`` > 0 splits the
-    run into chunks ending on its multiples, and with ``checkpoint_path``
-    each chunk's end (and the run's) writes a checkpoint there.
+    ``device`` None selects as ``--device`` does (``runtime/device.py``:
+    ``$LBM_DEVICE``, else ``cuda:0``; the CPU only when named, and no card
+    raises). ``dtype`` None is f32. ``initial_cells`` replaces the
+    equilibrium-at-rest start state; ``start_step`` and ``av_vels_prefix``
+    resume from a checkpoint, whose av series the result's begins with.
+    ``checkpoint_every`` > 0 splits the run into chunks ending on its
+    multiples, and with ``checkpoint_path`` each of them (and the run's
+    end) writes a checkpoint there in ``checkpoint_format`` (npz: orbax is
+    the JAX package's and is refused). ``chunk_every`` > 0 adds chunk
+    boundaries on its multiples, and ``on_chunk(step, cells, av_chunk)``
+    is called after every chunk with the step reached, the state as a
+    tensor where it lies (decoded f32 at c16) and the chunk's av values.
     ``fetch_final=False`` leaves ``result.cells`` None. ``dtype="c16"``
     runs on c16 storage (module docstring).
     """
+    if checkpoint_format != "npz":
+        raise ValueError("orbax checkpoints are JAX-only (lbm_tpu); use checkpoint_format='npz'")
+    if device is None:
+        from lbm_tpu_torch.runtime.device import select_device
+
+        device = select_device(None)
     device = torch.device(device)
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
+    dtype = torch.float32 if dtype is None else dtype
     route = select_route(params, backend, dtype)
     obstacles = np.asarray(obstacles)
     if obstacles.shape != (params.ny, params.nx):
@@ -379,7 +395,7 @@ def run_simulation(
     paired = paired_default()  # read once, outside the loop
     nobst = (obst == 0).to(torch.float32)
     scalars = (params.density, params.accel, params.omega)
-    # Only the routes that take c16 get ``dev`` (select_route refused the others).
+    # Every route but K4's takes ``dev`` (select_route refused K4 at c16).
     kw = dict(paired=paired) if spec is None else dict(paired=paired, dev=spec)
 
     def advance(cells, n):
@@ -429,7 +445,7 @@ def run_simulation(
     av_chunks = [] if av_vels_prefix is None else [np.asarray(av_vels_prefix)]
     elapsed = 0.0
     step = start_step
-    for n in compute_chunk_sizes(start_step, params.max_iters, checkpoint_every):
+    for n in compute_chunk_sizes(start_step, params.max_iters, checkpoint_every, chunk_every):
         _sync(device)
         t0 = time.perf_counter()
         cells, av = advance(cells, n)
@@ -437,6 +453,8 @@ def run_simulation(
         elapsed += time.perf_counter() - t0
         av_chunks.append(av.cpu().numpy())
         step += n
+        if on_chunk is not None:
+            on_chunk(step, as_full(cells), av_chunks[-1])
         if checkpoint_path is not None and checkpoint_every and (
                 step % checkpoint_every == 0 or step == params.max_iters):
             from lbm_tpu_torch.runtime.checkpoint import save_checkpoint

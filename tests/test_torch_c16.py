@@ -277,9 +277,6 @@ def test_auto_at_c16_runs_the_step_kernel(ny, nx):
 
 @pytest.mark.parametrize("backend,match", [
     ("resident", "resident backend does not support c16"),
-    ("band2", "not yet ported for the band2 kernel"),
-    ("temporal", "not yet ported for the temporal kernel"),
-    ("deep", "not yet ported for the deep kernel"),
 ])
 def test_c16_refusals(backend, match):
     with pytest.raises(ValueError, match=match):
@@ -288,15 +285,28 @@ def test_c16_refusals(backend, match):
 
 
 @pytest.mark.parametrize("mesh", [2, (2, 2)], ids=["1-D", "2-D"])
-@pytest.mark.parametrize("backend", ["auto", "pallas", "reference"])
-def test_c16_under_a_mesh_is_not_yet_ported(mesh, backend):
-    kw = dict(backend=backend, dtype="c16")
-    with pytest.raises(ValueError, match="not yet ported"):
-        if isinstance(mesh, tuple):
-            tsharded.run_simulation_sharded_2d(PARAMS, small_obstacles(), mesh_shape=mesh,
-                                               devices=["cpu"] * 4, **kw)
-        else:
-            tsharded.run_simulation_sharded(PARAMS, small_obstacles(), devices=["cpu"] * 2, **kw)
+@pytest.mark.parametrize("backend", ["auto", "reference", "pallas"])
+def test_c16_under_a_mesh_tracks_f32(mesh, backend):
+    """c16 under a mesh (K3's plain c16 form, or the plain c16 shard step:
+    tests/test_torch_c16_mesh.py holds them against the JAX package) tracks
+    the f32 mesh run; 2-D ``pallas`` at c16 raises as in the JAX package."""
+    obs = small_obstacles()
+    if isinstance(mesh, tuple):
+        def run(**kw):
+            return tsharded.run_simulation_sharded_2d(PARAMS, obs, mesh_shape=mesh,
+                                                      devices=["cpu"] * 4, backend=backend, **kw)
+        if backend == "pallas":
+            with pytest.raises(ValueError, match="2-D-mesh pallas backend is f32-only"):
+                run(dtype="c16")
+            return
+    else:
+        def run(**kw):
+            return tsharded.run_simulation_sharded(PARAMS, obs, devices=["cpu"] * 2,
+                                                   backend=backend, **kw)
+    c16, f32 = run(dtype="c16"), run()
+    assert c16.cells.dtype == np.float32
+    np.testing.assert_allclose(c16.cells, f32.cells, atol=1e-5)
+    np.testing.assert_allclose(c16.av_vels, f32.av_vels, rtol=2e-3, atol=1e-9)
 
 
 @pytest.fixture

@@ -1,7 +1,7 @@
 """The CUDA kernels on the card: K1, K2, the band kernels K7, K9, K11, the
 resident, temporal and deep kernels K4, K5, K6, the shard kernels K3,
-K12, K8, K10, the slab kernel K13 and the c16 forms of K1, K2, K7, K11 and
-K13 against their plain versions.
+K12, K8, K10, the slab kernel K13 and the c16 forms of K1, K2, K3, K5-K11
+and K13 against their plain versions.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -80,6 +80,9 @@ C16_KERNELS = {
     "K2": (taa.run_aa, taa.run_aa_plain, None),
     "K7": (tband.run_band, tband.run_band_plain, (24, 4, 20)),
     "K11": (tband3.run_band3, tband3.run_band3_plain, (24, 4, 20)),
+    "K9": (tband2.run_band2, tband2.run_band2_plain, (24, 4, 20)),
+    "K5": (ttemp.run_temporal, ttemp.run_temporal_plain, (20, 4, 20)),
+    "K6": (tdeep.run_deep, tdeep.run_deep_plain, (20, 4, 20)),
 }
 
 
@@ -87,9 +90,9 @@ C16_KERNELS = {
 @pytest.mark.parametrize("iters", [8, 19])
 @pytest.mark.parametrize("name", list(C16_KERNELS))
 def test_c16_kernel_matches_plain_and_repeats(cuda_device, name, iters):
-    """The c16 forms on a ragged 97 x 70 grid (band kernels under 24 x 20
-    tiles, T 4: passes and a K1 remainder); the c16 counter, not the f32
-    one, counts them; a second run is bitwise equal."""
+    """The c16 forms on a ragged 97 x 70 grid (T-step kernels under 24 x 20
+    or 20 x 20 tiles, T 4: passes and a K1 remainder); the c16 counter, not
+    the f32 one, counts them; a second run is bitwise equal."""
     kernel, plain, cfg = C16_KERNELS[name]
     cells, nobst = make_setup(cuda_device, 70, 97, seed=iters)
     q = tdev.encode_state(cells, SPEC)
@@ -378,16 +381,20 @@ def test_shard_kernels_refuse(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, "c16"], ids=["f32", "c16"])
 @pytest.mark.parametrize("repeat", [1, 2], ids=["once", "twice"])
 @pytest.mark.parametrize("backend,mesh", [("pallas", None), ("pallas-overlap", None),
                                           ("band", None), ("band2", None), ("auto", "2d")])
-def test_mesh_across_cards(cuda_device, backend, mesh, repeat):
+def test_mesh_across_cards(cuda_device, backend, mesh, repeat, dtype):
     """A mesh over every card (two or more; 2 x n/2 for the 2-D case), each
     card holding one shard or, ``twice``, two shards that are not
     neighbours in shard order: one call per run of shards per step (or
     pass) ordered by events, the ring fills and halo copies reading the
     neighbour cards and K12's peer stores give the single-card K1 run bit
-    for bit."""
+    for bit. At c16 (K12 refuses it) the rings and halos carry codes
+    across the cards: K3 gives K1 c16's bits, K8 and K10 the single-card
+    K7 and K9 c16 runs', the 2-D plain step the single-card plain c16
+    step's values within the c16 tolerance."""
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.parallel.sharded import run_simulation_sharded, run_simulation_sharded_2d
     from lbm_tpu_torch.runtime.driver import run_simulation
@@ -395,18 +402,90 @@ def test_mesh_across_cards(cuda_device, backend, mesh, repeat):
     n = torch.cuda.device_count()
     if n < 2 or (mesh and n % 2):
         pytest.skip("needs two or more CUDA devices (an even count for 2-D)")
+    c16 = dtype == "c16"
+    if c16 and backend == "pallas-overlap":
+        pytest.skip("K12 takes f32 only, as the JAX package's pallas-overlap")
     devices = [f"cuda:{i}" for i in range(n)] * repeat
     params = LBMParams(nx=96, ny=32 * n * repeat, max_iters=23, reynolds_dim=10,
                        density=DENSITY, accel=ACCEL, omega=OMEGA)
     obs = np.zeros((params.ny, params.nx), np.int32)
     obs[0] = obs[-1] = 1
     obs[np.random.RandomState(2).randint(1, params.ny - 1, 20), 7] = 1
-    want = run_simulation(params, obs, device="cuda:0", backend="pallas")
+    single = {"pallas": "pallas", "band": "band", "band2": "band2", "auto": "reference"}
+    want = run_simulation(params, obs, device="cuda:0", dtype=dtype,
+                          backend=single[backend] if c16 else "pallas")
     if mesh:
         got = run_simulation_sharded_2d(params, obs, mesh_shape=(2, n * repeat // 2),
-                                        devices=devices, backend=backend)
+                                        devices=devices, backend=backend, dtype=dtype)
     else:
-        got = run_simulation_sharded(params, obs, devices=devices, backend=backend)
+        got = run_simulation_sharded(params, obs, devices=devices, backend=backend, dtype=dtype)
     assert got.shard_devices == tuple(devices)
+    if c16 and mesh:
+        assert np.abs(got.cells - want.cells).max() < 5e-6
+        np.testing.assert_allclose(got.av_vels, want.av_vels, rtol=1e-3)
+        return
     np.testing.assert_array_equal(got.cells, want.cells)
     np.testing.assert_allclose(got.av_vels, want.av_vels, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_c16_temporal_pass_packs_copy_the_state(cuda_device):
+    """One K5 pass at c16 from packs that differ from the state's rows: the
+    state and both packs against the plain pass, and the packs hold exactly
+    the codes of the state rows they copy."""
+    cells, nobst = make_setup(cuda_device, 70, 97, seed=5)
+    q = tdev.encode_state(cells, SPEC)
+    last, first = ttemp.make_halos_t(q, 20, 4)
+    state = (q, last + 3, first - 3)
+    got, av = ttemp.step_t(state, nobst, DENSITY, ACCEL, OMEGA, 20, 4, panel=32, dev=SPEC)
+    want, want_av = ttemp.step_t_plain(state, nobst, DENSITY, ACCEL, OMEGA, 20, 4, dev=SPEC)
+    assert_c16_close((got[0], av), (want[0], want_av))
+    own_last, own_first = ttemp.make_halos_t(got[0], 20, 4)
+    assert torch.equal(got[1], own_last) and torch.equal(got[2], own_first)
+
+
+C16_MESH = {"K3": (tshard.run_shard_step, tshard.run_shard_step_plain, None),
+            "K8": (tband.run_band_sharded, tband.run_band_sharded_plain, (16, 4, 20)),
+            "K10": (tband2.run_band2_sharded, tband2.run_band2_sharded_plain, (16, 4, 20))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [8, 11])
+@pytest.mark.parametrize("name", list(C16_MESH))
+def test_c16_mesh_kernels_match_plain_and_repeats(cuda_device, name, iters):
+    """K3, K8 and K10 at c16 on 4 row shards of a 100 x 70 grid (the band
+    kernels with T 4 and a K3 remainder): against their plain c16 forms
+    and, joined, against K1 at c16 (the same rounding for K3); the c16
+    counter counts them; a second run is bitwise equal."""
+    kernel, plain, cfg = C16_MESH[name]
+    ny = 100
+    cells, nobst, _, nob = mesh_setup(cuda_device, 70, ny, 4, 1, seed=iters)
+    q = tdev.encode_state(cells, SPEC)
+    shards = [[q[:, i * 25:(i + 1) * 25].contiguous()] for i in range(4)]
+
+    def run(fn):
+        if cfg is None:
+            return fn(shards, nob, DENSITY, ACCEL, OMEGA, iters, ny, dev=SPEC)
+        return fn(shards, nob, DENSITY, ACCEL, OMEGA, iters, cfg[0], cfg[1], ny, panel=cfg[2],
+                  dev=SPEC)
+
+    before, before_c16 = kernel.launches, kernel.launches_c16
+    got = run(kernel)
+    assert kernel.launches == before
+    assert kernel.launches_c16 == before_c16 + (iters if cfg is None else iters // 4 * 4)
+    again = run(kernel)
+    assert torch.equal(joined(got[0]), joined(again[0])) and torch.equal(got[1], again[1])
+    want = run(plain)
+    assert_c16_close((joined(got[0]), got[1].sum(0)), (joined(want[0]), want[1].sum(0)))
+    if cfg is None:
+        k1 = tstep.run_step(q, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0, dev=SPEC)
+        assert_c16_close((joined(got[0]), got[1].sum(0)), k1)
+
+
+@pytest.mark.cuda
+def test_overlap_kernel_refuses_c16(cuda_device):
+    """K12 takes f32 only, as the JAX package's pallas-overlap."""
+    _, _, shards, nob = mesh_setup(cuda_device, 40, 32, 4, 1, seed=3)
+    codes = [[tdev.encode_state(s, SPEC) for s in row] for row in shards]
+    with pytest.raises(ValueError, match="int16"):
+        tshard.run_shard_overlap(codes, nob, DENSITY, ACCEL, OMEGA, 2, 32)

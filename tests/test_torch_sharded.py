@@ -241,7 +241,7 @@ def test_kernel_backends_without_a_shard_kernel_raise(backend, mesh):
     assert np.isfinite(np.asarray(jres.cells)).all()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, "c16"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16])
 def test_storage_modes_not_yet_ported(dtype):
     params, obs = case(24, 16, 2, seed=0)
     with pytest.raises(ValueError, match="not yet ported"):

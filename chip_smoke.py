@@ -113,26 +113,50 @@ PyTorch built for CUDA. Phases, each printing what it found:
 20. the gate per T: K9 and K11 at c16 with T 4, 8 and 16 on the 256^2 and
    1024^2 decks, called with explicit schedules (T 16 with 32-row tiles and
    the widest panel that fits shared memory), through the checker against
-   ``tests/golden/``: a measurement, printed, held only to finite output.
+   ``tests/golden/``: a measurement, printed, held only to finite output;
+21. the bf16 forms (bfloat16 storage, ``ops/devspace.py::BF16``) of K1, K2,
+   K7, K9, K11, K5, K6, K13 and, with 4 row shards on ``cuda:0``, K3, K8,
+   K10 against their plain versions at 1024^2 and on the ragged 1000^2
+   walls mask (K13: 1000 columns by 1024 rows), over a pass (or 5 steps)
+   and 2T+3 steps (K1 and K2 200, K2 201 too, K3 50); two runs of K1 bf16
+   and of K2 bf16 bitwise equal; time per step of each beside its f32 and
+   c16 forms in the same loop (K1, K2 at 1024^2 and 2048^2, the others at
+   2048^2), the plain version's too;
+22. the bf16 path through ``cli.main --precision bf16``: ``auto``, ``aa``,
+   ``pallas`` and ``band3`` on the 256^2 and 1024^2 decks, ``band``,
+   ``band2``, ``temporal``, ``deep`` and (``LBM_ENABLE_SLAB=1``) ``slab``
+   on 1024^2, ``--mesh 4 --device 0`` on 1024^2 under ``auto`` (K3),
+   ``band`` (K8), ``band2`` (K10) and ``pallas-overlap`` (the f32 K12
+   between one cast in and one out), ``--mesh 2x2 --device 0`` (its
+   plain-torch bf16 step) on a 128^2 box cut to ``MESH_2D_ITERS``, and a
+   256^2 ``auto`` run resumed from a step-30,001 checkpoint, whose files
+   must be the bytes of the uninterrupted run. bf16 cannot pass the 1%
+   gate (the JAX CLI says so): each deck prints the checker's verdict
+   against ``tests/golden/`` and is held to finite output and to the bf16
+   counters, zeroed just before, which must account for every step (and
+   no f32 or c16 counter but K12's may move).
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
 kernels and another summation order); at c16 the decoded cells within
 5e-6 and the av series at rtol 1e-3 (FMA contraction can move a code by
 one quantum at a rounding tie, and a moved code feeds the next steps);
-golden gate 1% (the reference's checker; the pass routes at c16:
-``PASS_GATE_C16``). Any failure exits non-zero
+at bf16, counted on the bit patterns, ``TOL_BF16`` over a pass and
+``TOL_BF16_SPREAD`` over longer runs (below); golden gate 1% (the
+reference's checker; the pass routes at c16: ``PASS_GATE_C16``; bf16: no
+limit). Any failure exits non-zero
 before the last line. The last two lines are the kernel report and
 ``{"ok": true, "device": {...}}``. In the report ``ms``/``plain_ms`` are
-per step (K1, K2 and K4 at 1024^2, the c16 forms of K1 and K2 too, the
-others at 2048^2, the shard kernels with 4 shards); ``bound_ms`` is the
-least time of that step on an H100 at this run's shape: the larger of its
-bytes over 3.35 TB/s and its f32
-operations (``FLOPS_PER_CELL_STEP``) over 67 TFLOP/s. The bytes: 76 B per
-cell (9 f32 planes read and written and the f32 mask, each once) or 40 B
-at c16 (9 int16 planes), per launch of a one-step kernel and per pass of a
-T-step one; for K13 those bytes times (S + 2KT) / S per generation of K*T
-steps, the HBM traffic when a slab's inner passes stay in L2.
+per step (K1, K2 and K4 at 1024^2, the c16 and bf16 forms of K1 and K2
+too, the others at 2048^2, the shard kernels with 4 shards); ``bound_ms``
+is the least time of that step on an H100 at this run's shape: the larger
+of its bytes over 3.35 TB/s and its f32 operations
+(``FLOPS_PER_CELL_STEP``) over 67 TFLOP/s. The bytes: 76 B per cell (9
+f32 planes read and written and the f32 mask, each once) or 40 B at c16
+and bf16 (9 int16 or bfloat16 planes), per launch of a one-step kernel
+and per pass of a T-step one; for K13 those bytes times (S + 2KT) / S per
+generation of K*T steps, the HBM traffic when a slab's inner passes stay
+in L2.
 ``library_ms`` is null, as no single PyTorch call computes these steps.
 """
 
@@ -317,7 +341,8 @@ def run_deck(cli, tag, backend, work, gpu_line, mesh=None, precision="f32", gate
     """One official deck through ``cli.main``; ``mesh`` adds ``--mesh mesh
     --device 0``, ``precision`` ``--precision`` (f32 adds nothing). Where
     there is a gold, the run must pass the checker at ``gate`` percent (the
-    reference's 1% unless stated); the 1% verdict is printed either way."""
+    reference's 1% unless stated; None: held to nothing, as bf16, which the
+    gate cannot hold); the 1% verdict is printed either way."""
     import numpy as np
 
     from lbm_tpu_torch.utils import geometry
@@ -351,15 +376,19 @@ def run_deck(cli, tag, backend, work, gpu_line, mesh=None, precision="f32", gate
     if os.path.exists(gold):
         gav, gfs = write_gold(gold, deck_dir)
         res = check_files(os.path.join(deck_dir, "av_vels.dat"),
-                          os.path.join(deck_dir, "final_state.dat"), gav, gfs, tolerance=gate)
+                          os.path.join(deck_dir, "final_state.dat"), gav, gfs,
+                          tolerance=1.0 if gate is None else gate)
         at_1 = max(abs(res.av_vels.max_diff_pcnt), abs(res.final_state.max_diff_pcnt)) <= 1.0
+        held = ("" if gate == 1.0 else " (held to no limit)" if gate is None
+                else f" (held at {gate}%: {'PASS' if res.passed else 'FAIL'})")
         line += (f"\n    golden gate (1%): av_vels max diff {res.av_vels.max_diff_pcnt:.4g}% "
                  f"at step {res.av_vels.max_index}, pressure max diff "
                  f"{res.final_state.max_diff_pcnt:.4g}% at ({res.final_state.coord_x},"
-                 f"{res.final_state.coord_y}): {'PASS' if at_1 else 'FAIL'}"
-                 + ("" if gate == 1.0 else f" (held at {gate}%: {'PASS' if res.passed else 'FAIL'})"))
+                 f"{res.final_state.coord_y}): {'PASS' if at_1 else 'FAIL'}" + held)
         log(line)
-        check(res.passed, f"{tag} --backend {backend} fails the golden gate at {gate}%")
+        stats["gate"] = (res.av_vels.max_diff_pcnt, res.final_state.max_diff_pcnt)
+        check(gate is None or res.passed,
+              f"{tag} --backend {backend} fails the golden gate at {gate}%")
     else:
         log(line)
     return stats
@@ -599,7 +628,7 @@ def resume_run(cli, work, gpu_line, backend="resident", mesh=None, precision="f3
     obstacles = read_obstacles(obst_path, params)
     start, every = params.max_iters * 3 // 8 + 1, params.max_iters * 5 // 16
     head = dataclasses.replace(params, max_iters=start)
-    dtype = "c16" if precision == "c16" else torch.float32
+    dtype = {"f32": torch.float32, "c16": "c16", "bf16": torch.bfloat16}[precision]
     if mesh is None:
         part = run_simulation(head, obstacles, device="cuda:0", backend=backend, dtype=dtype)
     else:
@@ -1186,17 +1215,19 @@ def c16_more_phase(torch, spec, forms):
     return out
 
 
-def mesh_2d_c16_run(cli, work, gpu_line):
-    """``--mesh 2x2 --device 0 --precision c16`` (auto: the plain-torch c16
-    step) on a 128^2 box cut to MESH_2D_ITERS steps, held against the
-    one-device ``pallas`` (K1) c16 run of the same deck through the checker
-    at 1%. Returns the two stats."""
+def mesh_2d_run(cli, work, gpu_line, precision="c16"):
+    """``--mesh 2x2 --device 0 --precision`` c16 or bf16 (auto: the
+    plain-torch step of that storage) on a 128^2 box cut to MESH_2D_ITERS
+    steps, held against the one-device ``pallas`` (K1) run of the same deck
+    through the checker at 1% (bf16, whose plain step rounds every
+    operation: the verdict printed, held to finite output). Returns the two
+    stats."""
     import numpy as np
 
     from lbm_tpu_torch.utils import geometry
     from lbm_tpu_torch.utils.checker import check_files
 
-    deck = os.path.join(work, "box128-c16")
+    deck = os.path.join(work, f"box128-{precision}")
     os.makedirs(deck)
     params_path = os.path.join(deck, "input.params")
     obst_path = os.path.join(deck, "obstacles.dat")
@@ -1207,24 +1238,25 @@ def mesh_2d_c16_run(cli, work, gpu_line):
         out = os.path.join(deck, extra[1])
         stats_path = os.path.join(out, "stats.json")
         os.makedirs(out)
-        rc = cli.main([params_path, obst_path, "--device", "0", "--precision", "c16",
+        rc = cli.main([params_path, obst_path, "--device", "0", "--precision", precision,
                        "--out-dir", out, "--stats-json", stats_path, *extra])
-        check(rc == 0, f"128^2 c16 {' '.join(extra)}: cli.main returned {rc}")
+        check(rc == 0, f"128^2 {precision} {' '.join(extra)}: cli.main returned {rc}")
         with open(stats_path) as f:
             stats.append(json.load(f))
         outs.append(out)
-        log(f"  box 128x128 x {MESH_2D_ITERS} c16 {' '.join(extra)} --device 0: route "
+        log(f"  box 128x128 x {MESH_2D_ITERS} {precision} {' '.join(extra)} --device 0: route "
             f"{stats[-1]['route']}, loop {stats[-1]['loop_s']:.4f} s, {stats[-1]['mlups']:.1f} "
             f"MLUPS [{gpu_line}]")
     check(stats[0]["route"] == "reference" and stats[1]["route"] == "pallas",
-          f"2-D c16 routes {stats[0]['route']}, {stats[1]['route']}")
+          f"2-D {precision} routes {stats[0]['route']}, {stats[1]['route']}")
     files = [os.path.join(d, f) for d in outs for f in ("av_vels.dat", "final_state.dat")]
     res = check_files(*files, tolerance=1.0)
     av, av_ref = (np.loadtxt(f, usecols=[1]) for f in (files[0], files[2]))
-    log(f"    2x2 vs K1 c16: checker av_vels {res.av_vels.max_diff_pcnt:.4g}%, pressure "
+    log(f"    2x2 vs K1 {precision}: checker av_vels {res.av_vels.max_diff_pcnt:.4g}%, pressure "
         f"{res.final_state.max_diff_pcnt:.4g}%: {'PASS' if res.passed else 'FAIL'}; av max rel "
         f"diff {float((np.abs(av - av_ref) / np.abs(av_ref)).max()):.3e}")
-    check(bool(np.isfinite(av).all()) and res.passed, "the 2x2 c16 run fails the 1% checker")
+    check(bool(np.isfinite(av).all()), f"the 2x2 {precision} run has non-finite av_vels")
+    check(precision == "bf16" or res.passed, f"the 2x2 {precision} run fails the 1% checker")
     return stats
 
 
@@ -1272,7 +1304,7 @@ def c16_mesh_path_phase(torch, cli, gpu_line, forms):
         # K3 rounds its codes every step, so the resumed run gives the bits.
         want["K3"] += sum(resume_run(cli, work, gpu_line, backend="auto", mesh="4",
                                      precision="c16"))
-        for stats in mesh_2d_c16_run(cli, work, gpu_line):
+        for stats in mesh_2d_run(cli, work, gpu_line):
             account(stats)
     got = {f"{name} c16": fn.launches_c16 for name, fn in fns.items()}
     got_f32 = {name: fn.launches for name, fn in fns.items()}
@@ -1347,6 +1379,278 @@ def gate_per_t_phase(torch, gpu_line):
                         f"[{gpu_line}]")
                     shutil.rmtree(d)
     return out
+
+
+# The bf16 forms: name -> (name in the report, source, the TPU kernel it
+# replaces).
+BF16_KERNELS = {
+    "K1": (C16_KERNELS["K1"][0][:-3] + "bf16", *C16_KERNELS["K1"][1:]),
+    "K2": (C16_KERNELS["K2"][0][:-3] + "bf16", *C16_KERNELS["K2"][1:]),
+    "K7": (BANDS["band"][0] + ", bf16", *BANDS["band"][1:]),
+    "K9": (BANDS["band2"][0] + ", bf16", *BANDS["band2"][1:]),
+    "K11": (BANDS["band3"][0] + ", bf16", *BANDS["band3"][1:]),
+    "K5": (SCHEDULED["temporal"][0] + ", bf16", *SCHEDULED["temporal"][1:]),
+    "K6": (SCHEDULED["deep"][0] + ", bf16", *SCHEDULED["deep"][1:]),
+    "K13": (SLAB[0] + ", bf16", *SLAB[1:]),
+    "K3": (SHARDED["K3"][0] + ", bf16 (1-D mesh)", *SHARDED["K3"][1:]),
+    "K8": (SHARDED["K8"][0] + ", bf16", *SHARDED["K8"][1:]),
+    "K10": (SHARDED["K10"][0] + ", bf16", *SHARDED["K10"][1:]),
+}
+# (ulps per value, fraction of values differing, av rtol), as the CPU tests
+# (tests/test_torch_bf16.py): over one pass and a remainder (a few steps
+# of a one-step kernel) TOL_BF16. Over longer runs the rare flips of the
+# first roundings (FMA contraction in the kernels moves an f32 value by an
+# ulp, which a bf16 rounding boundary can split) move their neighbours
+# across their own boundaries, and the runs are held at TOL_BF16_SPREAD
+# (on an H100: up to 9 ulps and 2.8% of the values after 39-201 steps, the
+# av series within 3e-4; a rounding in the wrong place moves most values).
+TOL_BF16 = (2, 0.01, 1e-3)
+TOL_BF16_SPREAD = (16, 0.1, 1e-3)
+# The route of ``auto`` at bf16 (runtime/driver.py::select_route).
+AUTO_ROUTE_BF16 = "aa"
+BYTES_PER_CELL_BF16 = 40  # 9 bf16 planes read, 9 written, the f32 mask read
+
+
+def bf16_forms(routes, more, slab_cfg):
+    """name -> (kernel, plain, depth, on_shards, counts): kernel and plain
+    take (x, nobst, n, dev) on a grid or (shards, nob_shards, n, ny, dev) on
+    4 row shards, with the driver's schedules; ``counts`` the step counts
+    held against the plain version (short ones at TOL_BF16)."""
+    import torch
+
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import slab
+    from lbm_tpu_torch.ops.aa import run_aa, run_aa_plain
+    from lbm_tpu_torch.ops.step import run_step, run_step_plain
+    from lbm_tpu_torch.runtime.driver import slab_config
+
+    def steps(fn):
+        return lambda c, o, n, dev=None: fn(c, o, DENSITY, ACCEL, OMEGA, n, 1.0, dev=dev)
+
+    def passes(fn, cfg):
+        block, depth, panel = cfg
+        return lambda c, o, n, dev=None: fn(c, o, DENSITY, ACCEL, OMEGA, n, block, depth,
+                                            panel=panel, dev=dev)
+
+    def k13(fn):
+        def run(c, o, n, dev=None):
+            _, ny, nx = c.shape  # the default schedule of the grid: S = ny / 2
+            block, depth, panel, kp, sb = slab_config(LBMParams(
+                nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=DENSITY, accel=ACCEL,
+                omega=OMEGA), torch.float32)
+            return fn(c, o, DENSITY, ACCEL, OMEGA, n, block, depth, kp, sb, panel=panel, dev=dev)
+
+        return run
+
+    out = {"K1": (steps(run_step), steps(run_step_plain), 1, False, (5, 200)),
+           "K2": (steps(run_aa), steps(run_aa_plain), 1, False, (5, 200, 201))}
+    for name, route in (("K7", "band"), ("K9", "band2"), ("K11", "band3")):
+        cfg = routes[route][3]
+        out[name] = (passes(routes[route][1], cfg), passes(routes[route][2], cfg), cfg[1], False,
+                     (cfg[1], 2 * cfg[1] + 3))
+    for name in ("K5", "K6", "K3", "K8", "K10"):
+        kernel, plain, depth, on_shards = more[name]
+        out[name] = (kernel, plain, depth, on_shards,
+                     (5, 50) if depth == 1 else (depth, 2 * depth + 3))
+    kt = slab_cfg[3] * slab_cfg[1]
+    out["K13"] = (k13(slab.run_band_slab), k13(slab.run_band_slab_plain), kt, False,
+                  (kt, 2 * kt + slab_cfg[1] + 3))
+    return out
+
+
+def bf16_compare(torch, name, got, want, tol):
+    """A bf16 kernel against its plain version, on the bit patterns; returns
+    the largest |difference| of the values."""
+    (gc, ga), (wc, wa) = got, want
+    torch.cuda.synchronize()
+    check(gc.dtype == torch.bfloat16, f"{name}: bf16 output is {gc.dtype}")
+    check(bool(torch.isfinite(gc.float()).all()) and bool(torch.isfinite(ga).all()),
+          f"{name}: non-finite output")
+
+    def ordered(x):
+        u = x.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+
+    ulps = (ordered(gc) - ordered(wc)).abs()
+    max_ulps, frac = int(ulps.max()), float((ulps > 0).float().mean())
+    av_rel = float(((ga.double() - wa.double()).abs() / wa.double().abs()).max())
+    log(f"  {name}: max {max_ulps} ulps (limit {tol[0]}), {100 * frac:.4f}% of values differ "
+        f"(limit {100 * tol[1]:g}%), max av rel diff {av_rel:.3e} (limit {tol[2]})")
+    check(max_ulps <= tol[0] and frac <= tol[1], f"{name}: bf16 values differ beyond {tol}")
+    check(av_rel <= tol[2], f"{name}: av series differs by {av_rel}")
+    return float((gc.float() - wc.float()).abs().max())
+
+
+def bf16_phase(torch, spec, forms):
+    """Phase 21; returns {name: [max_abs_err, ms, plain_ms, f32 ms, c16 ms]}
+    per step (K1, K2 at 1024^2, the others at 2048^2, the mesh forms with 4
+    row shards on cuda:0)."""
+    from lbm_tpu_torch.ops import devspace
+
+    bf = devspace.BF16
+
+    def call(fn, on_shards, x, o, n, dev=None):
+        if on_shards:
+            return joined(torch, fn(x, o, n, x[0][0].shape[1] * 4, dev))
+        return fn(x, o, n, dev)
+
+    out = {}
+    for name, (kernel, plain, depth, on_shards, counts) in forms.items():
+        errs = []
+        for nx, ny in ((1024, 1024), (1000, 1024 if name == "K13" else 1000)):
+            cells, nobst = (random_setup(torch, nx, ny, seed=nx + 43) if nx == ny == 1024
+                            else walls_setup(torch, nx, 47) if nx == ny
+                            else random_setup(torch, nx, ny, seed=49))  # K13: S must divide ny
+            x, o = devspace.encode_state(cells, bf), nobst
+            if on_shards:
+                x, o = on_mesh(x, o, 4, 1)
+            for n in counts:
+                tol = TOL_BF16 if n <= max(depth + 3, 5) else TOL_BF16_SPREAD
+                errs.append(bf16_compare(torch, f"{name} bf16 {nx}x{ny} {n} steps",
+                                         call(kernel, on_shards, x, o, n, bf),
+                                         call(plain, on_shards, x, o, n, bf), tol))
+        out[name] = [max(errs)]
+    cells, nobst = random_setup(torch, 1024, 1024, seed=53)
+    x = devspace.encode_state(cells, bf)
+    for name in ("K1", "K2"):
+        (c1, a1), (c2, a2) = (forms[name][0](x, nobst, 301, bf) for _ in range(2))
+        torch.cuda.synchronize()
+        check(torch.equal(c1, c2) and torch.equal(a1, a2),
+              f"{name} bf16 is not run-to-run deterministic")
+        log(f"  {name} bf16 determinism: two 301-step runs give bitwise-equal av series and "
+            "state")
+    del cells, nobst, x
+    for name, (kernel, plain, depth, on_shards, _) in forms.items():
+        one_step = name in ("K1", "K2")
+        sizes = (1024, 2048) if one_step else (2048,)
+        for nx in sizes:
+            cells, nobst = random_setup(torch, nx, nx, seed=7)
+            xs = {None: cells, "c16": devspace.encode_state(cells, spec),
+                  "bf16": devspace.encode_state(cells, bf)}
+            o = nobst
+            if on_shards:
+                xs = {k: on_mesh(v, nobst, 4, 1)[0] for k, v in xs.items()}
+                o = on_mesh(cells, nobst, 4, 1)[1]
+            devs = {None: None, "c16": spec, "bf16": bf}
+            n = (1000 if nx == 1024 else 400) if one_step else (400 if on_shards else 800)
+            n = max(n // depth, 1) * depth
+            for key in xs:  # warm up each form, the allocator included
+                call(kernel, on_shards, xs[key], o, 2 * depth, devs[key])
+            ms = {}
+            for key in (None, "c16", "bf16"):
+                _, t = timed(torch, lambda: call(kernel, on_shards, xs[key], o, n, devs[key]))
+                ms[key] = t / n
+            p_ms = None
+            if nx == sizes[-1] or one_step:
+                n_plain = 50 if one_step else 2 * depth
+                call(plain, on_shards, xs["bf16"], o, depth, bf)
+                _, p_ms = timed(torch, lambda: call(plain, on_shards, xs["bf16"], o, n_plain, bf))
+                p_ms /= n_plain
+            log(f"  {name} {nx}x{nx}{' (4 shards)' if on_shards else ''}, same loop: bf16 "
+                f"{1e3 * ms['bf16']:.2f} us/step ({nx * nx / ms['bf16'] / 1e3:.1f} MLUPS), c16 "
+                f"{1e3 * ms['c16']:.2f}, f32 {1e3 * ms[None]:.2f} us/step"
+                + (f"; bf16 plain {1e3 * p_ms:.2f} us/step" if p_ms else ""))
+            if nx == (1024 if one_step else 2048):
+                out[name] += [ms["bf16"], p_ms, ms[None], ms["c16"]]
+            elif one_step:
+                out[name + " 2048"] = ms["bf16"]
+            del cells, nobst, xs, o
+    log(f"  auto at bf16: K1 {1e3 * out['K1'][1]:.2f} vs K2 {1e3 * out['K2'][1]:.2f} us/step at "
+        f"1024^2, K1 {1e3 * out['K1 2048']:.2f} vs K2 {1e3 * out['K2 2048']:.2f} at 2048^2")
+    return out
+
+
+def bf16_path_phase(torch, cli, gpu_line, forms, slab_cfg):
+    """Phase 22; returns {counter name: bf16 launches}."""
+    from lbm_tpu_torch.ops import (aa, band, band2, band3, deep, shard_step, slab, step,
+                                   temporal)
+
+    fns = {"K1": step.run_step, "K2": aa.run_aa, "K7": band.run_band, "K9": band2.run_band2,
+           "K11": band3.run_band3, "K5": temporal.run_temporal, "K6": deep.run_deep,
+           "K13": slab.run_band_slab, "K3": shard_step.run_shard_step,
+           "K8": band.run_band_sharded, "K10": band2.run_band2_sharded}
+    for fn in (*fns.values(), shard_step.run_shard_overlap):
+        fn.launches = 0
+        fn.launches_c16 = fn.launches_bf16 = 0
+    want = dict.fromkeys(fns, 0)
+    want_k12 = 0
+    kernel_of = {"pallas": "K1", "aa": "K2", "band": "K7", "band2": "K9", "band3": "K11",
+                 "temporal": "K5", "deep": "K6"}
+    mesh_kernel_of = {"pallas": "K3", "band": "K8", "band2": "K10"}
+    kt = slab_cfg[3] * slab_cfg[1]
+
+    def account(stats, n=None):
+        nonlocal want_k12
+        route, n = stats["route"], stats["max_iters"] if n is None else n
+        check(stats["precision"] == "bf16", f"a bf16 run ran at {stats['precision']}")
+        if "x" in stats["mesh"]:
+            check(route == "reference", f"--mesh {stats['mesh']} bf16 routed {route}")
+            return
+        if stats["mesh"] != "0":
+            check(all(sh["device"] == "cuda:0" for sh in stats["shards"]),
+                  f"shards not all on cuda:0: {stats['shards']}")
+            if route == "pallas-overlap":  # the f32 K12 between two casts
+                want_k12 += n
+                return
+            name, rem = mesh_kernel_of[route], "K3"
+        elif route == "slab":
+            want["K13"] += n // kt * kt
+            n %= kt
+            name, rem = "K7", "K1"
+        else:
+            name, rem = kernel_of[route], "K1"
+        depth = forms[name][2]
+        want[name] += n // depth * depth
+        want[rem] += n % depth
+
+    gates = {}
+    with tempfile.TemporaryDirectory() as work:
+        for tag in ("256x256", "1024x1024"):
+            for backend in ("auto", "aa", "pallas", "band3"):
+                stats = run_deck(cli, tag, backend, work, gpu_line, precision="bf16", gate=None)
+                gates[tag, backend] = stats.get("gate")
+                check(backend != "auto" or stats["route"] == AUTO_ROUTE_BF16,
+                      f"{tag} bf16: auto routed {stats['route']}, not {AUTO_ROUTE_BF16}")
+                account(stats)
+        for backend in ("band", "band2", "temporal", "deep"):
+            stats = run_deck(cli, "1024x1024", backend, work, gpu_line, precision="bf16",
+                             gate=None)
+            gates["1024x1024", backend] = stats.get("gate")
+            account(stats)
+        os.environ["LBM_ENABLE_SLAB"] = "1"  # the quarantined route
+        try:
+            stats = run_deck(cli, "1024x1024", "slab", work, gpu_line, precision="bf16", gate=None)
+            gates["1024x1024", "slab"] = stats.get("gate")
+            account(stats)
+        finally:
+            del os.environ["LBM_ENABLE_SLAB"]
+        for backend in ("auto", "band", "band2", "pallas-overlap"):
+            stats = run_deck(cli, "1024x1024", backend, work, gpu_line, mesh="4",
+                             precision="bf16", gate=None)
+            gates["1024x1024 mesh 4", backend] = stats.get("gate")
+            check(backend != "auto" or stats["route"] == "pallas",
+                  f"--mesh 4 bf16 auto routed {stats['route']}, not pallas (K3)")
+            account(stats)
+        for stats in mesh_2d_run(cli, work, gpu_line, precision="bf16"):
+            account(stats)
+        # K2 rounds every step and a bf16 checkpoint holds the state's exact
+        # values, so the resumed run writes the uninterrupted run's bytes.
+        for n in resume_run(cli, work, gpu_line, backend="auto", precision="bf16"):
+            account({"route": "aa", "mesh": "0", "precision": "bf16", "max_iters": n})
+    got = {name: fn.launches_bf16 for name, fn in fns.items()}
+    log("  bf16 launch counters: " + ", ".join(f"{k} {got[k]} steps (want {want[k]})"
+                                               for k in got)
+        + f"; K12 (f32 form between casts) {shard_step.run_shard_overlap.launches} (want "
+        f"{want_k12})")
+    for k, n in got.items():
+        check(n == want[k], f"{k}: not every step of the bf16 path ran in its bf16 form")
+        check(n > 0, f"{k}: a bf16 form of the path was never launched")
+    check(shard_step.run_shard_overlap.launches == want_k12 > 0,
+          "--mesh 4 --backend pallas-overlap at bf16 did not run every step in K12")
+    moved = {k: (fn.launches, fn.launches_c16) for k, fn in fns.items()
+             if fn.launches or fn.launches_c16}
+    check(not moved, f"an f32 or c16 counter moved on the bf16 path: {moved}")
+    return got, gates
 
 
 def main():
@@ -1584,6 +1888,13 @@ def main():
     got_more = c16_mesh_path_phase(torch, cli, gpu_line, more)
     phase("20. the gate per T: K9 and K11 at c16 with T 4, 8 and 16 on the 256^2 and 1024^2 decks")
     gate_per_t_phase(torch, gpu_line)
+    phase("21. bf16 forms K1, K2, K3, K5-K11, K13 vs their plain versions, timed beside their f32 "
+          "and c16 forms")
+    forms_bf16 = bf16_forms(routes, more, slab_cfg)
+    bf16_res = bf16_phase(torch, spec, forms_bf16)
+    phase("22. the bf16 path: lbm_tpu_torch.cli.main --precision bf16 on one card, --mesh 4 / "
+          "2x2 --device 0, and --resume")
+    got_bf16, _ = bf16_path_phase(torch, cli, gpu_line, forms_bf16, slab_cfg)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1,
               bytes_per_cell=BYTES_PER_CELL):
@@ -1634,6 +1945,11 @@ def main():
         entry(*C16_MORE[name], got_more[name + " c16"], *more_res[name][:3], 2048 * 2048,
               more[name][2], BYTES_PER_CELL_C16)
         for name in C16_MORE
+    ] + [
+        entry(*BF16_KERNELS[name], got_bf16[name], *bf16_res[name][:3],
+              (1024 if name in ("K1", "K2") else 2048) ** 2, forms_bf16[name][2],
+              BYTES_PER_CELL_BF16 * (slab_bytes if name == "K13" else 1))
+        for name in BF16_KERNELS
     ]}
     log(gpu_line)
     log(json.dumps(report))

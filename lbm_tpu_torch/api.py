@@ -10,6 +10,7 @@
     sim.run(mesh=4, device="cuda:0")       # four row shards on one card
     sim.run(mesh=(2, 2), devices=["cpu"] * 4)
     sim.run(device="cuda:0", dtype="c16")  # int16 companded state, decoded result
+    sim.run(device="cuda:0", dtype=torch.bfloat16)  # bfloat16 state (experimental)
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ class Simulation:
         ``mesh`` shards the run over N row shards (int) or a 2-D ``(py,
         px)`` mesh, on ``devices`` (one per shard), else every shard on
         ``device`` when it is given, else the first cards. ``dtype`` is a
-        torch dtype or ``"c16"`` (``runtime/driver.py``), None for f32.
+        torch dtype (f32, f64, bf16) or ``"c16"`` (``runtime/driver.py``),
+        None for f32.
         Other keywords pass through to the runner (checkpoints, resume,
         ``chunk_every``/``on_chunk`` on one device)."""
         if isinstance(mesh, tuple) or (mesh and mesh > 1):

@@ -61,13 +61,15 @@ def build_parser() -> argparse.ArgumentParser:
         + ("; slab (quarantined, LBM_ENABLE_SLAB=1): band passes over y-slabs, "
            "K per slab visit" if "slab" in backends else ""),
     )
-    p.add_argument("--precision", choices=["f32", "f64", "c16"], default="f32",
+    p.add_argument("--precision", choices=["f32", "f64", "bf16", "c16"], default="f32",
                    help="state storage: f32; f64 (runs the reference step); c16 (int16 "
                    "companded deviations from the rest state: 40 B per cell per step "
                    "instead of 76, the physics at f32; auto runs pallas, every other "
                    "backend but resident takes it, with --mesh too but pallas-overlap "
                    "and 2-D pallas; the T-step routes round once per pass and may miss "
-                   "the 1%% gate)")
+                   "the 1%% gate); bf16 (EXPERIMENTAL: raw bfloat16 state CANNOT pass "
+                   "the 1%% gate; auto runs aa, every backend but resident takes it, "
+                   "with --mesh too but 2-D pallas)")
     p.add_argument(
         "--mesh",
         default="0",
@@ -134,7 +136,14 @@ def main(argv=None) -> int:
         obstacles = read_obstacles(args.obstaclefile, params)
     except (InputError, OSError) as e:
         return _error(e)
-    dtype = {"f32": torch.float32, "f64": torch.float64, "c16": "c16"}[args.precision]
+    dtype = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16,
+             "c16": "c16"}[args.precision]
+    if args.precision == "bf16":
+        # As the JAX CLI warns (lbm_tpu/cli.py:208-217): a raw bf16 state
+        # drifts far past the checker's 1% tolerance over the official runs.
+        print("lbm_tpu_torch: warning: --precision bf16 is EXPERIMENTAL and cannot pass the "
+              "1% golden gate (av_vels drift ~100% over the official runs); use --precision "
+              "c16 for accurate 16-bit storage", file=sys.stderr)
     if args.verbose:
         print(
             f"[lbm_tpu_torch] grid {params.nx}x{params.ny}, {params.max_iters} iters, "

@@ -38,6 +38,13 @@
 // so the forcing launches decode, add and encode exactly the rows and slots
 // the JAX kernel stores (one row of each of the six forced slots). 40 B per
 // cell per step; a warp reads 64 B of a plane, half a line.
+//
+// bf16 storage (pallas_aa.py:230-236, the loader and storer of a bfloat16
+// state): the same loads and stores through lbm_common.cuh::BF16, so every
+// value the step stores and every forcing row the forcing launches store
+// is rounded once to bfloat16, as the JAX kernel's to_store rounds its
+// forced rows when it writes them back (pallas_aa.py:297-314). Its 16-bit
+// mask (:459-464) holds 0 and 1, exact in f32 too.
 #include "lbm_common.cuh"
 
 namespace {
@@ -130,9 +137,10 @@ aa_step_kernel(typename S::T* s, const float* __restrict__ nobst, float* __restr
 }
 
 template <class S>
-int run(typename S::T* state, const float* nobst, float* av, float* partials,
-        unsigned int* ticket, int ny, int nx, int n_steps, float w1a, float w2a,
-        const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& stor) {
+int run(void* planes, const float* nobst, float* av, float* partials, unsigned int* ticket,
+        int ny, int nx, int n_steps, float w1a, float w2a, const lbm::Relax& rc, float inv_tot,
+        cudaStream_t st, const S& stor) {
+  typename S::T* state = static_cast<typename S::T*>(planes);
   const dim3 block(lbm::kBlockX, lbm::kBlockY);
   const dim3 grid = lbm::grid_for(ny, nx);
   const int fthreads = 256;
@@ -163,21 +171,18 @@ int run(typename S::T* state, const float* nobst, float* av, float* partials,
 // Runs n_steps AA steps in place on ``state``, which must hold the S
 // arrangement on entry. After an even n_steps it holds S, after an odd one
 // C. av receives n_steps values; partials needs one float per block of
-// grid_for(ny, nx); ticket one zeroed unsigned int. codec: null for f32
-// planes, else the 12 floats of c16 storage (DevSpec.codec) and int16
-// planes. Returns the first CUDA error, or 0.
+// grid_for(ny, nx); ticket one zeroed unsigned int. storage: the planes'
+// storage (lbm_common.cuh::Storage). Returns the first CUDA error, or 0.
 extern "C" int lbm_aa_run(void* state, const float* nobst, float* av, float* partials,
                           unsigned int* ticket, int ny, int nx, int n_steps, float w1a,
                           float w2a, float beta, float ow0, float ow1, float ow2,
-                          float inv_tot, const float* codec, void* stream) {
+                          float inv_tot, const lbm::Storage* storage, void* stream) {
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (codec != nullptr) {
-    return run(static_cast<int16_t*>(state), nobst, av, partials, ticket, ny, nx, n_steps, w1a,
-               w2a, rc, inv_tot, st, lbm::make_c16(codec));
-  }
-  return run(static_cast<float*>(state), nobst, av, partials, ticket, ny, nx, n_steps, w1a, w2a,
-             rc, inv_tot, st, lbm::F32());
+  return lbm::with_storage(storage, [&](const auto& stor) {
+    return run(state, nobst, av, partials, ticket, ny, nx, n_steps, w1a, w2a, rc, inv_tot, st,
+               stor);
+  });
 }
 
 extern "C" unsigned int lbm_aa_num_blocks(int ny, int nx) {

@@ -37,8 +37,13 @@
 // once per pass; K8's halo copy moves the neighbours' codes untouched (the
 // JAX package's ppermutes move them so), half the bytes of f32 halos.
 //
+// K7 and K8 at bf16 (a bfloat16 state: ``mid.astype(out_dtype)`` at
+// pallas_band.py:253, :480, :665, :882): the loader widens each value
+// and the store rounds to nearest even (lbm_common.cuh::BF16), one
+// rounding per pass; K8's halo copy moves raw bfloat16.
+//
 // K13: the same pass over a y-slab (kSlab). Replaces
-// lbm_tpu/ops/pallas_slab.py::_kernel_slab (:76), at f32 and c16. A
+// lbm_tpu/ops/pallas_slab.py::_kernel_slab (:76), at f32, c16 and bf16. A
 // generation of K*T steps cuts the grid into ny/S slabs of S rows; slab j's
 // buffer holds global rows [j*S - KT, j*S + S + KT), KT = K*T, and takes K
 // passes over its whole height, the buffer's edge rows wrapping within the
@@ -56,6 +61,12 @@
 // one after another: the bet is that a slab's two buffers,
 // 2 (S + 2KT) nx 36 B at f32, stay in the 50 MB L2 across its K passes, so
 // HBM sees about 76 (S + 2KT) / S B per cell per K*T steps.
+//
+// K13 at c16 and bf16 rounds where the JAX slab kernel does: each pass
+// call there writes a (9, S + 2KT, nx) buffer of the storage dtype
+// (pallas_slab.py:171, :217), so every one of a slab's K passes rounds
+// once, the inner passes into the two slab buffers (which hold the
+// storage's raw elements) and the last into the next state.
 #include "band_common.cuh"
 
 namespace {
@@ -302,28 +313,25 @@ int run_sharded(const unsigned long long* table, int s0, int count, int nshards,
 // (B + 2T) x (P + 2T) may hold at most 8 * 512 cells. buf_a holds the
 // initial state; pass p reads buf[p % 2] and writes buf[(p + 1) % 2]. av
 // receives n_passes * depth values; partials needs depth *
-// lbm_band_num_tiles floats; ticket one zeroed unsigned int. codec: null
-// for f32 planes, else the 12 floats of c16 storage (DevSpec.codec) and
-// int16 planes. Returns the first CUDA error (cudaErrorInvalidValue for a
-// window too large), or 0.
+// lbm_band_num_tiles floats; ticket one zeroed unsigned int. storage: the
+// planes' storage (lbm_common.cuh::Storage: f32, c16 int16 codes or bf16).
+// Returns the first CUDA error (cudaErrorInvalidValue for a window too
+// large), or 0.
 extern "C" int lbm_band_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                             float* partials, unsigned int* ticket, int ny, int nx, int block,
                             int depth, int panel, int n_passes, float w1a, float w2a, float beta,
-                            float ow0, float ow1, float ow2, float inv_tot, const float* codec,
-                            void* stream) {
+                            float ow0, float ow1, float ow2, float inv_tot,
+                            const lbm::Storage* storage, void* stream) {
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (codec != nullptr) {
-    int16_t* a = static_cast<int16_t*>(buf_a);
-    const band::SourceT<int16_t> src{a, nobst, nullptr, nullptr, nullptr, nullptr};
-    return run<Mode::kGrid>(g, nullptr, a, static_cast<int16_t*>(buf_b), src, av, partials,
-                            ticket, n_passes, w1a, w2a, rc, inv_tot, st, lbm::make_c16(codec));
-  }
-  float* a = static_cast<float*>(buf_a);
-  const band::Source src{a, nobst, nullptr, nullptr, nullptr, nullptr};
-  return run<Mode::kGrid>(g, nullptr, a, static_cast<float*>(buf_b), src, av, partials, ticket,
-                          n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
+  return lbm::with_storage(storage, [&](const auto& stor) {
+    using T = lbm::Raw<decltype(stor)>;
+    T* a = static_cast<T*>(buf_a);
+    const band::SourceT<T> src{a, nobst, nullptr, nullptr, nullptr, nullptr};
+    return run<Mode::kGrid>(g, nullptr, a, static_cast<T*>(buf_b), src, av, partials, ticket,
+                            n_passes, w1a, w2a, rc, inv_tot, st, stor);
+  });
 }
 
 // K8: n_passes passes over shards [s0, s0 + count) of a 1-D mesh of
@@ -337,8 +345,8 @@ extern "C" int lbm_band_run(void* buf_a, void* buf_b, const float* nobst, float*
 // nob_up (count, depth, nx) hold the mask and its halos. av receives count
 // x (n_passes * depth) values (shard-major, av_stride apart); partials
 // count * depth * lbm_band_num_tiles floats; ticket count zeroed unsigned
-// ints. codec as lbm_band_run: with it the buffers and halos hold int16
-// codes. Returns the first CUDA error, or 0.
+// ints. storage as lbm_band_run: the buffers and halos hold its raw
+// elements. Returns the first CUDA error, or 0.
 extern "C" int lbm_band_sharded_run(const unsigned long long* table, int s0, int count,
                                     int nshards, void* buf_a, void* buf_b, void* halo_dn,
                                     void* halo_up, const float* nobst, const float* nob_dn,
@@ -346,20 +354,18 @@ extern "C" int lbm_band_sharded_run(const unsigned long long* table, int s0, int
                                     float* partials, unsigned int* ticket, int ny, int nx,
                                     int block, int depth, int panel, int parity, int n_passes,
                                     float w1a, float w2a, float beta, float ow0, float ow1,
-                                    float ow2, float inv_tot, const float* codec, void* stream) {
+                                    float ow2, float inv_tot, const lbm::Storage* storage,
+                                    void* stream) {
   if (depth > ny || count < 1 || s0 < 0 || s0 + count > nshards) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (codec != nullptr) {
+  return lbm::with_storage(storage, [&](const auto& stor) {
     return run_sharded(table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst, nob_dn,
                        nob_up, av, av_stride, partials, ticket, ny, nx, block, depth, panel,
-                       parity, n_passes, w1a, w2a, rc, inv_tot, st, lbm::make_c16(codec));
-  }
-  return run_sharded(table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst, nob_dn,
-                     nob_up, av, av_stride, partials, ticket, ny, nx, block, depth, panel, parity,
-                     n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
+                       parity, n_passes, w1a, w2a, rc, inv_tot, st, stor);
+  });
 }
 
 // K13: n_gens generations of the slab schedule on a (9, ny, nx) grid, each
@@ -369,27 +375,24 @@ extern "C" int lbm_band_sharded_run(const unsigned long long* table, int s0, int
 // and writes the other. slab_a and slab_b hold (9, sblock + 2 * kpasses *
 // depth, nx) each. av receives n_gens * kpasses * depth values; partials
 // needs depth * lbm_band_num_tiles(sblock + 2 * kpasses * depth, nx, block,
-// panel) floats; ticket one zeroed unsigned int. codec as lbm_band_run.
-// Returns the first CUDA error (cudaErrorInvalidValue for a window too
-// large or a slab schedule the grid cannot take), or 0.
+// panel) floats; ticket one zeroed unsigned int. storage as lbm_band_run:
+// the state and both slab buffers hold its raw elements. Returns the first
+// CUDA error (cudaErrorInvalidValue for a window too large or a slab
+// schedule the grid cannot take), or 0.
 extern "C" int lbm_slab_run(void* state, void* next, void* slab_a, void* slab_b,
                             const float* nobst, float* av, float* partials, unsigned int* ticket,
                             int ny, int nx, int block, int depth, int panel, int kpasses,
                             int sblock, int n_gens, float w1a, float w2a, float beta, float ow0,
-                            float ow1, float ow2, float inv_tot, const float* codec,
+                            float ow1, float ow2, float inv_tot, const lbm::Storage* storage,
                             void* stream) {
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (codec != nullptr) {
-    return run_slab(static_cast<int16_t*>(state), static_cast<int16_t*>(next),
-                    static_cast<int16_t*>(slab_a), static_cast<int16_t*>(slab_b), nobst, av,
-                    partials, ticket, ny, nx, block, depth, panel, kpasses, sblock, n_gens, w1a,
-                    w2a, rc, inv_tot, st, lbm::make_c16(codec));
-  }
-  return run_slab(static_cast<float*>(state), static_cast<float*>(next),
-                  static_cast<float*>(slab_a), static_cast<float*>(slab_b), nobst, av, partials,
-                  ticket, ny, nx, block, depth, panel, kpasses, sblock, n_gens, w1a, w2a, rc,
-                  inv_tot, st, lbm::F32());
+  return lbm::with_storage(storage, [&](const auto& stor) {
+    using T = lbm::Raw<decltype(stor)>;
+    return run_slab(static_cast<T*>(state), static_cast<T*>(next), static_cast<T*>(slab_a),
+                    static_cast<T*>(slab_b), nobst, av, partials, ticket, ny, nx, block, depth,
+                    panel, kpasses, sblock, n_gens, w1a, w2a, rc, inv_tot, st, stor);
+  });
 }
 
 // Output tiles of a band schedule (all three band kernels): one block each.

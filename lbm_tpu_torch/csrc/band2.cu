@@ -40,6 +40,11 @@
 // their tile store), the windows and the steps stay f32, and K10's halo
 // copy moves the neighbours' codes untouched. A pass then moves 40 B per
 // cell instead of 76.
+//
+// K9 and K10 at bf16 (``mid.astype(out_dtype)`` at pallas_band2.py:324,
+// :502, :763, :973): the same template on lbm_common.cuh::BF16, one
+// rounding to nearest even per pass at the tile store, 40 B per cell per
+// pass with no codec arithmetic; K10's halos move raw bfloat16.
 #include "band_common.cuh"
 
 namespace {
@@ -150,27 +155,25 @@ int run_sharded(const unsigned long long* table, int s0, int count, int nshards,
 // buf_a holds the initial state; pass p reads buf[p % 2] and writes
 // buf[(p + 1) % 2]. av receives n_passes * depth values; partials needs
 // depth * lbm_band_num_tiles floats; ticket one zeroed unsigned int.
-// codec: null for f32 planes, else the 12 floats of c16 storage
-// (DevSpec.codec) and int16 planes. Returns the first CUDA error, or 0.
+// storage: the planes' storage (lbm_common.cuh::Storage: f32, c16 int16
+// codes or bf16). Returns the first CUDA error, or 0.
 extern "C" int lbm_band2_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                              float* partials, unsigned int* ticket, int ny, int nx, int block,
                              int depth, int panel, int n_passes, float w1a, float w2a, float beta,
-                             float ow0, float ow1, float ow2, float inv_tot, const float* codec,
-                             void* stream) {
+                             float ow0, float ow1, float ow2, float inv_tot,
+                             const lbm::Storage* storage, void* stream) {
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (codec != nullptr) {
-    return run_grid(static_cast<int16_t*>(buf_a), static_cast<int16_t*>(buf_b), nobst, av,
-                    partials, ticket, g, n_passes, w1a, w2a, rc, inv_tot, st,
-                    lbm::make_c16(codec));
-  }
-  return run_grid(static_cast<float*>(buf_a), static_cast<float*>(buf_b), nobst, av, partials,
-                  ticket, g, n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
+  return lbm::with_storage(storage, [&](const auto& io) {
+    using T = lbm::Raw<decltype(io)>;
+    return run_grid(static_cast<T*>(buf_a), static_cast<T*>(buf_b), nobst, av, partials, ticket,
+                    g, n_passes, w1a, w2a, rc, inv_tot, st, io);
+  });
 }
 
 // K10: lbm_band_sharded_run's contract (band.cu) with the band2 pass
-// (depth even), codec included.
+// (depth even), storage included.
 extern "C" int lbm_band2_sharded_run(const unsigned long long* table, int s0, int count,
                                      int nshards, void* buf_a, void* buf_b, void* halo_dn,
                                      void* halo_up, const float* nobst, const float* nob_dn,
@@ -178,18 +181,16 @@ extern "C" int lbm_band2_sharded_run(const unsigned long long* table, int s0, in
                                      float* partials, unsigned int* ticket, int ny, int nx,
                                      int block, int depth, int panel, int parity, int n_passes,
                                      float w1a, float w2a, float beta, float ow0, float ow1,
-                                     float ow2, float inv_tot, const float* codec, void* stream) {
+                                     float ow2, float inv_tot, const lbm::Storage* storage,
+                                     void* stream) {
   if (depth > ny || count < 1 || s0 < 0 || s0 + count > nshards) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (codec != nullptr) {
+  return lbm::with_storage(storage, [&](const auto& io) {
     return run_sharded(table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst, nob_dn,
                        nob_up, av, av_stride, partials, ticket, ny, nx, block, depth, panel,
-                       parity, n_passes, w1a, w2a, rc, inv_tot, st, lbm::make_c16(codec));
-  }
-  return run_sharded(table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst, nob_dn,
-                     nob_up, av, av_stride, partials, ticket, ny, nx, block, depth, panel, parity,
-                     n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
+                       parity, n_passes, w1a, w2a, rc, inv_tot, st, io);
+  });
 }

@@ -26,11 +26,14 @@
 //   - the odd step fuses the NEXT even step's S-space forcing: the cell on
 //     a forcing row adds the delta to its own scattered values, with the
 //     mask from its own f*_3, f*_6, f*_7 (pallas_band3.py:261-280);
-//   - the last odd step of a run's final pass is not fused (fuse_last = 0),
-//     so the stored state is unforced for the S -> R exit. The run's first
-//     forcing is applied to the full S state before the first pass
-//     (ops/band3.py). The TPU split of the final pass into (T-2, fused) +
-//     (2, unfused) calls, forced by its compile helper, is not carried over.
+//   - the last odd step of a run's final pass is not fused, so the stored
+//     state is unforced for the S -> R exit: the entry's fuse_last says
+//     whether the last pass of a call fuses. The run's first forcing is
+//     applied to the full S state before the first pass (ops/band3.py).
+//     The TPU runs the final pass as two calls, (T-2, fused) + (2,
+//     unfused), each storing the state: at f32 one pass computes the same,
+//     at 16-bit storage the split is one more rounding, so ops/band3.py
+//     issues those two calls at c16 and bf16 (pallas_band3.py:669-677).
 //
 // What bounds it on the H100: shared memory, at 40 B per window cell (one
 // copy of 9 f32 planes and the not-obstacle value), about half of K9's, so
@@ -47,6 +50,11 @@
 // the tile store encodes (band_common.cuh), and the window stays f32. The
 // run's first forcing decodes, forces and re-encodes rows ny-3..ny-1 outside
 // the kernel (ops/band3.py::force_s). 40 B per cell per pass.
+//
+// bf16 storage (``mid.astype(out_dtype)`` at pallas_band3.py:370, :468):
+// the same on lbm_common.cuh::BF16, one rounding per pass; the run's
+// first forcing widens, forces and rounds rows ny-3..ny-1 once more
+// outside the kernel (pallas_band3.py:558-561, ops/band3.py::force_s).
 #include "band_common.cuh"
 
 namespace {
@@ -120,16 +128,17 @@ band3_kernel(const typename S::T* __restrict__ src, typename S::T* __restrict__ 
 
 template <class S>
 int run(typename S::T* buf_a, typename S::T* buf_b, const float* nobst, float* av,
-        float* partials, unsigned int* ticket, const band::Geom& g, int n_passes, float w1a,
-        float w2a, const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& stor) {
+        float* partials, unsigned int* ticket, const band::Geom& g, int n_passes, int fuse_last,
+        float w1a, float w2a, const lbm::Relax& rc, float inv_tot, cudaStream_t st,
+        const S& stor) {
   const size_t smem = band::smem_bytes(g, 1);
   const cudaError_t err = band::allow_smem(band3_kernel<S>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return band::run_passes(n_passes, g.T, buf_a, buf_b, av,
                           [&](const typename S::T* src, typename S::T* dst, float* av_p, int p) {
     band3_kernel<S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
-        src, dst, nobst, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot, p + 1 < n_passes,
-        stor);
+        src, dst, nobst, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot,
+        fuse_last || p + 1 < n_passes, stor);
   });
 }
 
@@ -138,23 +147,23 @@ int run(typename S::T* buf_a, typename S::T* buf_b, const float* nobst, float* a
 // Runs n_passes in-place AA band passes of ``depth`` steps (even) on B x P
 // tiles. buf_a holds the forced S arrangement on entry; pass p reads
 // buf[p % 2] and writes buf[(p + 1) % 2], both in S. Every pass but the
-// last fuses the next pass's first forcing. av receives n_passes * depth
-// values; partials needs depth * lbm_band_num_tiles floats; ticket one
-// zeroed unsigned int. codec: null for f32 planes, else the 12 floats of
-// c16 storage (DevSpec.codec) and int16 planes. Returns the first CUDA
-// error, or 0.
+// last fuses the next pass's first forcing, the last too when fuse_last
+// is not 0 (a call that another call of passes follows). av receives
+// n_passes * depth values; partials needs depth * lbm_band_num_tiles
+// floats; ticket one zeroed unsigned int. storage: the planes' storage
+// (lbm_common.cuh::Storage: f32, c16 int16 codes or bf16). Returns the
+// first CUDA error, or 0.
 extern "C" int lbm_band3_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                              float* partials, unsigned int* ticket, int ny, int nx, int block,
-                             int depth, int panel, int n_passes, float w1a, float w2a, float beta,
-                             float ow0, float ow1, float ow2, float inv_tot, const float* codec,
-                             void* stream) {
+                             int depth, int panel, int n_passes, int fuse_last, float w1a,
+                             float w2a, float beta, float ow0, float ow1, float ow2,
+                             float inv_tot, const lbm::Storage* storage, void* stream) {
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (codec != nullptr) {
-    return run(static_cast<int16_t*>(buf_a), static_cast<int16_t*>(buf_b), nobst, av, partials,
-               ticket, g, n_passes, w1a, w2a, rc, inv_tot, st, lbm::make_c16(codec));
-  }
-  return run(static_cast<float*>(buf_a), static_cast<float*>(buf_b), nobst, av, partials, ticket,
-             g, n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
+  return lbm::with_storage(storage, [&](const auto& stor) {
+    using T = lbm::Raw<decltype(stor)>;
+    return run(static_cast<T*>(buf_a), static_cast<T*>(buf_b), nobst, av, partials, ticket, g,
+               n_passes, fuse_last, w1a, w2a, rc, inv_tot, st, stor);
+  });
 }

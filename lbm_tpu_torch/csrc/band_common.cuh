@@ -26,8 +26,9 @@
 //
 // Storage: the window is f32 in shared memory; the loader decodes and the
 // store encodes the planes of device memory through a storage type of
-// lbm_common.cuh (F32, or C16 for int16 codes), so c16 changes only the
-// bytes of the load and the store. The sharded halos carry the raw codes.
+// lbm_common.cuh (F32, C16 for int16 codes, BF16 for bfloat16), so the
+// 16-bit forms change only the bytes of the load and the store. The
+// sharded halos carry the raw 16-bit elements.
 //
 // Sharded form (K8 in band.cu, K10 in band2.cu): a 1-D mesh of shards, each
 // of ny rows of a grid of nyg rows, shard z starting at global row
@@ -354,8 +355,9 @@ inline int run_passes(int n_passes, int T, E* a, E* b, float* av, Launch&& launc
 // halo_up[z] = the first T rows of shard z + 1. table holds, per shard,
 // the addresses of its two (9, ny, nx) buffers; ``which`` picks the one
 // read, on this card or another (peer addresses). E is the raw element
-// (float, or int16_t c16 codes, copied as they are: no decode, and half
-// the bytes). (Internal linkage: every band source includes this header.)
+// (float, or the int16_t c16 codes or bfloat16 values, copied as they
+// are: no decode, and half the bytes). (Internal linkage: every band
+// source includes this header.)
 template <class E>
 static __global__ void halo_rows_kernel(const unsigned long long* __restrict__ table, int which,
                                         int s0, int count, int nshards, E* __restrict__ halo_dn,

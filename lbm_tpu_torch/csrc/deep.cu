@@ -24,6 +24,10 @@
 // storage of lbm_common.cuh. The window, halos included, is decoded from
 // the int16 input state as it is read and the tile encoded as it is stored:
 // one rounding per pass of T steps, 40 B per cell per pass.
+//
+// K6 at bf16 (pallas_deep.py:161, ``buf[k].astype(out_dtype)``): the
+// window is widened from the bfloat16 input state and the tile rounded
+// to nearest even as it is stored (lbm_common.cuh::BF16), once per pass.
 #include "trapezoid.cuh"
 
 namespace {
@@ -74,21 +78,20 @@ int run(typename S::T* buf_a, typename S::T* buf_b, const float* nobst, float* a
 // Runs n_passes passes of ``depth`` steps on B x P tiles. buf_a holds the
 // initial state; pass p reads buf[p % 2] and writes buf[(p + 1) % 2]. av
 // receives n_passes * depth values; partials needs depth *
-// lbm_band_num_tiles floats; ticket one zeroed unsigned int. codec: null
-// for f32 planes, else the 12 floats of c16 storage (DevSpec.codec) and
-// int16 planes. Returns the first CUDA error, or 0.
+// lbm_band_num_tiles floats; ticket one zeroed unsigned int. storage: the
+// planes' storage (lbm_common.cuh::Storage: f32, c16 int16 codes or bf16).
+// Returns the first CUDA error, or 0.
 extern "C" int lbm_deep_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                             float* partials, unsigned int* ticket, int ny, int nx, int block,
                             int depth, int panel, int n_passes, float w1a, float w2a, float beta,
-                            float ow0, float ow1, float ow2, float inv_tot, const float* codec,
-                            void* stream) {
+                            float ow0, float ow1, float ow2, float inv_tot,
+                            const lbm::Storage* storage, void* stream) {
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (codec != nullptr) {
-    return run(static_cast<int16_t*>(buf_a), static_cast<int16_t*>(buf_b), nobst, av, partials,
-               ticket, g, n_passes, w1a, w2a, rc, inv_tot, st, lbm::make_c16(codec));
-  }
-  return run(static_cast<float*>(buf_a), static_cast<float*>(buf_b), nobst, av, partials, ticket,
-             g, n_passes, w1a, w2a, rc, inv_tot, st, lbm::F32());
+  return lbm::with_storage(storage, [&](const auto& io) {
+    using T = lbm::Raw<decltype(io)>;
+    return run(static_cast<T*>(buf_a), static_cast<T*>(buf_b), nobst, av, partials, ticket, g,
+               n_passes, w1a, w2a, rc, inv_tot, st, io);
+  });
 }

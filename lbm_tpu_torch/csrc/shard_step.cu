@@ -70,6 +70,15 @@
 // writes (one rounding per step, K1's), and the ring fill copies codes
 // untouched. 40 B per cell per step. K12 takes f32 only (the JAX package
 // refuses pallas-overlap at c16, sharded.py:1155-1156).
+//
+// K3 at bf16 (the JAX package's per-shard fused kernel on a bfloat16
+// shard, 1-D meshes): the same template on lbm_common.cuh::BF16, one
+// rounding per step; the ring fill copies raw bfloat16, and the lead and
+// pitch are 64 elements as for int16. K12 has no bf16 form in the JAX
+// package (its init_state casts the shard to f32, sharded.py:723-732):
+// the sharded runner runs the f32 K12 between one cast in and one cast
+// out per chunk (parallel/sharded.py), and this entry refuses bf16 in
+// mode 2 as it refuses c16.
 #include "lbm_common.cuh"
 
 namespace {
@@ -263,28 +272,27 @@ int run(const unsigned long long* table, int s0, int count, const Mesh& m, float
 // after the previous step of the calls that hold its neighbours. av
 // receives count x n_steps raw sums (shard-major, av_stride apart);
 // partials count x lbm_step_num_blocks(ry, rx) floats; ticket count zeroed
-// unsigned ints. codec: null for f32 buffers, else the 12 floats of c16
-// storage (DevSpec.codec) and int16 buffers (mode 1 only). Returns the
-// first CUDA error, or 0.
+// unsigned ints. storage: the buffers' storage (lbm_common.cuh::Storage:
+// f32, c16 int16 codes or bf16; mode 1 only for the 16-bit ones). Returns
+// the first CUDA error, or 0.
 extern "C" int lbm_shard_run(const unsigned long long* table, int s0, int count, int py, int px,
                              int ry, int rx, int ny, int pitch, int lead, float* av,
                              int av_stride, float* partials,
                              unsigned int* ticket, int parity, int n_steps, int mode,
                              int fill_first, float w1a, float w2a, float beta, float ow0,
-                             float ow1, float ow2, const float* codec, void* stream) {
+                             float ow1, float ow2, const lbm::Storage* storage, void* stream) {
   const Mesh m{py, px, ry, rx, ny, pitch, lead, (size_t)(ry + 2) * pitch};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (count < 1 || s0 < 0 || s0 + count > py * px || mode < 1 || mode > 2 || lead < 1 ||
-      pitch < lead + rx + 1 || (codec != nullptr && mode != 1)) {
+      pitch < lead + rx + 1 || storage == nullptr ||
+      (storage->kind != lbm::kStorageF32 && mode != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const lbm::Relax rc{beta, ow0, ow1, ow2};
-  if (codec != nullptr) {
+  return lbm::with_storage(storage, [&](const auto& io) {
     return run(table, s0, count, m, av, av_stride, partials, ticket, parity, n_steps, mode,
-               fill_first, w1a, w2a, rc, st, lbm::make_c16(codec));
-  }
-  return run(table, s0, count, m, av, av_stride, partials, ticket, parity, n_steps, mode,
-             fill_first, w1a, w2a, rc, st, lbm::F32());
+               fill_first, w1a, w2a, rc, st, io);
+  });
 }
 
 // Lets the current device read and write the memory of device ``peer``

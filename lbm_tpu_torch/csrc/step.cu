@@ -14,17 +14,11 @@
 // written, 40 B per cell per step; the physics and the mask stay f32. A
 // warp then reads and writes 64 B of a plane, half a 128-byte line.
 //
-// What the design does about it: one thread per cell with threadIdx.x along
-// x, so each warp reads and writes whole 128-byte lines of one plane (the
-// (9, ny, nx) structure-of-arrays layout); every value is read once and
-// written once. Periodic wrap is modular row/column indexing in global
-// memory: the halo rows of the TPU kernel are neighbour reads that L1/L2
-// serve. The forcing of row ny-2 is fused into the pull: a thread whose
-// source cell lies on row ny-2 adds the forcing delta to the value it pulls,
-// with the joint mask computed at that source cell from the read-only input
-// buffer, so no separate pass and no race. The per-step |u| sum is reduced
-// in a fixed order (lbm_common.cuh) into av[t] on the device; the whole run
-// is one C call that issues all launches on the caller's stream.
+// bf16 storage (pallas_step.py:154-160 and :246-247 with a bfloat16
+// state: _physics casts each result to out_dtype): the planes are bfloat16
+// (lbm_common.cuh::BF16), widened as they are read and rounded to nearest
+// even as they are written: one rounding per step, 40 B per cell per step,
+// no codec arithmetic.
 #include "lbm_common.cuh"
 
 namespace {
@@ -75,22 +69,19 @@ int run(void* buf_a, void* buf_b, const float* nobst, float* av, float* partials
 // buf[t % 2] and writes buf[(t + 1) % 2], so the final state is in
 // buf_a for even n_steps and in buf_b for odd. av receives n_steps values.
 // partials needs one float per block of grid_for(ny, nx); ticket one
-// zeroed unsigned int. codec: null for f32 planes, else the 12 floats of
-// c16 storage (DevSpec.codec) and int16 planes. Returns the first CUDA
-// error, or 0.
+// zeroed unsigned int. storage: the planes' storage (lbm_common.cuh::
+// Storage: f32, c16 int16 codes or bf16). Returns the first CUDA error, or 0.
 extern "C" int lbm_step_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                             float* partials, unsigned int* ticket, int ny, int nx,
                             int n_steps, float w1a, float w2a, float beta, float ow0,
-                            float ow1, float ow2, float inv_tot, const float* codec,
+                            float ow1, float ow2, float inv_tot, const lbm::Storage* storage,
                             void* stream) {
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (codec != nullptr) {
-    return run(buf_a, buf_b, nobst, av, partials, ticket, ny, nx, n_steps, w1a, w2a, rc,
-               inv_tot, s, lbm::make_c16(codec));
-  }
-  return run(buf_a, buf_b, nobst, av, partials, ticket, ny, nx, n_steps, w1a, w2a, rc, inv_tot,
-             s, lbm::F32());
+  return lbm::with_storage(storage, [&](const auto& st) {
+    return run(buf_a, buf_b, nobst, av, partials, ticket, ny, nx, n_steps, w1a, w2a, rc, inv_tot,
+               s, st);
+  });
 }
 
 extern "C" unsigned int lbm_step_num_blocks(int ny, int nx) {

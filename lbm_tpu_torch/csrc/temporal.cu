@@ -33,6 +33,12 @@
 // from the same f32 values, so a pack holds exactly the codes of the state
 // rows it copies (the JAX kernel stores its encoded ``val`` into both). One
 // rounding per pass of T steps; the window and the steps stay f32.
+//
+// K5 at bf16 (pallas_temporal.py:204, ``buf[k].astype(out_dtype)``, one
+// ``val`` stored into the tile and both packs): the state and the packs
+// hold bfloat16, widened as read and rounded once from the same f32
+// values (lbm_common.cuh::BF16), so a pack is the bits of the state rows
+// it copies.
 #include "trapezoid.cuh"
 
 namespace {
@@ -126,23 +132,20 @@ int run(void* const bufs[6], const float* nobst, float* av, float* partials,
 // each, nblk = ceil(ny / block)); pass p reads the [p % 2] buffers and
 // writes the [(p + 1) % 2] ones. av receives n_passes * depth values;
 // partials needs depth * lbm_band_num_tiles floats; ticket one zeroed
-// unsigned int. codec: null for f32 state and packs, else the 12 floats of
-// c16 storage (DevSpec.codec) and int16 ones. Returns the first CUDA error,
-// or 0.
+// unsigned int. storage: the storage of the state and the packs alike
+// (lbm_common.cuh::Storage: f32, c16 int16 codes or bf16). Returns the
+// first CUDA error, or 0.
 extern "C" int lbm_temporal_run(void* state_a, void* state_b, void* last_a, void* first_a,
                                 void* last_b, void* first_b, const float* nobst, float* av,
                                 float* partials, unsigned int* ticket, int ny, int nx, int block,
                                 int depth, int panel, int n_passes, float w1a, float w2a,
                                 float beta, float ow0, float ow1, float ow2, float inv_tot,
-                                const float* codec, void* stream) {
+                                const lbm::Storage* storage, void* stream) {
   const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
   const lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   void* const bufs[6] = {state_a, state_b, last_a, first_a, last_b, first_b};
-  if (codec != nullptr) {
-    return run(bufs, nobst, av, partials, ticket, g, n_passes, w1a, w2a, rc, inv_tot, st,
-               lbm::make_c16(codec));
-  }
-  return run(bufs, nobst, av, partials, ticket, g, n_passes, w1a, w2a, rc, inv_tot, st,
-             lbm::F32());
+  return lbm::with_storage(storage, [&](const auto& io) {
+    return run(bufs, nobst, av, partials, ticket, g, n_passes, w1a, w2a, rc, inv_tot, st, io);
+  });
 }

@@ -34,23 +34,34 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_C = ctypes.POINTER(ctypes.c_float)  # the codec: NULL (f32 storage) or 12 floats (c16)
+
+
+class Storage(ctypes.Structure):
+    """The ``storage`` argument of the entry points, the ctypes mirror of
+    ``csrc/lbm_common.cuh::Storage``: the kind of the state's storage and,
+    at c16, the 12 floats of ``DevSpec.codec()``."""
+
+    _fields_ = [("kind", ctypes.c_int), ("codec", ctypes.c_float * 12)]
+
+
+STORAGE_KINDS = {"f32": 0, "c16": 1, "bf16": 2}  # lbm_common.cuh::StorageKind
+_S = ctypes.POINTER(Storage)  # passed a Storage, by reference
 _RUN_ARGTYPES = {
-    "lbm_step_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_C, _P],
-    "lbm_aa_run": [_P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_C, _P],
+    "lbm_step_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_S, _P],
+    "lbm_aa_run": [_P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_S, _P],
     # band kernels: (buf_a, buf_b, nobst, av, partials, ticket, ny, nx,
     # block, depth, panel, n_passes, 7 scalars, codec, stream)
-    "lbm_band_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_C, _P],
-    "lbm_band2_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_C, _P],
-    "lbm_band3_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_C, _P],
+    "lbm_band_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_S, _P],
+    "lbm_band2_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_S, _P],
+    "lbm_band3_run": [_P] * 6 + [_I] * 7 + [_F] * 7 + [_S, _P],  # ... n_passes, fuse_last, ...
     # (state, next, slab_a, slab_b, nobst, av, partials, ticket, ny, nx,
     # block, depth, panel, kpasses, sblock, n_gens, 7 scalars, codec, stream)
-    "lbm_slab_run": [_P] * 8 + [_I] * 8 + [_F] * 7 + [_C, _P],
-    "lbm_deep_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_C, _P],
+    "lbm_slab_run": [_P] * 8 + [_I] * 8 + [_F] * 7 + [_S, _P],
+    "lbm_deep_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_S, _P],
     # (state_a, state_b, last_a, first_a, last_b, first_b, nobst, av,
     # partials, ticket, ny, nx, block, depth, panel, n_passes, 7 scalars,
     # codec, stream)
-    "lbm_temporal_run": [_P] * 10 + [_I] * 6 + [_F] * 7 + [_C, _P],
+    "lbm_temporal_run": [_P] * 10 + [_I] * 6 + [_F] * 7 + [_S, _P],
     # (buf_a, buf_b, nobst, av, partials, ny, nx, n_steps, chunk, blocks,
     # 7 scalars, stream)
     "lbm_resident_run": [_P] * 5 + [_I] * 5 + [_F] * 7 + [_P],
@@ -58,15 +69,15 @@ _RUN_ARGTYPES = {
     # (table, s0, count, py, px, ry, rx, ny, pitch, lead, av, av_stride,
     # partials, ticket, parity, n_steps, mode, fill_first, 6 scalars, codec,
     # stream)
-    "lbm_shard_run": [_P] + [_I] * 9 + [_P, _I, _P, _P] + [_I] * 4 + [_F] * 6 + [_C, _P],
+    "lbm_shard_run": [_P] + [_I] * 9 + [_P, _I, _P, _P] + [_I] * 4 + [_F] * 6 + [_S, _P],
     "lbm_enable_peer": [_I, _I],
     # (table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst,
     # nob_dn, nob_up, av, av_stride, partials, ticket, ny, nx, block, depth,
     # panel, parity, n_passes, 7 scalars, codec, stream)
     "lbm_band_sharded_run": [_P] + [_I] * 3 + [_P] * 8 + [_I] + [_P] * 2 + [_I] * 7
-                            + [_F] * 7 + [_C, _P],
+                            + [_F] * 7 + [_S, _P],
     "lbm_band2_sharded_run": [_P] + [_I] * 3 + [_P] * 8 + [_I] + [_P] * 2 + [_I] * 7
-                             + [_F] * 7 + [_C, _P],
+                             + [_F] * 7 + [_S, _P],
 }
 _COUNT_ARGTYPES = {
     "lbm_step_num_blocks": [_I, _I],
@@ -75,12 +86,16 @@ _COUNT_ARGTYPES = {
 }
 
 
-def codec(dev):
-    """The ``codec`` argument of an entry point for a run's storage: None
-    (NULL) for f32, the 12 floats of ``DevSpec.codec()`` for c16. Every
-    entry point that runs steps takes it before the stream, but K4's,
-    which stores f32 only as in the JAX package."""
-    return None if dev is None else (ctypes.c_float * 12)(*dev.codec())
+def storage(dev) -> Storage:
+    """The ``storage`` argument of an entry point for a run's storage
+    ``dev`` (``ops/devspace.py``): None for f32, a ``DevSpec`` for c16,
+    ``BF16`` for bf16. Every entry point that runs steps takes it before
+    the stream, but K4's, which stores f32 only as in the JAX package."""
+    if dev is None:
+        return Storage(STORAGE_KINDS["f32"])
+    if dev.name == "c16":
+        return Storage(STORAGE_KINDS["c16"], (ctypes.c_float * 12)(*dev.codec()))
+    return Storage(STORAGE_KINDS[dev.name])
 
 
 class BuildError(RuntimeError):

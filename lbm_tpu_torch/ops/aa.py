@@ -32,6 +32,10 @@ decodes every slot it reads and encodes every slot it writes; the forcing
 decodes, adds and re-encodes one row of each of the six forced slots,
 exactly the rows the JAX kernel stores (``pallas_aa.py:297-314``), so the
 rest of the state keeps its codes.
+
+bf16 storage (``dev=devspace.BF16``): the same path with bfloat16 in place
+of the codes: every value a step stores and every forcing row the forcing
+stores is rounded once (``pallas_aa.py:230-236, 297-314``).
 """
 
 from __future__ import annotations
@@ -152,7 +156,7 @@ def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="
 
     ``cells`` is left unchanged. ``inv_tot_cells`` is the f32 value of
     1 / (unblocked cells). The kernel implements the fused collision form.
-    ``dev``: c16 storage (int16 ``cells``).
+    ``dev``: 16-bit storage (int16 c16 codes or bf16 ``cells``).
     """
     if cells.device.type == "cpu":
         return run_aa_plain(cells, nobst, density, accel, omega, n_steps,
@@ -175,7 +179,7 @@ def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="
         rc = lib.lbm_aa_run(
             state.data_ptr(), nobst.data_ptr(), av.data_ptr(), partials.data_ptr(),
             ticket.data_ptr(), ny, nx, n_steps,
-            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.storage(dev), stream,
         )
     _build.check(rc, "AA kernel")
     count_launches(run_aa, n_steps, dev)
@@ -184,3 +188,4 @@ def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="
 
 run_aa.launches = 0  # K2 steps launched in this process
 run_aa.launches_c16 = 0  # K2 steps launched at c16
+run_aa.launches_bf16 = 0  # K2 steps launched at bf16

@@ -35,6 +35,9 @@ pass, and the ``n_iters % T`` remainder runs on the shard step K3;
 ``run_band_sharded_plain`` is its plain version. At c16 (``dev``) K8
 decodes and encodes as K7 does, its halos carry the neighbours' codes,
 and the remainder runs on K3 at c16.
+
+bf16 storage (``dev=devspace.BF16``): K7 and K8 widen their windows and
+round their tiles, once per pass, K8's halos carry bfloat16.
 """
 
 from __future__ import annotations
@@ -115,7 +118,7 @@ def run_band(cells, nobst, density, accel, omega, n_iters, block, depth, *, pane
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K7 on CUDA (and K1
     for the remainder), ``run_band_plain`` on CPU. ``cells`` is left
     unchanged. The kernel implements the fused collision form. ``dev``:
-    c16 storage (int16 ``cells``)."""
+    16-bit storage (int16 c16 codes or bf16 ``cells``)."""
     if cells.device.type == "cpu":
         return run_band_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
                               panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
@@ -128,6 +131,7 @@ def run_band(cells, nobst, density, accel, omega, n_iters, block, depth, *, pane
 
 run_band.launches = 0  # steps K7 advanced in this process
 run_band.launches_c16 = 0  # steps K7 advanced at c16
+run_band.launches_bf16 = 0  # steps K7 advanced at bf16
 
 
 _K8 = BC.ShardedKernel("band", "lbm_band_sharded_run", band_supported, PLANE_COPIES,
@@ -139,7 +143,7 @@ def step_band_sharded(shards, nob_shards, density, accel, omega, block, depth, n
     """One pass of ``depth`` steps over a 1-D mesh of row shards (``shards[i][0]``
     holds global rows ``[i*ry, (i+1)*ry)`` of ``ny``): K8 on CUDA, the plain
     pass on CPU. Returns the shards and their raw sums ``(nshards, depth)``.
-    ``dev``: c16 storage (int16 shards)."""
+    ``dev``: 16-bit storage (int16 c16 codes or bf16 shards)."""
     out = _K8.step(shards, nob_shards, density, accel, omega, block, depth, ny, panel, paired,
                    dev)
     if shards[0][0].device.type == "cuda":
@@ -160,7 +164,7 @@ def run_band_sharded(shards, nob_shards, density, accel, omega, n_iters, block, 
     """Run ``n_iters`` steps of a 1-D mesh of row shards, ``depth`` per pass:
     kernel K8 on CUDA (the ``n_iters % depth`` remainder on K3),
     ``run_band_sharded_plain`` on CPU. Returns the shards and their raw sums
-    ``(nshards, n_iters)``. ``dev``: c16 storage (int16 shards)."""
+    ``(nshards, n_iters)``. ``dev``: 16-bit storage (int16 c16 codes or bf16 shards)."""
     out = _K8.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, panel,
                   paired, dev=dev)
     if shards[0][0].device.type == "cuda":
@@ -170,3 +174,4 @@ def run_band_sharded(shards, nob_shards, density, accel, omega, n_iters, block, 
 
 run_band_sharded.launches = 0  # mesh steps K8 advanced in this process
 run_band_sharded.launches_c16 = 0  # mesh steps K8 advanced at c16
+run_band_sharded.launches_bf16 = 0  # mesh steps K8 advanced at bf16

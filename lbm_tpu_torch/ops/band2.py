@@ -32,6 +32,9 @@ their window as they load it and encode their tile as they store it, one
 rounding per pass of T steps; the plain passes decode and encode around
 each pass; K10's halos carry the neighbours' codes; the remainders run on
 K1 and K3 at c16.
+
+bf16 storage (``dev=devspace.BF16``): K9 and K10 widen their windows and
+round their tiles, once per pass, K10's halos carry bfloat16.
 """
 
 from __future__ import annotations
@@ -109,7 +112,7 @@ def run_band2(cells, nobst, density, accel, omega, n_iters, block, depth, *, pan
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K9 on CUDA (and K1
     for the remainder), ``run_band2_plain`` on CPU. ``cells`` is left
     unchanged. The kernel implements the fused collision form. ``dev``:
-    c16 storage (int16 ``cells``)."""
+    16-bit storage (int16 c16 codes or bf16 ``cells``)."""
     if cells.device.type == "cpu":
         return run_band2_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
                                panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
@@ -122,6 +125,7 @@ def run_band2(cells, nobst, density, accel, omega, n_iters, block, depth, *, pan
 
 run_band2.launches = 0  # steps K9 advanced in this process
 run_band2.launches_c16 = 0  # steps K9 advanced at c16
+run_band2.launches_bf16 = 0  # steps K9 advanced at bf16
 
 
 _K10 = BC.ShardedKernel("band2", "lbm_band2_sharded_run", band2_supported, PLANE_COPIES)
@@ -132,7 +136,7 @@ def step_band2_sharded(shards, nob_shards, density, accel, omega, block, depth, 
     """One pass of ``depth`` steps over a 1-D mesh of row shards (``shards[i][0]``
     holds global rows ``[i*ry, (i+1)*ry)`` of ``ny``): K10 on CUDA, the plain
     pass on CPU. Returns the shards and their raw sums ``(nshards, depth)``.
-    ``dev``: c16 storage (int16 shards)."""
+    ``dev``: 16-bit storage (int16 c16 codes or bf16 shards)."""
     out = _K10.step(shards, nob_shards, density, accel, omega, block, depth, ny, panel,
                     paired, dev)
     if shards[0][0].device.type == "cuda":
@@ -153,7 +157,7 @@ def run_band2_sharded(shards, nob_shards, density, accel, omega, n_iters, block,
     """Run ``n_iters`` steps of a 1-D mesh of row shards, ``depth`` per pass:
     kernel K10 on CUDA (the ``n_iters % depth`` remainder on K3),
     ``run_band2_sharded_plain`` on CPU. Returns the shards and their raw sums
-    ``(nshards, n_iters)``. ``dev``: c16 storage (int16 shards)."""
+    ``(nshards, n_iters)``. ``dev``: 16-bit storage (int16 c16 codes or bf16 shards)."""
     out = _K10.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny,
                    panel, paired, dev=dev)
     if shards[0][0].device.type == "cuda":
@@ -163,3 +167,4 @@ def run_band2_sharded(shards, nob_shards, density, accel, omega, n_iters, block,
 
 run_band2_sharded.launches = 0  # mesh steps K10 advanced in this process
 run_band2_sharded.launches_c16 = 0  # mesh steps K10 advanced at c16
+run_band2_sharded.launches_bf16 = 0  # mesh steps K10 advanced at bf16

@@ -25,9 +25,14 @@ Forcing of the ny-2 rows, as in ``pallas_band3.py:39-59``:
   forcing row adds the delta to its own scattered values, with the mask
   taken from its own outputs ``f*_3, f*_6, f*_7``;
 - the last odd step of the run's final pass is not fused, so the stored
-  state is unforced for the S -> R exit. On the card that is a kernel
-  argument, not the TPU's split into (T-2, fused) + (2, unfused) calls,
-  which its compile helper forced.
+  state is unforced for the S -> R exit.
+
+The JAX package runs the final pass as two calls, (T-2 steps, fused) then
+(2, unfused), each storing the state (``pallas_band3.py:669-677``). At
+f32 that is one pass's function; at c16 and bf16 it is one more rounding
+of the state after step T-2 of the final pass, so at 16 bits both the
+kernel route and the plain version split the final pass the same way
+(``split_final``).
 
 On a CUDA tensor the passes run kernel K11 (``csrc/band3.cu``); on a CPU
 tensor ``run_band3_plain``, which keeps K11's arrangements and forcing
@@ -38,7 +43,10 @@ c16 storage (``dev``): the S arrangement is int16 codes between passes
 its tile, the plain passes decode and encode around each pass, the run's
 first forcing decodes rows ny-3..ny-1, forces them and re-encodes them
 (``force_s``, ``pallas_band3.py:550-567``), and the remainder runs on K1
-at c16.
+at c16. bf16 storage (``dev=BF16``) takes the same path with bfloat16 in
+place of the codes: K11 widens and rounds once per pass, and the run's
+first forcing rounds rows ny-3..ny-1 once more, as the JAX package's
+``_force_s_storage`` does for a bfloat16 state.
 """
 
 from __future__ import annotations
@@ -65,8 +73,10 @@ def band3_supported(ny: int, nx: int, block: int, depth: int, panel: int | None 
 def force_s(state, nobst, w1a: float, w2a: float, dev=None):
     """S-space forcing on the full periodic state (``pallas_band3.force_s``).
     Its docstring states it is bit-identical to ``pallas_aa.force_even``, so
-    this is ``ops/aa.py::force_even_plain``. With ``dev`` (c16), as
-    ``_force_s_storage``: rows ny-3..ny-1 decoded, forced and re-encoded."""
+    this is ``ops/aa.py::force_even_plain``. With ``dev`` (c16 or bf16),
+    as ``_force_s_storage`` (pallas_band3.py:550-567): rows ny-3..ny-1
+    decoded, forced and re-encoded, at bf16 one more rounding of those
+    rows (its ``dev is None`` branch)."""
     if dev is None:
         return force_even_plain(state, nobst, w1a, w2a)
     ny = state.shape[1]
@@ -83,8 +93,8 @@ def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
         raise ValueError(f"band3 schedule unsupported: grid {ny}x{nx}, block {block}, "
                          f"depth {depth}, panel {panel} (needs even depth and block >= 2*depth)")
     if dev is not None and ny < 3:
-        raise ValueError(f"band3 at c16 needs ny >= 3 (its first forcing re-encodes rows "
-                         f"ny-3..ny-1), got {ny}")
+        raise ValueError(f"band3 at {dev.name} needs ny >= 3 (its first forcing re-encodes "
+                         f"rows ny-3..ny-1), got {ny}")
 
 
 def s_step_plain(omega, w1a, w2a, paired, depth, fuse_last):
@@ -109,6 +119,34 @@ def s_step_plain(omega, w1a, w2a, paired, depth, fuse_last):
     return step
 
 
+def split_final(depth: int, dev) -> bool:
+    """Whether the final pass of a run is two passes, of T-2 steps and of 2,
+    each storing (and so rounding) the state: at 16-bit storage, as the
+    JAX package's two calls round it; at f32 one pass is the same."""
+    return dev is not None and depth > 2
+
+
+def _split_passes(passes, depth, dev):
+    """``s_passes(state, npasses)`` from ``passes(depth, fuse_last)``, a
+    pass loop of ``depth``-step passes whose last pass fuses the next
+    forcing only with ``fuse_last``: the final pass split as
+    ``split_final`` says."""
+
+    def s_passes(state, npasses):
+        if not split_final(depth, dev):
+            return passes(depth, False)(state, npasses)
+        avs = []
+        if npasses > 1:
+            state, av = passes(depth, True)(state, npasses - 1)
+            avs.append(av)
+        for steps, fuse in ((depth - 2, True), (2, False)):
+            state, av = passes(steps, fuse)(state, 1)
+            avs.append(av)
+        return state, torch.cat(avs)
+
+    return s_passes
+
+
 def _in_s_space(nobst, density, accel, s_passes, dev=None):
     """Wrap S -> S passes into R -> R: stream, force once, run, unstream."""
     w1a, w2a = forcing_weights(density, accel)
@@ -125,12 +163,14 @@ def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, pan
                   dev=None):
     w1a, w2a = forcing_weights(density, accel)
 
-    def step_for(p, npasses):
-        return s_step_plain(float(omega), w1a, w2a, paired, depth, p < npasses - 1)
+    def passes(steps, fuse_last):
+        def step_for(p, npasses):
+            return s_step_plain(float(omega), w1a, w2a, paired, steps,
+                                fuse_last or p < npasses - 1)
 
-    return _in_s_space(nobst, density, accel,
-                       BC.plain_passes(nobst, inv_tot_cells, block, depth, panel, step_for, dev),
-                       dev)
+        return BC.plain_passes(nobst, inv_tot_cells, block, steps, panel, step_for, dev)
+
+    return _in_s_space(nobst, density, accel, _split_passes(passes, depth, dev), dev)
 
 
 def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired, device,
@@ -144,14 +184,17 @@ def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, pa
     if not (isinstance(paired, str) and paired.startswith("fused")):
         raise ValueError("the CUDA band3 kernel implements the fused collision form only")
 
-    def s_passes(state, npasses):
-        out = BC.launch_passes("lbm_band3_run", "band3 kernel", state, nobst, density, accel,
-                               omega, inv_tot_cells, block, depth, panel, npasses, PLANE_COPIES,
-                               dev)
-        count_launches(run_band3, npasses * depth, dev)
-        return out
+    def passes(steps, fuse_last):
+        def run_passes(state, npasses):
+            out = BC.launch_passes("lbm_band3_run", "band3 kernel", state, nobst, density, accel,
+                                   omega, inv_tot_cells, block, steps, panel, npasses,
+                                   PLANE_COPIES, dev, extra=(int(fuse_last),))
+            count_launches(run_band3, npasses * steps, dev)
+            return out
 
-    return _in_s_space(nobst, density, accel, s_passes, dev)
+        return run_passes
+
+    return _in_s_space(nobst, density, accel, _split_passes(passes, depth, dev), dev)
 
 
 def run_band3_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
@@ -169,7 +212,7 @@ def run_band3(cells, nobst, density, accel, omega, n_iters, block, depth, *, pan
     """Run ``n_iters`` steps, ``depth`` per in-place pass: kernel K11 on CUDA
     (and K1 for the remainder), ``run_band3_plain`` on CPU. ``cells`` is
     left unchanged. The kernel implements the fused collision form.
-    ``dev``: c16 storage (int16 ``cells``)."""
+    ``dev``: 16-bit storage (int16 c16 codes or bf16 ``cells``)."""
     if cells.device.type == "cpu":
         return run_band3_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
                                panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
@@ -182,3 +225,4 @@ def run_band3(cells, nobst, density, accel, omega, n_iters, block, depth, *, pan
 
 run_band3.launches = 0  # steps K11 advanced in this process
 run_band3.launches_c16 = 0  # steps K11 advanced at c16
+run_band3.launches_bf16 = 0  # steps K11 advanced at bf16

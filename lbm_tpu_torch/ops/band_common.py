@@ -52,6 +52,10 @@ ppermutes move them; the not-obstacle halos stay f32.
 The TPU's BlockSpec strip views (``fullrow_specs``/``panel_specs``), the
 extended mask ``nobst_ext`` and the 128-lane halo H do not carry over: the
 window gather replaces them, and every tile's x halo is T columns.
+
+bf16 storage (``dev=devspace.BF16``) takes the same path: the window is
+widened from bfloat16 and its tile rounded once per pass; the halos carry
+bfloat16.
 """
 
 from __future__ import annotations
@@ -233,7 +237,7 @@ def run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth
 
 
 def coded(dev, fn):
-    """``fn(state) -> (state, ...)`` on f32 values: with ``dev`` (c16) the
+    """``fn(state) -> (state, ...)`` on f32 values: with ``dev`` (c16 or bf16) the
     state is decoded before and encoded after (a pass's rounding points)."""
     if dev is None:
         return fn
@@ -274,11 +278,12 @@ def check_smem(what: str, plane_copies: int, nx: int, block: int, depth: int,
 
 
 def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, inv_tot_cells,
-                  block, depth, panel, npasses, plane_copies, dev=None):
+                  block, depth, panel, npasses, plane_copies, dev=None, extra=()):
     """Issue ``npasses`` passes of a band kernel (K7, K9, K11) or of the deep
     kernel K6 through one C call on the current stream. ``state`` is
     consumed (the kernel ping-pongs between it and a second copy); returns
-    ``(state, av)``. ``dev``: c16 storage (int16 ``state``)."""
+    ``(state, av)``. ``dev``: the storage of ``state`` (``ops/devspace.py``);
+    ``extra``: int arguments of the entry after ``n_passes``."""
     _, ny, nx = state.shape
     b, p, t = tile_shape(nx, block, depth, panel)
     check_smem(what, plane_copies, nx, block, depth, panel)
@@ -294,8 +299,8 @@ def launch_passes(entry: str, what: str, state, nobst, density, accel, omega, in
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = getattr(lib, entry)(
             a.data_ptr(), other.data_ptr(), nobst.data_ptr(), av.data_ptr(),
-            partials.data_ptr(), ticket.data_ptr(), ny, nx, b, t, p, npasses,
-            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
+            partials.data_ptr(), ticket.data_ptr(), ny, nx, b, t, p, npasses, *extra,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.storage(dev), stream,
         )
     _build.check(rc, what)
     return (a if npasses % 2 == 0 else other), av
@@ -314,7 +319,7 @@ def plain_passes_sharded(nob_shards, ny_global, block, depth, panel, step, dev=N
     """``run_passes`` of ``run_creep_sharded`` in plain PyTorch: each pass
     takes the halos from the neighbour shards, then runs
     ``creep_pass_plain`` on every shard. Sums raw, ``(nshards, T)`` per pass.
-    ``dev`` (c16): the shards, halo codes included, decoded before the
+    ``dev`` (c16 or bf16): the shards, halos included, decoded before the
     pass and its results encoded after."""
     from lbm_tpu_torch.ops.devspace import decode_state, encode_state
 
@@ -370,7 +375,7 @@ def launch_passes_sharded(entry: str, what: str, shards, nob_shards, density, ac
     first copies its halos from the neighbour shards' edge rows, on the
     card or through peer addresses. With one device one C call issues every
     pass; across devices one call per run per pass, ordered by
-    ``shard_step.issue``. ``dev``: c16 storage (int16 shards and halos).
+    ``shard_step.issue``. ``dev``: 16-bit storage (c16 codes or bf16 in shards and halos).
     Returns the shards and their raw sums ``(nshards, npasses * depth)``
     on the first shard's device."""
     flat = [row[0] for row in shards]
@@ -382,7 +387,7 @@ def launch_passes_sharded(entry: str, what: str, shards, nob_shards, density, ac
     lib = _build.library()
     ntiles = lib.lbm_band_num_tiles(ry, nx, b, p)
     scalars = kernel_scalars(density, accel, omega, 1.0)
-    codec = _build.codec(dev)
+    storage = _build.storage(dev)
     nob_dn, nob_up = neighbour_rows(nobs, t)  # the mask's halos, once per call
     runs = device_runs([f.device for f in flat])
     near = neighbour_runs(runs, n, 1)
@@ -412,7 +417,7 @@ def launch_passes_sharded(entry: str, what: str, shards, nob_shards, density, ac
                 tables[dev].data_ptr(), s0, count, n, a.data_ptr(), other.data_ptr(),
                 hdn.data_ptr(), hup.data_ptr(), nob.data_ptr(), ndn.data_ptr(), nup.data_ptr(),
                 av.data_ptr() + 4 * q * t, npasses * t, partials.data_ptr(), ticket.data_ptr(),
-                ry, nx, b, t, p, q % 2, k, *scalars, codec, stream,
+                ry, nx, b, t, p, q % 2, k, *scalars, storage, stream,
             )
         _build.check(rc, what)
 
@@ -493,7 +498,7 @@ class ShardedKernel:
             paired, plain=False, dev=None):
         """``n_iters`` steps, ``depth`` per pass, the remainder on the shard
         step: the kernel's passes on CUDA, the plain ones on the CPU or
-        with ``plain``; ``dev``: c16 storage. The shards and their raw sums
+        with ``plain``; ``dev``: 16-bit storage. The shards and their raw sums
         ``(nshards, n_iters)``."""
         self.check(shards, nob_shards, n_iters, block, depth, panel, dev)
         device = torch.device("cpu") if plain else shards[0][0].device

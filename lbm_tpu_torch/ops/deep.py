@@ -25,6 +25,9 @@ c16 storage (``dev``, ``pallas_deep.py``'s ``dev=``): K6 decodes its
 window, halos included, from the int16 input state and encodes its tile;
 the plain pass decodes the state before and encodes after (one rounding
 per pass of T steps).
+
+bf16 storage (``dev=devspace.BF16``): K6 widens its window and rounds its
+tile, once per pass.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def deep_supported(ny: int, nx: int, block: int, depth: int, panel: int | None =
 def step_deep_plain(cells, nobst, density, accel, omega, block, depth, *, inv_tot_cells=1.0,
                     paired="fused", dev=None):
     """One pass of ``depth`` steps in plain PyTorch (``pallas_deep.step_deep``);
-    returns ``(cells, av)`` with ``depth`` av values. ``dev``: c16 storage."""
+    returns ``(cells, av)`` with ``depth`` av values. ``dev``: 16-bit storage."""
     ny = cells.shape[1]
     w1a, w2a = forcing_weights(density, accel)
     rows = window_rows(ny, block, depth, cells.device)
@@ -117,7 +120,7 @@ def run_deep(cells, nobst, density, accel, omega, n_iters, block, depth, *, pane
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K6 on CUDA (and K1
     for the remainder), ``run_deep_plain`` on CPU. ``cells`` is left
     unchanged. The kernel implements the fused collision form. ``dev``:
-    c16 storage (int16 ``cells``)."""
+    16-bit storage (int16 c16 codes or bf16 ``cells``)."""
     if cells.device.type == "cpu":
         return run_deep_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
                               panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
@@ -130,3 +133,4 @@ def run_deep(cells, nobst, density, accel, omega, n_iters, block, depth, *, pane
 
 run_deep.launches = 0  # steps K6 advanced in this process
 run_deep.launches_c16 = 0  # steps K6 advanced at c16
+run_deep.launches_bf16 = 0  # steps K6 advanced at bf16

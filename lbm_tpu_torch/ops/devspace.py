@@ -1,4 +1,12 @@
-"""c16 storage: companded int16 deviations (counterpart of ``lbm_tpu/ops/devspace.py``).
+"""The 16-bit storage modes: c16, companded int16 deviations (counterpart
+of ``lbm_tpu/ops/devspace.py``), and bf16, plain bfloat16 planes.
+
+A run's storage is ``dev``: None for f32, a ``DevSpec`` for c16, ``BF16``
+for bf16. The kernels and plain versions that take ``dev`` load a stored
+value through ``decode_*`` and store through ``encode_*``, so both modes
+round at the same points, and the physics between them runs at f32.
+bf16 (``Bf16Spec``) has no codec: decode widens exactly, encode rounds to
+nearest even, as XLA's convert and torch's ``.to(torch.bfloat16)`` do.
 
 Plain bf16 storage fails the reference's 1% gate: its 8-bit mantissa
 rounds the full distribution values, whose mean ``w_k * density`` dwarfs
@@ -50,6 +58,8 @@ class DevSpec:
 
     bg: tuple  # the 9 per-plane backgrounds w_k * density
     h: float  # the largest representable |deviation|
+    name = "c16"
+    dtype = torch.int16
 
     @classmethod
     def for_params(cls, density: float, accel: float) -> "DevSpec":
@@ -70,6 +80,17 @@ class DevSpec:
         return (*self.bg, 1.0 / self.h, self.h, 1.0 / LIM)
 
 
+@dataclasses.dataclass(frozen=True)
+class Bf16Spec:
+    """bf16 storage: bfloat16 planes, no codec."""
+
+    name = "bf16"
+    dtype = torch.bfloat16
+
+
+BF16 = Bf16Spec()
+
+
 def encode_value(d, h: float):
     """f32 deviation -> companded value in [-LIM, LIM], before the int cast."""
     s = torch.sign(d) * torch.sqrt(torch.abs(d) * (1.0 / h))
@@ -82,23 +103,31 @@ def decode_value(q, h: float):
     return r * torch.abs(r) * h
 
 
-def encode_plane(f, k: int, spec: DevSpec):
-    """Full f32 plane k -> int16 companded deviations."""
+def encode_plane(f, k: int, spec):
+    """Full f32 plane k -> int16 companded deviations (bf16: rounded)."""
+    if isinstance(spec, Bf16Spec):
+        return f.to(torch.bfloat16)
     return encode_value(f - spec.bg[k], spec.h).to(torch.int16)
 
 
-def decode_plane(q, k: int, spec: DevSpec):
-    """int16 companded plane k -> full f32 values."""
+def decode_plane(q, k: int, spec):
+    """int16 companded plane k -> full f32 values (bf16: widened)."""
+    if isinstance(spec, Bf16Spec):
+        return q.to(torch.float32)
     return decode_value(q.to(torch.float32), spec.h) + spec.bg[k]
 
 
-def encode_state(cells, spec: DevSpec):
-    """``(9, ...)`` f32 planes -> int16 codes."""
+def encode_state(cells, spec):
+    """``(9, ...)`` f32 planes -> int16 codes (bf16: bfloat16 planes)."""
+    if isinstance(spec, Bf16Spec):
+        return cells.to(torch.float32).to(torch.bfloat16)
     return torch.stack([encode_plane(cells[k].to(torch.float32), k, spec) for k in range(9)])
 
 
-def decode_state(q, spec: DevSpec):
-    """``(9, ...)`` int16 codes -> f32 planes."""
+def decode_state(q, spec):
+    """``(9, ...)`` int16 codes (bf16: bfloat16 planes) -> f32 planes."""
+    if isinstance(spec, Bf16Spec):
+        return q.to(torch.float32)
     return torch.stack([decode_plane(q[k], k, spec) for k in range(9)])
 
 

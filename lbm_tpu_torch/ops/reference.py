@@ -10,7 +10,9 @@ f64 runs. It mirrors the reference's two OpenCL kernels:
   periodic wrap, bounce-back of the streamed values on obstacles, BGK
   relaxation elsewhere, and the sum of ``nobst * |u|``.
 
-State is ``(9, ny, nx)`` at f32 or f64; nothing is updated in place.
+State is ``(9, ny, nx)`` at f32, f64 or bf16, and every operation rounds
+in the state's dtype, as the JAX reference step computes in it; nothing
+is updated in place.
 """
 
 from __future__ import annotations

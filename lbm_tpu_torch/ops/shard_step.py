@@ -46,6 +46,11 @@ shards are int16 codes; K3 decodes each value it reads and encodes each it
 writes, K1's rounding point once per step, and its ring fill copies codes.
 ``run_shard_step_plain(..., dev)`` decodes, steps and encodes every step,
 the JAX package's ``make_sharded_c16_jnp_step``.
+
+bf16 storage (``dev=devspace.BF16``, K3 only): bfloat16 shards, one
+rounding per step, the ring fill copying raw bfloat16 (lead and pitch: 64
+elements). K12 has no bf16 form, as in the JAX package; the sharded
+runner runs it on f32 between two casts per chunk.
 """
 
 from __future__ import annotations
@@ -146,7 +151,7 @@ def check_mesh(shards, nob_shards, n_steps, ny, dev=None) -> None:
 def run_shard_step_plain(shards, nob_shards, density, accel, omega, n_steps, ny,
                          paired="fused", dev=None):
     """``n_steps`` of ``shard_step_plain`` on every shard, the rings rebuilt
-    from the neighbours between steps; with ``dev`` (c16) each step between
+    from the neighbours between steps; with ``dev`` (c16 or bf16) each step between
     a decode and an encode. Returns ``(shards, sums)``."""
     check_mesh(shards, nob_shards, n_steps, ny, dev)
     py, px = mesh_of(shards)
@@ -268,7 +273,7 @@ def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, 
     dtype = flat[0].dtype
     lead, pitch = lead_of(dtype), pitch_of(rx, dtype)
     cells = slice(lead, lead + rx)
-    codec = _build.codec(dev)
+    storage = _build.storage(dev)
     state = []  # per run: (buffers, padded masks, av, partials, ticket)
     for s0, count, device in runs:
         bufs = torch.empty((2, count, 9, ry + 2, pitch), dtype=dtype, device=device)
@@ -293,7 +298,7 @@ def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, 
             rc = lib.lbm_shard_run(tables[device].data_ptr(), s0, count, py, px, ry, rx, ny,
                                    pitch, lead, av.data_ptr() + 4 * t, n_steps,
                                    partials.data_ptr(), ticket.data_ptr(), t % 2, k,
-                                   2 if overlap else 1, int(t == 0), *scalars, codec, stream)
+                                   2 if overlap else 1, int(t == 0), *scalars, storage, stream)
         _build.check(rc, what)
 
     issue(runs, near, n_steps, call)
@@ -322,7 +327,7 @@ def run_shard_step(shards, nob_shards, density, accel, omega, n_steps, ny, *, pa
     ``run_shard_step_plain`` on CPU. Returns ``(shards, sums)``, the raw
     per-shard sums ``(py*px, n_steps)`` on the first shard's device. The
     input shards are left unchanged; the returned ones may be views of one
-    buffer. ``dev``: c16 storage (int16 shards)."""
+    buffer. ``dev``: 16-bit storage (int16 c16 codes or bf16 shards)."""
     out = _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, False,
                     "shard step kernel", dev)
     if shards[0][0].device.type == "cuda":
@@ -344,4 +349,5 @@ def run_shard_overlap(shards, nob_shards, density, accel, omega, n_steps, ny, *,
 
 run_shard_step.launches = 0  # mesh steps K3 advanced in this process
 run_shard_step.launches_c16 = 0  # mesh steps K3 advanced at c16
+run_shard_step.launches_bf16 = 0  # mesh steps K3 advanced at bf16
 run_shard_overlap.launches = 0  # mesh steps K12 advanced in this process

@@ -32,6 +32,10 @@ slab buffers stay in the 50 MB L2 across a slab's K passes. On a CPU tensor
 
 The route is quarantined as in the JAX package: the driver runs it only with
 ``LBM_ENABLE_SLAB=1`` (``runtime/driver.py::select_route``).
+
+c16 and bf16 storage (``dev``): every pass rounds the slab buffer it
+stores, the inner passes included, as the JAX slab kernel writes each
+pass's buffer at the storage dtype (``pallas_slab.py:171, 217``).
 """
 
 from __future__ import annotations
@@ -119,7 +123,7 @@ def run_band_slab(cells, nobst, density, accel, omega, n_iters, block, depth, kp
     """Run ``n_iters`` steps, K*T per generation: kernel K13 on CUDA (the
     remainder on K7 and K1), ``run_band_slab_plain`` on CPU. ``cells`` is
     left unchanged. The kernel implements the fused collision form.
-    ``dev``: c16 storage (int16 ``cells``)."""
+    ``dev``: 16-bit storage (int16 c16 codes or bf16 ``cells``)."""
     if cells.device.type == "cpu":
         return run_band_slab_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
                                    kpasses, sblock, panel=panel, inv_tot_cells=inv_tot_cells,
@@ -153,7 +157,7 @@ def run_band_slab(cells, nobst, density, accel, omega, n_iters, block, depth, kp
                 state.data_ptr(), other.data_ptr(), slab_a.data_ptr(), slab_b.data_ptr(),
                 nob.data_ptr(), av.data_ptr(), partials.data_ptr(), ticket.data_ptr(), ny, nx,
                 b, t, p, kpasses, sblock, ngens,
-                *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
+                *kernel_scalars(density, accel, omega, inv_tot_cells), _build.storage(dev), stream,
             )
         _build.check(rc, "slab kernel")
         count_launches(run_band_slab, ngens * kt, dev)
@@ -167,3 +171,4 @@ def run_band_slab(cells, nobst, density, accel, omega, n_iters, block, depth, kp
 
 run_band_slab.launches = 0  # steps K13 advanced in this process
 run_band_slab.launches_c16 = 0  # steps K13 advanced at c16
+run_band_slab.launches_bf16 = 0  # steps K13 advanced at bf16

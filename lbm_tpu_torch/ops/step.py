@@ -18,6 +18,11 @@ c16 storage (``dev``, an ``ops/devspace.py::DevSpec``): the state is int16
 codes; K1 decodes each value it reads and encodes each value it writes
 (``pallas_step.py:198-243``), and the plain version is decode,
 ``step_plain``, encode: the same rounding point, once per step.
+
+bf16 storage (``dev=devspace.BF16``): the state is bfloat16; K1 widens
+each value it reads and rounds each value it writes to nearest even, and
+the plain version is widen, ``step_plain``, round: one rounding per step,
+as the JAX kernel casts its results to the state's dtype.
 """
 
 from __future__ import annotations
@@ -55,26 +60,28 @@ def kernel_scalars(density: float, accel: float, omega: float, inv_tot_cells: fl
 
 
 def count_launches(wrapper, steps: int, dev) -> None:
-    """Add ``steps`` to a kernel wrapper's launch count: ``launches`` at
-    f32, ``launches_c16`` at c16 (``dev``)."""
-    if dev is None:
-        wrapper.launches += steps
-    else:
-        wrapper.launches_c16 += steps
+    """Add ``steps`` to a kernel wrapper's launch count for the storage
+    ``dev``: ``launches`` at f32, ``launches_c16`` at c16, ``launches_bf16``
+    at bf16."""
+    name = "launches" if dev is None else f"launches_{dev.name}"
+    setattr(wrapper, name, getattr(wrapper, name) + steps)
 
 
 def check_inputs(cells: torch.Tensor, nobst: torch.Tensor, n_steps: int, min_ny: int,
                  dev=None) -> None:
-    """Shapes, dtypes and devices a kernel takes; ``dev`` (c16) wants int16 codes."""
+    """Shapes, dtypes and devices a kernel takes: an f32 state, or with
+    ``dev`` its storage's (int16 c16 codes, bfloat16), and an f32 mask."""
     if cells.dim() != 3 or cells.shape[0] != 9:
         raise ValueError(f"state must be (9, ny, nx), got {tuple(cells.shape)}")
     if dev is not None:
-        if cells.dtype != torch.int16 or nobst.dtype != torch.float32:
-            raise ValueError("c16 storage takes an int16 state and an f32 not-obstacle plane")
+        if cells.dtype != dev.dtype or nobst.dtype != torch.float32:
+            raise ValueError(f"{dev.name} storage takes a {dev.dtype} state and an f32 "
+                             "not-obstacle plane")
     elif cells.dtype != torch.float32 or nobst.dtype != torch.float32:
         raise ValueError("the kernels take f32 state and an f32 not-obstacle plane"
-                         + (" (int16 c16 codes need a DevSpec)" if cells.dtype == torch.int16
-                            else ""))
+                         + {torch.int16: " (int16 c16 codes need a DevSpec)",
+                            torch.bfloat16: " (a bfloat16 state needs devspace.BF16)"}
+                         .get(cells.dtype, ""))
     if tuple(nobst.shape) != tuple(cells.shape[1:]):
         raise ValueError(f"nobst {tuple(nobst.shape)} does not match the grid {tuple(cells.shape[1:])}")
     if nobst.device != cells.device:
@@ -128,7 +135,7 @@ def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired
 
     ``cells`` is left unchanged. ``inv_tot_cells`` is the f32 value of
     1 / (unblocked cells). The kernel implements the fused collision form.
-    ``dev``: c16 storage (int16 ``cells``).
+    ``dev``: 16-bit storage (int16 c16 codes or bf16 ``cells``).
     """
     if cells.device.type == "cpu":
         return run_step_plain(cells, nobst, density, accel, omega, n_steps,
@@ -152,7 +159,7 @@ def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired
         rc = lib.lbm_step_run(
             a.data_ptr(), b.data_ptr(), nobst.data_ptr(), av.data_ptr(),
             partials.data_ptr(), ticket.data_ptr(), ny, nx, n_steps,
-            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.storage(dev), stream,
         )
     _build.check(rc, "step kernel")
     count_launches(run_step, n_steps, dev)
@@ -161,3 +168,4 @@ def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired
 
 run_step.launches = 0  # K1 steps launched in this process
 run_step.launches_c16 = 0  # K1 steps launched at c16
+run_step.launches_bf16 = 0  # K1 steps launched at bf16

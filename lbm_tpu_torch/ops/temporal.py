@@ -36,6 +36,9 @@ packs hold int16 codes (``make_halos_t`` packs the input's codes); K5 and
 ``step_t_plain`` decode the window's three sources as they read them and
 encode the pass's output once, the packs from the same codes as the state
 rows they copy (one rounding per pass of T steps).
+
+bf16 storage (``dev=devspace.BF16``): the state and the packs hold
+bfloat16, rounded once per pass from the same f32 values.
 """
 
 from __future__ import annotations
@@ -148,7 +151,7 @@ def step_t_plain(state, nobst, density, accel, omega, block, depth, *, inv_tot_c
                  paired="fused", dev=None):
     """One pass of ``depth`` steps in plain PyTorch (``step_t_pallas``).
     Returns ``((cells, last_o, first_o), av)`` with ``depth`` av values.
-    ``dev``: c16 storage (int16 state and packs)."""
+    ``dev``: 16-bit storage (c16 codes or bf16 in the state and packs)."""
     cells, last_t, first_t = state
     _, ny, nx = cells.shape
     nblk, last = block_heights(ny, block)
@@ -204,7 +207,7 @@ def _launch(state, nobst, density, accel, omega, inv_tot_cells, block, depth, pa
         rc = lib.lbm_temporal_run(
             *(x.data_ptr() for x in bufs), nobst.data_ptr(), av.data_ptr(),
             partials.data_ptr(), ticket.data_ptr(), ny, nx, b, t, p, npasses,
-            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.codec(dev), stream,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.storage(dev), stream,
         )
     _build.check(rc, "temporal kernel")
     count_launches(run_temporal, npasses * t, dev)
@@ -223,7 +226,7 @@ def step_t(state, nobst, density, accel, omega, block, depth, *, panel=None, inv
            paired="fused", dev=None):
     """One pass of ``depth`` steps on ``(cells, last_t, first_t)``: kernel K5
     on CUDA, ``step_t_plain`` on CPU. Returns ``((cells, last_o, first_o),
-    av)``. ``dev``: c16 storage (int16 state and packs)."""
+    av)``. ``dev``: 16-bit storage (c16 codes or bf16 in the state and packs)."""
     cells = state[0]
     _check(cells, nobst, depth, block, depth, panel, dev)
     if cells.device.type == "cpu":
@@ -249,7 +252,7 @@ def run_temporal(cells, nobst, density, accel, omega, n_iters, block, depth, *, 
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K5 on CUDA (and K1
     for the remainder), ``run_temporal_plain`` on CPU. ``cells`` is left
     unchanged. The kernel implements the fused collision form. ``dev``:
-    c16 storage (int16 ``cells``)."""
+    16-bit storage (int16 c16 codes or bf16 ``cells``)."""
     if cells.device.type == "cpu":
         return run_temporal_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
                                   panel=panel, inv_tot_cells=inv_tot_cells, paired=paired,
@@ -269,3 +272,4 @@ def run_temporal(cells, nobst, density, accel, omega, n_iters, block, depth, *, 
 
 run_temporal.launches = 0  # steps K5 advanced in this process
 run_temporal.launches_c16 = 0  # steps K5 advanced at c16
+run_temporal.launches_bf16 = 0  # steps K5 advanced at bf16

@@ -37,6 +37,17 @@ the first four cards.
   (``lbm_step_sharded_c16``); on a 2-D mesh ``auto`` and ``reference`` run
   that plain step and ``pallas`` raises, as the JAX package's 2-D mesh
   has no c16 kernel; ``pallas-overlap`` raises at c16.
+- ``dtype=torch.bfloat16`` (``devspace.BF16``): every shard holds bfloat16,
+  checkpoints and the result its exact f32 values. On a 1-D mesh
+  ``auto``/``pallas`` run K3 at bf16 and ``band``/``band2`` K8/K10 at bf16;
+  ``pallas-overlap`` runs the f32 K12 between one cast to f32 at a chunk's
+  start and one rounding to bf16 at its end, as the JAX package's
+  ``init_state`` and runner do (sharded.py:466-468, :723-732), so its
+  result depends on the chunk boundaries. ``reference``, and ``auto`` on a
+  2-D mesh, run ``lbm_step_sharded_2d`` on bf16 tensors, each operation
+  rounding in bf16, as the JAX package runs its jnp step at bf16
+  (sharded.py:546-560: only f32 takes the 2-D kernel); 2-D ``pallas``
+  raises.
 
 A backend that names a kernel never runs something else. The JAX package
 quietly runs its jnp step for ``band3`` under a 1-D mesh and for ``band2``
@@ -58,7 +69,7 @@ from lbm_tpu_torch.ops.reference import collide
 from lbm_tpu_torch.ops.shard_step import sync, with_ring
 from lbm_tpu_torch.runtime.device import list_devices
 from lbm_tpu_torch.runtime.driver import (SimulationResult, compute_chunk_sizes, is_c16,
-                                          warn_saturation)
+                                          storage_spec, stored_16, warn_saturation)
 
 # Backends the single-device driver runs and a mesh refuses.
 SINGLE_DEVICE_BACKENDS = ("resident", "aa", "temporal", "deep", "slab")
@@ -182,25 +193,25 @@ def lbm_step_sharded_c16(shards, obst_shards, density, accel, omega, ny_global, 
 
 def mesh_totals(sums: torch.Tensor, inv_tot_cells) -> torch.Tensor:
     """Per-step totals of the raw per-shard sums ``(nshards, n)``: added in
-    shard-index order, then multiplied by ``inv_tot_cells`` in their type."""
+    shard-index order, then multiplied by ``inv_tot_cells`` in their type;
+    bf16 sums (the plain bf16 step's) by an f32 ``inv_tot_cells``, in f32,
+    as JAX promotes them."""
     tot = sums[0]
     for z in range(1, sums.shape[0]):
         tot = tot + sums[z]
-    return tot * torch.as_tensor(inv_tot_cells, dtype=sums.dtype, device=sums.device)
+    dtype = torch.float32 if sums.dtype == torch.bfloat16 else sums.dtype
+    return tot.to(dtype) * torch.as_tensor(inv_tot_cells, dtype=dtype, device=sums.device)
 
 
 def _storage(dtype):
     """The storage of a run (a torch dtype or ``"c16"``), or raise for one
-    not ported."""
+    the runner does not store."""
     if dtype is None:
         return torch.float32
     if is_c16(dtype):
         return dtype
-    if dtype in (torch.bfloat16, torch.int16):
-        raise ValueError(f"{dtype} storage under a mesh is not yet ported; use f32, f64 or "
-                         "c16")
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {dtype}; use float32, float64 or 'c16'")
+    if dtype not in (torch.float32, torch.float64, torch.bfloat16):
+        raise ValueError(f"unsupported dtype {dtype}; use float32, float64, bfloat16 or 'c16'")
     return dtype
 
 
@@ -211,8 +222,9 @@ def pick_shard_step(params: LBMParams, mesh, backend: str, dtype):
     or ``band2`` (K10), schedule ``(block, depth, panel)`` of the band
     routes from the single-device picker. Refusals raise ``ValueError``
     with the JAX package's wording. At c16 every route but
-    ``pallas-overlap`` takes the codes on a 1-D mesh; a 2-D mesh runs the
-    plain c16 step (``reference``)."""
+    ``pallas-overlap`` takes the codes on a 1-D mesh, at bf16 every route;
+    a 2-D mesh runs the plain step of its storage (``reference``) and
+    refuses ``pallas`` at 16 bits."""
     from lbm_tpu_torch.runtime.driver import BACKENDS, band2_config, band_config
 
     two_d = isinstance(mesh, tuple)
@@ -237,13 +249,12 @@ def pick_shard_step(params: LBMParams, mesh, backend: str, dtype):
     if backend == "band3":
         raise ValueError("band3 backend has no sharded kernel; use --backend "
                          "auto/pallas/pallas-overlap/band/band2/reference with --mesh")
-    if is_c16(dtype):
-        if backend == "pallas-overlap":
-            raise ValueError("pallas-overlap does not support c16 storage yet")
-        if two_d:
-            if backend == "pallas":
-                raise ValueError("2-D-mesh pallas backend is f32-only")
-            return "reference", None
+    if is_c16(dtype) and backend == "pallas-overlap":
+        raise ValueError("pallas-overlap does not support c16 storage yet")
+    if stored_16(dtype) and two_d:
+        if backend == "pallas":
+            raise ValueError("2-D-mesh pallas backend is f32-only")
+        return "reference", None
     if backend == "reference" or (backend == "auto" and dtype == torch.float64):
         return "reference", None
     rows, cols = params.ny // py, params.nx // px
@@ -284,14 +295,14 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
     if start_step >= params.max_iters:
         raise ValueError("start_step is beyond max_iters")
     dtype = _storage(dtype)
-    spec = devspace.DevSpec.for_params(params.density, params.accel) if is_c16(dtype) else None
+    spec = storage_spec(params, dtype)
     full_dtype = torch.float32 if spec is not None else dtype
     if initial_cells is None:
         full = D2Q9.initial_state(params, dtype=full_dtype)
     else:
         full = torch.as_tensor(np.asarray(initial_cells)).to(full_dtype)
     if spec is not None:
-        full = devspace.encode_state(full, spec)  # the rest state encodes to 0
+        full = devspace.encode_state(full, spec)  # c16: the rest state encodes to 0
     obst = torch.as_tensor((obstacles != 0).astype(np.int32))
     shards = split(full, mesh)
     obst_shards = split(obst, mesh)
@@ -306,7 +317,7 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
         if route == "reference":
             sums = []
             for _ in range(n):
-                if spec is None:
+                if not is_c16(dtype):  # bf16: the step computes in bf16
                     shards, s = lbm_step_sharded_2d(shards, obst_shards, *scalars, params.ny)
                 else:
                     shards, s = lbm_step_sharded_c16(shards, obst_shards, *scalars, params.ny,
@@ -323,11 +334,20 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
                        **kw)
         from lbm_tpu_torch.ops.shard_step import run_shard_overlap, run_shard_step
 
-        run = run_shard_overlap if route == "pallas-overlap" else run_shard_step
-        return run(shards, nob_shards, *scalars, n, params.ny, **kw)
+        if route == "pallas-overlap":
+            # K12 stores f32 only: at bf16 the chunk runs on the f32 values
+            # and rounds once at its end, as the JAX package's runner does.
+            full = shards if spec is None else [[devspace.decode_state(s, spec) for s in row]
+                                                for row in shards]
+            full, sums = run_shard_overlap(full, nob_shards, *scalars, n, params.ny,
+                                           paired=paired)
+            return (full if spec is None else [[devspace.encode_state(s, spec) for s in row]
+                                               for row in full]), sums
+        return run_shard_step(shards, nob_shards, *scalars, n, params.ny, **kw)
 
     def as_full(shards):
-        """The host's view of the state: c16 codes decode to f32."""
+        """The host's view of the state: c16 codes decode to f32, bf16
+        widens to f32."""
         if spec is not None:
             shards = [[devspace.decode_state(s, spec) for s in row] for row in shards]
         return gather(shards).numpy()
@@ -354,10 +374,10 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
         if checkpoint_path is not None and checkpoint_every:
             from lbm_tpu_torch.runtime.checkpoint import save_checkpoint
 
-            # c16 checkpoints hold the decoded f32 state, as on one device.
+            # 16-bit checkpoints hold the decoded f32 state, as on one device.
             save_checkpoint(checkpoint_path, params, as_full(shards), np.concatenate(av_chunks),
                             step)
-    if spec is not None:
+    if is_c16(dtype):
         warn_saturation(max(devspace.max_abs_code(s) for row in shards for s in row), spec)
     devices = [str(d) for d in mesh.flat]
     return SimulationResult(

@@ -6,7 +6,10 @@ checkpoint written by either package resumes in the other: ``version``
 prefix, the completed ``step`` count, and ``params`` (the seven fields, f64)
 to validate against the run. Writes are atomic (a temporary file renamed
 over the target). The JAX package's orbax format is JAX-only and is not
-ported.
+ported. A 16-bit run's checkpoint holds the f32 values of its state (for
+bf16 exact, so a resume gets the state's bits back); a bf16 checkpoint of
+the JAX package, whose cells npz holds as raw 2-byte records, loads here
+as those exact values.
 """
 
 from __future__ import annotations
@@ -57,6 +60,11 @@ def load_checkpoint(path, params: LBMParams):
             raise ValueError(f"checkpoint params {saved.tolist()} do not match run params "
                              f"{expect.tolist()}")
         cells, av_vels, step = data["cells"], data["av_vels"], int(data["step"])
+    if cells.dtype == np.dtype("V2"):
+        # The JAX package saves a bf16 state (an ml_dtypes array) as raw
+        # 2-byte records: their bits, shifted into the top half of an f32,
+        # are its exact values.
+        cells = (cells.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
     if cells.shape != (9, params.ny, params.nx) or av_vels.shape != (step,):
         raise ValueError(f"checkpoint holds cells {cells.shape} and {av_vels.shape[0]} av values "
                          f"at step {step}; the run needs (9, {params.ny}, {params.nx}) and {step}")

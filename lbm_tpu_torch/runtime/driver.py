@@ -45,6 +45,25 @@ BENCHMARKS.md round 3). Every other backend takes c16 when named but
 ``resident``, which raises as in the JAX package: a backend that names a
 kernel never runs another.
 
+``dtype=torch.bfloat16`` stores the state as bfloat16 (``devspace.BF16``:
+no codec), experimental as in the JAX package: a raw bf16 state drifts far
+past the 1% gate. The state is cast on upload; the kernels widen each
+value they load and round each value they store, where the JAX kernels
+do (per step: K1, K2; per pass: K5-K11, K13; K11 once more after step
+T-2 of its final pass, ``ops/band3.py``); the av series and
+``inv_tot_cells`` stay f32; checkpoints and ``result.cells`` hold the f32
+values of the bf16 state, which are exact, so a resume casts them back bit
+for bit and writes the uninterrupted run's bytes. ``auto`` at bf16 runs
+``aa`` (K2), as the JAX package's auto does at bf16 on the official decks
+(``select_aa``); its move of states of 1 GB and up to the temporal kernel
+(driver.py:924-935) is not taken: K5 rounds once per pass, another
+function, and K2 has no size cap on the card (on an H100 K2 bf16 also took
+21-29% less time per step than K1 bf16 at 1024^2 and 2048^2, PERF.md).
+``reference`` at bf16 is the plain step on bf16 tensors, every operation
+rounding in bf16 as the JAX reference step computes in the state's dtype.
+Every other backend takes bf16 but ``resident``, which raises with the JAX
+package's wording.
+
 ``run_simulation`` runs ``[start_step, max_iters)`` in chunks whose
 boundaries fall on every multiple of ``checkpoint_every`` and of
 ``chunk_every``, writing a checkpoint (``runtime/checkpoint.py``) at each
@@ -80,6 +99,24 @@ C16 = "c16"
 
 def is_c16(dtype) -> bool:
     return isinstance(dtype, str) and dtype == C16
+
+
+def stored_16(dtype) -> bool:
+    """Whether ``dtype`` names a 16-bit storage mode (c16 or bf16)."""
+    return is_c16(dtype) or dtype == torch.bfloat16
+
+
+def storage_spec(params: LBMParams, dtype):
+    """The ``dev`` of a run's storage (``ops/devspace.py``): None for f32
+    and f64, a ``DevSpec`` from the params for c16, ``BF16`` for bf16."""
+    if is_c16(dtype):
+        return devspace.DevSpec.for_params(params.density, params.accel)
+    return devspace.BF16 if dtype == torch.bfloat16 else None
+
+
+def _kernel_dtype(dtype) -> bool:
+    """Whether the T-step kernels store ``dtype``: f32, c16 or bf16."""
+    return stored_16(dtype) or dtype == torch.float32
 
 
 @dataclasses.dataclass
@@ -134,23 +171,24 @@ _RESIDENT_AUTO_MAX_STATE = 9 * 384 * 384 * 4
 
 def band_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The band kernel's schedule ``(block, depth, panel)`` (driver.py:468-498
-    of the JAX package), or None for a dtype it does not store (f32 and c16)."""
+    of the JAX package), or None for a dtype it does not store (f32, c16
+    and bf16 take one schedule: the window is f32 in shared memory)."""
     del params
-    return _BAND_SCHEDULE if is_c16(dtype) or dtype == torch.float32 else None
+    return _BAND_SCHEDULE if _kernel_dtype(dtype) else None
 
 
 def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The band2 kernel's schedule ``(block, depth, panel)`` (driver.py:590-610),
-    or None for a dtype it does not store (f32 and c16)."""
+    or None for a dtype it does not store (f32, c16 and bf16)."""
     del params
-    return _BAND2_SCHEDULE if is_c16(dtype) or dtype == torch.float32 else None
+    return _BAND2_SCHEDULE if _kernel_dtype(dtype) else None
 
 
 def band3_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The band3 kernel's schedule ``(block, depth, panel)`` (driver.py:691-720),
-    or None for a dtype it does not store (f32 and c16)."""
+    or None for a dtype it does not store (f32, c16 and bf16)."""
     del params
-    return _BAND3_SCHEDULE if is_c16(dtype) or dtype == torch.float32 else None
+    return _BAND3_SCHEDULE if _kernel_dtype(dtype) else None
 
 
 # K13: passes per slab visit (the JAX package's default).
@@ -195,17 +233,17 @@ def resident_config(params: LBMParams, dtype) -> int | None:
 def temporal_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The temporal kernel's schedule ``(block, depth, panel)``
     (``pick_block``/``pick_depth`` of the JAX package), or None for a dtype
-    it does not store (f32 and c16)."""
+    it does not store (f32, c16 and bf16)."""
     del params
-    return _TEMPORAL_SCHEDULE if is_c16(dtype) or dtype == torch.float32 else None
+    return _TEMPORAL_SCHEDULE if _kernel_dtype(dtype) else None
 
 
 def deep_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The deep kernel's schedule ``(block, depth, panel)``
     (``pallas_deep.pick_config``), or None for a dtype it does not store
-    (f32 and c16)."""
+    (f32, c16 and bf16)."""
     del params
-    return _DEEP_SCHEDULE if is_c16(dtype) or dtype == torch.float32 else None
+    return _DEEP_SCHEDULE if _kernel_dtype(dtype) else None
 
 
 def pass_schedule(route: str, params: LBMParams, dtype):
@@ -229,7 +267,7 @@ def pass_schedule(route: str, params: LBMParams, dtype):
         cfg, need = deep_config(params, dtype), "ny >= 2"
     if cfg is None or not supported(params.ny, params.nx, *cfg):
         raise ValueError(f"grid {params.ny}x{params.nx} unsupported by the {route} kernel "
-                         f"(schedule {cfg}; it needs f32 or c16 and {need})")
+                         f"(schedule {cfg}; it needs f32, c16 or bf16 and {need})")
     return run, cfg
 
 
@@ -252,10 +290,8 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     c16 = is_c16(dtype)
-    if dtype == torch.bfloat16:
-        raise ValueError("bf16 storage is not yet ported; use float32, float64 or 'c16'")
-    if not c16 and dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {dtype}; use float32, float64 or 'c16'")
+    if not c16 and dtype not in (torch.float32, torch.float64, torch.bfloat16):
+        raise ValueError(f"unsupported dtype {dtype}; use float32, float64, bfloat16 or 'c16'")
     if backend == "slab" and os.environ.get("LBM_ENABLE_SLAB") != "1":
         raise ValueError(
             "slab backend is quarantined (a documented negative result on the TPU, where "
@@ -266,6 +302,10 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
     if c16 and backend == "resident":
         raise ValueError("resident backend does not support c16 storage (use "
                          "auto/pallas/temporal/deep/band/aa)")
+    if dtype == torch.bfloat16 and backend == "resident":
+        raise ValueError(f"grid {params.ny}x{params.nx} (dtype bfloat16) does not fit the "
+                         "resident kernel, which stores f32 only (use auto/aa/pallas/band/"
+                         "band2/band3/temporal/deep)")
     if dtype == torch.float64:
         if backend in KERNEL_BACKENDS:
             raise ValueError(
@@ -289,6 +329,8 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
             return "reference"
         if c16:
             return "pallas"
+        if dtype == torch.bfloat16:
+            return "aa" if params.ny >= AA_MIN_NY else "pallas"
         return "resident" if 9 * params.ny * params.nx * 4 <= _RESIDENT_AUTO_MAX_STATE else "band3"
     return backend
 
@@ -361,7 +403,7 @@ def run_simulation(
     is called after every chunk with the step reached, the state as a
     tensor where it lies (decoded f32 at c16) and the chunk's av values.
     ``fetch_final=False`` leaves ``result.cells`` None. ``dtype="c16"``
-    runs on c16 storage (module docstring).
+    runs on c16 storage, ``torch.bfloat16`` on bf16 (module docstring).
     """
     if checkpoint_format != "npz":
         raise ValueError("orbax checkpoints are JAX-only (lbm_tpu); use checkpoint_format='npz'")
@@ -379,14 +421,14 @@ def run_simulation(
         raise ValueError(f"obstacle mask {obstacles.shape} != grid ({params.ny}, {params.nx})")
     if start_step >= params.max_iters:
         raise ValueError("start_step is beyond max_iters")
-    spec = devspace.DevSpec.for_params(params.density, params.accel) if is_c16(dtype) else None
+    spec = storage_spec(params, dtype)
     full_dtype = torch.float32 if spec is not None else dtype
     if initial_cells is None:
         cells = D2Q9.initial_state(params, dtype=full_dtype, device=device)
     else:
         cells = torch.as_tensor(np.asarray(initial_cells)).to(device=device, dtype=full_dtype)
     if spec is not None:
-        cells = devspace.encode_state(cells, spec)  # the rest state encodes to 0
+        cells = devspace.encode_state(cells, spec)  # c16: the rest state encodes to 0
     obst = obstacles_from_numpy(obstacles, device)
     tot_cells = int(np.sum(obstacles == 0))  # d2q9-bgk.c:146-152
     # The f32 (or f64) value of 1/tot_cells multiplies each step's sum, so
@@ -395,7 +437,7 @@ def run_simulation(
     paired = paired_default()  # read once, outside the loop
     nobst = (obst == 0).to(torch.float32)
     scalars = (params.density, params.accel, params.omega)
-    # Every route but K4's takes ``dev`` (select_route refused K4 at c16).
+    # Every route but K4's takes ``dev`` (select_route refused K4 at 16 bits).
     kw = dict(paired=paired) if spec is None else dict(paired=paired, dev=spec)
 
     def advance(cells, n):
@@ -404,7 +446,7 @@ def run_simulation(
             inv = torch.tensor(inv_np, device=device)
             av = torch.empty(n, dtype=full_dtype, device=device)
             for t in range(n):
-                if spec is None:
+                if not is_c16(dtype):  # bf16: the step computes in bf16
                     cells, tot_u = lbm_step_reference(cells, obst, *scalars)
                 else:
                     cells, tot_u = devspace.lbm_step_reference_c16(cells, obst, *scalars, spec)
@@ -432,7 +474,8 @@ def run_simulation(
         return run(cells, nobst, *scalars, n, float(inv_np), **kw)
 
     def as_full(cells):
-        """The observer's view of the state: c16 codes decode to f32."""
+        """The observer's view of the state: c16 codes decode to f32, bf16
+        widens to f32 exactly."""
         return cells if spec is None else devspace.decode_state(cells, spec)
 
     t0 = time.perf_counter()
@@ -459,13 +502,14 @@ def run_simulation(
                 step % checkpoint_every == 0 or step == params.max_iters):
             from lbm_tpu_torch.runtime.checkpoint import save_checkpoint
 
-            # c16 checkpoints hold the decoded f32 state, the format of
-            # either package; a resume re-encodes it to the same values.
+            # 16-bit checkpoints hold the decoded f32 state, the format of
+            # either package; a resume re-encodes it to the same values
+            # (bf16: to the same bits).
             save_checkpoint(checkpoint_path, params, as_full(cells).cpu().numpy(),
                             np.concatenate(av_chunks), step)
 
     final = as_full(cells).cpu().numpy() if fetch_final else None
-    if spec is not None:
+    if is_c16(dtype):
         warn_saturation(devspace.max_abs_code(cells), spec)
     return SimulationResult(
         cells=final,

@@ -192,14 +192,22 @@ def test_pass_route_schedules_at_c16():
 
 
 @pytest.mark.parametrize("backend", ["auto", "pallas", "band2", "temporal", "deep"])
-def test_bf16_is_not_yet_ported(backend):
-    """bf16 storage, experimental in the JAX package, is not ported yet:
-    every route says so, on one device and under a mesh."""
-    with pytest.raises(ValueError, match="not yet ported"):
-        tdriver.select_route(PARAMS, backend, torch.bfloat16)
-    with pytest.raises(ValueError, match="not yet ported"):
-        Simulation(PARAMS, small_obstacles()).run(device="cpu", mesh=2, backend="auto",
-                                                  dtype=torch.bfloat16)
+def test_bf16_routes_on_one_device_and_a_mesh(backend):
+    """bf16 storage, experimental in the JAX package, runs on every route:
+    each backend keeps its route (``auto``: K2), the state comes back as
+    the exact f32 values of a bf16 state, and a 2-shard mesh runs K3's
+    plain bf16 form (tests/test_torch_bf16*.py hold them to the JAX
+    package)."""
+    params = dataclasses.replace(PARAMS, max_iters=5)
+    res = Simulation(params, small_obstacles()).run(device="cpu", backend=backend,
+                                                    dtype=torch.bfloat16)
+    assert res.route == ("aa" if backend == "auto" else backend)
+    assert res.cells.dtype == np.float32 and np.isfinite(res.av_vels).all()
+    np.testing.assert_array_equal(
+        res.cells, torch.as_tensor(res.cells).to(torch.bfloat16).float().numpy())
+    mesh = Simulation(params, small_obstacles()).run(device="cpu", mesh=2, backend="auto",
+                                                     dtype=torch.bfloat16)
+    assert mesh.route == "pallas" and mesh.shard_devices == ("cpu", "cpu")
 
 
 # The JAX package's schedule of each route on the CLI deck below, through

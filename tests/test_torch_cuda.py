@@ -1,7 +1,7 @@
 """The CUDA kernels on the card: K1, K2, the band kernels K7, K9, K11, the
 resident, temporal and deep kernels K4, K5, K6, the shard kernels K3,
-K12, K8, K10, the slab kernel K13 and the c16 forms of K1, K2, K3, K5-K11
-and K13 against their plain versions.
+K12, K8, K10, the slab kernel K13 and the c16 and bf16 forms of K1, K2,
+K3, K5-K11 and K13 against their plain versions.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -14,7 +14,11 @@ Tolerances: cells within 1e-5 of the state's scale and the av series at
 rtol 1e-4 (the kernels contract multiply-adds into FMAs and sum in another
 order than PyTorch); at c16 the decoded cells within 5e-6 and the av
 series at rtol 1e-3 (an FMA can move a code by one quantum at a rounding
-tie).
+tie); at bf16 every value within 2 ulps, at most 1% of them differing and
+the av series at rtol 1e-3 over a pass and a remainder (4 ulps, 5%, 5e-3
+over more steps, where a flipped value's neighbours flip in turn): held
+by tolerance, never by bits, as FMA contraction can flip a rounding; two
+runs of a kernel are held by bits.
 """
 
 import os
@@ -381,7 +385,8 @@ def test_shard_kernels_refuse(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, "c16"], ids=["f32", "c16"])
+@pytest.mark.parametrize("dtype", [torch.float32, "c16", torch.bfloat16],
+                         ids=["f32", "c16", "bf16"])
 @pytest.mark.parametrize("repeat", [1, 2], ids=["once", "twice"])
 @pytest.mark.parametrize("backend,mesh", [("pallas", None), ("pallas-overlap", None),
                                           ("band", None), ("band2", None), ("auto", "2d")])
@@ -394,7 +399,11 @@ def test_mesh_across_cards(cuda_device, backend, mesh, repeat, dtype):
     for bit. At c16 (K12 refuses it) the rings and halos carry codes
     across the cards: K3 gives K1 c16's bits, K8 and K10 the single-card
     K7 and K9 c16 runs', the 2-D plain step the single-card plain c16
-    step's values within the c16 tolerance."""
+    step's values within the c16 tolerance. At bf16 the same with bf16
+    values (K12 runs f32 between one cast in and one out: the single-card
+    K12 bf16 run's bits), and the 2-D plain bf16 step tracks the
+    single-card plain bf16 step loosely (each rounds every operation, in
+    its own order)."""
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.parallel.sharded import run_simulation_sharded, run_simulation_sharded_2d
     from lbm_tpu_torch.runtime.driver import run_simulation
@@ -403,6 +412,7 @@ def test_mesh_across_cards(cuda_device, backend, mesh, repeat, dtype):
     if n < 2 or (mesh and n % 2):
         pytest.skip("needs two or more CUDA devices (an even count for 2-D)")
     c16 = dtype == "c16"
+    sixteen = c16 or dtype == torch.bfloat16
     if c16 and backend == "pallas-overlap":
         pytest.skip("K12 takes f32 only, as the JAX package's pallas-overlap")
     devices = [f"cuda:{i}" for i in range(n)] * repeat
@@ -412,8 +422,12 @@ def test_mesh_across_cards(cuda_device, backend, mesh, repeat, dtype):
     obs[0] = obs[-1] = 1
     obs[np.random.RandomState(2).randint(1, params.ny - 1, 20), 7] = 1
     single = {"pallas": "pallas", "band": "band", "band2": "band2", "auto": "reference"}
-    want = run_simulation(params, obs, device="cuda:0", dtype=dtype,
-                          backend=single[backend] if c16 else "pallas")
+    if dtype == torch.bfloat16 and backend == "pallas-overlap":
+        want = run_simulation_sharded(params, obs, devices=["cuda:0"] * len(devices),
+                                      backend=backend, dtype=dtype)
+    else:
+        want = run_simulation(params, obs, device="cuda:0", dtype=dtype,
+                              backend=single[backend] if sixteen else "pallas")
     if mesh:
         got = run_simulation_sharded_2d(params, obs, mesh_shape=(2, n * repeat // 2),
                                         devices=devices, backend=backend, dtype=dtype)
@@ -423,6 +437,10 @@ def test_mesh_across_cards(cuda_device, backend, mesh, repeat, dtype):
     if c16 and mesh:
         assert np.abs(got.cells - want.cells).max() < 5e-6
         np.testing.assert_allclose(got.av_vels, want.av_vels, rtol=1e-3)
+        return
+    if sixteen and mesh:  # the plain bf16 step rounds every operation in its own order
+        assert np.abs(got.cells - want.cells).max() <= 2.0 ** -7 * np.abs(want.cells).max()
+        np.testing.assert_allclose(got.av_vels, want.av_vels, rtol=2e-2)
         return
     np.testing.assert_array_equal(got.cells, want.cells)
     np.testing.assert_allclose(got.av_vels, want.av_vels, rtol=1e-5)
@@ -489,3 +507,147 @@ def test_overlap_kernel_refuses_c16(cuda_device):
     codes = [[tdev.encode_state(s, SPEC) for s in row] for row in shards]
     with pytest.raises(ValueError, match="int16"):
         tshard.run_shard_overlap(codes, nob, DENSITY, ACCEL, OMEGA, 2, 32)
+
+
+BF16 = tdev.BF16
+# (ulps per cell, fraction of cells differing, av rtol): one pass and a
+# remainder; over more steps the flips of the first roundings spread
+# (tests/test_torch_bf16.py).
+BF16_TOL, BF16_SPREAD_TOL = (2, 0.01, 1e-3), (4, 0.05, 5e-3)
+
+
+def bf16_ulps(got, want):
+    """Per-value distance of two bf16 tensors in ulps, on their bit patterns."""
+    def ordered(x):
+        u = x.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def assert_bf16_close(got, want, tol=BF16_TOL):
+    (gc, ga), (wc, wa) = got, want
+    assert gc.dtype == torch.bfloat16 and wc.dtype == torch.bfloat16
+    ulps = bf16_ulps(gc, wc)
+    assert int(ulps.max()) <= tol[0]
+    assert float((ulps > 0).float().mean()) <= tol[1]
+    np.testing.assert_allclose(ga.cpu().numpy(), wa.cpu().numpy(), rtol=tol[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [7, 19])
+@pytest.mark.parametrize("name", list(C16_KERNELS))
+def test_bf16_kernel_matches_plain_and_repeats(cuda_device, name, iters):
+    """The bf16 forms on a ragged 97 x 70 grid (T-step kernels under 24 x 20
+    or 20 x 20 tiles, T 4: passes and a K1 remainder); the bf16 counter, not
+    the f32 or c16 one, counts them; a second run is bitwise equal."""
+    kernel, plain, cfg = C16_KERNELS[name]
+    cells, nobst = make_setup(cuda_device, 70, 97, seed=iters)
+    x = tdev.encode_state(cells, BF16)
+
+    def run(fn):
+        if cfg is None:
+            return fn(x, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0, dev=BF16)
+        return fn(x, nobst, DENSITY, ACCEL, OMEGA, iters, cfg[0], cfg[1], panel=cfg[2], dev=BF16)
+
+    before = (kernel.launches, kernel.launches_c16, kernel.launches_bf16)
+    got = run(kernel)
+    assert (kernel.launches, kernel.launches_c16) == before[:2]
+    assert kernel.launches_bf16 == before[2] + (iters if cfg is None else iters // 4 * 4)
+    again = run(kernel)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert_bf16_close(got, run(plain), BF16_TOL if cfg is None or iters < 8 else BF16_SPREAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kpasses,sblock,iters", [(1, 8, 7), (2, 12, 19)])
+def test_bf16_slab_kernel_matches_plain_and_repeats(cuda_device, kpasses, sblock, iters):
+    """K13 at bf16 on a 96 x 70 grid under 24 x 20 tiles, T 4: a generation
+    and a remainder; a second run is bitwise equal."""
+    cells, nobst = make_setup(cuda_device, 70, 96, seed=iters)
+    x = tdev.encode_state(cells, BF16)
+
+    def run(fn):
+        return fn(x, nobst, DENSITY, ACCEL, OMEGA, iters, 24, 4, kpasses, sblock, panel=20,
+                  dev=BF16)
+
+    before = tslab.run_band_slab.launches_bf16
+    got = run(tslab.run_band_slab)
+    assert tslab.run_band_slab.launches_bf16 == before + iters // (4 * kpasses) * 4 * kpasses
+    again = run(tslab.run_band_slab)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert_bf16_close(got, run(tslab.run_band_slab_plain),
+                      BF16_TOL if iters < 8 else BF16_SPREAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [7, 11])
+@pytest.mark.parametrize("name", list(C16_MESH))
+def test_bf16_mesh_kernels_match_plain_and_repeats(cuda_device, name, iters):
+    """K3, K8 and K10 at bf16 on 4 row shards of a 100 x 70 grid (the band
+    kernels with T 4 and a K3 remainder): against their plain bf16 forms;
+    the bf16 counter counts them; a second run is bitwise equal."""
+    kernel, plain, cfg = C16_MESH[name]
+    ny = 100
+    cells, nobst, _, nob = mesh_setup(cuda_device, 70, ny, 4, 1, seed=iters)
+    x = tdev.encode_state(cells, BF16)
+    shards = [[x[:, i * 25:(i + 1) * 25].contiguous()] for i in range(4)]
+
+    def run(fn):
+        if cfg is None:
+            return fn(shards, nob, DENSITY, ACCEL, OMEGA, iters, ny, dev=BF16)
+        return fn(shards, nob, DENSITY, ACCEL, OMEGA, iters, cfg[0], cfg[1], ny, panel=cfg[2],
+                  dev=BF16)
+
+    before = (kernel.launches, kernel.launches_bf16)
+    got = run(kernel)
+    assert kernel.launches == before[0]
+    assert kernel.launches_bf16 == before[1] + (iters if cfg is None else iters // 4 * 4)
+    again = run(kernel)
+    assert torch.equal(joined(got[0]), joined(again[0])) and torch.equal(got[1], again[1])
+    want = run(plain)
+    assert_bf16_close((joined(got[0]), got[1].sum(0)), (joined(want[0]), want[1].sum(0)),
+                      BF16_TOL if cfg is None or iters < 8 else BF16_SPREAD_TOL)
+
+
+@pytest.mark.cuda
+def test_bf16_temporal_pass_packs_copy_the_state(cuda_device):
+    """One K5 pass at bf16 from packs that differ from the state's rows: the
+    state against the plain pass, and the packs hold the bits of the state
+    rows they copy."""
+    cells, nobst = make_setup(cuda_device, 70, 97, seed=5)
+    x = tdev.encode_state(cells, BF16)
+    last, first = ttemp.make_halos_t(x, 20, 4)
+    state = (x, (last.float() * 1.01).to(torch.bfloat16), (first.float() * 0.99).to(torch.bfloat16))
+    got, av = ttemp.step_t(state, nobst, DENSITY, ACCEL, OMEGA, 20, 4, panel=32, dev=BF16)
+    want, want_av = ttemp.step_t_plain(state, nobst, DENSITY, ACCEL, OMEGA, 20, 4, dev=BF16)
+    assert_bf16_close((got[0], av), (want[0], want_av))
+    own_last, own_first = ttemp.make_halos_t(got[0], 20, 4)
+    assert torch.equal(got[1], own_last) and torch.equal(got[2], own_first)
+
+
+@pytest.mark.cuda
+def test_bf16_overlap_runs_f32_between_casts(cuda_device):
+    """K12 has no bf16 form: ``pallas-overlap`` at bf16 runs the f32 kernel
+    on the widened shards and rounds once at the chunk's end (f32 counter),
+    and the kernel itself refuses bf16 shards."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.parallel.sharded import run_simulation_sharded
+
+    _, _, shards, nob = mesh_setup(cuda_device, 40, 32, 4, 1, seed=3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tshard.run_shard_overlap([[tdev.encode_state(s, BF16) for s in row] for row in shards],
+                                 nob, DENSITY, ACCEL, OMEGA, 2, 32)
+    params = LBMParams(nx=64, ny=64, max_iters=9, reynolds_dim=10, density=DENSITY, accel=ACCEL,
+                       omega=OMEGA)
+    obs = np.zeros((64, 64), np.int32)
+    obs[0] = obs[-1] = 1
+    before = tshard.run_shard_overlap.launches
+    got = run_simulation_sharded(params, obs, devices=["cuda:0"] * 4, backend="pallas-overlap",
+                                 dtype=torch.bfloat16)
+    assert tshard.run_shard_overlap.launches == before + 9
+    want = run_simulation_sharded(params, obs, devices=["cpu"] * 4, backend="pallas-overlap",
+                                  dtype=torch.bfloat16)
+    ulps = bf16_ulps(torch.as_tensor(got.cells).to(torch.bfloat16),
+                     torch.as_tensor(want.cells).to(torch.bfloat16))
+    assert int(ulps.max()) <= 2 and float((ulps > 0).float().mean()) <= 0.01

@@ -242,10 +242,15 @@ def test_kernel_backends_without_a_shard_kernel_raise(backend, mesh):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16])
-def test_storage_modes_not_yet_ported(dtype):
+def test_bf16_storage_under_a_mesh(dtype):
+    """bf16 under a mesh (``auto``: K3's plain bf16 form) gives the
+    one-device K1 bf16 run's bits: one rounding per step on both."""
     params, obs = case(24, 16, 2, seed=0)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tsh.run_simulation_sharded(params, obs, devices=["cpu"] * 2, dtype=dtype)
+    got = tsh.run_simulation_sharded(params, obs, devices=["cpu"] * 2, dtype=dtype)
+    want = tdriver.run_simulation(params, obs, device="cpu", backend="pallas", dtype=dtype)
+    assert got.route == "pallas" and got.cells.dtype == np.float32
+    np.testing.assert_array_equal(got.cells, want.cells)
+    np.testing.assert_allclose(got.av_vels, want.av_vels, rtol=1e-6)
 
 
 @pytest.fixture

@@ -134,7 +134,24 @@ PyTorch built for CUDA. Phases, each printing what it found:
    gate (the JAX CLI says so): each deck prints the checker's verdict
    against ``tests/golden/`` and is held to finite output and to the bf16
    counters, zeroed just before, which must account for every step (and
-   no f32 or c16 counter but K12's may move).
+   no f32 or c16 counter but K12's may move);
+23. K4's shared-memory form (``csrc/resident.cu``): the barrier floor (us
+   per ``grid.sync()`` of an empty cooperative loop at the global-memory
+   form's grid and at one block per SM); the form against the plain
+   version at 128^2, 128x256, 256^2, 384^2 and a ragged 130x250 grid over
+   254, 255, 256 and 511 steps, each launch counted in its own counter,
+   and two 511-step runs bitwise equal; against
+   ``run_resident_slabs_plain`` (its schedule block by block) over 9 steps
+   on 128^2 and 130x250; its time per step beside the global-memory form
+   and K2 in turns at the first four sizes, and a sweep of its rows per
+   block and T at 128^2 and 256^2;
+24. K11 (``csrc/band3.cu``) at f32, c16 and bf16 against its plain
+   version over a pass and 2T+3 steps at 1024^2, on the 1000^2 walls mask
+   and on a ragged 998 x 1000 grid, two runs of each bitwise equal; its
+   time per step beside K2 in turns at 1024^2, 2048^2 and 4096^2 for each
+   storage (the K11/K2 ratio);
+25. the ``auto`` crossover: K4 (the form ``run_resident`` picks) against
+   K11 in turns at the square sizes 128^2-768^2.
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
@@ -147,8 +164,9 @@ reference's checker; the pass routes at c16: ``PASS_GATE_C16``; bf16: no
 limit). Any failure exits non-zero
 before the last line. The last two lines are the kernel report and
 ``{"ok": true, "device": {...}}``. In the report ``ms``/``plain_ms`` are
-per step (K1, K2 and K4 at 1024^2, the c16 and bf16 forms of K1 and K2
-too, the others at 2048^2, the shard kernels with 4 shards); ``bound_ms``
+per step (K1, K2 and K4's global-memory form at 1024^2, K4's
+shared-memory form at 256^2, the c16 and bf16 forms of K1 and K2 too, the
+others at 2048^2, the shard kernels with 4 shards); ``bound_ms``
 is the least time of that step on an H100 at this run's shape: the larger
 of its bytes over 3.35 TB/s and its f32 operations
 (``FLOPS_PER_CELL_STEP``) over 67 TFLOP/s. The bytes: 76 B per cell (9
@@ -1652,6 +1670,189 @@ def bf16_path_phase(torch, cli, gpu_line, forms, slab_cfg):
     check(not moved, f"an f32 or c16 counter moved on the bf16 path: {moved}")
     return got, gates
 
+# K4's shared-memory form in the report.
+RESIDENT_SMEM = ("K4 resident, shared-memory form (slabs held on the SMs, one barrier per T "
+                 "steps)", "lbm_tpu_torch/csrc/resident.cu", "lbm_tpu/ops/pallas_resident.py:66")
+# (nx, ny) of phase 23: the three small official decks, 384^2 and a ragged grid.
+K4_SIZES = ((128, 128), (128, 256), (256, 256), (384, 384), (130, 250))
+# Steps of a timed K4 run: ten 255-step launches.
+K4_TIMED_STEPS = 2550
+
+
+def turns(torch, fns, n):
+    """{name: us per step}, the best of two runs of each of ``fns`` (name ->
+    fn running ``n`` steps), timed in turns forward and back after a warm-up."""
+    for fn in fns.values():
+        fn()
+    out = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        out[name].append(1e3 * timed(torch, fns[name])[1] / n)
+    return {name: min(v) for name, v in out.items()}
+
+
+def barrier_floor(torch, blocks, threads, syncs=2000):
+    """us per grid.sync() of a cooperative launch of blocks x threads that
+    does nothing else (csrc/resident.cu::grid_sync_kernel)."""
+    from lbm_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def go():
+        rc = lib.lbm_grid_sync_probe(blocks, threads, syncs, stream)
+        check(rc == 0, f"barrier probe ({blocks} x {threads}): CUDA error {rc}")
+
+    go()
+    return 1e3 * timed(torch, go)[1] / syncs
+
+
+def k4_smem_phase(torch, gpu_line):
+    """Phase 23; returns (max_abs_err, {(nx, ny): {form: us per step}}, the
+    plain version's ms per step at 256^2)."""
+    from lbm_tpu_torch.ops import resident
+    from lbm_tpu_torch.ops.aa import run_aa
+    from lbm_tpu_torch.ops.band_common import SMEM_LIMIT
+
+    dev = torch.device("cuda", 0)
+    sms, k4_blocks = resident.sm_count(dev), resident.max_blocks(dev)
+    for blocks, threads in ((k4_blocks, resident._THREADS), (sms, 512)):
+        log(f"  barrier floor: {barrier_floor(torch, blocks, threads):.3f} us per grid.sync() "
+            f"of {blocks} blocks x {threads} threads [{gpu_line}]")
+
+    def run(fn, c, o, n):
+        return fn(c, o, DENSITY, ACCEL, OMEGA, n, 1.0)
+
+    errs = []
+    for nx, ny in K4_SIZES:
+        cells, nobst = random_setup(torch, nx, ny, seed=nx + ny)
+        cfg = resident.resident_smem_config(ny, nx, sms)
+        check(cfg is not None, f"K4: no shared-memory schedule for {nx}x{ny}")
+        for n in (254, 255, 256, 511):
+            before = resident.run_resident.launches_smem
+            got = run(resident.run_resident, cells, nobst, n)
+            check(resident.run_resident.launches_smem == before + n,
+                  f"K4 {nx}x{ny}: not run in the shared-memory form")
+            errs.append(compare(torch, f"K4 smem {nx}x{ny} {n} steps ({cfg[0]} blocks of {cfg[1]} "
+                                f"rows, T {cfg[2]})", got,
+                                run(resident.run_resident_plain, cells, nobst, n)))
+        again = run(resident.run_resident, cells, nobst, 511)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"K4 smem {nx}x{ny} is not run-to-run deterministic")
+        # A run split where no pass ends (101 + 154 steps) gives the 255-step
+        # run bit for bit: each step's sum adds its terms in one order.
+        head = run(resident.run_resident, cells, nobst, 101)
+        tail = run(resident.run_resident, head[0], nobst, 154)
+        whole = run(resident.run_resident, cells, nobst, 255)
+        torch.cuda.synchronize()
+        check(torch.equal(tail[0], whole[0]) and torch.equal(torch.cat([head[1], tail[1]]),
+                                                             whole[1]),
+              f"K4 smem {nx}x{ny}: a run split at step 101 differs from the whole run")
+    log("  K4 smem determinism: two 511-step runs of each grid give bitwise-equal av and state, "
+        "and a 255-step run split at step 101 gives the whole run's bits")
+    for nx, ny in (K4_SIZES[0], K4_SIZES[-1]):
+        cells, nobst = random_setup(torch, nx, ny, seed=5)
+        cfg = resident.resident_smem_config(ny, nx, sms)
+        compare(torch, f"K4 smem vs run_resident_slabs_plain {nx}x{ny} 9 steps",
+                run(resident.run_resident, cells, nobst, 9),
+                resident.run_resident_slabs_plain(cells, nobst, DENSITY, ACCEL, OMEGA, 9, 1.0,
+                                                  cfg[1], cfg[2]))
+    per, n = {}, K4_TIMED_STEPS
+    for nx, ny in K4_SIZES[:4]:
+        cells, nobst = random_setup(torch, nx, ny, seed=7)
+        cfg = resident.resident_smem_config(ny, nx, sms)
+        blocks = min(k4_blocks, -(-ny * nx // resident._THREADS))
+        per[nx, ny] = turns(torch, {
+            "global-memory form": lambda: resident.launch(cells, nobst, DENSITY, ACCEL, OMEGA, n,
+                                                          1.0, 255, blocks),
+            "shared-memory form": lambda: resident.launch_smem(cells, nobst, DENSITY, ACCEL,
+                                                               OMEGA, n, 1.0, 255, cfg),
+            "K2": lambda: run(run_aa, cells, nobst, n)}, n)
+        t = per[nx, ny]
+        log(f"  K4 {nx}x{ny}: shared-memory form {t['shared-memory form']:.3f} us/step "
+            f"({cfg[0]} blocks of {cfg[1]} rows, T {cfg[2]}), global-memory form "
+            f"{t['global-memory form']:.3f}, K2 {t['K2']:.3f} (in turns); "
+            f"{t['global-memory form'] / t['shared-memory form']:.2f}x [{gpu_line}]")
+        if nx == ny and nx < 384:  # the schedule sweep: rows per block and T
+            sweep = {}
+            for rows in (-(-ny // sms), -(-ny // (sms // 2))):
+                for depth in (1, 2, 3, 4, 6):
+                    smem = resident.resident_smem_bytes(nx, rows, depth)
+                    if smem <= SMEM_LIMIT:
+                        cf = (-(-ny // rows), rows, depth, smem)
+                        sweep[rows, depth] = turns(torch, {0: lambda: resident.launch_smem(
+                            cells, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, 255, cf)}, n)[0]
+            log(f"  K4 {nx}x{ny} shared-memory schedules (rows, T: us/step): "
+                + ", ".join(f"{r}, {d}: {v:.3f}" for (r, d), v in sweep.items()))
+    cells, nobst = random_setup(torch, 256, 256, seed=7)
+    run(resident.run_resident_plain, cells, nobst, 5)
+    _, p_ms = timed(torch, lambda: run(resident.run_resident_plain, cells, nobst, 50))
+    return max(errs), per, p_ms / 50
+
+
+def k11_phase(torch, spec, gpu_line, cfg):
+    """Phase 24."""
+    from lbm_tpu_torch.ops import band3, devspace
+    from lbm_tpu_torch.ops.aa import run_aa
+
+    block, depth, panel = cfg
+    forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
+
+    def k11(c, o, n, dev):
+        return band3.run_band3(c, o, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel,
+                               dev=dev)
+
+    grids = {"1024x1024": random_setup(torch, 1024, 1024, seed=29), "walls 1000x1000":
+             walls_setup(torch, 1000, 31), "998x1000": random_setup(torch, 998, 1000, seed=37)}
+    for name, dev in forms.items():
+        for tag, (cells, nobst) in grids.items():
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+            for n in (depth, 2 * depth + 3):
+                got = k11(q, nobst, n, dev)
+                want = band3.run_band3_plain(q, nobst, DENSITY, ACCEL, OMEGA, n, block, depth,
+                                             panel=panel, dev=dev)
+                what = f"K11 {name} {tag} {n} steps"
+                if name == "bf16":
+                    bf16_compare(torch, what, got, want,
+                                 TOL_BF16 if n == depth else TOL_BF16_SPREAD)
+                else:
+                    compare(torch, what, got, want, dev)
+            again = k11(q, nobst, 2 * depth + 3, dev)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                  f"K11 {name} {tag} is not run-to-run deterministic")
+    log("  K11 determinism: two runs of each form and grid give bitwise-equal av and state")
+    del grids
+    for nx, n in ((1024, 800), (2048, 400), (4096, 100)):
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        n -= n % depth
+        for name, dev in forms.items():
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+            t = turns(torch, {"K11": lambda: k11(q, nobst, n, dev),
+                              "K2": lambda: run_aa(q, nobst, DENSITY, ACCEL, OMEGA, n, 1.0,
+                                                   dev=dev)}, n)
+            log(f"  K11 {name} {nx}x{nx}: {t['K11']:.2f} us/step, K2 {t['K2']:.2f} us/step "
+                f"(in turns): K11/K2 {t['K11'] / t['K2']:.3f} [{gpu_line}]")
+        del cells, nobst
+
+
+def crossover_phase(torch, gpu_line, cfg):
+    """Phase 25: K4 (the form run_resident picks) against K11 at square sizes
+    128^2-768^2, in turns."""
+    from lbm_tpu_torch.ops import band3, resident
+
+    sms = resident.sm_count(torch.device("cuda", 0))
+    for n in range(128, 769, 128):
+        cells, nobst = random_setup(torch, n, n, seed=3)
+        steps = K4_TIMED_STEPS - K4_TIMED_STEPS % cfg[1]
+        t = turns(torch, {
+            "K4": lambda: resident.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, steps, 1.0),
+            "K11": lambda: band3.run_band3(cells, nobst, DENSITY, ACCEL, OMEGA, steps, cfg[0],
+                                           cfg[1], panel=cfg[2])}, steps)
+        form = "shared-memory" if resident.resident_smem_config(n, n, sms) else "global-memory"
+        log(f"  {n}x{n}: K4 ({form} form) {t['K4']:.3f} us/step, K11 {t['K11']:.3f} us/step: "
+            f"{'K4' if t['K4'] < t['K11'] else 'K11'} [{gpu_line}]")
+
 
 def main():
     try:
@@ -1747,6 +1948,7 @@ def main():
     counters = {"band": band.run_band, "band2": band2.run_band2, "band3": band3.run_band3}
     for fn in (*counters.values(), run_step, run_aa, resident.run_resident):
         fn.launches = 0
+    resident.run_resident.launches_smem = 0
     want = dict.fromkeys(counters, 0)
     want_k1 = want_k2 = want_k4 = 0
 
@@ -1797,11 +1999,14 @@ def main():
     log(f"  launch counters: K7 {got['band']} steps (want {want['band']}), K9 {got['band2']} "
         f"(want {want['band2']}), K11 {got['band3']} (want {want['band3']}), K1 "
         f"{run_step.launches} (want {want_k1}), K2 {run_aa.launches} (want {want_k2}), K4 "
-        f"{resident.run_resident.launches} (want {want_k4})")
+        f"shared-memory form {resident.run_resident.launches_smem} (want {want_k4}), K4 "
+        f"global-memory form {resident.run_resident.launches} (want 0)")
     for route in counters:
         check(got[route] == want[route], f"--backend {route}: not every band step ran in its kernel")
     check(run_step.launches == want_k1, "not every remainder step ran in K1")
-    check(resident.run_resident.launches == want_k4, "auto did not run every K4 step in K4")
+    check(resident.run_resident.launches_smem == want_k4 and resident.run_resident.launches == 0,
+          "auto did not run every K4 step of the small decks in K4's shared-memory form")
+    k4_smem_launches = resident.run_resident.launches_smem
     check(run_aa.launches == want_k2, "--backend aa did not run every step through K2")
 
     phase("9. K4, K5, K6 vs their plain versions")
@@ -1836,13 +2041,18 @@ def main():
                       "deep": deep.run_deep}
     for fn in (*sched_counters.values(), run_step):
         fn.launches = 0
+    resident.run_resident.launches_smem = 0
     want = dict.fromkeys(sched_counters, 0)
-    want_k1 = 0
+    want_k1 = want_smem = 0
+    sms = resident.sm_count(torch.device("cuda", 0))
 
     def account_sched(stats):
-        nonlocal want_k1
+        nonlocal want_k1, want_smem
         route, n = stats["route"], stats["max_iters"]
         check(route in sched_counters, f"unexpected route {route}")
+        if route == "resident" and resident.resident_smem_config(stats["ny"], stats["nx"], sms):
+            want_smem += n
+            return
         depth = sched[route][3]
         want[route] += n // depth * depth
         want_k1 += n % depth
@@ -1851,7 +2061,7 @@ def main():
         for tag in ("256x256", "1024x1024"):
             for route in sched_counters:
                 account_sched(run_deck(cli, tag, route, work, gpu_line))
-        want["resident"] += sum(resume_run(cli, work, gpu_line))
+        want_smem += sum(resume_run(cli, work, gpu_line))  # 256^2: the shared-memory form
         deck, ref = walls_ref[2048]  # phase 8's deck and K2 run
         for route in sched_counters:
             out, stats = run_walls(cli, deck, route, work, 2048, gpu_line)
@@ -1859,11 +2069,14 @@ def main():
             hold_against(out, ref, f"walls 2048^2 --backend {route}")
             shutil.rmtree(out)
     got_sched = {route: fn.launches for route, fn in sched_counters.items()}
-    log(f"  launch counters: K4 {got_sched['resident']} steps (want {want['resident']}), K5 "
+    log(f"  launch counters: K4 {got_sched['resident']} steps (want {want['resident']}), K4 "
+        f"shared-memory form {resident.run_resident.launches_smem} (want {want_smem}), K5 "
         f"{got_sched['temporal']} (want {want['temporal']}), K6 {got_sched['deep']} (want "
         f"{want['deep']}), K1 {run_step.launches} (want {want_k1})")
     for route in sched_counters:
         check(got_sched[route] == want[route], f"--backend {route}: not every step ran in its kernel")
+    check(resident.run_resident.launches_smem == want_smem,
+          "--backend resident: not every step of a grid the shared-memory form holds ran in it")
     check(run_step.launches == want_k1, "not every remainder step ran in K1")
 
     shard, shard_res, got_mesh = mesh_phases(torch, cli, run_step, gpu_line)
@@ -1895,6 +2108,13 @@ def main():
     phase("22. the bf16 path: lbm_tpu_torch.cli.main --precision bf16 on one card, --mesh 4 / "
           "2x2 --device 0, and --resume")
     got_bf16, _ = bf16_path_phase(torch, cli, gpu_line, forms_bf16, slab_cfg)
+    phase("23. K4's shared-memory form: the barrier floor, vs its plain version, and timed beside "
+          "the global-memory form and K2")
+    k4s_err, k4s_per, k4s_plain = k4_smem_phase(torch, gpu_line)
+    phase("24. K11 at f32, c16 and bf16 vs its plain version, and beside K2 in turns")
+    k11_phase(torch, spec, gpu_line, routes["band3"][3])
+    phase("25. the auto crossover: K4 vs K11 at 128^2-768^2")
+    crossover_phase(torch, gpu_line, routes["band3"][3])
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1,
               bytes_per_cell=BYTES_PER_CELL):
@@ -1926,6 +2146,10 @@ def main():
               (1024 if route == "resident" else 2048) ** 2,
               resident_config(None, torch.float32) if route == "resident" else sched[route][3])
         for route in SCHEDULED
+    ] + [
+        entry(*RESIDENT_SMEM, k4_smem_launches, k4s_err,
+              k4s_per[256, 256]["shared-memory form"] * 1e-3, k4s_plain, 256 * 256,
+              resident_config(None, torch.float32)),
     ] + [
         entry(*SHARDED[name], shard_launches[name], shard_res[name][0],
               *shard_res[name][1][(4, 1), 2048][:2], 2048 * 2048, shard[name][4])

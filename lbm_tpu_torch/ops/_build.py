@@ -66,6 +66,11 @@ _RUN_ARGTYPES = {
     # 7 scalars, stream)
     "lbm_resident_run": [_P] * 5 + [_I] * 5 + [_F] * 7 + [_P],
     "lbm_resident_max_blocks": [],
+    # (buf_a, buf_b, exch, nobst, av, partials, ny, nx, n_steps, chunk,
+    # blocks, rows, depth, smem_bytes, 7 scalars, stream)
+    "lbm_resident_smem_run": [_P] * 6 + [_I] * 8 + [_F] * 7 + [_P],
+    "lbm_resident_smem_bytes": [_I, _I, _I],  # (nx, rows, depth)
+    "lbm_grid_sync_probe": [_I, _I, _I, _P],  # (blocks, threads, syncs, stream)
     # (table, s0, count, py, px, ry, rx, ny, pitch, lead, av, av_stride,
     # partials, ticket, parity, n_steps, mode, fill_first, 6 scalars, codec,
     # stream)

@@ -4,15 +4,26 @@
 steps, ``chunk`` steps per kernel launch, and returns ``(cells, av)`` with
 ``av[t] = inv_tot_cells * sum(nobst * |u|)`` of step t.
 
-On a CUDA tensor it runs kernel K4 (``csrc/resident.cu``): one persistent
-cooperative launch per chunk, each block holding a fixed slab of cells for
-the whole chunk, the two state buffers ping-ponged with a grid-wide barrier
-between steps, and every chunk of a run issued by one C call. The final
-state is whichever buffer the last step wrote (the TPU kernel ends an
-even-length chunk with a whole-state copy into its output window; the card
-has no output window to fill). On a CPU tensor it runs
-``run_resident_plain``, the same steps in plain PyTorch. Any other device
-raises; a CUDA tensor never falls back.
+On a CUDA tensor it runs kernel K4 (``csrc/resident.cu``), one persistent
+cooperative launch per chunk, every chunk of a run issued by one C call, in
+one of two forms picked from the shapes before any launch:
+
+- the shared-memory form, wherever ``resident_smem_config`` finds a
+  schedule: block b holds whole rows ``[b*B, b*B + B)`` with T ghost rows
+  above and below in shared memory for the whole launch, runs T steps per
+  pass on a window that shrinks by a row at each edge per step, and
+  exchanges its edge rows with its neighbours through a buffer in device
+  memory, double-buffered by pass parity, at one grid-wide barrier per
+  pass. ``run_resident_slabs_plain`` is that schedule in plain PyTorch;
+- the global-memory form elsewhere (grids whose window rows do not fit a
+  block's shared memory): each block a fixed slab of cells, the two state
+  buffers ping-ponged with a grid-wide barrier between steps.
+
+The final state is whichever buffer the last step (or launch) wrote (the
+TPU kernel ends an even-length chunk with a whole-state copy into its
+output window; the card has no output window to fill). On a CPU tensor it
+runs ``run_resident_plain``, the same steps in plain PyTorch. Any other
+device raises; a CUDA tensor never falls back.
 
 The TPU kernel's gates (``nx % 128``, ``ny % 8``, the 40 MB VMEM budget,
 ``_pick_tile`` and the value-carried path for states up to 4 MB) exist for
@@ -24,16 +35,60 @@ from __future__ import annotations
 import torch
 
 from lbm_tpu_torch.ops import _build
-from lbm_tpu_torch.ops.step import check_inputs, forcing_weights, kernel_scalars, step_plain
+from lbm_tpu_torch.ops.band_common import SMEM_LIMIT
+from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
+from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, check_inputs, force_deltas,
+                                    forcing_weights, kernel_scalars, step_plain)
 
 CHUNK_STEPS = 255  # steps per launch, as pallas_resident._CHUNK_STEPS
 _THREADS = 256  # csrc/resident.cu::kThreads
+_SMEM_THREADS = 512  # csrc/resident.cu::kSmemThreads, a block of the shared-memory form
+_SMEM_WARPS = _SMEM_THREADS // 32
+# The most steps per pass of the shared-memory form.
+SMEM_MAX_DEPTH = 4
 
 
 def resident_supported(ny: int, nx: int) -> bool:
     """Every grid K1 takes: ``ny >= 2`` (the forcing row ny-2 exists)."""
     del nx
     return ny >= 2
+
+
+def resident_smem_bytes(nx: int, rows: int, depth: int) -> int:
+    """Dynamic shared memory of a block of the shared-memory form
+    (``csrc/resident.cu::smem_form_bytes``): two f32 copies of the 9 planes
+    and the not-obstacle plane of its ``rows + 2 depth`` by ``nx`` window
+    (76 B per cell), the global row of each window row, and one partial sum
+    per warp and step."""
+    wh = rows + 2 * depth
+    return 4 * 19 * wh * nx + 4 * wh + 4 * _SMEM_WARPS * depth
+
+
+def smem_depth(nx: int) -> int:
+    """The preferred steps per pass for rows of ``nx`` cells: one more than
+    the rows one sweep of a block's threads covers, at most
+    ``SMEM_MAX_DEPTH``. Each step of a pass recomputes two rows fewer of
+    the ghost rows, so the wider the rows, the more a deeper pass costs
+    against the barrier it saves: on an H100 the sweep of chip_smoke phase
+    23 ran fastest at T 4 on 128-wide rows and T 3 on 256-wide ones
+    (PERF.md)."""
+    return max(1, min(SMEM_MAX_DEPTH, _SMEM_THREADS // nx + 1))
+
+
+def resident_smem_config(ny: int, nx: int, max_blocks: int):
+    """``(blocks, rows, depth, smem_bytes)`` of the shared-memory form: the
+    fewest rows per block that keep the blocks within ``max_blocks`` (one
+    per SM), and the deepest pass up to ``smem_depth(nx)`` whose window
+    fits a block's shared memory; None where none fits (then the
+    global-memory form runs)."""
+    if ny < 2 or nx < 1 or max_blocks < 1:
+        return None
+    rows = -(-ny // max_blocks)
+    for depth in range(smem_depth(nx), 0, -1):
+        need = resident_smem_bytes(nx, rows, depth)
+        if need <= SMEM_LIMIT:
+            return -(-ny // rows), rows, depth, need
+    return None
 
 
 def _check(cells, nobst, n_iters, chunk):
@@ -57,8 +112,100 @@ def run_resident_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_cel
     return cells, av
 
 
+def _window_step(win, nob, frow, r0, r1, own, w1a, w2a, omega, paired):
+    """One step of window rows ``[r0, r1)`` from rows ``[r0-1, r1+1)`` of
+    ``win`` (9, wh, nx): the forcing of the rows marked by ``frow`` at the
+    source, the pull with wrap in x, BGK, bounce-back. Returns the window
+    and the sum of ``nob * |u|`` over window rows ``own``."""
+    src = list(win[:, r0 - 1:r1 + 1].unbind(0))
+    nsrc, fsrc = nob[r0 - 1:r1 + 1], frow[r0 - 1:r1 + 1, None]
+    ok = (src[3] - w1a > 0.0) & (src[6] - w2a > 0.0) & (src[7] - w2a > 0.0)
+    amask = ok.to(win.dtype) * nsrc
+    for k, w in force_deltas(w1a, w2a):
+        src[k] = torch.where(fsrc, src[k] + w * amask, src[k])
+    n = r1 - r0
+    t = [torch.roll(src[k][1 - _CYS[k]:1 - _CYS[k] + n], shifts=_CXS[k], dims=1)
+         for k in range(9)]
+    relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+    fluid = nob[r0:r1] > 0.0
+    out = win.clone()
+    out[:, r0:r1] = torch.stack([torch.where(fluid, relaxed[k], t[_OPP[k]]) for k in range(9)])
+    lo, hi = own
+    return out, torch.sum(nob[lo:hi] * u_mag(u_sq[lo - r0:hi - r0]))
+
+
+def _slabs_launch(cells, nobst, w1a, w2a, omega, steps, rows, depth, paired):
+    """One launch of the shared-memory form: ``steps`` steps; returns the
+    state and the per-step sums, each the sum over blocks in block order."""
+    _, ny, nx = cells.shape
+    t = depth
+    blocks = []  # [y0, bi, global rows of the window, window, its not-obstacle rows, forcing rows]
+    for y0 in range(0, ny, rows):
+        bi = min(rows, ny - y0)
+        grow = (torch.arange(bi + 2 * t, device=cells.device) + (y0 - t)) % ny
+        blocks.append([y0, bi, grow, cells[:, grow], nobst[grow], grow == ny - 2])
+    exch = cells.new_empty((2,) + tuple(cells.shape))
+    sums = torch.empty(steps, dtype=cells.dtype, device=cells.device)
+    done = npass = 0
+    while done < steps:
+        length = min(t, steps - done)
+        per_block = []
+        for blk in blocks:
+            _, bi, _, win, nob, frow = blk
+            part = []
+            for s in range(1, length + 1):
+                win, tot = _window_step(win, nob, frow, t - length + s, t + bi + length - s,
+                                        (t, t + bi), w1a, w2a, omega, paired)
+                part.append(tot)
+            blk[3] = win
+            per_block.append(torch.stack(part))
+        sums[done:done + length] = torch.stack(per_block).sum(0)
+        done += length
+        if done < steps:
+            # The exchange: each block's own rows within T of an edge into
+            # the buffer of this pass's parity, then every ghost row from it.
+            ex = exch[npass % 2]
+            for y0, bi, _, win, _, _ in blocks:
+                edge = [rr for rr in range(bi) if rr < t or rr >= bi - t]
+                ex[:, [y0 + rr for rr in edge]] = win[:, [t + rr for rr in edge]]
+            for blk in blocks:
+                bi, grow = blk[1], blk[2]
+                ghost = list(range(t)) + list(range(t + bi, bi + 2 * t))
+                blk[3] = blk[3].clone()
+                blk[3][:, ghost] = ex[:, grow[ghost]]
+        npass += 1
+    out = torch.empty_like(cells)
+    for y0, bi, _, win, _, _ in blocks:
+        out[:, y0:y0 + bi] = win[:, t:t + bi]
+    return out, sums
+
+
+def run_resident_slabs_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, rows,
+                             depth, *, chunk=CHUNK_STEPS, paired="fused"):
+    """The shared-memory form's schedule in plain PyTorch: per launch of
+    ``chunk`` steps, slabs of ``rows`` rows (the last fewer) with ``depth``
+    ghost rows on each side, passes of ``depth`` steps (the launch's last
+    shorter) on rows that shrink by one at each edge per step, and the
+    exchange of edge rows by pass parity between passes. Returns
+    ``(cells, av)``: the cells of ``run_resident_plain`` bit for bit, the
+    av series summed per block, then over blocks."""
+    _check(cells, nobst, n_iters, chunk)
+    if rows < 1 or depth < 1:
+        raise ValueError(f"bad slab schedule: rows {rows}, depth {depth}")
+    w1a, w2a = forcing_weights(density, accel)
+    inv = torch.tensor(inv_tot_cells, dtype=torch.float32, device=cells.device)
+    av = torch.empty(n_iters, dtype=torch.float32, device=cells.device)
+    for start in range(0, n_iters, chunk):
+        steps = min(chunk, n_iters - start)
+        cells, sums = _slabs_launch(cells, nobst, w1a, w2a, float(omega), steps, rows, depth,
+                                    paired)
+        av[start:start + steps] = sums * inv
+    return cells, av
+
+
 def max_blocks(device) -> int:
-    """The most blocks of K4 the card holds at once (occupancy x SMs)."""
+    """The most blocks of K4's global-memory form the card holds at once
+    (occupancy x SMs)."""
     lib = _build.library()
     with torch.cuda.device(device):
         n = lib.lbm_resident_max_blocks()
@@ -67,10 +214,16 @@ def max_blocks(device) -> int:
     return n
 
 
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors: the shared-memory form's most
+    blocks (one per SM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def launch(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk, blocks):
-    """K4 on ``blocks`` blocks: one cooperative launch per chunk, all from
-    one C call. A grid larger than the card can hold at once raises (the
-    launch is refused); nothing shrinks it."""
+    """K4's global-memory form on ``blocks`` blocks: one cooperative launch
+    per chunk, all from one C call. A grid larger than the card can hold at
+    once raises (the launch is refused); nothing shrinks it."""
     lib = _build.library()
     _, ny, nx = cells.shape
     a = cells.contiguous().clone()
@@ -86,14 +239,44 @@ def launch(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk, b
             *kernel_scalars(density, accel, omega, inv_tot_cells), stream,
         )
     _build.check(rc, f"resident kernel ({blocks} blocks)")
+    run_resident.launches += n_iters
     return (a if n_iters % 2 == 0 else b), av
+
+
+def launch_smem(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk, config):
+    """K4's shared-memory form on ``config = (blocks, rows, depth,
+    smem_bytes)`` (``resident_smem_config``): one cooperative launch per
+    chunk, all from one C call. The C entry refuses a config that does not
+    match the grid and its carve, and the card a grid it cannot hold at
+    once: either raises."""
+    blocks, rows, depth, smem = config
+    lib = _build.library()
+    _, ny, nx = cells.shape
+    a = cells.contiguous().clone()
+    b = torch.empty_like(a)
+    exch = torch.empty((2,) + tuple(a.shape), dtype=torch.float32, device=a.device)
+    nobst = nobst.contiguous()
+    av = torch.empty(n_iters, dtype=torch.float32, device=a.device)
+    partials = torch.empty(min(chunk, n_iters) * blocks, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.lbm_resident_smem_run(
+            a.data_ptr(), b.data_ptr(), exch.data_ptr(), nobst.data_ptr(), av.data_ptr(),
+            partials.data_ptr(), ny, nx, n_iters, chunk, blocks, rows, depth, smem,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), stream,
+        )
+    _build.check(rc, f"resident kernel, shared-memory form ({blocks} blocks of {rows} rows, "
+                     f"T {depth}, {smem} B)")
+    run_resident.launches_smem += n_iters
+    return (a if -(-n_iters // chunk) % 2 == 0 else b), av
 
 
 def run_resident(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, *,
                  chunk=CHUNK_STEPS, paired="fused"):
-    """Run ``n_iters`` steps, ``chunk`` per launch: kernel K4 on CUDA,
-    ``run_resident_plain`` on CPU. ``cells`` is left unchanged. The kernel
-    implements the fused collision form."""
+    """Run ``n_iters`` steps, ``chunk`` per launch: kernel K4 on CUDA (the
+    shared-memory form where ``resident_smem_config`` finds a schedule, the
+    global-memory form elsewhere), ``run_resident_plain`` on CPU. ``cells``
+    is left unchanged. The kernel implements the fused collision form."""
     if cells.device.type == "cpu":
         return run_resident_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_cells,
                                   chunk=chunk, paired=paired)
@@ -103,10 +286,13 @@ def run_resident(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, *,
         raise ValueError("the CUDA resident kernel implements the fused collision form only")
     _check(cells, nobst, n_iters, chunk)
     ny, nx = cells.shape[1:]
+    config = resident_smem_config(ny, nx, sm_count(cells.device))
+    if config is not None:
+        return launch_smem(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk,
+                           config)
     blocks = min(max_blocks(cells.device), -(-ny * nx // _THREADS))
-    out = launch(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk, blocks)
-    run_resident.launches += n_iters
-    return out
+    return launch(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk, blocks)
 
 
-run_resident.launches = 0  # steps K4 advanced in this process
+run_resident.launches = 0  # steps K4's global-memory form advanced in this process
+run_resident.launches_smem = 0  # steps K4's shared-memory form advanced in this process

@@ -161,11 +161,9 @@ _RESIDENT_CHUNK = 255
 
 
 # auto at f32: K4 (resident) up to this state size, K11 (band3) above. On an
-# H100, in two runs each (PERF.md, "auto"): K4 took 5-45% less
-# time per step than K11 at every square size from 8^2 to 384^2 and lost
-# from 512^2 on; 53-74% less than K2 (auto's route below 128^2 before it)
-# at every square size from 8^2 to 128^2. K11 took 33-55% less than K2 from
-# 128^2 to 4096^2.
+# H100 (chip_smoke phase 25, PERF.md "auto"), K4 took less time per step
+# than K11 at every square size from 128^2 to 384^2 (its shared-memory
+# form) and K11 less from 512^2 to 768^2 (against K4's global-memory form).
 _RESIDENT_AUTO_MAX_STATE = 9 * 384 * 384 * 4
 
 

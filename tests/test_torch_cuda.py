@@ -31,6 +31,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from lbm_tpu_torch.models.d2q9 import WEIGHTS  # noqa: E402
+from lbm_tpu_torch.ops import _build  # noqa: E402
 from lbm_tpu_torch.ops import aa as taa  # noqa: E402
 from lbm_tpu_torch.ops import band as tband  # noqa: E402
 from lbm_tpu_torch.ops import band2 as tband2  # noqa: E402
@@ -213,16 +214,29 @@ def test_kernels_reject_other_collision_forms(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["global-memory", "shared-memory"])
 @pytest.mark.parametrize("iters,chunk", [(12, 5), (13, 5), (7, 255)])
 @pytest.mark.parametrize("nx,ny", [(70, 97), (33, 3)])
-def test_resident_kernel_matches_plain_and_repeats(cuda_device, nx, ny, iters, chunk):
+def test_resident_kernel_matches_plain_and_repeats(cuda_device, nx, ny, iters, chunk, form):
     """Chunk boundaries inside the run, both exit parities; a second run is
-    bitwise equal."""
+    bitwise equal. Each form of K4 on its own counter: the global-memory
+    form through ``launch`` (``run_resident`` picks the shared-memory form
+    for both grids)."""
     cells, nobst = make_setup(cuda_device, nx, ny, seed=iters)
-    before = tres.run_resident.launches
-    got = tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0, chunk=chunk)
-    assert tres.run_resident.launches == before + iters
-    again = tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0, chunk=chunk)
+    if form == "global-memory":
+        blocks = min(tres.max_blocks(cuda_device), -(-nx * ny // tres._THREADS))
+
+        def run():
+            return tres.launch(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0, chunk, blocks)
+        counter = "launches"
+    else:
+        def run():
+            return tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0, chunk=chunk)
+        counter = "launches_smem"
+    before = getattr(tres.run_resident, counter)
+    got = run()
+    assert getattr(tres.run_resident, counter) == before + iters
+    again = run()
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     assert_close(got, tres.run_resident_plain(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0,
                                               chunk=chunk))
@@ -239,6 +253,50 @@ def test_resident_kernel_refuses_a_grid_the_card_cannot_hold(cuda_device):
         tres.launch(cells, nobst, DENSITY, ACCEL, OMEGA, 4, 1.0, 4, too_many)
     torch.cuda.synchronize()  # the context is still usable
     tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, 2, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,rows,depth,iters", [
+    (70, 97, 1, 4, 13), (70, 97, 5, 3, 255), (33, 3, 1, 4, 7), (128, 128, 3, 4, 256),
+])
+def test_resident_smem_form_schedules_match_plain(cuda_device, nx, ny, rows, depth, iters):
+    """The shared-memory form at other schedules than ``resident_smem_config``'s, through
+    ``launch_smem``: slabs of 1 row, B not dividing ny, T 3, a window taller
+    than the grid; equal to ``run_resident_slabs_plain`` within the K4
+    tolerances."""
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=rows)
+    config = (-(-ny // rows), rows, depth, tres.resident_smem_bytes(nx, rows, depth))
+    got = tres.launch_smem(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0, 5, config)
+    assert_close(got, tres.run_resident_slabs_plain(cells, nobst, DENSITY, ACCEL, OMEGA, iters,
+                                                    1.0, rows, depth, chunk=5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(128, 128), (256, 256), (130, 250)])
+def test_resident_smem_form_split_run_is_bitwise_whole(cuda_device, nx, ny):
+    """A run split where no pass ends gives the whole run's state and av
+    series bit for bit: a resumed run writes the uninterrupted bytes."""
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=5)
+    head = tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, 101, 1.0)
+    tail = tres.run_resident(head[0], nobst, DENSITY, ACCEL, OMEGA, 154, 1.0)
+    whole = tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, 255, 1.0)
+    assert torch.equal(tail[0], whole[0])
+    assert torch.equal(torch.cat([head[1], tail[1]]), whole[1])
+
+
+@pytest.mark.cuda
+def test_resident_smem_form_refuses_a_config_off_its_carve(cuda_device):
+    """A blocks count or shared-memory size that does not match the grid and
+    the carve is refused before any launch, and raises."""
+    cells, nobst = make_setup(cuda_device, 64, 40, seed=1)
+    lib = _build.library()
+    assert lib.lbm_resident_smem_bytes(64, 2, 4) == tres.resident_smem_bytes(64, 2, 4)
+    good = (20, 2, 4, tres.resident_smem_bytes(64, 2, 4))
+    for bad in ((21, 2, 4, good[3]), (20, 2, 4, good[3] + 4), (20, 2, 3, good[3])):
+        with pytest.raises(RuntimeError, match="shared-memory form"):
+            tres.launch_smem(cells, nobst, DENSITY, ACCEL, OMEGA, 4, 1.0, 4, bad)
+    tres.launch_smem(cells, nobst, DENSITY, ACCEL, OMEGA, 4, 1.0, 4, good)
+    torch.cuda.synchronize()
 
 
 TRAPEZOIDS = {

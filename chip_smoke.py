@@ -151,7 +151,27 @@ PyTorch built for CUDA. Phases, each printing what it found:
    time per step beside K2 in turns at 1024^2, 2048^2 and 4096^2 for each
    storage (the K11/K2 ratio);
 25. the ``auto`` crossover: K4 (the form ``run_resident`` picks) against
-   K11 in turns at the square sizes 128^2-768^2.
+   K11 in turns at the square sizes 128^2-768^2;
+26. K3's 16-bit forms (four cells per thread, 64-bit words) and K9 in one
+   window (``csrc/band2.cu``): the floor of a thread-block cluster barrier
+   (us per ``cluster.sync()`` of 2 x SMs blocks of 512 threads, clusters of
+   1, 2, 4 and 8); K3 at c16 and bf16 over 50 steps on 1024^2 and 1000^2
+   with 4 row shards, 1001 x 1024 (an odd shard width) with 4 and 1024^2 on
+   a 2 x 1 mesh, its state bitwise K1's of the same storage, av within 1e-6
+   of K1's, two runs bitwise equal, and against its plain version on the
+   ragged grids; K9 at f32, c16 and bf16 against its plain version at T 4,
+   8 and 16, full row and panel, on ragged grids, two runs bitwise equal,
+   and at f32 on the driver's schedule against K1 over 200 steps at 1024^2;
+   K3 timed beside K1 of the same storage and K9 beside K11 and K2 of the
+   same storage, in turns, at 1024^2, 2048^2 and 4096^2; K9's schedule
+   sweep at 2048^2, and at 256^2-1024^2 for the smaller tiles.
+
+``python3 chip_smoke.py --phase 26`` runs phases 1, 2 and 26 only (no
+kernel report), and ``--phase 26 --import-from DIR`` only phase 26's K9
+checks and its timing in turns, of the ``lbm_tpu_torch`` package under DIR
+(another checkout, such as the parent commit unpacked into a git-ignored
+directory, or a trial patched onto one), so that a redesign and the body it
+replaces are held to the same rivals.
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
@@ -417,7 +437,7 @@ def run_deck(cli, tag, backend, work, gpu_line, mesh=None, precision="f32", gate
 BANDS = {
     "band": ("K7 band (values in registers)", "lbm_tpu_torch/csrc/band.cu",
              "lbm_tpu/ops/pallas_band.py:172"),
-    "band2": ("K9 band2 (two ping-pong windows)", "lbm_tpu_torch/csrc/band2.cu",
+    "band2": ("K9 band2 (one window, AA steps)", "lbm_tpu_torch/csrc/band2.cu",
               "lbm_tpu/ops/pallas_band2.py:90"),
     "band3": ("K11 band3 (one in-place AA window)", "lbm_tpu_torch/csrc/band3.cu",
               "lbm_tpu/ops/pallas_band3.py:306"),
@@ -682,7 +702,7 @@ SHARDED = {
             "lbm_tpu_torch/csrc/shard_step.cu", "lbm_tpu/ops/pallas_remote.py:49"),
     "K8": ("K8 sharded band (values in registers)", "lbm_tpu_torch/csrc/band.cu",
            "lbm_tpu/ops/pallas_band.py:574"),
-    "K10": ("K10 sharded band2 (two ping-pong windows)", "lbm_tpu_torch/csrc/band2.cu",
+    "K10": ("K10 sharded band2 (one window, AA steps)", "lbm_tpu_torch/csrc/band2.cu",
             "lbm_tpu/ops/pallas_band2.py:584"),
 }
 
@@ -1854,14 +1874,216 @@ def crossover_phase(torch, gpu_line, cfg):
             f"{'K4' if t['K4'] < t['K11'] else 'K11'} [{gpu_line}]")
 
 
+# (nx, ny, py) of phase 26's K3 grids: 1024^2 and 1000^2 on 4 row shards,
+# 1001 columns (an odd rx) on 4, and 1024^2 on a 2 x 1 mesh.
+K3_16_GRIDS = ((1024, 1024, 4), (1000, 1000, 4), (1001, 1024, 4), (1024, 1024, 2))
+# (nx, ny, (block, depth, panel)) of phase 26's K9 checks: T 4, 8 and 16,
+# full row (panel None) and panel, on ragged grids.
+K9_CHECKS = ((100, 97, (24, 4, 56)), (100, 97, (8, 4, None)), (150, 100, (16, 8, 40)),
+             (130, 100, (16, 8, None)), (200, 150, (32, 16, 40)), (40, 70, (32, 16, None)))
+# Phase 26's K9 schedule sweep (block, depth, panel), T 4 and 8: at 2048^2,
+# and the smaller tiles at the sizes where the large ones leave SMs idle.
+K9_SWEEP = {2048: ((24, 4, 24), (24, 4, 56), (32, 4, 56), (24, 4, 72), (40, 4, 40), (40, 4, 48),
+                   (16, 4, 56), (48, 8, 56)),
+            256: ((16, 4, 24), (24, 4, 24), (16, 4, 40), (24, 4, 40), (32, 4, 56)),
+            512: ((16, 4, 24), (24, 4, 24), (24, 4, 40), (32, 4, 56)),
+            1024: ((24, 4, 24), (24, 4, 40), (32, 4, 56))}
+
+
+def cluster_floor(torch, blocks, threads, cluster, syncs=2000):
+    """us per cluster.sync() of a launch of blocks x threads in clusters of
+    ``cluster`` that does nothing else (csrc/band2.cu::cluster_sync_loop)."""
+    from lbm_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def go():
+        rc = lib.lbm_cluster_sync_probe(blocks, threads, cluster, syncs, stream)
+        check(rc == 0, f"cluster barrier probe ({blocks} x {threads} / {cluster}): CUDA error {rc}")
+
+    go()
+    return 1e3 * timed(torch, go)[1] / syncs
+
+
+def redesign9_turns(torch, spec, gpu_line):
+    """Phase 26's times: K3's 16-bit forms beside K1 of the same storage (4
+    row shards), K9 beside K11 and K2 of the same storage, in turns at
+    1024^2-4096^2, with the driver's schedules of the imported package."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band2, band3, devspace, shard_step
+    from lbm_tpu_torch.ops.aa import run_aa
+    from lbm_tpu_torch.ops.step import run_step
+    from lbm_tpu_torch.runtime.driver import band2_config, band3_config
+
+    params = LBMParams(nx=2048, ny=2048, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    k9_cfg, k11_cfg = band2_config(params, torch.float32), band3_config(params, torch.float32)
+    forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
+    out = {}
+    for nx, n in ((1024, 400), (2048, 200), (4096, 48)):
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        for name, dev in forms.items():
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+            if dev is not None:
+                s, o = on_mesh(q, nobst, 4, 1)
+                t = turns(torch, {
+                    "K3": lambda: shard_step.run_shard_step(s, o, DENSITY, ACCEL, OMEGA, n, nx,
+                                                            dev=dev),
+                    "K1": lambda: run_step(q, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, dev=dev)}, n)
+                out["K3", name, nx] = t
+                log(f"  K3 {name} {nx}x{nx} (4 shards): {t['K3']:.2f} us/step, K1 {t['K1']:.2f} "
+                    f"(in turns): K3/K1 {t['K3'] / t['K1']:.3f} [{gpu_line}]")
+                del s, o
+            m = 2 * n - 2 * n % k9_cfg[1]
+
+            def band(fn, cfg):
+                return lambda: fn(q, nobst, DENSITY, ACCEL, OMEGA, m, cfg[0], cfg[1], panel=cfg[2],
+                                  dev=dev)
+
+            t = turns(torch, {"K9": band(band2.run_band2, k9_cfg),
+                              "K11": band(band3.run_band3, k11_cfg),
+                              "K2": lambda: run_aa(q, nobst, DENSITY, ACCEL, OMEGA, m, 1.0,
+                                                   dev=dev)}, m)
+            out["K9", name, nx] = t
+            log(f"  K9 {name} {nx}x{nx} {k9_cfg}: {t['K9']:.2f} us/step, K11 {t['K11']:.2f}, K2 "
+                f"{t['K2']:.2f} (in turns): K9/K11 {t['K9'] / t['K11']:.3f}, K9/K2 "
+                f"{t['K9'] / t['K2']:.3f} [{gpu_line}]")
+        del cells, nobst
+    return out
+
+
+def k9_checks(torch, spec, skip_refused=False):
+    """K9 at f32, c16 and bf16 against its plain version (K9_CHECKS), two
+    runs bitwise equal; at f32 on the driver's schedule, against K1 over 200
+    steps at 1024^2 (phase 7's verdict printed, its tolerance held).
+    ``skip_refused``: pass over a schedule whose window the package refuses
+    (an imported older package), saying so."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band2, devspace
+    from lbm_tpu_torch.ops import band_common as BC
+    from lbm_tpu_torch.ops.step import run_step
+    from lbm_tpu_torch.runtime.driver import band2_config
+
+    checks = []
+    for nx, ny, cfg in K9_CHECKS:
+        try:
+            BC.check_smem("band2 kernel", band2.PLANE_COPIES, nx, *cfg)
+            checks.append((nx, ny, cfg))
+        except ValueError as e:
+            check(skip_refused, str(e))
+            log(f"  K9 {nx}x{ny} {cfg}: not checked, the package refuses it ({e})")
+    for name, dev in {"f32": None, "c16": spec, "bf16": devspace.BF16}.items():
+        for nx, ny, (block, depth, panel) in checks:
+            cells, nobst = random_setup(torch, nx, ny, seed=nx + depth)
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+            n = 2 * depth + 3
+
+            def k9(fn):
+                return fn(q, nobst, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel, dev=dev)
+
+            got, again = k9(band2.run_band2), k9(band2.run_band2)
+            want = k9(band2.run_band2_plain)
+            what = f"K9 {name} {nx}x{ny} T {depth} {'panel ' + str(panel) if panel else 'full row'}"
+            if name == "bf16":
+                bf16_compare(torch, what, got, want, TOL_BF16_SPREAD)
+            else:
+                compare(torch, what, got, want, dev)
+            check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                  f"{what}: not run-to-run deterministic")
+    log("  K9 determinism: two runs of each schedule give bitwise-equal av and state")
+    params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    block, depth, panel = band2_config(params, torch.float32)
+    cells, nobst = random_setup(torch, 1024, 1024, seed=5)
+    got = band2.run_band2(cells, nobst, DENSITY, ACCEL, OMEGA, 200, block, depth, panel=panel)
+    k1 = run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 200, 1.0)
+    torch.cuda.synchronize()
+    what = f"K9 f32 {(block, depth, panel)} vs K1 1024x1024 200 steps"
+    log(f"  {what}: final state bitwise equal: {torch.equal(got[0], k1[0])}, max diff "
+        f"{float((got[0] - k1[0]).abs().max()):.3e}")
+    compare(torch, what, got, k1)
+
+
+def redesign9_phase(torch, spec, gpu_line):
+    """Phase 26: the cluster barrier's floor; K3's 16-bit forms against their
+    plain version and K1 (bitwise); K9 against its plain version at T 4, 8
+    and 16; both timed beside their rivals (redesign9_turns); K9's schedule
+    sweep at 2048^2."""
+    from lbm_tpu_torch.ops import band2, band3, devspace, resident, shard_step
+    from lbm_tpu_torch.ops.step import run_step
+
+    sms = resident.sm_count(torch.device("cuda", 0))
+    for cluster in (1, 2, 4, 8):
+        log(f"  cluster barrier floor: {cluster_floor(torch, 2 * sms, 512, cluster):.3f} us per "
+            f"cluster.sync() of {2 * sms} blocks x 512 threads in clusters of {cluster} "
+            f"[{gpu_line}]")
+    forms16 = {"c16": spec, "bf16": devspace.BF16}
+    for name, dev in forms16.items():
+        for nx, ny, py in K3_16_GRIDS:
+            cells, nobst = random_setup(torch, nx, ny, seed=nx + py)
+            q = devspace.encode_state(cells, dev)
+            s, o = on_mesh(q, nobst, py, 1)
+
+            def k3():
+                return joined(torch, shard_step.run_shard_step(s, o, DENSITY, ACCEL, OMEGA, 50,
+                                                               ny, dev=dev))
+
+            got, again = k3(), k3()
+            k1 = run_step(q, nobst, DENSITY, ACCEL, OMEGA, 50, 1.0, dev=dev)
+            torch.cuda.synchronize()
+            what = f"K3 {name} {nx}x{ny} ({py} shards, rx {nx}) 50 steps"
+            check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                  f"{what}: not run-to-run deterministic")
+            check(torch.equal(got[0], k1[0]), f"{what}: state differs from K1's")
+            av_rel = float(((got[1].double() - k1[1].double()).abs() / k1[1].double().abs()).max())
+            check(av_rel <= 1e-6, f"{what}: av differs from K1's by {av_rel}")
+            log(f"  {what}: state bitwise K1's, av within {av_rel:.2e} of K1's, two runs "
+                "bitwise equal")
+            if nx != 1024:  # the plain version on the ragged and odd-rx grids
+                want = joined(torch, shard_step.run_shard_step_plain(s, o, DENSITY, ACCEL, OMEGA,
+                                                                     50, ny, dev=dev))
+                if name == "bf16":
+                    bf16_compare(torch, f"{what} vs plain", got, want, TOL_BF16_SPREAD)
+                else:
+                    compare(torch, f"{what} vs plain", got, want, dev)
+            del cells, nobst, q, s, o, got, again, k1
+    k9_checks(torch, spec)
+    redesign9_turns(torch, spec, gpu_line)
+    for nx, schedules in K9_SWEEP.items():
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        n = 400 * 2048 // nx
+        fns = {cfg: (lambda cfg=cfg: band2.run_band2(cells, nobst, DENSITY, ACCEL, OMEGA, n,
+                                                     cfg[0], cfg[1], panel=cfg[2]))
+               for cfg in schedules}
+        fns["K11"] = lambda: band3.run_band3(cells, nobst, DENSITY, ACCEL, OMEGA, n, 24, 4,
+                                             panel=56)
+        t = turns(torch, fns, n)
+        log(f"  K9 schedules at {nx}^2 f32 ((block, depth, panel): us/step, in turns beside K11 "
+            f"{t['K11']:.3f}): " + ", ".join(f"{cfg}: {t[cfg]:.3f}" for cfg in schedules)
+            + f" [{gpu_line}]")
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--phase", type=int, choices=(26,),
+                    help="run phases 1, 2 and this one only (no kernel report)")
+    ap.add_argument("--import-from", metavar="DIR",
+                    help="with --phase 26: check K9 of the lbm_tpu_torch package under DIR "
+                         "(another checkout) and time it and K3 beside their rivals, nothing "
+                         "else")
+    args = ap.parse_args()
+    if args.import_from and args.phase != 26:
+        ap.error("--import-from needs --phase 26")
     try:
         import torch
     except ImportError:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on a GPU")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.import_from) if args.import_from else ROOT)
     try:
         from lbm_tpu_torch import cli
         from lbm_tpu_torch.ops import _build
@@ -1881,6 +2103,20 @@ def main():
     check("sm_90a" in b["flags"], "kernels not built for sm_90a")
     log(f"  {'built' if b['built'] else 'loaded'} {os.path.relpath(b['path'], ROOT)} "
         f"in {b['seconds']:.1f} s with nvcc {b['flags']} from {', '.join(b['sources'])}")
+    if args.phase == 26:
+        from lbm_tpu_torch.ops.devspace import DevSpec
+
+        spec = DevSpec.for_params(DENSITY, ACCEL)
+        if args.import_from:
+            phase(f"26. K9 vs its plain version and K1, then K3 16-bit and K9 beside their "
+                  f"rivals, the package under {args.import_from}")
+            k9_checks(torch, spec, skip_refused=True)
+            redesign9_turns(torch, spec, gpu_line)
+        else:
+            phase("26. K3's paired 16-bit words and K9's one window: the cluster barrier, vs "
+                  "plain and K1, beside their rivals, K9's schedules")
+            redesign9_phase(torch, spec, gpu_line)
+        return 0
     build_native_io()
 
     phase("3. K1 step kernel vs step_plain")
@@ -2115,6 +2351,9 @@ def main():
     k11_phase(torch, spec, gpu_line, routes["band3"][3])
     phase("25. the auto crossover: K4 vs K11 at 128^2-768^2")
     crossover_phase(torch, gpu_line, routes["band3"][3])
+    phase("26. K3's paired 16-bit words and K9's one window: the cluster barrier, vs plain and "
+          "K1, beside their rivals, K9's schedules")
+    redesign9_phase(torch, spec, gpu_line)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1,
               bytes_per_cell=BYTES_PER_CELL):

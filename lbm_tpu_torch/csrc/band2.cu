@@ -1,4 +1,5 @@
-// K9: the band pass with two shared-memory windows, ping-ponged.
+// K9: the band pass in ONE shared-memory window, stepped in the AA
+// arrangement.
 //
 // Replaces: lbm_tpu/ops/pallas_band2.py::_kernel2 (:90) and
 // ::_kernel2_panel (:382), the band schedule with two VMEM scratch buffers
@@ -7,23 +8,32 @@
 // (band_common.cuh), because no full row of a large grid fits the 227 KB of
 // shared memory a block can use.
 //
-// What bounds it on the H100: shared memory. A window cell costs 76 B of it
-// (two copies of 9 f32 planes plus the f32 not-obstacle value), so a block
-// holds at most ~3,000 cells, and the redundancy (B+2T)(P+2T)/(BP) of the
-// recomputed halo is what the schedule pays for touching device memory once
-// per T steps instead of every step (76 B per cell each way per pass, where
-// K1 moves 76 B per cell per step). Each step reads 9 values and writes 9
-// per window cell in shared memory, with one barrier.
+// What bounds it on the H100: the work inside the window, not HBM (its time
+// did not follow its bytes at 16 bits). The window's size sets the
+// redundancy (B+2T)(P+2T)/(BP) of the recomputed halo, both in cell
+// updates and in loads, and shared memory sets the window's size: the
+// TPU kernel's pull between two f32 copies of the 9 planes costs 76 B per
+// window cell, which holds two blocks per SM to a 32 x 32 window (1.78
+// updates per output cell).
 //
-// What the design does about it: one thread per window cell in each
-// sweep, consecutive threads on consecutive columns, so a warp reads
-// consecutive words of a plane (no bank conflicts within a row); each step
-// pulls from one buffer into the other, as _kernel2 does between a_ref and
-// b_ref, so no step needs a second barrier. T is even, so the result ends
-// in the first buffer. The forcing of the ny-2 rows is fused into the pull
-// as in K1 (step.cu): a thread whose source cell lies on such a row adds
-// the delta, with the mask taken at the source cell from the read-only
-// buffer. TMA loads, clusters and register tiling are later work.
+// What the design does about it: one copy, 40 B per window cell, as K11
+// (band3.cu), so two blocks per SM hold a 40 x 64 window (1.52). The window
+// steps in place in K11's AA arrangement (band_common.cuh::aa_step), with
+// device memory keeping the regular arrangement R of the state: the loader
+// writes each cell's R_k into its slot opp(k), which is the C space of the
+// AA steps (the value leaving the cell along k), and adds at once the
+// forcing of the cells on the ny-2 rows (cell-local, the mask from the
+// cell's own values: the forcing K1's pull adds to every value it takes
+// from such a cell). The steps then run odd, even, odd, ..., even: each odd
+// step gathers, relaxes and scatters (C -> S), fusing the next step's
+// forcing; each even step relaxes in place (S -> C), adding the forcing of
+// the odd step after it but for the pass's last step. The window then holds
+// C again, unforced, and the tile store reads R_k of each central cell from
+// its slot opp(k). One barrier per step. The cell arithmetic is K1's
+// (collide_fused, the forcing of the pull), in the same order, so at f32
+// the state is bitwise K1's. Garbage creeps from the window's edges one
+// cell per step on average (0 on an even step, 2 on an odd one's gather
+// and scatter), T - 1 cells after T steps: the central tile stays genuine.
 //
 // K10: the same kernel on the shards of a 1-D mesh (kSharded). Replaces
 // lbm_tpu/ops/pallas_band2.py::_kernel2_sharded (:584) and
@@ -37,7 +47,7 @@
 // kernel is templated on the storage of lbm_common.cuh. Device memory holds
 // int16 codes; the window loader decodes them and the tile store encodes
 // (one rounding per pass of T steps, as the JAX kernels encode only at
-// their tile store), the windows and the steps stay f32, and K10's halo
+// their tile store), the window and the steps stay f32, and K10's halo
 // copy moves the neighbours' codes untouched. A pass then moves 40 B per
 // cell instead of 76.
 //
@@ -45,6 +55,14 @@
 // :502, :763, :973): the same template on lbm_common.cuh::BF16, one
 // rounding to nearest even per pass at the tile store, 40 B per cell per
 // pass with no codec arithmetic; K10's halos move raw bfloat16.
+//
+// lbm_cluster_sync_probe: the floor of a thread-block cluster barrier
+// (cluster.sync()), kept as the measurement behind the choice of one block
+// per tile: a tile split over a cluster of blocks, each stepping a band of
+// the window's rows and reaching its neighbours' edge rows, took more time
+// (trials/k9_cluster.patch, PERF.md).
+#include <cooperative_groups.h>
+
 #include "band_common.cuh"
 
 namespace {
@@ -56,7 +74,7 @@ band2_kernel(band::SourceT<typename S::T> src, typename S::T* __restrict__ dst,
              float* __restrict__ av, band::Geom g, float w1a, float w2a, lbm::Relax rc,
              float inv_tot, S io) {
   extern __shared__ float smem[];
-  const band::Smem s = band::carve(smem, g, 2);
+  const band::Smem s = band::carve(smem, g, 1);
   const size_t z = blockIdx.y;  // the shard (0 on one grid)
   src = band::shard(g, src);
   dst += z * 9 * (size_t)g.ny * g.nx;
@@ -66,46 +84,32 @@ band2_kernel(band::SourceT<typename S::T> src, typename S::T* __restrict__ dst,
   int y0, x0;
   band::fill_tables(g, s, y0, x0);
   __syncthreads();
-  float* a = s.planes;
-  float* b = s.planes + 9 * g.ncell;
-  band::load_window<kSharded>(g, s, a, src, y0, io);
+  float* w = s.planes;
+  const int n = g.ncell;
+  const int frow = g.nyg - 2;
+  band::for_cells(g.WH, g.WW, [&](int r, int c) {  // R -> C, forced
+    const int i = r * g.WW + c;
+    float v[9];
+    const float nob = band::load_cell<kSharded>(g, s, src, y0, r, c, v, io);
+    s.nob[i] = nob;
+    if (s.grow[r] == frow) band::force_cell(v, nob, w1a, w2a);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) w[lbm::opp(k) * n + i] = v[k];
+  });
   __syncthreads();
   const band::Central cen = band::central(g, y0, x0);
-  const int frow = g.nyg - 2;
-  const int n = g.ncell;
-  for (int st = 0; st < g.T; ++st) {
-    const float* in = (st & 1) ? b : a;
-    float* out = (st & 1) ? a : b;
-    float acc = 0.0f;
-    band::for_cells(g.WH, g.WW, [&](int r, int c) {
-      const int ru = band::wrap1(r - 1, g.WH), rd = band::wrap1(r + 1, g.WH);
-      const int cl = band::wrap1(c - 1, g.WW), cr = band::wrap1(c + 1, g.WW);
-      float t[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const int sr = lbm::cy(k) == 1 ? ru : (lbm::cy(k) == -1 ? rd : r);
-        const int sc = lbm::cx(k) == 1 ? cl : (lbm::cx(k) == -1 ? cr : c);
-        const int si = sr * g.WW + sc;
-        float v = in[k * n + si];
-        if (band::forced(k) && s.grow[sr] == frow) {
-          const float m = lbm::force_mask(in[3 * n + si], in[6 * n + si], in[7 * n + si],
-                                          s.nob[si], w1a, w2a);
-          v = v + band::force_weight(k, w1a, w2a) * m;
-        }
-        t[k] = v;
-      }
-      const int i = r * g.WW + c;
-      const float nob = s.nob[i];
-      const float usq = lbm::collide_fused(t, nob, rc);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) out[k * n + i] = t[k];
-      if (cen.has(r, c)) acc += nob * sqrtf(usq);
-    });
-    band::step_partial(s, st, acc);
-    __syncthreads();
+  const int half = g.T / 2;
+  for (int h = 0; h < half; ++h) {
+    band::aa_step<true>(g, s, w, cen, frow, true, w1a, w2a, rc, 2 * h);
+    band::aa_step<false>(g, s, w, cen, frow, h + 1 < half, w1a, w2a, rc, 2 * h + 1);
   }
-  band::store_tile(g, a, dst, y0, x0, io);
+  band::store_tile<S, true>(g, w, dst, y0, x0, io);
   band::finish_sums(g, s, partials, ticket, inv_tot, av);
+}
+
+// The cluster barrier alone, ``syncs`` times (lbm_cluster_sync_probe).
+__global__ void cluster_sync_loop(int syncs) {
+  for (int i = 0; i < syncs; ++i) cooperative_groups::this_cluster().sync();
 }
 
 // K9 on storage S: lbm_band2_run below.
@@ -114,7 +118,7 @@ int run_grid(typename S::T* buf_a, typename S::T* buf_b, const float* nobst, flo
              float* partials, unsigned int* ticket, const band::Geom& g, int n_passes, float w1a,
              float w2a, const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& io) {
   using T = typename S::T;
-  const size_t smem = band::smem_bytes(g, 2);
+  const size_t smem = band::smem_bytes(g, 1);
   const cudaError_t err = band::allow_smem(band2_kernel<false, S>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return band::run_passes(n_passes, g.T, buf_a, buf_b, av,
@@ -137,7 +141,7 @@ int run_sharded(const unsigned long long* table, int s0, int count, int nshards,
   const band::ShardsT<T> sh{table, s0, count, nshards, parity, static_cast<T*>(halo_dn),
                             static_cast<T*>(halo_up)};
   const band::Geom g = band::make_sharded_geom(ny, nx, block, depth, panel, sh, av_stride);
-  const size_t smem = band::smem_bytes(g, 2);
+  const size_t smem = band::smem_bytes(g, 1);
   const cudaError_t err = band::allow_smem(band2_kernel<true, S>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.nty * g.ntx, count);
@@ -193,4 +197,25 @@ extern "C" int lbm_band2_sharded_run(const unsigned long long* table, int s0, in
                        nob_up, av, av_stride, partials, ticket, ny, nx, block, depth, panel,
                        parity, n_passes, w1a, w2a, rc, inv_tot, st, io);
   });
+}
+
+// The floor of a cluster barrier: ``syncs`` cluster.sync() of an otherwise
+// empty kernel on ``blocks`` blocks of ``threads`` threads in clusters of
+// ``cluster`` (a divisor of blocks, at most 8). Returns the CUDA error of
+// the launch, or 0.
+extern "C" int lbm_cluster_sync_probe(int blocks, int threads, int cluster, int syncs,
+                                      void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, cluster_sync_loop, syncs);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

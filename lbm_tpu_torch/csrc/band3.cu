@@ -7,16 +7,10 @@
 //
 // The window holds the S arrangement on entry and exit (device memory keeps
 // S between passes, in two copies, because neighbouring tiles read each
-// other's halos). Steps alternate as in K2 (aa.cu):
-//   even (S -> C): cell-local; read the 9 slots of the cell, relax, write
-//     the value travelling k into slot opp(k) of the same cell;
-//   odd (C -> S): gather t_k from (x - c_k, opp(k)), relax, scatter to
-//     (x + c_k, k), wrapping at the window's edges.
-// Address (w, j) has one reader and one writer, the same cell w - c_j (the
-// window wrap keeps this), and each thread finishes a cell's 9 reads
-// before its 9 writes, so a step updates in place with no barrier but the
-// one between steps. Garbage creeps 0 + 2 cells per double step: T over T
-// steps, so the central tile stays genuine.
+// other's halos). Steps alternate even (S -> C), odd (C -> S) as in K2
+// (aa.cu), in place with one barrier each (band_common.cuh::aa_step, which
+// K9 shares). Garbage creeps 0 + 2 cells per double step: T over T steps,
+// so the central tile stays genuine.
 //
 // Forcing of the window rows whose global row is ny-2:
 //   - the even step adds the C-space forcing of the odd step that follows
@@ -76,51 +70,10 @@ band3_kernel(const typename S::T* __restrict__ src, typename S::T* __restrict__ 
   __syncthreads();
   const band::Central cen = band::central(g, y0, x0);
   const int frow = g.ny - 2;
-  const int n = g.ncell;
   const int half = g.T / 2;
   for (int h = 0; h < half; ++h) {
-    float acc = 0.0f;
-    band::for_cells(g.WH, g.WW, [&](int r, int c) {  // even step: S -> C
-      const int i = r * g.WW + c;
-      float t[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) t[k] = w[k * n + i];
-      const float nob = s.nob[i];
-      const float usq = lbm::collide_fused(t, nob, rc);
-      if (s.grow[r] == frow) band::force_cell(t, nob, w1a, w2a);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) w[lbm::opp(k) * n + i] = t[k];
-      if (cen.has(r, c)) acc += nob * sqrtf(usq);
-    });
-    band::step_partial(s, 2 * h, acc);
-    __syncthreads();
-
-    const bool fuse = fuse_last || h + 1 < half;
-    acc = 0.0f;
-    band::for_cells(g.WH, g.WW, [&](int r, int c) {  // odd step: C -> S
-      const int ru = band::wrap1(r - 1, g.WH), rd = band::wrap1(r + 1, g.WH);
-      const int cl = band::wrap1(c - 1, g.WW), cr = band::wrap1(c + 1, g.WW);
-      float t[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const int sr = lbm::cy(k) == 1 ? ru : (lbm::cy(k) == -1 ? rd : r);
-        const int sc = lbm::cx(k) == 1 ? cl : (lbm::cx(k) == -1 ? cr : c);
-        t[k] = w[lbm::opp(k) * n + sr * g.WW + sc];
-      }
-      const int i = r * g.WW + c;
-      const float nob = s.nob[i];
-      const float usq = lbm::collide_fused(t, nob, rc);
-      if (fuse && s.grow[r] == frow) band::force_cell(t, nob, w1a, w2a);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const int dr = lbm::cy(k) == 1 ? rd : (lbm::cy(k) == -1 ? ru : r);
-        const int dc = lbm::cx(k) == 1 ? cr : (lbm::cx(k) == -1 ? cl : c);
-        w[k * n + dr * g.WW + dc] = t[k];
-      }
-      if (cen.has(r, c)) acc += nob * sqrtf(usq);
-    });
-    band::step_partial(s, 2 * h + 1, acc);
-    __syncthreads();
+    band::aa_step<false>(g, s, w, cen, frow, true, w1a, w2a, rc, 2 * h);
+    band::aa_step<true>(g, s, w, cen, frow, fuse_last || h + 1 < half, w1a, w2a, rc, 2 * h + 1);
   }
   band::store_tile(g, w, dst, y0, x0, st);
   band::finish_sums(g, s, partials, ticket, inv_tot, av);

@@ -225,8 +225,10 @@ __device__ __forceinline__ void load_window(const Geom& g, const Smem& s, float*
   });
 }
 
-// Stores the central cells of ``win`` that lie inside the grid.
-template <class S = lbm::F32>
+// Stores the central cells of ``win`` that lie inside the grid; with kOpp
+// the value of speed k from the cell's slot opp(k) (the AA arrangement's C
+// space, K9).
+template <class S = lbm::F32, bool kOpp = false>
 __device__ __forceinline__ void store_tile(const Geom& g, const float* win,
                                            typename S::T* __restrict__ dst, int y0, int x0,
                                            const S& st = S()) {
@@ -237,7 +239,9 @@ __device__ __forceinline__ void store_tile(const Geom& g, const float* win,
     const int i = (r + g.T) * g.WW + (c + g.T);
     const size_t gi = (size_t)(y0 + r) * g.nx + (x0 + c);
 #pragma unroll
-    for (int k = 0; k < 9; ++k) dst[k * plane + gi] = st.store(win[k * g.ncell + i], k);
+    for (int k = 0; k < 9; ++k) {
+      dst[k * plane + gi] = st.store(win[(kOpp ? lbm::opp(k) : k) * g.ncell + i], k);
+    }
   });
 }
 
@@ -268,6 +272,78 @@ __device__ __forceinline__ void step_partial(const Smem& s, int step, float acc)
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
   if ((threadIdx.x & 31) == 0) s.red[step * kWarps + (threadIdx.x >> 5)] = acc;
+}
+
+// Forcing delta of speed k (kernels.cl:21-41): +w on 1, 5, 8 and -w on 3, 6, 7.
+__host__ __device__ constexpr bool forced(int k) {
+  return k == 1 || k == 3 || k == 5 || k == 6 || k == 7 || k == 8;
+}
+
+__device__ __forceinline__ float force_weight(int k, float w1a, float w2a) {
+  return k == 1 ? w1a : k == 3 ? -w1a : (k == 5 || k == 8) ? w2a : (k == 6 || k == 7) ? -w2a : 0.0f;
+}
+
+// Cell-local forcing of one cell's 9 values v (speed k in v[k]), with the
+// joint mask from its own f3, f6, f7 before any change.
+__device__ __forceinline__ void force_cell(float v[9], float nob, float w1a, float w2a) {
+  const float m = lbm::force_mask(v[3], v[6], v[7], nob, w1a, w2a);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    if (forced(k)) v[k] = v[k] + force_weight(k, w1a, w2a) * m;
+  }
+}
+
+// One step of the window ``w`` (9 x ncell, one copy) in the AA
+// arrangement, in place (K9, K11), its sum into red[step] and a barrier:
+//   even (S -> C, kOdd false): cell-local; read the 9 slots of the cell,
+//     relax, write the value travelling k into slot opp(k) of the cell;
+//   odd (C -> S): gather t_k from (x - c_k, opp(k)), relax, scatter to
+//     (x + c_k, k), wrapping at the window's edges.
+// Address (w, j) has one reader and one writer, the same cell w - c_j (the
+// window wrap keeps this), and each thread finishes a cell's 9 reads before
+// its 9 writes, so a step needs no barrier but the one after it. ``force``:
+// a cell on a forcing row (global row frow) adds the forcing of the next
+// step to its own outputs, with the mask from them (an even step: the
+// C-space forcing the odd step's gather reads; an odd step: the S-space
+// forcing the even step's cell-local read takes).
+template <bool kOdd>
+__device__ __forceinline__ void aa_step(const Geom& g, const Smem& s, float* w, const Central& cen,
+                                        int frow, bool force, float w1a, float w2a,
+                                        const lbm::Relax& rc, int step) {
+  const int n = g.ncell;
+  float acc = 0.0f;
+  for_cells(g.WH, g.WW, [&](int r, int c) {
+    const int ru = wrap1(r - 1, g.WH), rd = wrap1(r + 1, g.WH);
+    const int cl = wrap1(c - 1, g.WW), cr = wrap1(c + 1, g.WW);
+    const int i = r * g.WW + c;
+    float t[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if (kOdd) {
+        const int sr = lbm::cy(k) == 1 ? ru : (lbm::cy(k) == -1 ? rd : r);
+        const int sc = lbm::cx(k) == 1 ? cl : (lbm::cx(k) == -1 ? cr : c);
+        t[k] = w[lbm::opp(k) * n + sr * g.WW + sc];
+      } else {
+        t[k] = w[k * n + i];
+      }
+    }
+    const float nob = s.nob[i];
+    const float usq = lbm::collide_fused(t, nob, rc);
+    if (force && s.grow[r] == frow) force_cell(t, nob, w1a, w2a);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if (kOdd) {
+        const int dr = lbm::cy(k) == 1 ? rd : (lbm::cy(k) == -1 ? ru : r);
+        const int dc = lbm::cx(k) == 1 ? cr : (lbm::cx(k) == -1 ? cl : c);
+        w[k * n + dr * g.WW + dc] = t[k];
+      } else {
+        w[lbm::opp(k) * n + i] = t[k];
+      }
+    }
+    if (cen.has(r, c)) acc += nob * sqrtf(usq);
+  });
+  step_partial(s, step, acc);
+  __syncthreads();
 }
 
 // Fixed-order sum of one value per thread; the result is valid in thread 0.
@@ -316,25 +392,6 @@ __device__ __forceinline__ void finish_sums(const Geom& g, const Smem& s, float*
     if (threadIdx.x == 0) av[st] = (accumulate ? av[st] : 0.0f) + total * inv_tot;
   }
   if (threadIdx.x == 0) *ticket = 0u;
-}
-
-// Forcing delta of speed k (kernels.cl:21-41): +w on 1, 5, 8 and -w on 3, 6, 7.
-__host__ __device__ constexpr bool forced(int k) {
-  return k == 1 || k == 3 || k == 5 || k == 6 || k == 7 || k == 8;
-}
-
-__device__ __forceinline__ float force_weight(int k, float w1a, float w2a) {
-  return k == 1 ? w1a : k == 3 ? -w1a : (k == 5 || k == 8) ? w2a : (k == 6 || k == 7) ? -w2a : 0.0f;
-}
-
-// Cell-local forcing of one cell's 9 values v (speed k in v[k]), with the
-// joint mask from its own f3, f6, f7 before any change.
-__device__ __forceinline__ void force_cell(float v[9], float nob, float w1a, float w2a) {
-  const float m = lbm::force_mask(v[3], v[6], v[7], nob, w1a, w2a);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    if (forced(k)) v[k] = v[k] + force_weight(k, w1a, w2a) * m;
-  }
 }
 
 // Issues n_passes passes on one stream: launch(src, dst, av + p * T, p)

@@ -19,7 +19,8 @@
 // of one 128-byte line of the state's element (32 floats, or 64 int16
 // codes at c16), so every row of cells starts on a line and a warp's
 // stores of a row are whole lines (with lead 1 every store would straddle
-// two lines). At c16 a warp's 32 codes are half a line. A table on the
+// two lines); the 16-bit forms take four cells per thread, so a warp's
+// access of a plane is two whole lines (shard_step_pair_kernel). A table on the
 // device gives, per shard, the addresses of buffer 0, buffer 1 and the
 // padded plane, so shards may live in one allocation or on several cards
 // (peer addresses).
@@ -68,7 +69,12 @@
 // the storage of lbm_common.cuh like K1. The buffers and rings hold int16
 // codes; the step decodes each value it reads and encodes each value it
 // writes (one rounding per step, K1's), and the ring fill copies codes
-// untouched. 40 B per cell per step. K12 takes f32 only (the JAX package
+// untouched. 40 B per cell per step. The 16-bit forms run
+// shard_step_pair_kernel: four cells per thread, every plane access an
+// aligned 64-bit word, the x-1 and x+1 pulls rebuilt from the words of a
+// lane and its neighbour. With one cell per thread a warp's 64-byte access
+// of a 16-bit plane kept half the bytes of an f32 warp in flight for the
+// same instructions, and halving the bytes barely moved the time. K12 takes f32 only (the JAX package
 // refuses pallas-overlap at c16, sharded.py:1155-1156).
 //
 // K3 at bf16 (the JAX package's per-shard fused kernel on a bfloat16
@@ -175,6 +181,152 @@ shard_step_kernel(const unsigned long long* __restrict__ table, int s0, int pari
                            av + (size_t)lz * av_stride);
 }
 
+// The 16 bits of a raw element as a word's half, and back.
+__device__ __forceinline__ uint32_t bits_of(int16_t v) { return (uint16_t)v; }
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+template <class T>
+__device__ __forceinline__ T raw_of(uint32_t b);
+template <>
+__device__ __forceinline__ int16_t raw_of<int16_t>(uint32_t b) {
+  return (int16_t)(uint16_t)b;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 raw_of<__nv_bfloat16>(uint32_t b) {
+  return __ushort_as_bfloat16((unsigned short)b);
+}
+
+// Cells per thread of K3's 16-bit forms: one 64-bit word of each plane.
+constexpr int kPairCells = 4;
+
+// K3's 16-bit forms (c16, bf16): shard_step_kernel<false>'s step with
+// kPairCells cells per thread along x, so a warp covers 128 columns, two
+// whole 128-byte lines of each 16-bit plane, and every load and store of a
+// plane is an aligned 64-bit word (two 32-bit halves, each an aligned pair
+// of cells). The x-1 and x+1 pulls are built from the lane's own words and
+// the neighbour lane's edge word (a shuffle, then __byte_perm); lane 0 and
+// lane 31 load the one word outside the warp's span (the ring column at
+// lead-1 or lead+rx, or the next warp's first word). A warp is one row, so
+// the forcing test is warp-uniform; the rare forcing row reads the mask's
+// planes per cell as shard_step_kernel does. The cell arithmetic is
+// shard_step_kernel's (the decode of each element, the forcing, collide_fused,
+// the encode), so the state is bitwise K1's; a thread adds its cells' |u| in
+// cell order before the block tree. A row whose last word holds the right
+// ghost column (rx not a multiple of 4) stores its last cells one by one,
+// never over the ghost. The launch bounds ask for four blocks per SM, which
+// holds a thread to 64 registers.
+template <class S>
+__global__ void __launch_bounds__(lbm::kThreads, 4)
+shard_step_pair_kernel(const unsigned long long* __restrict__ table, int s0, int parity, Mesh m,
+                       float* __restrict__ partials, unsigned int* __restrict__ ticket,
+                       float* __restrict__ av, int av_stride, float w1a, float w2a,
+                       lbm::Relax rc, S io) {
+  using T = typename S::T;
+  static_assert(sizeof(T) == 2, "the paired step takes 16-bit storage");
+  constexpr int kWords = kPairCells / 2;
+  const int lz = blockIdx.z;
+  const int z = s0 + lz;
+  const T* __restrict__ src = entry<T>(table, z, parity);
+  T* dst = entry<T>(table, z, parity ^ 1);
+  const float* __restrict__ nob = entry<float>(table, z, 2);
+  const int si = z / m.px;
+  const int lane = threadIdx.x;
+  const int x0 = kPairCells * (blockIdx.x * blockDim.x + lane);  // the thread's first cell
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  float u = 0.0f;
+  if (y < m.ry) {  // warp-uniform: a warp is one row of cells
+    const int pr = y + 1, pc = m.lead + x0;  // padded coordinates of the first cell
+    // The words hold a cell or the right ghost column; further words are
+    // left unread (they may lie past the last row of the allocation).
+    const bool loads = x0 <= m.rx;
+    const int frow = m.ny - 2;
+    const float fw[9] = {0.0f, w1a, 0.0f, -w1a, 0.0f, w2a, -w2a, -w2a, w2a};
+    float t[kPairCells][9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const int sr = pr - lbm::cy(k);
+      const T* row = src + k * m.pplane + (size_t)sr * m.pw;
+      uint32_t w[kWords] = {0u, 0u};
+      if (loads) {
+        const uint2 v = *reinterpret_cast<const uint2*>(row + pc);
+        w[0] = v.x;
+        w[1] = v.y;
+      }
+      uint32_t pulled[kWords];  // elements pc - cx(k) .. pc - cx(k) + 3
+      if (lbm::cx(k) == 0) {
+        pulled[0] = w[0];
+        pulled[1] = w[1];
+      } else if (lbm::cx(k) == 1) {
+        uint32_t prev = __shfl_up_sync(0xffffffffu, w[1], 1);
+        if (lane == 0 && loads) prev = *reinterpret_cast<const uint32_t*>(row + pc - 2);
+        pulled[0] = __byte_perm(prev, w[0], 0x5432);
+        pulled[1] = __byte_perm(w[0], w[1], 0x5432);
+      } else {
+        uint32_t next = __shfl_down_sync(0xffffffffu, w[0], 1);
+        if (lane == 31 && x0 + kPairCells <= m.rx) {
+          next = *reinterpret_cast<const uint32_t*>(row + pc + kPairCells);
+        }
+        pulled[0] = __byte_perm(w[0], w[1], 0x5432);
+        pulled[1] = __byte_perm(w[1], next, 0x5432);
+      }
+#pragma unroll
+      for (int c = 0; c < kPairCells; ++c) {
+        const uint32_t b = (c & 1) ? pulled[c >> 1] >> 16 : pulled[c >> 1] & 0xffffu;
+        t[c][k] = io.load(raw_of<T>(b), k);
+      }
+      if (fw[k] != 0.0f) {
+        int g = si * m.ry + sr - 1;  // the source cells' global row
+        g = g < 0 ? g + m.ny : (g >= m.ny ? g - m.ny : g);
+        if (g == frow) {
+          auto rd = [&](int q, size_t s) { return io.load(src[q * m.pplane + s], q); };
+#pragma unroll
+          for (int c = 0; c < kPairCells; ++c) {
+            if (x0 + c >= m.rx) continue;
+            const size_t s = (size_t)sr * m.pw + (pc + c - lbm::cx(k));
+            t[c][k] = t[c][k] + fw[k] * lbm::force_mask(rd(3, s), rd(6, s), rd(7, s), nob[s],
+                                                        w1a, w2a);
+          }
+        }
+      }
+    }
+    const size_t cidx = (size_t)pr * m.pw + pc;
+    float nb[kPairCells] = {};
+    if (loads) {
+      const float4 v = *reinterpret_cast<const float4*>(nob + cidx);
+      nb[0] = v.x;
+      nb[1] = v.y;
+      nb[2] = v.z;
+      nb[3] = v.w;
+    }
+#pragma unroll
+    for (int c = 0; c < kPairCells; ++c) {
+      if (x0 + c < m.rx) {
+        const float usq = lbm::collide_fused(t[c], nb[c], rc);
+        u += nb[c] * sqrtf(usq);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      T* drow = dst + k * m.pplane + cidx;
+      if (x0 + kPairCells <= m.rx) {
+        uint32_t out[kWords];
+#pragma unroll
+        for (int i = 0; i < kWords; ++i) {
+          out[i] = bits_of(io.store(t[2 * i][k], k)) | (bits_of(io.store(t[2 * i + 1][k], k)) << 16);
+        }
+        *reinterpret_cast<uint2*>(drow) = make_uint2(out[0], out[1]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kPairCells; ++c) {
+          if (x0 + c < m.rx) drow[c] = io.store(t[c][k], k);
+        }
+      }
+    }
+  }
+  const unsigned int nblocks = gridDim.x * gridDim.y;
+  lbm::grid_sum_last_block(u, partials + (size_t)lz * nblocks, ticket + lz, 1.0f,
+                           av + (size_t)lz * av_stride);
+}
+
 // Fills the ring of entry p (0, 1: 9 planes of E; 2: the float
 // not-obstacle plane) of shards [s0, s0 + gridDim.y) from their
 // neighbours' cells, copying the raw elements.
@@ -249,8 +401,14 @@ int run(const unsigned long long* table, int s0, int count, const Mesh& m, float
                                                          av + t, av_stride, w1a, w2a, rc, io);
     } else {
       if ((err = fill<T>(table, s0, count, p, m, st)) != 0) return err;
-      shard_step_kernel<false, S><<<grid, block, 0, st>>>(table, s0, p, m, partials, ticket,
-                                                          av + t, av_stride, w1a, w2a, rc, io);
+      if constexpr (sizeof(T) == 2) {
+        const int span = lbm::kBlockX * kPairCells;  // columns of a block
+        shard_step_pair_kernel<S><<<dim3((m.rx + span - 1) / span, grid.y, count), block, 0, st>>>(
+            table, s0, p, m, partials, ticket, av + t, av_stride, w1a, w2a, rc, io);
+      } else {
+        shard_step_kernel<false, S><<<grid, block, 0, st>>>(table, s0, p, m, partials, ticket,
+                                                            av + t, av_stride, w1a, w2a, rc, io);
+      }
     }
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   }

@@ -71,6 +71,7 @@ _RUN_ARGTYPES = {
     "lbm_resident_smem_run": [_P] * 6 + [_I] * 8 + [_F] * 7 + [_P],
     "lbm_resident_smem_bytes": [_I, _I, _I],  # (nx, rows, depth)
     "lbm_grid_sync_probe": [_I, _I, _I, _P],  # (blocks, threads, syncs, stream)
+    "lbm_cluster_sync_probe": [_I, _I, _I, _I, _P],  # (blocks, threads, cluster, syncs, stream)
     # (table, s0, count, py, px, ry, rx, ny, pitch, lead, av, av_stride,
     # partials, ticket, parity, n_steps, mode, fill_first, 6 scalars, codec,
     # stream)

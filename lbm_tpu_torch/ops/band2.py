@@ -1,4 +1,4 @@
-"""The ping-pong band route (counterpart of ``lbm_tpu/ops/pallas_band2.py``).
+"""The band2 route (counterpart of ``lbm_tpu/ops/pallas_band2.py``).
 
 ``run_band2`` advances a ``(9, ny, nx)`` f32 state ``n_iters`` steps on the
 band schedule of ``ops/band_common.py``: ``n_iters // T`` passes, each
@@ -8,11 +8,14 @@ remainder on K1. It returns ``(cells, av)`` with ``av[t] = inv_tot_cells *
 sum(nobst * |u|)`` of step t.
 
 On a CUDA tensor the passes run kernel K9 (``csrc/band2.cu``): the window
-lives in two shared-memory buffers, and each step pulls from one and writes
-the other, as ``_kernel2`` does between its two VMEM scratch refs; every
-pass of a run is issued by one C call. On a CPU tensor it runs
-``run_band2_plain``, the same schedule on all windows at once in plain
-PyTorch. Any other device raises; a CUDA tensor never falls back.
+lives in ONE shared-memory buffer and steps in place in K11's AA
+arrangement, loaded from and stored to the regular arrangement that device
+memory keeps (``_kernel2`` pulls between two VMEM scratch refs; one copy
+fits a window twice as large in a block's shared memory); every pass of a
+run is issued by one C call. On a CPU tensor it runs ``run_band2_plain``,
+the same schedule on all windows at once in plain PyTorch (the pull);
+``run_band2_aa_plain`` takes the kernel's AA steps instead, for the tests.
+Any other device raises; a CUDA tensor never falls back.
 
 The TPU's full-row and panel kernels (``_kernel2``, ``_kernel2_panel``) are
 one function here: ``panel=None`` is the full row (window ``nx + 2T``
@@ -39,10 +42,13 @@ round their tiles, once per pass, K10's halos carry bfloat16.
 
 from __future__ import annotations
 
+import torch
+
 from lbm_tpu_torch.ops import band_common as BC
+from lbm_tpu_torch.ops.collision import bgk_relax
 from lbm_tpu_torch.ops.step import count_launches, forcing_weights
 
-PLANE_COPIES = 2  # two windows of the 9 planes per block
+PLANE_COPIES = 1  # one window of the 9 planes per block
 
 
 def band2_supported(ny: int, nx: int, block: int, depth: int, panel: int | None = None) -> bool:
@@ -61,10 +67,42 @@ def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
                          f"depth {depth}, panel {panel} (needs even depth and block >= 2*depth)")
 
 
+def aa_step_plain(omega, w1a, w2a, paired, depth):
+    """K9's steps on windows as the kernel takes them (csrc/band2.cu), for
+    ``BC.creep_pass_plain``: the window of R values enters the C space of the
+    AA arrangement (slot opp(k) holds the value leaving the cell along k)
+    with the forcing of the ny-2 rows added cell-locally; steps 0, 2, ...
+    gather, relax and scatter (C -> S), adding the next step's forcing;
+    steps 1, 3, ... relax in place (S -> C), adding the forcing of the step
+    after them but for the pass's last; the last step returns to R."""
+    shifts = [(BC.CYS[k], BC.CXS[k]) for k in range(9)]
+
+    def step(s, planes, nob, frow):
+        fluid = nob > 0.0
+        if s == 0:
+            planes = BC.force_windows(planes, nob, frow, w1a, w2a)
+            planes = [planes[BC.OPP[j]] for j in range(9)]
+        if s % 2 == 0:
+            t = [torch.roll(planes[BC.OPP[k]], shifts=shifts[k], dims=(1, 2)) for k in range(9)]
+            relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+            out = BC.force_windows([torch.where(fluid, relaxed[k], t[BC.OPP[k]]) for k in range(9)],
+                                   nob, frow, w1a, w2a)
+            return [torch.roll(out[k], shifts=shifts[k], dims=(1, 2)) for k in range(9)], u_sq
+        relaxed, u_sq = bgk_relax(planes, omega, paired=paired)
+        out = [torch.where(fluid, relaxed[k], planes[BC.OPP[k]]) for k in range(9)]
+        if s < depth - 1:
+            out = BC.force_windows(out, nob, frow, w1a, w2a)
+            return [out[BC.OPP[j]] for j in range(9)], u_sq
+        return out, u_sq  # the pass's last step: back to R for the store
+
+    return step
+
+
 def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
-                  dev=None):
+                  dev=None, aa=False):
     w1a, w2a = forcing_weights(density, accel)
-    step = BC.r_step_plain(float(omega), w1a, w2a, paired)
+    step = (aa_step_plain(float(omega), w1a, w2a, paired, depth) if aa
+            else BC.r_step_plain(float(omega), w1a, w2a, paired))
     return BC.plain_passes(nobst, inv_tot_cells, block, depth, panel, lambda p, n: step, dev)
 
 
@@ -103,6 +141,18 @@ def run_band2_plain(cells, nobst, density, accel, omega, n_iters, block, depth, 
     _check(cells, nobst, n_iters, block, depth, panel, dev)
     passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
                            paired, dev)
+    return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+                        passes, paired, dev)
+
+
+def run_band2_aa_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *,
+                       panel=None, inv_tot_cells=1.0, paired="fused", dev=None):
+    """``run_band2_plain``'s function with K9's steps in the AA arrangement
+    (``aa_step_plain``), the kernel's schedule in plain PyTorch; returns
+    ``(cells, av)``."""
+    _check(cells, nobst, n_iters, block, depth, panel, dev)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
+                           paired, dev, aa=True)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
                         passes, paired, dev)
 

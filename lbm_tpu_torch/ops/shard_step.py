@@ -79,6 +79,41 @@ def pitch_of(rx: int, dtype: torch.dtype = torch.float32) -> int:
     return -(-(lead + rx + 1) // lead) * lead
 
 
+PAIR_CELLS = 4  # cells per thread of K3's 16-bit forms (csrc/shard_step.cu::kPairCells)
+WARP = 32
+
+
+def pair_row_plan(rx: int, dtype: torch.dtype = torch.int16):
+    """The accesses of one row of a ringed 16-bit shard by K3's 16-bit forms
+    (``shard_step_pair_kernel``), in padded element columns: per thread,
+    ``(x0, loads, stores)``. Thread j of the row takes cells ``x0 = 4 j ..
+    4 j + 3``. It loads the 64-bit word of its cells (every plane) when
+    ``x0 <= rx`` (the word holds a cell or the right ghost column); lane 0
+    of a warp loads the 32-bit word before its span and lane 31 the one
+    after it when its cells reach them. It stores one 64-bit word when all
+    four cells lie below ``rx``, else its cells below ``rx`` one by one:
+    the right ghost column ``lead + rx`` is never written. ``loads`` and
+    ``stores`` are ``(first column, elements)``."""
+    lead = lead_of(dtype)
+    span = WARP * PAIR_CELLS
+    plan = []
+    for x0 in range(0, -(-rx // span) * span, PAIR_CELLS):
+        pc, lane = lead + x0, (x0 // PAIR_CELLS) % WARP
+        loads, stores = [], []
+        if x0 <= rx:
+            loads.append((pc, PAIR_CELLS))
+            if lane == 0:
+                loads.append((pc - 2, 2))
+            if lane == WARP - 1 and x0 + PAIR_CELLS <= rx:
+                loads.append((pc + PAIR_CELLS, 2))
+        if x0 + PAIR_CELLS <= rx:
+            stores.append((pc, PAIR_CELLS))
+        else:
+            stores += [(pc + c, 1) for c in range(PAIR_CELLS) if x0 + c < rx]
+        plan.append((x0, loads, stores))
+    return plan
+
+
 def mesh_of(shards):
     """``(py, px)`` of a mesh of shards."""
     return len(shards), len(shards[0])

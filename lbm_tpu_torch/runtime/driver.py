@@ -149,7 +149,13 @@ class SimulationResult:
 # fastest, of a sweep of 38-74 schedules per kernel at 2048^2 and 4096^2 on
 # an H100 (PERF.md, "Schedule sweep"); all three settle on 32-row windows.
 _BAND_SCHEDULE = (24, 4, 56)    # K7: a 32 x 64 window, 4 cells per thread
-_BAND2_SCHEDULE = (24, 4, 24)   # K9: a 32 x 32 window, 78 KB of shared memory
+_BAND2_SCHEDULE = (32, 4, 56)   # K9: a 40 x 64 window, one copy, 102 KB of shared memory
+# K9 on a grid that gives _BAND2_SCHEDULE fewer tiles than one wave of
+# blocks (two on each of an H100's 132 SMs): a 32 x 32 window. At 256^2 and
+# 512^2 it took 33% and 3% less time than the large tiles, at 1024^2 16%
+# more (chip_smoke phase 26's sweep, PERF.md).
+_BAND2_SMALL_SCHEDULE = (24, 4, 24)
+_BAND2_WAVE = 2 * 132
 _BAND3_SCHEDULE = (24, 4, 56)   # K11: a 32 x 64 window, 82 KB of shared memory
 # K5 and K6: the best of a sweep of 143 and 184 schedules at 2048^2 and
 # 4096^2 on an H100 (PERF.md, PR 3); both settle on a 40 x 32 window, T 4.
@@ -177,9 +183,13 @@ def band_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
 
 def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The band2 kernel's schedule ``(block, depth, panel)`` (driver.py:590-610),
-    or None for a dtype it does not store (f32, c16 and bf16)."""
-    del params
-    return _BAND2_SCHEDULE if _kernel_dtype(dtype) else None
+    or None for a dtype it does not store (f32, c16 and bf16): the large
+    tiles where they fill a wave of blocks, the small ones below."""
+    if not _kernel_dtype(dtype):
+        return None
+    block, _, panel = _BAND2_SCHEDULE
+    tiles = -(-params.ny // block) * -(-params.nx // panel)
+    return _BAND2_SCHEDULE if tiles >= _BAND2_WAVE else _BAND2_SMALL_SCHEDULE
 
 
 def band3_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:

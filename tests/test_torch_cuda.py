@@ -1,7 +1,9 @@
 """The CUDA kernels on the card: K1, K2, the band kernels K7, K9, K11, the
 resident, temporal and deep kernels K4, K5, K6, the shard kernels K3,
 K12, K8, K10, the slab kernel K13 and the c16 and bf16 forms of K1, K2,
-K3, K5-K11 and K13 against their plain versions.
+K3, K5-K11 and K13 against their plain versions; K3's 16-bit forms (four
+cells per thread) bitwise against K1 at odd widths and ragged rows, and
+K9 in one window at T 4, 8 and 16, full row and panel.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -709,3 +711,72 @@ def test_bf16_overlap_runs_f32_between_casts(cuda_device):
     ulps = bf16_ulps(torch.as_tensor(got.cells).to(torch.bfloat16),
                      torch.as_tensor(want.cells).to(torch.bfloat16))
     assert int(ulps.max()) <= 2 and float((ulps > 0).float().mean()) <= 0.01
+
+
+# K3's 16-bit forms (four cells per thread, 64-bit words): (nx, ny, py, px)
+# with an odd rx, ragged shard rows (25 of 100), a 1000^2 grid on 4 shards
+# and a 2 x 1 mesh.
+K3_16_MESHES = [(71, 100, 4, 1), (1000, 1000, 4, 1), (65, 64, 2, 1), (129, 30, 2, 1),
+                (3, 8, 4, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,py,px", K3_16_MESHES)
+@pytest.mark.parametrize("storage", ["c16", "bf16"])
+def test_k3_16bit_matches_plain_and_k1(cuda_device, storage, nx, ny, py, px):
+    """K3 at c16 and bf16 against its plain version, its joined state bitwise
+    K1's of the same storage and its summed av within 1e-6 of K1's; a second
+    run bitwise equal."""
+    dev = SPEC if storage == "c16" else BF16
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=nx + py)
+    x = tdev.encode_state(cells, dev)
+    ry = ny // py
+    shards = [[x[:, i * ry:(i + 1) * ry].contiguous()] for i in range(py)]
+    nob = [[nobst[i * ry:(i + 1) * ry].contiguous()] for i in range(py)]
+    n = 13
+    got = tshard.run_shard_step(shards, nob, DENSITY, ACCEL, OMEGA, n, ny, dev=dev)
+    again = tshard.run_shard_step(shards, nob, DENSITY, ACCEL, OMEGA, n, ny, dev=dev)
+    assert torch.equal(joined(got[0]), joined(again[0])) and torch.equal(got[1], again[1])
+    k1 = tstep.run_step(x, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, dev=dev)
+    assert torch.equal(joined(got[0]), k1[0])
+    np.testing.assert_allclose(got[1].sum(0).double().cpu().numpy(),
+                               k1[1].double().cpu().numpy(), rtol=1e-6)
+    want = tshard.run_shard_step_plain(shards, nob, DENSITY, ACCEL, OMEGA, n, ny, dev=dev)
+    pair = (joined(got[0]), got[1].sum(0)), (joined(want[0]), want[1].sum(0))
+    if storage == "c16":
+        assert_c16_close(*pair)
+    else:
+        assert_bf16_close(*pair, BF16_SPREAD_TOL)
+
+
+# K9 in one window: (nx, ny, block, depth, panel) at T 4, 8 and 16, full row
+# (panel None) and panel, on ragged grids.
+K9_SCHEDULES = [(100, 97, 24, 4, 56), (100, 97, 8, 4, None), (150, 100, 16, 8, 40),
+                (130, 100, 16, 8, None), (200, 150, 32, 16, 40), (40, 70, 32, 16, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,block,depth,panel", K9_SCHEDULES)
+@pytest.mark.parametrize("storage", ["f32", "c16", "bf16"])
+def test_k9_one_window_matches_plain(cuda_device, storage, nx, ny, block, depth, panel):
+    """K9 over 2T+3 steps (two passes and a K1 remainder) against
+    run_band2_plain; at f32 its state bitwise K1's; a second run bitwise
+    equal."""
+    dev = {"f32": None, "c16": SPEC, "bf16": BF16}[storage]
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=nx + depth)
+    x = cells if dev is None else tdev.encode_state(cells, dev)
+    n = 2 * depth + 3
+
+    def run(fn):
+        return fn(x, nobst, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel, dev=dev)
+
+    got, again = run(tband2.run_band2), run(tband2.run_band2)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = run(tband2.run_band2_plain)
+    if storage == "f32":
+        assert_close(got, want)
+        assert torch.equal(got[0], tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, n, 1.0)[0])
+    elif storage == "c16":
+        assert_c16_close(got, want)
+    else:
+        assert_bf16_close(got, want, BF16_SPREAD_TOL)

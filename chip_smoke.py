@@ -164,14 +164,29 @@ PyTorch built for CUDA. Phases, each printing what it found:
    and at f32 on the driver's schedule against K1 over 200 steps at 1024^2;
    K3 timed beside K1 of the same storage and K9 beside K11 and K2 of the
    same storage, in turns, at 1024^2, 2048^2 and 4096^2; K9's schedule
-   sweep at 2048^2, and at 256^2-1024^2 for the smaller tiles.
+   sweep at 2048^2, and at 256^2-1024^2 for the smaller tiles;
+27. K5 and K6 in one window, AA steps on the trapezoid (``csrc/temporal.cu``,
+   ``deep.cu``, ``trapezoid.cuh``): at f32, c16 and bf16 against their
+   plain versions at T 3, 4 and 8 over 2T+3 steps, on ragged tiles (the
+   last row block as short as T), a full row, a single tile that wraps
+   onto itself and every schedule of the driver's tiers, two runs bitwise
+   equal; one K5 pass from packs that differ from the state's rows (at 16
+   bits the packs the bits of the state rows they copy); at f32 on the
+   driver's schedules against K1 over 200 steps at 1024^2; both timed
+   beside K9 and K11 of the same storage, in turns, at 1024^2, 2048^2 and
+   4096^2; their schedule sweep at 256^2-4096^2, in a process whose
+   kernels are built with every candidate's window at constant strides;
+   and the c16 decks of phase 19 with ``temporal`` and ``deep`` (the gate
+   values).
 
-``python3 chip_smoke.py --phase 26`` runs phases 1, 2 and 26 only (no
-kernel report), and ``--phase 26 --import-from DIR`` only phase 26's K9
-checks and its timing in turns, of the ``lbm_tpu_torch`` package under DIR
-(another checkout, such as the parent commit unpacked into a git-ignored
-directory, or a trial patched onto one), so that a redesign and the body it
-replaces are held to the same rivals.
+``python3 chip_smoke.py --phase 26`` (or ``--phase 27``) runs phases 1, 2
+and that phase only (no kernel report), and ``--phase 26 --import-from
+DIR`` only phase 26's K9 checks and its timing in turns, of the
+``lbm_tpu_torch`` package under DIR (another checkout, such as the parent
+commit unpacked into a git-ignored directory, or a trial patched onto one),
+so that a redesign and the body it replaces are held to the same rivals;
+``--phase 27 --import-from DIR`` likewise phase 27's K5 and K6 checks,
+their timing beside K9 and K11 and their c16 gate decks.
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
@@ -581,10 +596,10 @@ def build_native_io():
 SCHEDULED = {
     "resident": ("K4 resident (persistent cooperative grid)", "lbm_tpu_torch/csrc/resident.cu",
                  "lbm_tpu/ops/pallas_resident.py:66"),
-    "temporal": ("K5 temporal (trapezoid, carried row packs)", "lbm_tpu_torch/csrc/temporal.cu",
-                 "lbm_tpu/ops/pallas_temporal.py:76"),
-    "deep": ("K6 deep (trapezoid, halos from the state)", "lbm_tpu_torch/csrc/deep.cu",
-             "lbm_tpu/ops/pallas_deep.py:68"),
+    "temporal": ("K5 temporal (one window, AA steps on the trapezoid, carried row packs)",
+                 "lbm_tpu_torch/csrc/temporal.cu", "lbm_tpu/ops/pallas_temporal.py:76"),
+    "deep": ("K6 deep (one window, AA steps on the trapezoid, halos from the state)",
+             "lbm_tpu_torch/csrc/deep.cu", "lbm_tpu/ops/pallas_deep.py:68"),
 }
 
 
@@ -606,6 +621,9 @@ def scheduled_routes():
         return lambda c, o, n: fn(c, o, DENSITY, ACCEL, OMEGA, n, 1.0, chunk=chunk)
 
     out = {"resident": ("K4", res(resident.run_resident), res(resident.run_resident_plain), 1)}
+    # K5's and K6's schedules at 2048^2, where the report times them.
+    params = LBMParams(nx=2048, ny=2048, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
     for route, plain in (("temporal", temporal.run_temporal_plain), ("deep", deep.run_deep_plain)):
         run, (block, depth, panel) = pass_schedule(route, params, torch.float32)
 
@@ -1155,7 +1173,8 @@ def c16_more_forms():
     from lbm_tpu_torch.ops import band, band2, deep, shard_step, temporal
     from lbm_tpu_torch.runtime.driver import band2_config, band_config, pass_schedule
 
-    params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
+    # The schedules at 2048^2, where the report times these forms.
+    params = LBMParams(nx=2048, ny=2048, max_iters=1, reynolds_dim=10, density=DENSITY,
                        accel=ACCEL, omega=OMEGA)
     plains = {"band2": band2.run_band2_plain, "temporal": temporal.run_temporal_plain,
               "deep": deep.run_deep_plain}
@@ -2064,19 +2083,235 @@ def redesign9_phase(torch, spec, gpu_line):
             + f" [{gpu_line}]")
 
 
+
+# (nx, ny, (block, depth, panel)) of phase 27's K5 and K6 checks: T 3, 4 and
+# 8, ragged tiles (the last row block as short as T rows), a full row, and
+# a single tile that wraps onto itself (ny < block); k56_checks adds every
+# schedule of the driver's K5 and K6 tiers on a grid ragged both ways.
+K56_CHECKS = ((100, 100, (32, 4, 56)), (97, 97, (20, 3, 24)), (150, 104, (24, 8, 40)),
+              (130, 75, (16, 3, None)), (70, 12, (16, 4, 20)))
+# Phase 27's K5 and K6 schedule sweep (block, depth, panel) at 2048^2 and
+# 4096^2, and the smaller tiles at the sizes where the large ones leave SMs
+# idle. Its process builds every candidate's window with constant strides.
+K56_SWEEP = {n: ((32, 4, 56), (24, 4, 56), (32, 4, 72), (40, 4, 48), (24, 4, 24), (32, 4, 24),
+                 (32, 4, 40), (32, 4, 48), (36, 4, 56))
+             for n in (2048, 4096)}
+K56_SWEEP.update({n: ((16, 4, 24), (24, 4, 24), (32, 4, 24), (16, 4, 40), (32, 4, 40),
+                      (32, 4, 56), (36, 4, 56)) for n in (256, 512, 1024, 1536)})
+
+
+def k56_routes():
+    """route -> (name, kernel, plain): K5 and K6 with the signature
+    fn(cells, nobst, n, block, depth, panel, dev)."""
+    from lbm_tpu_torch.ops import deep, temporal
+
+    def bind(fn):
+        return lambda c, o, n, block, depth, panel, dev: fn(c, o, DENSITY, ACCEL, OMEGA, n, block,
+                                                            depth, panel=panel, dev=dev)
+
+    return {"temporal": ("K5", bind(temporal.run_temporal), bind(temporal.run_temporal_plain)),
+            "deep": ("K6", bind(deep.run_deep), bind(deep.run_deep_plain))}
+
+
+def k56_checks(torch, spec, skip_refused=False):
+    """K5 and K6 at f32, c16 and bf16 against their plain versions over 2T+3
+    steps (K56_CHECKS and the schedules of the driver's tiers), two runs
+    bitwise equal; K5 one pass from packs that differ from the state's
+    rows; at f32 on the driver's schedules against K1 over 200 steps at
+    1024^2 (bitwise or not printed, the tolerance held). ``skip_refused``:
+    pass over a schedule the package refuses (an imported older package),
+    saying so."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import devspace, temporal
+    from lbm_tpu_torch.ops import band_common as BC
+    from lbm_tpu_torch.ops.step import run_step
+    from lbm_tpu_torch.runtime import driver
+
+    routes = k56_routes()
+    tiers = getattr(driver, "trapezoid_schedules", tuple)()
+    checks = []
+    for nx, ny, cfg in K56_CHECKS + tuple((2 * p - 7, 2 * b - 5, (b, t, p)) for b, t, p in tiers):
+        try:
+            BC.check_smem("temporal kernel", temporal.PLANE_COPIES, nx, *cfg)
+            checks.append((nx, ny, cfg))
+        except ValueError as e:
+            check(skip_refused, str(e))
+            log(f"  K5/K6 {nx}x{ny} {cfg}: not checked, the package refuses it ({e})")
+    forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
+    for name, dev in forms.items():
+        for nx, ny, (block, depth, panel) in checks:
+            cells, nobst = random_setup(torch, nx, ny, seed=nx + ny + depth)
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+            n = 2 * depth + 3
+            for route, (label, kernel, plain) in routes.items():
+                got = kernel(q, nobst, n, block, depth, panel, dev)
+                again = kernel(q, nobst, n, block, depth, panel, dev)
+                want = plain(q, nobst, n, block, depth, panel, dev)
+                what = (f"{label} {name} {nx}x{ny} T {depth} block {block} "
+                        f"{'panel ' + str(panel) if panel else 'full row'}")
+                if name == "bf16":
+                    bf16_compare(torch, what, got, want, TOL_BF16_SPREAD)
+                else:
+                    compare(torch, what, got, want, dev)
+                check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                      f"{what}: not run-to-run deterministic")
+        # One K5 pass from packs that differ from the state's rows.
+        cells, nobst = random_setup(torch, 70, 97, seed=41)
+        q = cells if dev is None else devspace.encode_state(cells, dev)
+        for depth in (3, 4):
+            last, first = temporal.make_halos_t(q, 20, depth)
+            if name == "c16":
+                state = (q, last + 3, first - 3)
+            else:
+                state = (q, (last.float() * 1.01).to(q.dtype), (first.float() * 0.99).to(q.dtype))
+            got, av = temporal.step_t(state, nobst, DENSITY, ACCEL, OMEGA, 20, depth, panel=32,
+                                      dev=dev)
+            want, want_av = temporal.step_t_plain(state, nobst, DENSITY, ACCEL, OMEGA, 20, depth,
+                                                  dev=dev)
+            what = f"K5 {name} one pass from other packs, T {depth}"
+            if name == "bf16":
+                bf16_compare(torch, what, (got[0], av), (want[0], want_av), TOL_BF16)
+            else:
+                compare(torch, what, (got[0], av), (want[0], want_av), dev)
+            if dev is None:
+                for g, w in zip(got[1:], want[1:]):
+                    check(float((g - w).abs().max()) <= TOL_CELLS * float(w.abs().max()),
+                          f"{what}: the packs differ from the plain pass's")
+            else:
+                own_last, own_first = temporal.make_halos_t(got[0], 20, depth)
+                check(torch.equal(got[1], own_last) and torch.equal(got[2], own_first),
+                      f"{what}: the packs are not the bits of the state rows they copy")
+    log(f"  K5 and K6 determinism: two runs of each of {len(checks)} schedules give "
+        "bitwise-equal av and state")
+    params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    cells, nobst = random_setup(torch, 1024, 1024, seed=5)
+    k1 = run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 200, 1.0)
+    for route, (label, _, _) in routes.items():
+        run, (block, depth, panel) = driver.pass_schedule(route, params, torch.float32)
+        got = run(cells, nobst, DENSITY, ACCEL, OMEGA, 200, block, depth, panel=panel)
+        torch.cuda.synchronize()
+        what = f"{label} f32 {(block, depth, panel)} vs K1 1024x1024 200 steps"
+        log(f"  {what}: final state bitwise equal: {torch.equal(got[0], k1[0])}, max diff "
+            f"{float((got[0] - k1[0]).abs().max()):.3e}")
+        compare(torch, what, got, k1)
+
+
+def redesign10_turns(torch, spec, gpu_line):
+    """Phase 27's times: K5 and K6 beside K9 and K11 of the same storage, in
+    turns at 1024^2-4096^2, with the driver's schedules of the imported
+    package; returns {(name, storage, n): {kernel: us per step}}."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band2, band3, deep, devspace, temporal
+    from lbm_tpu_torch.runtime.driver import pass_schedule
+
+    forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
+    out = {}
+    for nx, n in ((1024, 800), (2048, 240), (4096, 64)):
+        params = LBMParams(nx=nx, ny=nx, max_iters=1, reynolds_dim=10, density=DENSITY,
+                           accel=ACCEL, omega=OMEGA)
+        cfg = {route: pass_schedule(route, params, torch.float32)[1]
+               for route in ("temporal", "deep", "band2", "band3")}
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        for name, dev in forms.items():
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+
+            def pas(fn, route):
+                b, t, p = cfg[route]
+                return lambda: fn(q, nobst, DENSITY, ACCEL, OMEGA, n, b, t, panel=p, dev=dev)
+
+            t = turns(torch, {"K5": pas(temporal.run_temporal, "temporal"),
+                              "K6": pas(deep.run_deep, "deep"),
+                              "K9": pas(band2.run_band2, "band2"),
+                              "K11": pas(band3.run_band3, "band3")}, n)
+            out[name, nx] = t
+            log(f"  {name} {nx}x{nx} (K5 {cfg['temporal']}, K6 {cfg['deep']}): K5 {t['K5']:.2f} "
+                f"us/step, K6 {t['K6']:.2f}, K9 {t['K9']:.2f}, K11 {t['K11']:.2f} (in turns): "
+                f"K5/K9 {t['K5'] / t['K9']:.3f}, K6/K9 {t['K6'] / t['K9']:.3f}, K5/K11 "
+                f"{t['K5'] / t['K11']:.3f}, K6/K11 {t['K6'] / t['K11']:.3f} [{gpu_line}]")
+        del cells, nobst
+    return out
+
+
+def k56_gate_decks(cli, gpu_line):
+    """The c16 decks of phase 19 for K5 and K6 (``temporal``, ``deep`` on
+    256^2 and 1024^2), their 1% verdict printed and held at PASS_GATE_C16."""
+    with tempfile.TemporaryDirectory() as work:
+        for tag in ("256x256", "1024x1024"):
+            for backend in ("temporal", "deep"):
+                run_deck(cli, tag, backend, work, gpu_line, precision="c16", gate=PASS_GATE_C16)
+
+
+def k56_sweep(torch, gpu_line):
+    """K5's and K6's schedules (K56_SWEEP) at f32 in turns beside K11."""
+    from lbm_tpu_torch.ops import band3
+
+    routes = k56_routes()
+    for nx, schedules in K56_SWEEP.items():
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        n = max(8, 240 * 2048 // nx) // 8 * 8
+        for route, (label, kernel, _) in routes.items():
+            fns = {cfg: (lambda cfg=cfg: kernel(cells, nobst, n, *cfg, None)) for cfg in schedules}
+            fns["K11"] = lambda: band3.run_band3(cells, nobst, DENSITY, ACCEL, OMEGA, n, 24, 4,
+                                                 panel=56)
+            t = turns(torch, fns, n)
+            log(f"  {label} schedules at {nx}^2 f32 ((block, depth, panel): us/step, in turns "
+                f"beside K11 {t['K11']:.3f}): " + ", ".join(f"{cfg}: {t[cfg]:.3f}"
+                                                            for cfg in schedules)
+                + f" [{gpu_line}]")
+        del cells, nobst
+
+
+def k56_sweep_main():
+    """The body of k56_sweep_process: builds the kernels with every
+    candidate's window at constant strides, as the build compiles the
+    windows of the driver's schedules, and sweeps."""
+    import torch
+
+    from lbm_tpu_torch.ops import _build
+    from lbm_tpu_torch.runtime import driver
+
+    candidates = tuple(dict.fromkeys(cfg for cfgs in K56_SWEEP.values() for cfg in cfgs))
+    driver.trapezoid_schedules = lambda: candidates
+    b = _build.library().build_info
+    log(f"  sweep's kernels {'built' if b['built'] else 'loaded'} in {b['seconds']:.1f} s, "
+        f"K5 and K6 with constant strides for the windows {b['windows']}")
+    k56_sweep(torch, nvidia_smi())
+    return 0
+
+
+def k56_sweep_process():
+    """Runs k56_sweep_main in a process of its own, so that every candidate
+    is timed under the same stride regime."""
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.k56_sweep_main())"
+    rc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, timeout=600).returncode
+    check(rc == 0, f"the K5 and K6 schedule sweep exited {rc}")
+
+
+def redesign10_phase(torch, spec, cli, gpu_line):
+    """Phase 27: K5 and K6 in one window (AA steps on the trapezoid) against
+    their plain versions and K1; timed beside K9 and K11 in turns; the
+    schedule sweep; the c16 gate decks."""
+    k56_checks(torch, spec)
+    redesign10_turns(torch, spec, gpu_line)
+    k56_sweep_process()
+    k56_gate_decks(cli, gpu_line)
+
+
 def main():
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", type=int, choices=(26,),
+    ap.add_argument("--phase", type=int, choices=(26, 27),
                     help="run phases 1, 2 and this one only (no kernel report)")
     ap.add_argument("--import-from", metavar="DIR",
                     help="with --phase 26: check K9 of the lbm_tpu_torch package under DIR "
-                         "(another checkout) and time it and K3 beside their rivals, nothing "
-                         "else")
+                         "(another checkout) and time it and K3 beside their rivals; with "
+                         "--phase 27: check K5 and K6 of that package, time them beside K9 "
+                         "and K11 and run their c16 gate decks; nothing else")
     args = ap.parse_args()
-    if args.import_from and args.phase != 26:
-        ap.error("--import-from needs --phase 26")
+    if args.import_from and args.phase is None:
+        ap.error("--import-from needs --phase 26 or 27")
     try:
         import torch
     except ImportError:
@@ -2103,6 +2338,21 @@ def main():
     check("sm_90a" in b["flags"], "kernels not built for sm_90a")
     log(f"  {'built' if b['built'] else 'loaded'} {os.path.relpath(b['path'], ROOT)} "
         f"in {b['seconds']:.1f} s with nvcc {b['flags']} from {', '.join(b['sources'])}")
+    if args.phase == 27:
+        from lbm_tpu_torch.ops.devspace import DevSpec
+
+        spec = DevSpec.for_params(DENSITY, ACCEL)
+        if args.import_from:
+            phase(f"27. K5 and K6 vs their plain versions and K1, beside K9 and K11, the c16 "
+                  f"gate decks, the package under {args.import_from}")
+            k56_checks(torch, spec, skip_refused=True)
+            redesign10_turns(torch, spec, gpu_line)
+            k56_gate_decks(cli, gpu_line)
+        else:
+            phase("27. K5 and K6 in one window: vs plain and K1, beside K9 and K11, the "
+                  "schedule sweep, the c16 gate decks")
+            redesign10_phase(torch, spec, cli, gpu_line)
+        return 0
     if args.phase == 26:
         from lbm_tpu_torch.ops.devspace import DevSpec
 
@@ -2354,6 +2604,9 @@ def main():
     phase("26. K3's paired 16-bit words and K9's one window: the cluster barrier, vs plain and "
           "K1, beside their rivals, K9's schedules")
     redesign9_phase(torch, spec, gpu_line)
+    phase("27. K5 and K6 in one window: vs plain and K1, beside K9 and K11, the schedule sweep, "
+          "the c16 gate decks")
+    redesign10_phase(torch, spec, cli, gpu_line)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1,
               bytes_per_cell=BYTES_PER_CELL):

@@ -17,14 +17,18 @@
 // the other pack buffers. A block's packs are its own rows, so every block,
 // the last one of a ragged grid included, has at least T rows.
 //
-// What bounds it on the H100: as K6 (deep.cu), device-memory bytes and the
-// 76 B of shared memory per window cell; the packs add 2T rows read and 2T
-// written per block of B rows, where K6 reads its halo from the state.
+// What bounds it on the H100: as K6 (deep.cu), the work inside the window
+// and the shared memory that sizes the window; the packs add 2T rows read
+// and 2T written per block of B rows, where K6 reads its halo from the
+// state.
 //
 // What the design does about it: one block per B x P tile on the shared
-// trapezoid (trapezoid.cuh); all passes of a run from one C call, the
-// state and the packs ping-ponging between two buffers each; per-step sums
-// in a fixed order (band_common.cuh::finish_sums).
+// trapezoid in one window copy, stepped in place (trapezoid.cuh); the
+// threads that store tile rows [0, T) and [bi - T, bi) store the pack rows
+// from the same encoded values in the same loop; all passes
+// of a run from one C call, the state and the packs ping-ponging between
+// two buffers each; per-step sums in a fixed order
+// (band_common.cuh::finish_sums).
 //
 // K5 at c16 (pallas_temporal.py:145-149, :200-210, ``dev=``): templated on
 // the storage of lbm_common.cuh. The state and the packs hold int16 codes;
@@ -43,62 +47,54 @@
 
 namespace {
 
-template <class S>
+template <class L, class S>
 __global__ void __launch_bounds__(band::kThreads)
 temporal_kernel(const typename S::T* __restrict__ src, const typename S::T* __restrict__ last_in,
                 const typename S::T* __restrict__ first_in, typename S::T* __restrict__ dst,
                 typename S::T* __restrict__ last_out, typename S::T* __restrict__ first_out,
                 const float* __restrict__ nobst, float* __restrict__ partials,
-                unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, float w1a,
-                float w2a, lbm::Relax rc, float inv_tot, S io) {
+                unsigned int* __restrict__ ticket, float* __restrict__ av, band::Geom g, L lay,
+                float w1a, float w2a, lbm::Relax rc, float inv_tot, S io) {
   using T = typename S::T;
   extern __shared__ float smem[];
-  const band::Smem s = band::carve(smem, g, 2);
+  const band::Smem s = band::carve(smem, g, 1);
   const trap::Tile tl = trap::begin(g, s);
   __syncthreads();
-  float* a = s.planes;
-  float* b = s.planes + 9 * g.ncell;
   const int Tn = g.T;
   const size_t plane = (size_t)g.ny * g.nx;
   const int ty = blockIdx.x / g.ntx;
   const size_t pack = (size_t)9 * Tn * g.nx;  // one block's pack
   const T* above = last_in + (size_t)((ty + g.nty - 1) % g.nty) * pack;
   const T* below = first_in + (size_t)((ty + 1) % g.nty) * pack;
-  band::for_cells(tl.wh, tl.ww, [&](int r, int c) {
+  trap::load(g, s, tl, lay, w1a, w2a, [&](int r, int c, float* v) {
     const int gc = s.gcol[c];
-    const int i = r * g.WW + c;
     if (r < Tn) {
 #pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        a[k * g.ncell + i] = io.load(above[(size_t)(k * Tn + r) * g.nx + gc], k);
-      }
+      for (int k = 0; k < 9; ++k) v[k] = io.load(above[(size_t)(k * Tn + r) * g.nx + gc], k);
     } else if (r < Tn + tl.bi) {
       const size_t gi = (size_t)(tl.y0 + r - Tn) * g.nx + gc;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) a[k * g.ncell + i] = io.load(src[k * plane + gi], k);
+      for (int k = 0; k < 9; ++k) v[k] = io.load(src[k * plane + gi], k);
     } else {
       const int q = r - Tn - tl.bi;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        a[k * g.ncell + i] = io.load(below[(size_t)(k * Tn + q) * g.nx + gc], k);
-      }
+      for (int k = 0; k < 9; ++k) v[k] = io.load(below[(size_t)(k * Tn + q) * g.nx + gc], k);
     }
-    s.nob[i] = nobst[(size_t)s.grow[r] * g.nx + gc];
+    return nobst[(size_t)s.grow[r] * g.nx + gc];
   });
-  __syncthreads();
-  const float* out = trap::steps(g, s, tl, a, b, w1a, w2a, rc);
-  band::store_tile(g, out, dst, tl.y0, tl.x0, io);
+  trap::steps(g, s, tl, lay, w1a, w2a, rc);
   // This block's packs: its first and last T output rows, its columns.
   T* first_o = first_out + (size_t)ty * pack;
   T* last_o = last_out + (size_t)ty * pack;
-  band::for_cells(Tn, tl.pi, [&](int q, int c) {
-    const int x = tl.x0 + c;
-    const int i_first = (Tn + q) * g.WW + (Tn + c);
-    const int i_last = (tl.bi + q) * g.WW + (Tn + c);
+  const int lo = tl.bi - Tn;  // the first tile row of the last pack
+  trap::store(g, s, tl, lay, dst, io, [&](int r, int x, const T* e) {
+    if (r < Tn) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      first_o[(size_t)(k * Tn + q) * g.nx + x] = io.store(out[k * g.ncell + i_first], k);
-      last_o[(size_t)(k * Tn + q) * g.nx + x] = io.store(out[k * g.ncell + i_last], k);
+      for (int k = 0; k < 9; ++k) first_o[(size_t)(k * Tn + r) * g.nx + x] = e[k];
+    }
+    if (r >= lo) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) last_o[(size_t)(k * Tn + r - lo) * g.nx + x] = e[k];
     }
   });
   band::finish_sums(g, s, partials, ticket, inv_tot, av);
@@ -109,32 +105,36 @@ int run(void* const bufs[6], const float* nobst, float* av, float* partials,
         unsigned int* ticket, const band::Geom& g, int n_passes, float w1a, float w2a,
         const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& io) {
   using T = typename S::T;
-  const size_t smem = band::smem_bytes(g, 2);
-  const cudaError_t err = band::allow_smem(temporal_kernel<S>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = band::smem_bytes(g, 1);
   T* last_a = static_cast<T*>(bufs[2]);
   T* first_a = static_cast<T*>(bufs[3]);
   T* last_b = static_cast<T*>(bufs[4]);
   T* first_b = static_cast<T*>(bufs[5]);
-  return band::run_passes(n_passes, g.T, static_cast<T*>(bufs[0]), static_cast<T*>(bufs[1]), av,
-                          [&](const T* src, T* dst, float* av_p, int p) {
-    const bool odd = (p & 1) != 0;
-    temporal_kernel<S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
-        src, odd ? last_b : last_a, odd ? first_b : first_a, dst, odd ? last_a : last_b,
-        odd ? first_a : first_b, nobst, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot, io);
+  return trap::with_layout(g, [&](auto lay) {
+    using L = decltype(lay);
+    const cudaError_t err = band::allow_smem(temporal_kernel<L, S>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return band::run_passes(n_passes, g.T, static_cast<T*>(bufs[0]), static_cast<T*>(bufs[1]),
+                            av, [&](const T* src, T* dst, float* av_p, int p) {
+      const bool odd = (p & 1) != 0;
+      temporal_kernel<L, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
+          src, odd ? last_b : last_a, odd ? first_b : first_a, dst, odd ? last_a : last_b,
+          odd ? first_a : first_b, nobst, partials, ticket, av_p, g, lay, w1a, w2a, rc, inv_tot,
+          io);
+    });
   });
 }
 
 }  // namespace
 
-// Runs n_passes passes of ``depth`` steps on B x P tiles. state_a, last_a
-// and first_a hold the initial state and its packs ((nblk, 9 * depth, nx)
-// each, nblk = ceil(ny / block)); pass p reads the [p % 2] buffers and
-// writes the [(p + 1) % 2] ones. av receives n_passes * depth values;
-// partials needs depth * lbm_band_num_tiles floats; ticket one zeroed
-// unsigned int. storage: the storage of the state and the packs alike
-// (lbm_common.cuh::Storage: f32, c16 int16 codes or bf16). Returns the
-// first CUDA error, or 0.
+// Runs n_passes passes of ``depth`` steps (any depth >= 1) on B x P tiles.
+// state_a, last_a and first_a hold the initial state and its packs ((nblk,
+// 9 * depth, nx) each, nblk = ceil(ny / block)); pass p reads the [p % 2]
+// buffers and writes the [(p + 1) % 2] ones. av receives n_passes * depth
+// values; partials needs depth * lbm_band_num_tiles floats; ticket one
+// zeroed unsigned int. storage: the storage of the state and the packs
+// alike (lbm_common.cuh::Storage: f32, c16 int16 codes or bf16). Returns
+// the first CUDA error, or 0.
 extern "C" int lbm_temporal_run(void* state_a, void* state_b, void* last_a, void* first_a,
                                 void* last_b, void* first_b, const float* nobst, float* av,
                                 float* partials, unsigned int* ticket, int ny, int nx, int block,

@@ -10,6 +10,14 @@ stream, ``c_int``/``c_float`` for sizes and scalars. Each entry point
 returns the CUDA error code of its launches; callers raise when it is not
 0. Nothing is built at import time: the first call that needs a kernel
 builds it, and a build failure raises.
+
+K5 and K6 (``csrc/trapezoid.cuh``) are compiled with constant row and
+plane strides for the windows of the driver's schedules
+(``runtime/driver.py::trapezoid_schedules``), and with the strides of its
+geometry for any other window. The windows reach the sources as a line
+``#define LBM_TRAP_WINDOWS ww, wh, ...`` in a header that nvcc includes
+before each of them (not a ``-D`` flag: nvcc reads its value as a
+comma-separated list of macros).
 """
 
 from __future__ import annotations
@@ -123,8 +131,24 @@ def _nvcc() -> str:
     raise BuildError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _source_hash() -> str:
+def trap_windows() -> tuple[tuple[int, int], ...]:
+    """The windows ``(width, height)`` that K5 and K6 are compiled for
+    with constant strides: those of the driver's schedules."""
+    from lbm_tpu_torch.runtime import driver
+
+    return tuple(sorted({(panel + 2 * depth, block + 2 * depth)
+                         for block, depth, panel in driver.trapezoid_schedules()}))
+
+
+def windows_define() -> str:
+    """The header that gives ``csrc/trapezoid.cuh`` its windows."""
+    pairs = ", ".join(f"{ww}, {wh}" for ww, wh in trap_windows())
+    return f"#define LBM_TRAP_WINDOWS {pairs}\n"
+
+
+def _source_hash(define: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(define.encode())
     for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -135,15 +159,21 @@ def _source_hash() -> str:
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library. Its ``build_info``
-    says what was done: path, whether nvcc ran, seconds, flags, sources."""
-    out = os.path.join(BUILD_DIR, f"liblbm_kernels_{_source_hash()}.so")
+    says what was done: path, whether nvcc ran, seconds, flags, the
+    constant-stride windows, sources."""
+    define = windows_define()
+    out = os.path.join(BUILD_DIR, f"liblbm_kernels_{_source_hash(define)}.so")
     t0 = time.perf_counter()
     built = not os.path.exists(out)
     if built:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
+        header = f"{tmp}.windows.h"
+        with open(header, "w") as f:
+            f.write(define)
         objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
-        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", src, "-o", obj] for src, obj in zip(sources(), objs)]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-include", header, "-c", src, "-o", obj]
+                for src, obj in zip(sources(), objs)]
         cmds.append([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
         try:
             procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -159,9 +189,9 @@ def library() -> ctypes.CDLL:
                 if rc != 0:
                     raise BuildError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
         finally:
-            for obj in objs:
-                if os.path.exists(obj):
-                    os.remove(obj)
+            for path in [*objs, header]:
+                if os.path.exists(path):
+                    os.remove(path)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     lib = ctypes.CDLL(out)
     for name, argtypes in _RUN_ARGTYPES.items():
@@ -174,7 +204,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_uint
     lib.build_info = dict(
         path=out, built=built, seconds=time.perf_counter() - t0,
-        flags=" ".join(NVCC_FLAGS), sources=[os.path.relpath(s, _PKG) for s in sources()],
+        flags=" ".join(NVCC_FLAGS), windows=trap_windows(),
+        sources=[os.path.relpath(s, _PKG) for s in sources()],
     )
     return lib
 

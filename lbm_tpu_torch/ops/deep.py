@@ -12,10 +12,13 @@ from the pass's input state, which nothing writes during the pass; the
 output goes to a second buffer. No row packs are carried.
 
 On a CUDA tensor the passes run kernel K6 (``csrc/deep.cu``) on 2-D tiles
-of ``block`` rows by ``panel`` columns, every pass of a run from one C
-call. On a CPU tensor it runs the plain versions (``step_deep_plain``,
-``run_deep_plain``) on full rows. Any other device raises; a CUDA tensor
-never falls back.
+of ``block`` rows by ``panel`` columns, each tile's window in ONE
+shared-memory copy stepped in place in the AA arrangement on the
+trapezoid (``csrc/trapezoid.cuh``), every pass of a run from one C call.
+On a CPU tensor it runs the plain versions (``step_deep_plain``,
+``run_deep_plain``) on full rows; ``run_deep_aa_plain`` takes the
+kernel's schedule instead (``temporal.trapezoid_aa_plain``), for the
+tests. Any other device raises; a CUDA tensor never falls back.
 
 The TPU kernel's ``T % 8 == 0``, ``B % T == 0``, ``nx % 128`` and ``B | ny``
 exist for Mosaic's strip BlockSpecs and are not ported: K6 takes any
@@ -36,7 +39,8 @@ import torch
 
 from lbm_tpu_torch.ops import band_common as BC
 from lbm_tpu_torch.ops.step import count_launches, forcing_weights
-from lbm_tpu_torch.ops.temporal import PLANE_COPIES, blocks_to_state, trapezoid_plain, window_rows
+from lbm_tpu_torch.ops.temporal import (PLANE_COPIES, aa_trapezoid, blocks_to_state,
+                                        trapezoid_plain, window_rows)
 
 
 def deep_supported(ny: int, nx: int, block: int, depth: int, panel: int | None = None) -> bool:
@@ -46,29 +50,33 @@ def deep_supported(ny: int, nx: int, block: int, depth: int, panel: int | None =
 
 
 def step_deep_plain(cells, nobst, density, accel, omega, block, depth, *, inv_tot_cells=1.0,
-                    paired="fused", dev=None):
+                    paired="fused", dev=None, trap=trapezoid_plain):
     """One pass of ``depth`` steps in plain PyTorch (``pallas_deep.step_deep``);
-    returns ``(cells, av)`` with ``depth`` av values. ``dev``: 16-bit storage."""
+    returns ``(cells, av)`` with ``depth`` av values. ``dev``: 16-bit storage;
+    ``trap``: the window's steps, ``trapezoid_plain`` (the pull on full
+    rows) or ``temporal.aa_trapezoid(panel)`` (K6's schedule)."""
     ny = cells.shape[1]
     w1a, w2a = forcing_weights(density, accel)
     rows = window_rows(ny, block, depth, cells.device)
 
     def one_pass(state):
         win = state[:, rows].permute(1, 0, 2, 3)  # (nblk, 9, B+2T, nx)
-        out, sums = trapezoid_plain(win, nobst[rows], rows, ny, block, depth, float(omega),
-                                    w1a, w2a, paired)
+        out, sums = trap(win, nobst[rows], rows, ny, block, depth, float(omega), w1a, w2a,
+                         paired)
         inv = torch.tensor(inv_tot_cells, dtype=torch.float32, device=state.device)
         return blocks_to_state(out, ny), sums * inv
 
     return BC.coded(dev, one_pass)(cells)
 
 
-def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired, dev=None):
+def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired, dev=None,
+                  trap=trapezoid_plain):
     def run_passes(cells, npasses):
         av = []
         for _ in range(npasses):
             cells, a = step_deep_plain(cells, nobst, density, accel, omega, block, depth,
-                                       inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
+                                       inv_tot_cells=inv_tot_cells, paired=paired, dev=dev,
+                                       trap=trap)
             av.append(a)
         return cells, torch.cat(av)
 
@@ -111,6 +119,18 @@ def run_deep_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *
     BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
     passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired,
                            dev)
+    return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+                        passes, paired, dev)
+
+
+def run_deep_aa_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
+                      inv_tot_cells=1.0, paired="fused", dev=None):
+    """``run_deep_plain``'s function on K6's schedule (2-D tiles, the AA
+    steps on the trapezoid: ``temporal.trapezoid_aa_plain``) in plain
+    PyTorch; returns ``(cells, av)``."""
+    BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired,
+                           dev, aa_trapezoid(panel))
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
                         passes, paired, dev)
 

@@ -21,11 +21,14 @@ too.
 
 On a CUDA tensor the passes run kernel K5 (``csrc/temporal.cu``): 2-D
 tiles of ``block`` rows by ``panel`` columns whose x halo comes from the
-pass's read-only input state, the y halo from the packs; every pass of a
-run is issued by one C call. On a CPU tensor it runs the plain versions
+pass's read-only input state, the y halo from the packs, each tile's
+window in ONE shared-memory copy stepped in place in the AA arrangement
+on the trapezoid (``csrc/trapezoid.cuh``); every pass of a run is issued
+by one C call. On a CPU tensor it runs the plain versions
 (``step_t_plain``, ``run_temporal_plain``) on full rows with a periodic
-roll in x, the same function. Any other device raises; a CUDA tensor never
-falls back.
+roll in x, the same function; ``run_temporal_aa_plain`` takes the
+kernel's schedule instead (``trapezoid_aa_plain``), for the tests. Any
+other device raises; a CUDA tensor never falls back.
 
 The TPU kernel's ``B % 8``, ``nx % 128`` and ``B | ny`` are Mosaic
 constraints and are not ported. A block's packs are its own rows, so T may
@@ -52,7 +55,7 @@ from lbm_tpu_torch.ops.devspace import decode_state, encode_state
 from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, count_launches, forcing_weights,
                                     kernel_scalars)
 
-PLANE_COPIES = 2  # the window's two ping-pong copies (csrc/trapezoid.cuh)
+PLANE_COPIES = 1  # one window of the 9 planes per block, stepped in place (csrc/trapezoid.cuh)
 
 
 def block_heights(ny: int, block: int) -> tuple[int, int]:
@@ -135,6 +138,93 @@ def trapezoid_plain(win, nob, rows, ny, block, depth, omega, w1a, w2a, paired):
     return torch.stack(planes, 1), sums
 
 
+def trapezoid_aa_plain(win, nob, rows, ny, block, depth, panel, omega, w1a, w2a, paired):
+    """``trapezoid_plain``'s function on the kernels' schedule
+    (``csrc/trapezoid.cuh``), in plain PyTorch, with its arguments and
+    results and the tiles' ``panel`` (None: the full row).
+
+    Each block's window rows are cut into tiles of ``panel`` columns with a
+    T-column halo, wrapped. A tile's window enters the AA arrangement's
+    slots (slot opp(k) of a cell holds R_k, the value leaving it along k)
+    with the forcing of the ny-2 rows added cell-locally; step s (1..T)
+    runs only on window rows ``[s, bi + 2T - s)`` and columns
+    ``[s, pi + 2T - s)`` of a tile of ``bi x pi`` cells: odd steps gather,
+    relax and scatter, even ones relax in place, each adding the forcing of
+    the step after it but the last. After an odd T the store takes R_k of
+    a central cell from where the last step scattered it. Every slot that a
+    step does not write becomes NaN, so a read outside what the schedule
+    computed shows in the result."""
+    nblk, _, wh, nx = win.shape
+    b, t = block, depth
+    p = nx if panel is None else panel
+    ntx = -(-nx // p)
+    dev = win.device
+    cols = (torch.arange(ntx, device=dev)[:, None] * p - t
+            + torch.arange(p + 2 * t, device=dev)[None, :]) % nx
+
+    def tiles(x):  # (nblk, C, wh, nx) -> (nblk * ntx, C, wh, p + 2T)
+        return x[..., cols].permute(0, 3, 1, 2, 4).reshape(nblk * ntx, x.shape[1], wh, -1)
+
+    def rows_of(x):  # (nblk * ntx, C, b, p) -> (nblk, C, b, nx)
+        c = x.shape[1]
+        return x.reshape(nblk, ntx, c, b, p).permute(0, 2, 3, 1, 4).reshape(
+            nblk, c, b, ntx * p)[..., :nx]
+
+    nobw = tiles(nob[:, None])[:, 0]
+    frow = (rows == ny - 2).to(win.dtype)[:, None, :, None].expand(nblk, ntx, wh, 1)
+    frow = frow.reshape(nblk * ntx, wh, 1)
+    # Each tile's window extent: the last row block and column tile may be short.
+    hi_r = torch.full((nblk, ntx), b + 2 * t, device=dev)
+    hi_r[-1] = block_heights(ny, b)[1] + 2 * t
+    hi_c = torch.full((nblk, ntx), p + 2 * t, device=dev)
+    hi_c[:, -1] = nx - (ntx - 1) * p + 2 * t
+    rr = torch.arange(wh, device=dev)[None, :, None]
+    cc = torch.arange(p + 2 * t, device=dev)[None, None, :]
+    hi_r, hi_c = hi_r.reshape(-1, 1, 1), hi_c.reshape(-1, 1, 1)
+    inside = (torch.arange(nblk, device=dev)[:, None] * b
+              + torch.arange(b, device=dev)[None, :]) < ny
+    nob_mid = nob[:, t:t + b] * inside.to(win.dtype)[:, :, None]
+    fluid = nobw > 0.0
+    nan = torch.tensor(float("nan"), dtype=win.dtype, device=dev)
+    planes = BC.force_windows(list(tiles(win).unbind(1)), nobw, frow, w1a, w2a)
+    slots = [planes[_OPP[j]] for j in range(9)]
+    sums = torch.empty(t, dtype=win.dtype, device=dev)
+    shift = [(_CYS[k], _CXS[k]) for k in range(9)]
+    for s in range(1, t + 1):
+        region = (rr >= s) & (rr < hi_r - s) & (cc >= s) & (cc < hi_c - s)
+        if s % 2:
+            tk = [torch.roll(slots[_OPP[k]], shift[k], (1, 2)) for k in range(9)]
+        else:
+            tk = slots
+        relaxed, u_sq = bgk_relax(tk, omega, paired=paired)
+        out = [torch.where(fluid, relaxed[k], tk[_OPP[k]]) for k in range(9)]
+        if s < t:
+            out = BC.force_windows(out, nobw, frow, w1a, w2a)
+        if s % 2:
+            slots = [torch.where(torch.roll(region, shift[k], (1, 2)),
+                                 torch.roll(out[k], shift[k], (1, 2)), nan) for k in range(9)]
+        else:
+            slots = [torch.where(region, out[_OPP[j]], nan) for j in range(9)]
+        u = rows_of(u_sq[:, None, t:t + b, t:t + p])[:, 0]
+        sums[s - 1] = torch.sum(nob_mid * u_mag(torch.where(inside[:, :, None], u, 0.0)))
+    if t % 2:
+        res = [torch.roll(slots[k], (-_CYS[k], -_CXS[k]), (1, 2)) for k in range(9)]
+    else:
+        res = [slots[_OPP[k]] for k in range(9)]
+    return rows_of(torch.stack([x[:, t:t + b, t:t + p] for x in res], 1)), sums
+
+
+def aa_trapezoid(panel):
+    """``trapezoid_aa_plain`` on tiles of ``panel`` columns, as the ``trap``
+    of ``step_t_plain`` and ``deep.step_deep_plain``."""
+
+    def trap(win, nob, rows, ny, block, depth, omega, w1a, w2a, paired):
+        return trapezoid_aa_plain(win, nob, rows, ny, block, depth, panel, omega, w1a, w2a,
+                                  paired)
+
+    return trap
+
+
 def blocks_to_state(out, ny):
     """``(nblk, 9, B, nx)`` block rows -> the ``(9, ny, nx)`` state."""
     nblk, _, b, nx = out.shape
@@ -148,10 +238,12 @@ def on_planes(codec, blocks, dev):
 
 
 def step_t_plain(state, nobst, density, accel, omega, block, depth, *, inv_tot_cells=1.0,
-                 paired="fused", dev=None):
+                 paired="fused", dev=None, trap=trapezoid_plain):
     """One pass of ``depth`` steps in plain PyTorch (``step_t_pallas``).
     Returns ``((cells, last_o, first_o), av)`` with ``depth`` av values.
-    ``dev``: 16-bit storage (c16 codes or bf16 in the state and packs)."""
+    ``dev``: 16-bit storage (c16 codes or bf16 in the state and packs);
+    ``trap``: the window's steps, ``trapezoid_plain`` (the pull on full
+    rows) or ``aa_trapezoid(panel)`` (K5's schedule)."""
     cells, last_t, first_t = state
     _, ny, nx = cells.shape
     nblk, last = block_heights(ny, block)
@@ -164,8 +256,8 @@ def step_t_plain(state, nobst, density, accel, omega, block, depth, *, inv_tot_c
     win[:, :, :t] = above
     win[:-1, :, t + block:2 * t + block] = below[:-1]
     win[-1, :, t + last:2 * t + last] = below[-1]
-    out, sums = trapezoid_plain(on_planes(decode_state, win, dev), nobst[rows], rows, ny, block,
-                                depth, float(omega), w1a, w2a, paired)
+    out, sums = trap(on_planes(decode_state, win, dev), nobst[rows], rows, ny, block, depth,
+                     float(omega), w1a, w2a, paired)
     out = on_planes(encode_state, out, dev)
     first_o = out[:, :, :t].reshape(nblk, 9 * t, nx)
     last_o = torch.cat([out[:-1, :, block - t:block], out[-1:, :, last - t:last]])
@@ -174,13 +266,15 @@ def step_t_plain(state, nobst, density, accel, omega, block, depth, *, inv_tot_c
     return (blocks_to_state(out, ny), last_o.contiguous(), first_o.contiguous()), sums * inv
 
 
-def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired, dev=None):
+def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired, dev=None,
+                  trap=trapezoid_plain):
     def run_passes(cells, npasses):
         state = (cells, *make_halos_t(cells, block, depth))
         av = []
         for _ in range(npasses):
             state, a = step_t_plain(state, nobst, density, accel, omega, block, depth,
-                                    inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
+                                    inv_tot_cells=inv_tot_cells, paired=paired, dev=dev,
+                                    trap=trap)
             av.append(a)
         return state[0], torch.cat(av)
 
@@ -243,6 +337,18 @@ def run_temporal_plain(cells, nobst, density, accel, omega, n_iters, block, dept
     _check(cells, nobst, n_iters, block, depth, panel, dev)
     passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired,
                            dev)
+    return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+                        passes, paired, dev)
+
+
+def run_temporal_aa_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *,
+                          panel=None, inv_tot_cells=1.0, paired="fused", dev=None):
+    """``run_temporal_plain``'s function on K5's schedule (2-D tiles, the AA
+    steps on the trapezoid: ``trapezoid_aa_plain``) in plain PyTorch;
+    returns ``(cells, av)``."""
+    _check(cells, nobst, n_iters, block, depth, panel, dev)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired,
+                           dev, aa_trapezoid(panel))
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
                         passes, paired, dev)
 

@@ -149,18 +149,27 @@ class SimulationResult:
 # fastest, of a sweep of 38-74 schedules per kernel at 2048^2 and 4096^2 on
 # an H100 (PERF.md, "Schedule sweep"); all three settle on 32-row windows.
 _BAND_SCHEDULE = (24, 4, 56)    # K7: a 32 x 64 window, 4 cells per thread
-_BAND2_SCHEDULE = (32, 4, 56)   # K9: a 40 x 64 window, one copy, 102 KB of shared memory
-# K9 on a grid that gives _BAND2_SCHEDULE fewer tiles than one wave of
-# blocks (two on each of an H100's 132 SMs): a 32 x 32 window. At 256^2 and
-# 512^2 it took 33% and 3% less time than the large tiles, at 1024^2 16%
-# more (chip_smoke phase 26's sweep, PERF.md).
-_BAND2_SMALL_SCHEDULE = (24, 4, 24)
-_BAND2_WAVE = 2 * 132
+# Tiers ((block, depth, panel), fewest tiles), in order: the first that the
+# kernel takes and that cuts the grid into at least that many tiles (else
+# the last the kernel takes; ``_tiered``).
+# K9: a 40 x 64 window, one copy, 102 KB of shared memory; on a grid that
+# gives it fewer tiles than one wave of blocks (two on each of an H100's
+# 132 SMs), a 32 x 32 window. At 256^2 and 512^2 the small tiles took 33%
+# and 3% less time than the large ones, at 1024^2 16% more (chip_smoke
+# phase 26's sweep, PERF.md).
+_BAND2_TIERS = (((32, 4, 56), 2 * 132), ((24, 4, 24), 0))
 _BAND3_SCHEDULE = (24, 4, 56)   # K11: a 32 x 64 window, 82 KB of shared memory
-# K5 and K6: the best of a sweep of 143 and 184 schedules at 2048^2 and
-# 4096^2 on an H100 (PERF.md, PR 3); both settle on a 40 x 32 window, T 4.
-_TEMPORAL_SCHEDULE = (32, 4, 24)  # K5: 98 KB of shared memory, two blocks per SM
-_DEEP_SCHEDULE = (24, 4, 32)      # K6: 98 KB of shared memory, two blocks per SM
+# K5 and K6 in one window copy, one table for both. On an H100 (chip_smoke
+# phase 27's sweep, every candidate's window with constant strides, two
+# runs, PERF.md section 6): (36, 4, 56), a 44 x 64 window of 113 KB, two
+# blocks per SM, was the fastest or within 2.3% of it for both kernels
+# from 1024^2 (551 tiles, two waves of two blocks on each of 132 SMs) to
+# 4096^2, and took 7-9% less time than (32, 4, 40) at 1024^2; at 512^2
+# (150 tiles) it took 26-27% more, and (32, 4, 40) was the fastest; at
+# 256^2, where that makes under half a wave, the 32 x 32 window of
+# (24, 4, 24) took 15-19% less time. The kernels are compiled with these
+# windows' strides as constants (``trapezoid_schedules``, ops/_build.py).
+_TRAPEZOID_TIERS = (((36, 4, 56), 2 * 2 * 132), ((32, 4, 40), 132), ((24, 4, 24), 0))
 # K4: steps per cooperative launch, the JAX package's 255; 1023 measured
 # 12% slower at 128^2 and within 2% at 256^2-1024^2.
 _RESIDENT_CHUNK = 255
@@ -185,11 +194,9 @@ def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The band2 kernel's schedule ``(block, depth, panel)`` (driver.py:590-610),
     or None for a dtype it does not store (f32, c16 and bf16): the large
     tiles where they fill a wave of blocks, the small ones below."""
-    if not _kernel_dtype(dtype):
-        return None
-    block, _, panel = _BAND2_SCHEDULE
-    tiles = -(-params.ny // block) * -(-params.nx // panel)
-    return _BAND2_SCHEDULE if tiles >= _BAND2_WAVE else _BAND2_SMALL_SCHEDULE
+    from lbm_tpu_torch.ops.band2 import band2_supported
+
+    return _tiered(params, _BAND2_TIERS, band2_supported) if _kernel_dtype(dtype) else None
 
 
 def band3_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
@@ -238,20 +245,40 @@ def resident_config(params: LBMParams, dtype) -> int | None:
     return _RESIDENT_CHUNK if dtype == torch.float32 else None
 
 
+def _tiered(params: LBMParams, tiers, supported) -> tuple[int, int, int]:
+    """The first schedule of ``tiers`` that ``supported(ny, nx, *schedule)``
+    takes and that cuts the grid into at least its number of tiles; else
+    the last one it takes (else the first)."""
+    fits = [cfg for cfg, _ in tiers if supported(params.ny, params.nx, *cfg)]
+    for (block, depth, panel), fewest in tiers:
+        tiles = -(-params.ny // block) * -(-params.nx // panel)
+        if (block, depth, panel) in fits and tiles >= fewest:
+            return block, depth, panel
+    return fits[-1] if fits else tiers[0][0]
+
+
 def temporal_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The temporal kernel's schedule ``(block, depth, panel)``
     (``pick_block``/``pick_depth`` of the JAX package), or None for a dtype
     it does not store (f32, c16 and bf16)."""
-    del params
-    return _TEMPORAL_SCHEDULE if _kernel_dtype(dtype) else None
+    from lbm_tpu_torch.ops.temporal import temporal_supported
+
+    return _tiered(params, _TRAPEZOID_TIERS, temporal_supported) if _kernel_dtype(dtype) else None
 
 
 def deep_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The deep kernel's schedule ``(block, depth, panel)``
     (``pallas_deep.pick_config``), or None for a dtype it does not store
     (f32, c16 and bf16)."""
-    del params
-    return _DEEP_SCHEDULE if _kernel_dtype(dtype) else None
+    from lbm_tpu_torch.ops.deep import deep_supported
+
+    return _tiered(params, _TRAPEZOID_TIERS, deep_supported) if _kernel_dtype(dtype) else None
+
+
+def trapezoid_schedules() -> tuple[tuple[int, int, int], ...]:
+    """Every schedule of K5's and K6's tiers. The build compiles their
+    windows with constant strides (ops/_build.py, csrc/trapezoid.cuh)."""
+    return tuple(cfg for cfg, _ in _TRAPEZOID_TIERS)
 
 
 def pass_schedule(route: str, params: LBMParams, dtype):

@@ -2,8 +2,10 @@
 resident, temporal and deep kernels K4, K5, K6, the shard kernels K3,
 K12, K8, K10, the slab kernel K13 and the c16 and bf16 forms of K1, K2,
 K3, K5-K11 and K13 against their plain versions; K3's 16-bit forms (four
-cells per thread) bitwise against K1 at odd widths and ragged rows, and
-K9 in one window at T 4, 8 and 16, full row and panel.
+cells per thread) bitwise against K1 at odd widths and ragged rows, K9 in
+one window at T 4, 8 and 16, full row and panel, and K5 and K6 in one
+window (AA steps on the trapezoid) at T 3, 4 and 8, on the driver's
+schedules and a window at the shared-memory limit, bitwise against K1.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -32,12 +34,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from lbm_tpu_torch.models.d2q9 import WEIGHTS  # noqa: E402
+from lbm_tpu_torch.models.d2q9 import WEIGHTS, LBMParams  # noqa: E402
 from lbm_tpu_torch.ops import _build  # noqa: E402
 from lbm_tpu_torch.ops import aa as taa  # noqa: E402
 from lbm_tpu_torch.ops import band as tband  # noqa: E402
 from lbm_tpu_torch.ops import band2 as tband2  # noqa: E402
 from lbm_tpu_torch.ops import band3 as tband3  # noqa: E402
+from lbm_tpu_torch.ops import band_common as BC  # noqa: E402
 from lbm_tpu_torch.ops import deep as tdeep  # noqa: E402
 from lbm_tpu_torch.ops import devspace as tdev  # noqa: E402
 from lbm_tpu_torch.ops import resident as tres  # noqa: E402
@@ -45,6 +48,7 @@ from lbm_tpu_torch.ops import shard_step as tshard  # noqa: E402
 from lbm_tpu_torch.ops import slab as tslab  # noqa: E402
 from lbm_tpu_torch.ops import step as tstep  # noqa: E402
 from lbm_tpu_torch.ops import temporal as ttemp  # noqa: E402
+from lbm_tpu_torch.runtime import driver as tdriver  # noqa: E402
 
 DENSITY, ACCEL, OMEGA = 0.1, 0.005, 1.85
 
@@ -307,21 +311,72 @@ TRAPEZOIDS = {
 }
 
 
+def widest_panel(block, depth):
+    """The widest panel whose one-copy window fits the shared memory of a
+    block."""
+    panel = 1
+    while BC.smem_bytes(ttemp.PLANE_COPIES, 4096, block, depth, panel + 1) <= BC.SMEM_LIMIT:
+        panel += 1
+    return panel
+
+
+def driver_schedule(route, n):
+    params = LBMParams(nx=n, ny=n, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    return tdriver.pass_schedule(route, params, torch.float32)[1]
+
+
+# (nx, ny, iters, block, depth, panel): a ragged 97 x 70 grid under 20 x 20
+# tiles (the last row block 17 rows) over one pass and more, with and
+# without a K1 remainder, an odd T; the driver's schedule at 2048^2 on a
+# ragged grid; T 8; a window at the shared-memory limit ("widest").
+TRAPEZOID_CASES = [(70, 97, 8, 20, 4, 20), (70, 97, 19, 20, 4, 20), (70, 97, 25, 20, 4, 20),
+                   (70, 97, 11, 20, 3, 20), (250, 100, 11, 0, 0, "driver"),
+                   (150, 104, 19, 24, 8, 40), (300, 104, 11, 32, 4, "widest"),
+                   (300, 104, 19, 32, 8, "widest")]
+# Every schedule of the driver's K5 and K6 tiers, each window compiled with
+# constant strides, on a grid ragged in both directions, two passes and a
+# K1 remainder.
+TRAPEZOID_CASES += [(2 * panel - 7, 2 * block - 5, 2 * depth + 3, block, depth, panel)
+                    for block, depth, panel in tdriver.trapezoid_schedules()]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("iters,depth", [(8, 4), (19, 4), (25, 4), (11, 3)])
+@pytest.mark.parametrize("nx,ny,iters,block,depth,panel", TRAPEZOID_CASES)
 @pytest.mark.parametrize("route", list(TRAPEZOIDS))
-def test_trapezoid_kernel_matches_plain_and_repeats(cuda_device, route, iters, depth):
-    """A ragged 97 x 70 grid under 20 x 20 tiles (the last row block 17
-    rows): one pass and more, with and without a K1 remainder, an odd T;
-    a second run is bitwise equal."""
+def test_trapezoid_kernel_matches_plain_and_repeats(cuda_device, route, nx, ny, iters, block,
+                                                    depth, panel):
+    """K5 and K6 (one window, AA steps on the trapezoid) against their plain
+    versions on TRAPEZOID_CASES; a second run is bitwise equal and the
+    counter takes the pass steps."""
     kernel, plain, counter = TRAPEZOIDS[route]
-    cells, nobst = make_setup(cuda_device, 70, 97, seed=iters)
+    if panel == "driver":
+        block, depth, panel = driver_schedule(route, 2048)
+    elif panel == "widest":
+        panel = widest_panel(block, depth)
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=iters)
     before = counter.launches
-    got = kernel(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 20, depth, panel=20)
+    got = kernel(cells, nobst, DENSITY, ACCEL, OMEGA, iters, block, depth, panel=panel)
     assert counter.launches == before + iters // depth * depth
-    again = kernel(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 20, depth, panel=20)
+    again = kernel(cells, nobst, DENSITY, ACCEL, OMEGA, iters, block, depth, panel=panel)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-    assert_close(got, plain(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 20, depth, panel=20))
+    assert_close(got, plain(cells, nobst, DENSITY, ACCEL, OMEGA, iters, block, depth,
+                            panel=panel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(TRAPEZOIDS))
+def test_trapezoid_kernel_is_bitwise_k1(cuda_device, route):
+    """K5 and K6 at f32 on the driver's schedule over 50 steps at 1024^2 (a
+    K1 remainder among them when T does not divide 50): the state is K1's
+    bit for bit, the av series within rtol 1e-4 (another summation order)."""
+    kernel = TRAPEZOIDS[route][0]
+    block, depth, panel = driver_schedule(route, 1024)
+    cells, nobst = make_setup(cuda_device, 1024, 1024, seed=50)
+    got = kernel(cells, nobst, DENSITY, ACCEL, OMEGA, 50, block, depth, panel=panel)
+    k1 = tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 50, 1.0)
+    assert torch.equal(got[0], k1[0])
+    np.testing.assert_allclose(got[1].cpu().numpy(), k1[1].cpu().numpy(), rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -99,7 +99,8 @@ def test_api_reaches_schedule_routes(backend):
     ("resident", torch.float32, 1, 128, ValueError),
     ("temporal", torch.float32, 1, 128, ValueError),
     ("deep", torch.float32, 1, 128, ValueError),
-    ("temporal", torch.float32, 33, 128, ValueError),  # a last block of 1 row < T
+    ("temporal", torch.float32, 289, 128, ValueError),  # a last block of 1 row < T in every tier
+    ("temporal", torch.float32, 33, 128, "temporal"),  # 24-row blocks: a last block of 9 rows
 ])
 def test_select_route_schedule(backend, dtype, ny, nx, want):
     params = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=0.1,

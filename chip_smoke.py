@@ -30,13 +30,13 @@ PyTorch built for CUDA. Phases, each printing what it found:
 7. each band kernel against K1 over 1000 steps at 2048^2 (bitwise equal or
    not, and the max difference), and two runs of each bitwise equal;
 8. the band path through ``cli.main``: the four official decks with
-   ``--backend auto`` (K4 on 128^2, 128x256 and 256^2, K11 on 1024^2),
+   ``--backend auto`` (K4 on 128^2, 128x256 and 256^2, K6 on 1024^2),
    the 256^2 and 1024^2 decks with
    ``band``, ``band2`` and ``band3`` through the 1% gate, and the 1000^2 x
    1001 (ragged tiles, a K1 remainder), 2048^2 x 2048 and 4096^2 x 1024
    "walls" decks (rows 0 and ny-1 blocked) with
-   ``aa``, each band backend and ``auto`` (on 4096^2 ``aa`` and ``band3``,
-   auto's route there, only); each of the latter is held
+   ``aa``, each band backend and ``auto`` (on 4096^2 ``aa`` and ``auto``
+   only); each of the latter is held
    against the ``aa`` run through ``utils/checker.check_files`` at 1% and
    directly (av series at rtol 1e-4, final_state identical bytes or within
    the kernel tolerances). The counters, zeroed just before, must account
@@ -150,8 +150,10 @@ PyTorch built for CUDA. Phases, each printing what it found:
    and on a ragged 998 x 1000 grid, two runs of each bitwise equal; its
    time per step beside K2 in turns at 1024^2, 2048^2 and 4096^2 for each
    storage (the K11/K2 ratio);
-25. the ``auto`` crossover: K4 (the form ``run_resident`` picks) against
-   K11 in turns at the square sizes 128^2-768^2;
+25. the ``auto`` crossover: K4 (the form ``run_resident`` picks), K6, K7,
+   K9 and K11, each at the driver's schedule, in turns at the 128x256
+   deck's shape and the squares 256^2, 384^2, 448^2, 512^2, 640^2, 768^2
+   and 1024^2, with the route ``auto`` takes at each;
 26. K3's 16-bit forms (four cells per thread, 64-bit words) and K9 in one
    window (``csrc/band2.cu``): the floor of a thread-block cluster barrier
    (us per ``cluster.sync()`` of 2 x SMs blocks of 512 threads, clusters of
@@ -177,16 +179,30 @@ PyTorch built for CUDA. Phases, each printing what it found:
    4096^2; their schedule sweep at 256^2-4096^2, in a process whose
    kernels are built with every candidate's window at constant strides;
    and the c16 decks of phase 19 with ``temporal`` and ``deep`` (the gate
-   values).
+   values);
+28. K7 and K8 in one window at any T (``csrc/band.cu`` on
+   ``band_common.cuh``'s one-window pass): at f32, c16 and bf16 against
+   their plain versions over 2T+3 steps at T 1, 3, 4, 5 and 8, full row and
+   panel, ragged grids, a block shorter than 2T, K8 on 4 row shards, two
+   runs bitwise equal; at f32 with T 3, 4 and 5 against K1 (K7 over 200
+   steps at 1024^2, K8 on 4 shards of it over 60); K7 beside K9 at
+   1024^2-4096^2, K13 beside them at 2048^2 and 4096^2, K8 beside K10 on 4
+   shards at 1024^2-4096^2, each storage, in turns; K7's schedule sweep
+   (T 3, 4, 5, 8) at 1024^2-4096^2; the loop MLUPS of ``band`` and
+   ``auto`` on the official decks and the 2048^2 and 4096^2 walls decks
+   (``run_simulation``, no files); and the port bench (``python -m
+   lbm_tpu_torch.bench``), its JSON line logged.
 
-``python3 chip_smoke.py --phase 26`` (or ``--phase 27``) runs phases 1, 2
-and that phase only (no kernel report), and ``--phase 26 --import-from
-DIR`` only phase 26's K9 checks and its timing in turns, of the
+``python3 chip_smoke.py --phase 25`` (or 26, 27, 28) runs phases 1, 2 and
+that phase only (no kernel report), and ``--phase 26 --import-from DIR``
+only phase 26's K9 checks and its timing in turns, of the
 ``lbm_tpu_torch`` package under DIR (another checkout, such as the parent
 commit unpacked into a git-ignored directory, or a trial patched onto one),
 so that a redesign and the body it replaces are held to the same rivals;
 ``--phase 27 --import-from DIR`` likewise phase 27's K5 and K6 checks,
-their timing beside K9 and K11 and their c16 gate decks.
+their timing beside K9 and K11 and their c16 gate decks, and ``--phase 28
+--import-from DIR`` phase 28's K7 and K8 checks and their timing beside
+K9, K10 and K13.
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
@@ -450,17 +466,18 @@ def run_deck(cli, tag, backend, work, gpu_line, mesh=None, precision="f32", gate
 # The band kernels: route -> (name in the report, source, the TPU kernel it
 # replaces).
 BANDS = {
-    "band": ("K7 band (values in registers)", "lbm_tpu_torch/csrc/band.cu",
+    "band": ("K7 band (one window, AA steps, any T)", "lbm_tpu_torch/csrc/band.cu",
              "lbm_tpu/ops/pallas_band.py:172"),
     "band2": ("K9 band2 (one window, AA steps)", "lbm_tpu_torch/csrc/band2.cu",
               "lbm_tpu/ops/pallas_band2.py:90"),
     "band3": ("K11 band3 (one in-place AA window)", "lbm_tpu_torch/csrc/band3.cu",
               "lbm_tpu/ops/pallas_band3.py:306"),
 }
-# The route auto takes on each official deck (runtime/driver.py:
-# select_route): K4 up to a 384^2 state, K11 above.
+# The route auto takes at f32 above K4's states (runtime/driver.py:
+# select_route), and on each official deck.
+AUTO_ABOVE = "deep"
 AUTO_ROUTES = {"128x128": "resident", "128x256": "resident", "256x256": "resident",
-               "1024x1024": "band3"}
+               "1024x1024": AUTO_ABOVE}
 # (n, iters) of the n x n "walls" decks: a ragged grid whose iterations
 # leave a K1 remainder, then the JAX package's HBM-regime rows.
 WALLS_DECKS = ((1000, 1001), (2048, 2048), (4096, 1024))
@@ -484,6 +501,18 @@ def band_routes():
         run, cfg = pass_schedule(route, params, torch.float32)
         out[route] = (BANDS[route][0].split()[0], run, plains[route], cfg)
     return out
+
+
+def pass_depth(route, ny, nx, dtype="f32"):
+    """T of the driver's schedule for ``route`` (a pass route) on an ny x nx grid."""
+    import torch
+
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.runtime.driver import pass_schedule
+
+    params = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    return pass_schedule(route, params, torch.float32 if dtype == "f32" else dtype)[1][1]
 
 
 def band_phase(torch, label, kernel, plain, cfg, step_counts, aa_us):
@@ -718,7 +747,7 @@ SHARDED = {
            "lbm_tpu_torch/csrc/shard_step.cu", "lbm_tpu/ops/pallas_step.py:164"),
     "K12": ("K12 shard step storing its edges into the neighbours' rings",
             "lbm_tpu_torch/csrc/shard_step.cu", "lbm_tpu/ops/pallas_remote.py:49"),
-    "K8": ("K8 sharded band (values in registers)", "lbm_tpu_torch/csrc/band.cu",
+    "K8": ("K8 sharded band (one window, AA steps, any T)", "lbm_tpu_torch/csrc/band.cu",
            "lbm_tpu/ops/pallas_band.py:574"),
     "K10": ("K10 sharded band2 (one window, AA steps)", "lbm_tpu_torch/csrc/band2.cu",
             "lbm_tpu/ops/pallas_band2.py:584"),
@@ -898,7 +927,7 @@ C16_KERNELS = {
     "K2": ("K2 in-place AA, c16", "lbm_tpu_torch/csrc/aa.cu", "lbm_tpu/ops/pallas_aa.py:163"),
     "K11": ("K11 band3 (one in-place AA window), c16", "lbm_tpu_torch/csrc/band3.cu",
             "lbm_tpu/ops/pallas_band3.py:306"),
-    "K7": ("K7 band (values in registers), c16", "lbm_tpu_torch/csrc/band.cu",
+    "K7": ("K7 band (one window, AA steps, any T), c16", "lbm_tpu_torch/csrc/band.cu",
            "lbm_tpu/ops/pallas_band.py:172"),
 }
 SLAB = ("K13 slab (band passes over y-slabs)", "lbm_tpu_torch/csrc/band.cu",
@@ -1080,25 +1109,25 @@ def c16_path_phase(torch, cli, gpu_line, walls_ref):
     """Phase 17; returns {counter name: launches}."""
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import aa, band, band3, slab, step
-    from lbm_tpu_torch.runtime.driver import band_config, slab_config
+    from lbm_tpu_torch.runtime.driver import pass_schedule, slab_config
 
     fns = {"K1": step.run_step, "K2": aa.run_aa, "K11": band3.run_band3, "K7": band.run_band,
            "K13": slab.run_band_slab}
     for fn in fns.values():
         fn.launches = fn.launches_c16 = 0
     want = {f"{name}{tail}": 0 for name in fns for tail in ("", " c16")}
-    depth = band_config(None, torch.float32)[1]
 
     def split(route, n, tail, ny):
+        params = LBMParams(nx=ny, ny=ny, max_iters=1, reynolds_dim=10, density=DENSITY,
+                           accel=ACCEL, omega=OMEGA)
         if route == "slab":
-            params = LBMParams(nx=ny, ny=ny, max_iters=1, reynolds_dim=10, density=DENSITY,
-                               accel=ACCEL, omega=OMEGA)
-            kt = slab_config(params, torch.float32)[3] * depth
-            want["K13" + tail] += n // kt * kt
-            n %= kt
+            _, depth, _, kpasses, _ = slab_config(params, torch.float32)
+            want["K13" + tail] += n // (kpasses * depth) * kpasses * depth
+            n %= kpasses * depth
             route = "band"
         name = {"band3": "K11", "band": "K7", "aa": "K2", "pallas": "K1"}[route]
         if route.startswith("band"):
+            depth = pass_schedule(route, params, torch.float32)[1][1]
             want[name + tail] += n // depth * depth
             want["K1" + tail] += n % depth
         else:
@@ -1875,22 +1904,46 @@ def k11_phase(torch, spec, gpu_line, cfg):
         del cells, nobst
 
 
-def crossover_phase(torch, gpu_line, cfg):
-    """Phase 25: K4 (the form run_resident picks) against K11 at square sizes
-    128^2-768^2, in turns."""
-    from lbm_tpu_torch.ops import band3, resident
+# (nx, ny) of phase 25's sweep: the squares around K4's limit and the
+# 128x256 deck's shape. Its runs take CROSSOVER_STEPS steps, a multiple of
+# every T of the driver's schedules.
+CROSSOVER_SIZES = ((128, 256), (256, 256), (384, 384), (448, 448), (512, 512), (640, 640),
+                   (768, 768), (1024, 1024))
+CROSSOVER_STEPS = 2520
+
+
+def crossover_phase(torch, gpu_line):
+    """Phase 25: the routes auto may take at f32, in turns at CROSSOVER_SIZES,
+    each at the driver's schedule: K4 (the form run_resident picks), K6, K7,
+    K9 and K11; returns {(nx, ny): {kernel: us per step}}."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band, band2, band3, deep, resident
+    from lbm_tpu_torch.runtime.driver import pass_schedule, select_route
 
     sms = resident.sm_count(torch.device("cuda", 0))
-    for n in range(128, 769, 128):
-        cells, nobst = random_setup(torch, n, n, seed=3)
-        steps = K4_TIMED_STEPS - K4_TIMED_STEPS % cfg[1]
-        t = turns(torch, {
-            "K4": lambda: resident.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, steps, 1.0),
-            "K11": lambda: band3.run_band3(cells, nobst, DENSITY, ACCEL, OMEGA, steps, cfg[0],
-                                           cfg[1], panel=cfg[2])}, steps)
-        form = "shared-memory" if resident.resident_smem_config(n, n, sms) else "global-memory"
-        log(f"  {n}x{n}: K4 ({form} form) {t['K4']:.3f} us/step, K11 {t['K11']:.3f} us/step: "
-            f"{'K4' if t['K4'] < t['K11'] else 'K11'} [{gpu_line}]")
+    n = CROSSOVER_STEPS
+    runs = {"K6": ("deep", deep.run_deep), "K7": ("band", band.run_band),
+            "K9": ("band2", band2.run_band2), "K11": ("band3", band3.run_band3)}
+    out = {}
+    for nx, ny in CROSSOVER_SIZES:
+        params = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=DENSITY,
+                           accel=ACCEL, omega=OMEGA)
+        cells, nobst = random_setup(torch, nx, ny, seed=3)
+        fns = {"K4": lambda: resident.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, n, 1.0)}
+        cfgs = {}
+        for name, (route, fn) in runs.items():
+            cfgs[name] = b, t, p = pass_schedule(route, params, torch.float32)[1]
+            fns[name] = (lambda fn=fn, b=b, t=t, p=p: fn(cells, nobst, DENSITY, ACCEL, OMEGA, n,
+                                                         b, t, panel=p))
+        t = out[nx, ny] = turns(torch, fns, n)
+        form = "shared-memory" if resident.resident_smem_config(ny, nx, sms) else "global-memory"
+        best = min(t, key=t.get)
+        log(f"  {nx}x{ny} (us/step in turns): K4 ({form} form) {t['K4']:.3f}, "
+            + ", ".join(f"{k} {cfgs[k]} {t[k]:.3f}" for k in runs)
+            + f": {best} fastest; auto routes {select_route(params, 'auto', torch.float32)} "
+            f"[{gpu_line}]")
+        del cells, nobst
+    return out
 
 
 # (nx, ny, py) of phase 26's K3 grids: 1024^2 and 1000^2 on 4 row shards,
@@ -2298,20 +2351,275 @@ def redesign10_phase(torch, spec, cli, gpu_line):
     k56_gate_decks(cli, gpu_line)
 
 
+# (nx, ny, (block, depth, panel)) of phase 28's K7 checks: T 1, 3, 4, 5 and
+# 8, full row (panel None) and panel, ragged grids, a block shorter than 2T
+# (outside K9's domain), and a tile of one row and one column.
+K7_CHECKS = ((45, 37, (8, 1, 11)), (100, 97, (24, 3, 56)), (100, 97, (5, 3, None)),
+             (100, 97, (24, 4, 20)), (70, 97, (7, 5, 13)), (40, 70, (16, 5, None)),
+             (150, 100, (16, 8, 40)), (33, 21, (1, 3, 1)))
+# (nx, ny, shards, (block, depth, panel)) of phase 28's K8 checks.
+K8_CHECKS = ((70, 100, 4, (16, 3, 20)), (70, 100, 4, (16, 5, None)), (64, 96, 4, (8, 4, 24)),
+             (70, 100, 4, (16, 1, 7)))
+# Phase 28's K7 schedule sweep (block, depth, panel): T 3, 4, 5 and 8 at
+# 1024^2-4096^2, panels whose one-copy window holds two blocks per SM, and
+# at 1024^2 the full-row windows that fit a block.
+K7_SWEEP = {n: ((32, 4, 56), (24, 4, 56), (36, 4, 56), (40, 4, 48), (24, 4, 24), (32, 3, 56),
+                (34, 3, 58), (30, 5, 54), (32, 5, 56), (24, 5, 40), (24, 8, 40), (32, 8, 32))
+            for n in (1024, 2048, 4096)}
+K7_SWEEP[1024] += ((1, 1, None), (2, 1, None))
+
+
+def k78_checks(torch, spec, skip_refused=False):
+    """K7 (K7_CHECKS) and K8 (K8_CHECKS) at f32, c16 and bf16 against their
+    plain versions over 2T+3 steps, two runs bitwise equal; at f32 on
+    1024^2 with T 3, 4 and 5 (the driver's tile), K7 over 200 steps and K8
+    on 4 shards over 60, their states bitwise K1's or not (printed) and
+    held at the tolerance. ``skip_refused``: pass over a schedule the
+    package refuses (an imported older package), saying so."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band, devspace
+    from lbm_tpu_torch.ops.step import run_step
+    from lbm_tpu_torch.runtime.driver import band_config
+
+    def attempt(what, fn):
+        try:
+            return fn()
+        except ValueError as e:
+            check(skip_refused, f"{what}: {e}")
+            log(f"  {what}: not checked, the package refuses it ({e})")
+            return None
+
+    forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
+    for name, dev in forms.items():
+        for nx, ny, (block, depth, panel) in K7_CHECKS:
+            cells, nobst = random_setup(torch, nx, ny, seed=nx + depth)
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+            n = 2 * depth + 3
+
+            def k7(fn):
+                return fn(q, nobst, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel, dev=dev)
+
+            what = f"K7 {name} {nx}x{ny} T {depth} block {block} " + (
+                f"panel {panel}" if panel else "full row")
+            got = attempt(what, lambda: k7(band.run_band))
+            if got is None:
+                continue
+            again = k7(band.run_band)
+            want = k7(band.run_band_plain)
+            if name == "bf16":
+                bf16_compare(torch, what, got, want, TOL_BF16_SPREAD)
+            else:
+                compare(torch, what, got, want, dev)
+            check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                  f"{what}: not run-to-run deterministic")
+        for nx, ny, py, (block, depth, panel) in K8_CHECKS:
+            cells, nobst = random_setup(torch, nx, ny, seed=ny + depth)
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+            s, o = on_mesh(q, nobst, py, 1)
+            n = 2 * depth + 3
+
+            def k8(fn):
+                return joined(torch, fn(s, o, DENSITY, ACCEL, OMEGA, n, block, depth, ny,
+                                        panel=panel, dev=dev))
+
+            what = f"K8 {name} {nx}x{ny} on {py} shards T {depth} block {block} " + (
+                f"panel {panel}" if panel else "full row")
+            got = attempt(what, lambda: k8(band.run_band_sharded))
+            if got is None:
+                continue
+            again = k8(band.run_band_sharded)
+            want = k8(band.run_band_sharded_plain)
+            if name == "bf16":
+                bf16_compare(torch, what, got, want, TOL_BF16_SPREAD)
+            else:
+                compare(torch, what, got, want, dev)
+            check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                  f"{what}: not run-to-run deterministic")
+    log("  K7 and K8 determinism: two runs of each schedule give bitwise-equal av and state")
+    params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    block, _, panel = band_config(params, torch.float32)
+    cells, nobst = random_setup(torch, 1024, 1024, seed=5)
+    s, o = on_mesh(cells, nobst, 4, 1)
+    for depth in (3, 4, 5):
+        for what, n, run in (
+                ("K7", 200, lambda n, d: band.run_band(cells, nobst, DENSITY, ACCEL, OMEGA, n,
+                                                       block, d, panel=panel)),
+                ("K8 (4 shards)", 60, lambda n, d: joined(torch, band.run_band_sharded(
+                    s, o, DENSITY, ACCEL, OMEGA, n, block, d, 1024, panel=panel)))):
+            what = f"{what} f32 {(block, depth, panel)} vs K1 1024x1024 {n} steps"
+            got = attempt(what, lambda: run(n, depth))
+            if got is None:
+                continue
+            k1 = run_step(cells, nobst, DENSITY, ACCEL, OMEGA, n, 1.0)
+            torch.cuda.synchronize()
+            log(f"  {what}: final state bitwise equal: {torch.equal(got[0], k1[0])}, max diff "
+                f"{float((got[0] - k1[0]).abs().max()):.3e}")
+            compare(torch, what, got, k1)
+
+
+def redesign11_turns(torch, spec, gpu_line):
+    """Phase 28's times, with the driver's schedules of the imported package:
+    K7 beside K9 (and K9 at K7's schedule, where K9 takes it) and K8
+    beside K10 on 4 shards at 1024^2, 2048^2 and 4096^2, K13 beside K7 and
+    K9 at 2048^2 and 4096^2, each of the same storage, in turns; returns
+    {(storage, n[, "mesh"]): {kernel: us per step}}."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band, band2, devspace, slab
+    from lbm_tpu_torch.runtime.driver import pass_schedule, slab_config
+
+    forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
+    out = {}
+    for nx, n in ((1024, 480), (2048, 240), (4096, 80)):
+        params = LBMParams(nx=nx, ny=nx, max_iters=1, reynolds_dim=10, density=DENSITY,
+                           accel=ACCEL, omega=OMEGA)
+        k7_cfg = pass_schedule("band", params, torch.float32)[1]
+        k9_cfg = pass_schedule("band2", params, torch.float32)[1]
+        k13_cfg = slab_config(params, torch.float32)
+        m = n - n % (k13_cfg[1] * k13_cfg[3])
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        for name, dev in forms.items():
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+
+            def pas(fn, cfg):
+                return lambda: fn(q, nobst, DENSITY, ACCEL, OMEGA, m, cfg[0], cfg[1],
+                                  panel=cfg[2], dev=dev)
+
+            fns = {"K7": pas(band.run_band, k7_cfg), "K9": pas(band2.run_band2, k9_cfg)}
+            if band2.band2_supported(nx, nx, *k7_cfg) and k7_cfg != k9_cfg:
+                fns["K9 at K7's"] = pas(band2.run_band2, k7_cfg)
+            if nx > 1024:
+                fns["K13"] = lambda: slab.run_band_slab(
+                    q, nobst, DENSITY, ACCEL, OMEGA, m, *k13_cfg[:2], *k13_cfg[3:],
+                    panel=k13_cfg[2], dev=dev)
+            t = out[name, nx] = turns(torch, fns, m)
+            log(f"  {name} {nx}x{nx} (K7 {k7_cfg}, K9 {k9_cfg}, K13 {k13_cfg}; us/step in "
+                "turns): " + ", ".join(f"{k} {v:.2f}" for k, v in t.items())
+                + f"; K7/K9 {t['K7'] / t['K9']:.3f}"
+                + (f", K13/K7 {t['K13'] / t['K7']:.3f}" if "K13" in t else "") + f" [{gpu_line}]")
+            s, o = on_mesh(q, nobst, 4, 1)
+
+            def sharded(fn, cfg):
+                return lambda: fn(s, o, DENSITY, ACCEL, OMEGA, m, cfg[0], cfg[1], nx,
+                                  panel=cfg[2], dev=dev)
+
+            t = out[name, nx, "mesh"] = turns(torch, {
+                "K8": sharded(band.run_band_sharded, k7_cfg),
+                "K10": sharded(band2.run_band2_sharded, k9_cfg)}, m)
+            log(f"  {name} {nx}x{nx} on 4 shards (us/step in turns): K8 {t['K8']:.2f}, K10 "
+                f"{t['K10']:.2f}: K8/K10 {t['K8'] / t['K10']:.3f} [{gpu_line}]")
+            del s, o
+        del cells, nobst
+    return out
+
+
+def k7_sweep(torch, gpu_line):
+    """K7's schedules (K7_SWEEP) at f32 in turns beside K9 at its driver
+    schedule; returns {(n, schedule): us per step}."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band, band2
+    from lbm_tpu_torch.ops import band_common as BC
+    from lbm_tpu_torch.runtime.driver import band2_config
+
+    out = {}
+    for nx, schedules in K7_SWEEP.items():
+        params = LBMParams(nx=nx, ny=nx, max_iters=1, reynolds_dim=10, density=DENSITY,
+                           accel=ACCEL, omega=OMEGA)
+        k9 = band2_config(params, torch.float32)
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        n = max(120, 240 * 2048 // nx) // 120 * 120
+        fits = [cfg for cfg in schedules if BC.smem_bytes(1, nx, *cfg) <= BC.SMEM_LIMIT]
+        fns = {cfg: (lambda cfg=cfg: band.run_band(cells, nobst, DENSITY, ACCEL, OMEGA, n,
+                                                   cfg[0], cfg[1], panel=cfg[2]))
+               for cfg in fits}
+        fns["K9"] = lambda: band2.run_band2(cells, nobst, DENSITY, ACCEL, OMEGA, n, k9[0], k9[1],
+                                            panel=k9[2])
+        t = turns(torch, fns, n)
+        out.update({(nx, cfg): t[cfg] for cfg in fits})
+        log(f"  K7 schedules at {nx}^2 f32 ((block, depth, panel): us/step, in turns beside K9 "
+            f"{k9} {t['K9']:.3f}): " + ", ".join(f"{cfg}: {t[cfg]:.3f}" for cfg in fits)
+            + f" [{gpu_line}]")
+        del cells, nobst
+    return out
+
+
+def bench_line():
+    """``python -m lbm_tpu_torch.bench`` in this process: its JSON line and
+    its stderr line."""
+    import contextlib
+    import io
+
+    from lbm_tpu_torch import bench
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = bench.main([])
+    check(rc == 0, f"the port bench exited {rc}")
+    line = out.getvalue().strip().splitlines()[-1]
+    res = json.loads(line)
+    check(res["metric"] == "mlups_1024x1024" and res["value"] > 0, f"bad bench line: {line}")
+    return line, err.getvalue().strip()
+
+
+def deck_mlups(torch, gpu_line):
+    """Loop MLUPS (``SimulationResult.mlups``, the number ``cli.main``
+    reports) of ``band`` (K7) and ``auto`` on the four official decks and
+    the 2048^2 x 2048 and 4096^2 x 1024 walls decks, through
+    ``run_simulation`` without fetching the final state; returns {(deck,
+    backend): (MLUPS, route)}."""
+    import numpy as np
+
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.runtime.driver import run_simulation
+    from lbm_tpu_torch.utils import geometry
+
+    decks = {tag: (LBMParams(*fields), getattr(geometry, geo)(fields[0], fields[1], **kw))
+             for tag, (fields, geo, kw) in DECKS.items()}
+    for n, iters in WALLS_DECKS[1:]:
+        mask = np.zeros((n, n), np.int32)
+        mask[0, :] = mask[-1, :] = 1
+        decks[f"walls {n}^2"] = (LBMParams(n, n, iters, 10, DENSITY, ACCEL, OMEGA), mask)
+    out = {}
+    for tag, (params, obstacles) in decks.items():
+        for backend in ("band", "auto"):
+            res = run_simulation(params, obstacles, backend=backend, device="cuda:0",
+                                 fetch_final=False)
+            check(np.isfinite(res.av_vels).all(), f"{tag} --backend {backend}: non-finite av")
+            out[tag, backend] = (res.mlups(params), res.route)
+        log(f"  {tag} x {params.max_iters}: loop MLUPS band (K7) {out[tag, 'band'][0]:.1f}, auto "
+            f"({out[tag, 'auto'][1]}) {out[tag, 'auto'][0]:.1f} [{gpu_line}]")
+    return out
+
+
+def redesign11_phase(torch, spec, gpu_line):
+    """Phase 28: K7 and K8 in one window at any T against their plain
+    versions and K1; timed beside K9, K10 and K13 in turns; K7's schedule
+    sweep; the port bench."""
+    k78_checks(torch, spec)
+    redesign11_turns(torch, spec, gpu_line)
+    k7_sweep(torch, gpu_line)
+    deck_mlups(torch, gpu_line)
+    line, note = bench_line()
+    log(f"  python -m lbm_tpu_torch.bench: {line}")
+    log(f"  {note}")
+
+
 def main():
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", type=int, choices=(26, 27),
+    ap.add_argument("--phase", type=int, choices=(25, 26, 27, 28),
                     help="run phases 1, 2 and this one only (no kernel report)")
     ap.add_argument("--import-from", metavar="DIR",
                     help="with --phase 26: check K9 of the lbm_tpu_torch package under DIR "
                          "(another checkout) and time it and K3 beside their rivals; with "
                          "--phase 27: check K5 and K6 of that package, time them beside K9 "
-                         "and K11 and run their c16 gate decks; nothing else")
+                         "and K11 and run their c16 gate decks; with --phase 28: check K7 "
+                         "and K8 of that package and time them beside K9, K10 and K13; "
+                         "nothing else")
     args = ap.parse_args()
-    if args.import_from and args.phase is None:
-        ap.error("--import-from needs --phase 26 or 27")
+    if args.import_from and args.phase in (None, 25):
+        ap.error("--import-from needs --phase 26, 27 or 28")
     try:
         import torch
     except ImportError:
@@ -2338,6 +2646,25 @@ def main():
     check("sm_90a" in b["flags"], "kernels not built for sm_90a")
     log(f"  {'built' if b['built'] else 'loaded'} {os.path.relpath(b['path'], ROOT)} "
         f"in {b['seconds']:.1f} s with nvcc {b['flags']} from {', '.join(b['sources'])}")
+    if args.phase == 25:
+        phase("25. the auto crossover: K4, K6, K7, K9 and K11 in turns at 128x256 and "
+              "256^2-1024^2")
+        crossover_phase(torch, gpu_line)
+        return 0
+    if args.phase == 28:
+        from lbm_tpu_torch.ops.devspace import DevSpec
+
+        spec = DevSpec.for_params(DENSITY, ACCEL)
+        if args.import_from:
+            phase(f"28. K7 and K8 vs their plain versions and K1, beside K9, K10 and K13, the "
+                  f"package under {args.import_from}")
+            k78_checks(torch, spec, skip_refused=True)
+            redesign11_turns(torch, spec, gpu_line)
+        else:
+            phase("28. K7 and K8 in one window at any T: vs plain and K1, beside K9, K10 and "
+                  "K13, K7's schedules, the port bench")
+            redesign11_phase(torch, spec, gpu_line)
+        return 0
     if args.phase == 27:
         from lbm_tpu_torch.ops.devspace import DevSpec
 
@@ -2429,20 +2756,20 @@ def main():
     del cells, nobst, k1
 
     phase("8. the band path: lbm_tpu_torch.cli.main with band, band2, band3 and auto")
-    from lbm_tpu_torch.ops import band, band2, band3, resident
+    from lbm_tpu_torch.ops import band, band2, band3, deep, resident
 
     counters = {"band": band.run_band, "band2": band2.run_band2, "band3": band3.run_band3}
-    for fn in (*counters.values(), run_step, run_aa, resident.run_resident):
+    for fn in (*counters.values(), run_step, run_aa, resident.run_resident, deep.run_deep):
         fn.launches = 0
     resident.run_resident.launches_smem = 0
-    want = dict.fromkeys(counters, 0)
+    want = dict.fromkeys((*counters, "deep"), 0)
     want_k1 = want_k2 = want_k4 = 0
 
     def account(stats):
         nonlocal want_k1, want_k2, want_k4
         route, n = stats["route"], stats["max_iters"]
-        if route in counters:
-            depth = routes[route][3][1]
+        if route in want:
+            depth = pass_depth(route, stats["ny"], stats["nx"])
             want[route] += n // depth * depth
             want_k1 += n % depth
         elif route == "resident":
@@ -2467,14 +2794,14 @@ def main():
             deck = write_walls_deck(keep if n == 2048 else work, n, iters)
             ref, stats = run_walls(cli, deck, "aa", keep if n == 2048 else work, n, gpu_line)
             account(stats)
-            # On 4096^2 only band3, the route auto takes there as on 2048^2:
-            # K7 and K9 ran that size in phase 6, and writing and checking the
-            # deck's 16.7M-line outputs is most of this phase's time.
-            for backend in (*counters, "auto") if n < 4096 else ("band3",):
+            # On 4096^2 only auto: the band kernels ran that size in phase 6,
+            # and writing and checking the deck's 16.7M-line outputs is most
+            # of this phase's time.
+            for backend in (*counters, "auto") if n < 4096 else ("auto",):
                 out, stats = run_walls(cli, deck, backend, work, n, gpu_line)
                 account(stats)
-                check(backend != "auto" or stats["route"] == "band3",
-                      f"walls {n}^2: auto routed {stats['route']}, not band3")
+                check(backend != "auto" or stats["route"] == AUTO_ABOVE,
+                      f"walls {n}^2: auto routed {stats['route']}, not {AUTO_ABOVE}")
                 hold_against(out, ref, f"walls {n}^2 --backend {backend}")
                 shutil.rmtree(out)
             if n == 2048:
@@ -2482,13 +2809,15 @@ def main():
             else:
                 shutil.rmtree(ref)
     got = {route: fn.launches for route, fn in counters.items()}
+    auto_deep = deep.run_deep.launches
     log(f"  launch counters: K7 {got['band']} steps (want {want['band']}), K9 {got['band2']} "
-        f"(want {want['band2']}), K11 {got['band3']} (want {want['band3']}), K1 "
-        f"{run_step.launches} (want {want_k1}), K2 {run_aa.launches} (want {want_k2}), K4 "
-        f"shared-memory form {resident.run_resident.launches_smem} (want {want_k4}), K4 "
-        f"global-memory form {resident.run_resident.launches} (want 0)")
+        f"(want {want['band2']}), K11 {got['band3']} (want {want['band3']}), K6 {auto_deep} "
+        f"(want {want['deep']}), K1 {run_step.launches} (want {want_k1}), K2 {run_aa.launches} "
+        f"(want {want_k2}), K4 shared-memory form {resident.run_resident.launches_smem} (want "
+        f"{want_k4}), K4 global-memory form {resident.run_resident.launches} (want 0)")
     for route in counters:
         check(got[route] == want[route], f"--backend {route}: not every band step ran in its kernel")
+    check(auto_deep == want["deep"] > 0, "auto did not run every step of the large decks in K6")
     check(run_step.launches == want_k1, "not every remainder step ran in K1")
     check(resident.run_resident.launches_smem == want_k4 and resident.run_resident.launches == 0,
           "auto did not run every K4 step of the small decks in K4's shared-memory form")
@@ -2599,14 +2928,17 @@ def main():
     k4s_err, k4s_per, k4s_plain = k4_smem_phase(torch, gpu_line)
     phase("24. K11 at f32, c16 and bf16 vs its plain version, and beside K2 in turns")
     k11_phase(torch, spec, gpu_line, routes["band3"][3])
-    phase("25. the auto crossover: K4 vs K11 at 128^2-768^2")
-    crossover_phase(torch, gpu_line, routes["band3"][3])
+    phase("25. the auto crossover: K4, K6, K7, K9 and K11 in turns at 128x256 and 256^2-1024^2")
+    crossover_phase(torch, gpu_line)
     phase("26. K3's paired 16-bit words and K9's one window: the cluster barrier, vs plain and "
           "K1, beside their rivals, K9's schedules")
     redesign9_phase(torch, spec, gpu_line)
     phase("27. K5 and K6 in one window: vs plain and K1, beside K9 and K11, the schedule sweep, "
           "the c16 gate decks")
     redesign10_phase(torch, spec, cli, gpu_line)
+    phase("28. K7 and K8 in one window at any T: vs plain and K1, beside K9, K10 and K13, "
+          "K7's schedules, the port bench")
+    redesign11_phase(torch, spec, gpu_line)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1,
               bytes_per_cell=BYTES_PER_CELL):
@@ -2633,7 +2965,8 @@ def main():
               band_res[route][1][2048][1], 2048 * 2048, band_depth[route])
         for route in BANDS
     ] + [
-        entry(*SCHEDULED[route], got_sched[route], sched_res[route][0],
+        entry(*SCHEDULED[route], got_sched[route] + (auto_deep if route == "deep" else 0),
+              sched_res[route][0],
               *sched_res[route][1][1024 if route == "resident" else 2048],
               (1024 if route == "resident" else 2048) ** 2,
               resident_config(None, torch.float32) if route == "resident" else sched[route][3])

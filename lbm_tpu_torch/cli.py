@@ -47,11 +47,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--backend",
         choices=backends + ["pallas-overlap"],
         default="auto",
-        help="auto: resident up to 384x384 cells, band3 above (f32), "
+        help="auto: resident up to 448x448 cells, deep above (f32), "
         "reference (f64); aa: in-place AA kernel on one state copy; pallas: fused "
         "one-step kernel; band, band2, band3: T steps per pass on windows in "
-        "shared memory (values in registers, then one in-place AA window "
-        "each), remainder on the step kernel; resident: 255 "
+        "shared memory (one in-place AA window each), remainder on the step "
+        "kernel; resident: 255 "
         "whole-grid steps per launch of one persistent grid, a grid-wide "
         "barrier between steps; temporal, deep: T steps per pass on a "
         "shrinking trapezoid in shared memory, halo rows from carried row "

@@ -1,46 +1,43 @@
-// K7: the band pass with each cell's 9 values carried in registers.
+// K7: the band pass in ONE shared-memory window, stepped in place in the
+// AA arrangement, at any T.
 //
 // Replaces: lbm_tpu/ops/pallas_band.py::_kernel (:172) and ::_kernel_panel
 // (:387), the band creep with the 9 window planes carried as fori_loop
-// values and shifted by whole-plane rolls. Full row and panel are one
-// kernel here: every tile is B x P with a T-cell halo (band_common.cuh).
+// values and shifted by whole-plane rolls: T steps per pass in a window of
+// (B+2T) x (P+2T) cells whose edge garbage creeps inward one cell per
+// step, the central B x P cells stored. Full row and panel are one kernel
+// here: every tile is B x P with a T-cell halo (band_common.cuh).
 //
-// The counterpart of "planes carried as values": each thread keeps the 9
-// values of its window cells (at most MAXC of them) in registers across the
-// T steps. Each step it applies the forcing of the ny-2 rows to its own
-// cells, writes the values to one shared-memory exchange window, syncs,
-// pulls its 9 streamed values from the neighbours' slots (wrapping at the
-// window's edges, as the rolls wrap the TPU buffer), syncs, and collides.
-// No in-place trick: one window of 36 B per cell plus the not-obstacle
-// value, and two barriers per step.
+// What bounds it on the H100: the work inside the window, not HBM (as K9,
+// band2.cu: a pass moves 76 B per cell at f32, 40 at 16 bits, over T
+// steps). Shared memory sets the window's size, and the window's size the
+// redundancy (B+2T)(P+2T)/(BP) of the recomputed halo.
 //
-// What bounds it on the H100: registers and barriers. 512 threads hold at
-// most 8 cells each (72 values), so a window has at most 4,096 cells, and
-// the halo redundancy (B+2T)(P+2T)/(BP) is the price of touching device
-// memory once per T steps. Each step moves 9 values per cell through shared
-// memory twice (write, pull) and pays two block-wide barriers. What the
-// design does about it: the collision runs on registers, shared memory only
-// carries the exchange, and the output is stored straight from registers.
-// TMA, clusters and register tiling across warps are later work.
+// What the design does about it: band_common.cuh's one-window pass, K9's
+// body taken to K7's whole domain (any T >= 1, any tile, ragged grids): 40
+// B of shared memory per window cell, one barrier per step, the loader
+// writing R_k into slot opp(k) with the forcing row's forcing added
+// cell-locally, odd steps gathering, relaxing and scattering, even ones
+// cell-local. An odd T ends on a scatter step, and the tile store reads R_k
+// of a central cell from (x + c_k, k), where that step left it. The cell
+// arithmetic is K1's in K1's order, so at f32 the state is bitwise K1's at
+// every T. (Before: each thread carried up to 8 cells x 9 values in
+// registers and pulled them through a shared exchange window, two barriers
+// a step, at most 4,096 window cells.)
 //
 // K8: the same kernel on the shards of a 1-D mesh (kSharded). Replaces
 // lbm_tpu/ops/pallas_band.py::_kernel_sharded (:574) and
 // ::_kernel_sharded_panel (:776): one pass of T steps over one shard's rows,
 // the window's y halo read from the neighbour shards' T edge rows, copied
 // once per pass (band_common.cuh: Source, halo_rows_kernel), and the
-// forcing at every window row whose global row is ny-2. Bound as K7: the
-// halo copy adds 2T rows per shard per pass, 2T/ny_shard of the pass's
-// bytes.
+// forcing at every window row whose global row is ny-2. The halo copy adds
+// 2T rows per shard per pass, 2T/ny_shard of the pass's bytes.
 //
-// K7 and K8 at c16 (pallas_band.py, ``dev=``): the same pass with int16
-// codes in device memory, decoded by the loader and encoded by the store,
-// once per pass; K8's halo copy moves the neighbours' codes untouched (the
-// JAX package's ppermutes move them so), half the bytes of f32 halos.
-//
-// K7 and K8 at bf16 (a bfloat16 state: ``mid.astype(out_dtype)`` at
-// pallas_band.py:253, :480, :665, :882): the loader widens each value
-// and the store rounds to nearest even (lbm_common.cuh::BF16), one
-// rounding per pass; K8's halo copy moves raw bfloat16.
+// K7 and K8 at c16 (pallas_band.py, ``dev=``) and bf16 (``mid.astype(
+// out_dtype)`` at pallas_band.py:253, :480, :665, :882): the loader decodes
+// (widens) and the tile store encodes (rounds to nearest even), once per
+// pass, through the storage types of lbm_common.cuh; K8's halo copy moves
+// the neighbours' raw int16 codes or bfloat16 values.
 //
 // K13: the same pass over a y-slab (kSlab). Replaces
 // lbm_tpu/ops/pallas_slab.py::_kernel_slab (:76), at f32, c16 and bf16. A
@@ -84,7 +81,9 @@ struct SlabIO {
   int accumulate;        // add the sums to av (every slab but the first)
 };
 
-template <int MAXC, Mode kMode, class S>
+// One pass over a tile's window (band_common.cuh's one-window pass): K7 on
+// the grid, K8 on a shard, K13 on a slab buffer.
+template <Mode kMode, class S>
 __global__ void __launch_bounds__(band::kThreads)
 band_kernel(band::SourceT<typename S::T> src, typename S::T* __restrict__ dst,
             float* __restrict__ partials, unsigned int* __restrict__ ticket,
@@ -104,99 +103,46 @@ band_kernel(band::SourceT<typename S::T> src, typename S::T* __restrict__ dst,
   int y0, x0;
   band::fill_tables(g, s, y0, x0);
   __syncthreads();
-  float* x = s.planes;
-  const int n = g.ncell;
-  float v[MAXC][9];
-  int rr[MAXC], cc[MAXC];  // window row and column of each cell; rr < 0: none
+  band::aa_load(g, s, w1a, w2a, [&](int r, int c, float* v) {
+    if constexpr (kSlab) {
+      const int row = band::wrap_mod(io.in_r0 + y0 - g.T + r, io.in_rows);
+      const size_t gi = (size_t)row * g.nx + s.gcol[c];
+      const size_t in_plane = (size_t)io.in_rows * g.nx;
 #pragma unroll
-  for (int j = 0; j < MAXC; ++j) {
-    const int i = threadIdx.x + j * band::kThreads;
-    rr[j] = -1;
-    cc[j] = 0;
-    if (i < n) {
-      rr[j] = i / g.WW;
-      cc[j] = i - rr[j] * g.WW;
-      if constexpr (kSlab) {
-        const int row = band::wrap_mod(io.in_r0 + y0 - g.T + rr[j], io.in_rows);
-        const size_t gi = (size_t)row * g.nx + s.gcol[cc[j]];
-        const size_t in_plane = (size_t)io.in_rows * g.nx;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) v[j][k] = st.load(src.cells[k * in_plane + gi], k);
-        s.nob[i] = src.nobst[(size_t)s.grow[rr[j]] * g.nx + s.gcol[cc[j]]];
-      } else {
-        s.nob[i] = band::load_cell<kSharded>(g, s, src, y0, rr[j], cc[j], v[j], st);
-      }
+      for (int k = 0; k < 9; ++k) v[k] = st.load(src.cells[k * in_plane + gi], k);
+      return src.nobst[(size_t)s.grow[r] * g.nx + s.gcol[c]];
+    } else {
+      return band::load_cell<kSharded>(g, s, src, y0, r, c, v, st);
     }
-  }
-  __syncthreads();
+  });
   const band::Central cen = kSlab ? band::central_rows(g, y0, x0, io.own_lo, io.own_hi)
                                   : band::central(g, y0, x0);
-  const band::Central out = kSlab ? band::central_rows(g, y0, x0, io.out_lo, io.out_hi)
-                                  : band::central(g, y0, x0);
-  const int frow = g.nyg - 2;
-  for (int stp = 0; stp < g.T; ++stp) {
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {  // force, then publish
-      if (rr[j] < 0) continue;
-      const int i = rr[j] * g.WW + cc[j];
-      if (s.grow[rr[j]] == frow) band::force_cell(v[j], s.nob[i], w1a, w2a);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) x[k * n + i] = v[j][k];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {  // pull
-      if (rr[j] < 0) continue;
-      const int r = rr[j], c = cc[j];
-      const int ru = band::wrap1(r - 1, g.WH), rd = band::wrap1(r + 1, g.WH);
-      const int cl = band::wrap1(c - 1, g.WW), cr = band::wrap1(c + 1, g.WW);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const int sr = lbm::cy(k) == 1 ? ru : (lbm::cy(k) == -1 ? rd : r);
-        const int sc = lbm::cx(k) == 1 ? cl : (lbm::cx(k) == -1 ? cr : c);
-        v[j][k] = x[k * n + sr * g.WW + sc];
-      }
-    }
-    __syncthreads();
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {  // collide
-      if (rr[j] < 0) continue;
-      const float nob = s.nob[rr[j] * g.WW + cc[j]];
-      const float usq = lbm::collide_fused(v[j], nob, rc);
-      if (cen.has(rr[j], cc[j])) acc += nob * sqrtf(usq);
-    }
-    band::step_partial(s, stp, acc);
+  band::aa_steps(g, s, cen, w1a, w2a, rc);
+  // The central cells (the slab: rows [out_lo, out_hi) of the buffer, at
+  // out_r0 + row of a destination of out_rows rows).
+  if constexpr (kSlab) {
+    band::aa_store(g, s.planes, band::central_rows(g, y0, x0, io.out_lo, io.out_hi), dst,
+                   (size_t)io.out_rows * g.nx, io.out_r0 + y0 - g.T, x0, st);
+  } else {
+    band::aa_store(g, s.planes, cen, dst, plane, y0 - g.T, x0, st);
   }
-  // Store the central cells from registers (the slab: rows [out_lo, out_hi)
-  // of the buffer, at out_r0 + row of a destination of out_rows rows).
-  const size_t out_plane = kSlab ? (size_t)io.out_rows * g.nx : plane;
-  const int out_r0 = kSlab ? io.out_r0 : 0;
-#pragma unroll
-  for (int j = 0; j < MAXC; ++j) {
-    if (rr[j] < 0 || !out.has(rr[j], cc[j])) continue;
-    const size_t gi = (size_t)(out_r0 + y0 + rr[j] - g.T) * g.nx + (x0 + cc[j] - g.T);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) dst[k * out_plane + gi] = st.store(v[j][k], k);
-  }
-  __syncthreads();
   band::finish_sums(g, s, partials, ticket, inv_tot, av, kSlab && io.accumulate);
 }
 
-template <int MAXC, Mode kMode, class S>
-int run_fixed(const band::Geom& g, const band::ShardsT<typename S::T>* sh, typename S::T* buf_a,
-              typename S::T* buf_b, const band::SourceT<typename S::T>& src, float* av,
-              float* partials, unsigned int* ticket, int n_passes, float w1a, float w2a,
-              const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& stor) {
+template <Mode kMode, class S>
+int run(const band::Geom& g, const band::ShardsT<typename S::T>* sh, typename S::T* buf_a,
+        typename S::T* buf_b, const band::SourceT<typename S::T>& src, float* av,
+        float* partials, unsigned int* ticket, int n_passes, float w1a, float w2a,
+        const lbm::Relax& rc, float inv_tot, cudaStream_t st, const S& stor) {
   using T = typename S::T;
   const size_t smem = band::smem_bytes(g, 1);
-  const cudaError_t err = band::allow_smem(band_kernel<MAXC, kMode, S>, smem);
+  const cudaError_t err = band::allow_smem(band_kernel<kMode, S>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(g.nty * g.ntx, kMode == Mode::kSharded ? sh->count : 1);
   auto launch = [&](const T* from, T* to, float* av_p, int) {
     band::SourceT<T> s = src;
     s.cells = from;
-    band_kernel<MAXC, kMode, S><<<grid, band::kThreads, smem, st>>>(
+    band_kernel<kMode, S><<<grid, band::kThreads, smem, st>>>(
         s, to, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot, SlabIO{}, stor);
   };
   if constexpr (kMode == Mode::kSharded) {
@@ -205,37 +151,24 @@ int run_fixed(const band::Geom& g, const band::ShardsT<typename S::T>* sh, typen
   return band::run_passes(n_passes, g.T, buf_a, buf_b, av, launch);
 }
 
-// The register budget of g's window: 4 or 8 cells a thread; a larger
-// window is cudaErrorInvalidValue.
-template <Mode kMode, class S>
-int run(const band::Geom& g, const band::ShardsT<typename S::T>* sh, typename S::T* buf_a,
-        typename S::T* buf_b,
-        const band::SourceT<typename S::T>& src, float* av, float* partials,
-        unsigned int* ticket, int n_passes, float w1a, float w2a, const lbm::Relax& rc,
-        float inv_tot, cudaStream_t st, const S& stor) {
-  if (g.ncell <= 4 * band::kThreads) {
-    return run_fixed<4, kMode>(g, sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a,
-                               w2a, rc, inv_tot, st, stor);
-  }
-  if (g.ncell <= 8 * band::kThreads) {
-    return run_fixed<8, kMode>(g, sh, buf_a, buf_b, src, av, partials, ticket, n_passes, w1a,
-                               w2a, rc, inv_tot, st, stor);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // K13: n_gens generations of K passes over each of the ny / S slabs, slab
 // after slab; see the top of the file.
-template <int MAXC, class S>
-int run_slab_fixed(band::Geom g, typename S::T* state, typename S::T* next,
-                   typename S::T* slab_a, typename S::T* slab_b, const float* nobst, float* av,
-                   float* partials, unsigned int* ticket, int kpasses, int sblock, int n_gens,
-                   float w1a, float w2a, const lbm::Relax& rc, float inv_tot, cudaStream_t st,
-                   const S& stor) {
+template <class S>
+int run_slab(typename S::T* state, typename S::T* next, typename S::T* slab_a,
+             typename S::T* slab_b, const float* nobst, float* av, float* partials,
+             unsigned int* ticket, int ny, int nx, int block, int depth, int panel, int kpasses,
+             int sblock, int n_gens, float w1a, float w2a, const lbm::Relax& rc, float inv_tot,
+             cudaStream_t st, const S& stor) {
   using T = typename S::T;
-  const int ny = g.nyg, kt = kpasses * g.T, rows = g.ny;
+  const int kt = kpasses * depth;
+  if (kpasses < 1 || sblock < 1 || ny % sblock != 0 || ny <= sblock || kt > sblock) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  band::Geom g = band::make_geom(sblock + 2 * kt, nx, block, depth, panel);
+  g.nyg = ny;
+  const int rows = g.ny;
   const size_t smem = band::smem_bytes(g, 1);
-  const cudaError_t err = band::allow_smem(band_kernel<MAXC, Mode::kSlab, S>, smem);
+  const cudaError_t err = band::allow_smem(band_kernel<Mode::kSlab, S>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   T* cur = state;
   T* nxt = next;
@@ -252,7 +185,7 @@ int run_slab_fixed(band::Geom g, typename S::T* state, typename S::T* next,
                         kt, kt + sblock, j > 0};
         const band::SourceT<T> src{first ? cur : bufs[(p + 1) & 1], nobst,
                                    nullptr, nullptr, nullptr, nullptr};
-        band_kernel<MAXC, Mode::kSlab, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
+        band_kernel<Mode::kSlab, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
             src, last ? nxt : bufs[p & 1], partials, ticket,
             av + (size_t)gen * kt + (size_t)p * g.T, g, w1a, w2a, rc, inv_tot, io, stor);
         const cudaError_t e = cudaGetLastError();
@@ -264,29 +197,6 @@ int run_slab_fixed(band::Geom g, typename S::T* state, typename S::T* next,
     nxt = t;
   }
   return 0;
-}
-
-template <class S>
-int run_slab(typename S::T* state, typename S::T* next, typename S::T* slab_a,
-             typename S::T* slab_b, const float* nobst, float* av, float* partials,
-             unsigned int* ticket, int ny, int nx, int block, int depth, int panel, int kpasses,
-             int sblock, int n_gens, float w1a, float w2a, const lbm::Relax& rc, float inv_tot,
-             cudaStream_t st, const S& stor) {
-  const int kt = kpasses * depth;
-  if (kpasses < 1 || sblock < 1 || ny % sblock != 0 || ny <= sblock || kt > sblock) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  band::Geom g = band::make_geom(sblock + 2 * kt, nx, block, depth, panel);
-  g.nyg = ny;
-  if (g.ncell <= 4 * band::kThreads) {
-    return run_slab_fixed<4>(g, state, next, slab_a, slab_b, nobst, av, partials, ticket,
-                             kpasses, sblock, n_gens, w1a, w2a, rc, inv_tot, st, stor);
-  }
-  if (g.ncell <= 8 * band::kThreads) {
-    return run_slab_fixed<8>(g, state, next, slab_a, slab_b, nobst, av, partials, ticket,
-                             kpasses, sblock, n_gens, w1a, w2a, rc, inv_tot, st, stor);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K8 on storage S: lbm_band_sharded_run below.
@@ -309,14 +219,15 @@ int run_sharded(const unsigned long long* table, int s0, int count, int nshards,
 
 }  // namespace
 
-// Runs n_passes band passes of ``depth`` steps on B x P tiles; the window
-// (B + 2T) x (P + 2T) may hold at most 8 * 512 cells. buf_a holds the
+// Runs n_passes band passes of ``depth`` steps (any depth >= 1) on B x P
+// tiles, each (B + 2T) x (P + 2T) window in the shared memory of a block
+// (band_common.cuh::smem_bytes, one copy of the planes). buf_a holds the
 // initial state; pass p reads buf[p % 2] and writes buf[(p + 1) % 2]. av
 // receives n_passes * depth values; partials needs depth *
 // lbm_band_num_tiles floats; ticket one zeroed unsigned int. storage: the
 // planes' storage (lbm_common.cuh::Storage: f32, c16 int16 codes or bf16).
-// Returns the first CUDA error (cudaErrorInvalidValue for a window too
-// large), or 0.
+// Returns the first CUDA error (cudaErrorInvalidValue for a window larger
+// than a block's shared memory), or 0.
 extern "C" int lbm_band_run(void* buf_a, void* buf_b, const float* nobst, float* av,
                             float* partials, unsigned int* ticket, int ny, int nx, int block,
                             int depth, int panel, int n_passes, float w1a, float w2a, float beta,
@@ -377,8 +288,9 @@ extern "C" int lbm_band_sharded_run(const unsigned long long* table, int s0, int
 // needs depth * lbm_band_num_tiles(sblock + 2 * kpasses * depth, nx, block,
 // panel) floats; ticket one zeroed unsigned int. storage as lbm_band_run:
 // the state and both slab buffers hold its raw elements. Returns the first
-// CUDA error (cudaErrorInvalidValue for a window too large or a slab
-// schedule the grid cannot take), or 0.
+// CUDA error (cudaErrorInvalidValue for a slab schedule the grid cannot
+// take; a window larger than a block's shared memory is refused at its
+// launch), or 0.
 extern "C" int lbm_slab_run(void* state, void* next, void* slab_a, void* slab_b,
                             const float* nobst, float* av, float* partials, unsigned int* ticket,
                             int ny, int nx, int block, int depth, int panel, int kpasses,

@@ -18,22 +18,13 @@
 //
 // What the design does about it: one copy, 40 B per window cell, as K11
 // (band3.cu), so two blocks per SM hold a 40 x 64 window (1.52). The window
-// steps in place in K11's AA arrangement (band_common.cuh::aa_step), with
-// device memory keeping the regular arrangement R of the state: the loader
-// writes each cell's R_k into its slot opp(k), which is the C space of the
-// AA steps (the value leaving the cell along k), and adds at once the
-// forcing of the cells on the ny-2 rows (cell-local, the mask from the
-// cell's own values: the forcing K1's pull adds to every value it takes
-// from such a cell). The steps then run odd, even, odd, ..., even: each odd
-// step gathers, relaxes and scatters (C -> S), fusing the next step's
-// forcing; each even step relaxes in place (S -> C), adding the forcing of
-// the odd step after it but for the pass's last step. The window then holds
-// C again, unforced, and the tile store reads R_k of each central cell from
-// its slot opp(k). One barrier per step. The cell arithmetic is K1's
-// (collide_fused, the forcing of the pull), in the same order, so at f32
-// the state is bitwise K1's. Garbage creeps from the window's edges one
-// cell per step on average (0 on an even step, 2 on an odd one's gather
-// and scatter), T - 1 cells after T steps: the central tile stays genuine.
+// steps in place in K11's AA arrangement, with device memory keeping the
+// regular arrangement R of the state: the one-window pass of
+// band_common.cuh (aa_load, aa_steps, aa_store), which K7, K8 and K13
+// (band.cu) run too. K9 takes an even T (the JAX package's domain,
+// ops/band2.py), so its passes end on the cell-local step and the store
+// reads R_k of each central cell from its slot opp(k). One barrier per
+// step; at f32 the state is bitwise K1's.
 //
 // K10: the same kernel on the shards of a 1-D mesh (kSharded). Replaces
 // lbm_tpu/ops/pallas_band2.py::_kernel2_sharded (:584) and
@@ -76,34 +67,21 @@ band2_kernel(band::SourceT<typename S::T> src, typename S::T* __restrict__ dst,
   extern __shared__ float smem[];
   const band::Smem s = band::carve(smem, g, 1);
   const size_t z = blockIdx.y;  // the shard (0 on one grid)
+  const size_t plane = (size_t)g.ny * g.nx;
   src = band::shard(g, src);
-  dst += z * 9 * (size_t)g.ny * g.nx;
+  dst += z * 9 * plane;
   partials += z * g.T * g.nty * g.ntx;
   ticket += z;
   av += z * g.av_stride;
   int y0, x0;
   band::fill_tables(g, s, y0, x0);
   __syncthreads();
-  float* w = s.planes;
-  const int n = g.ncell;
-  const int frow = g.nyg - 2;
-  band::for_cells(g.WH, g.WW, [&](int r, int c) {  // R -> C, forced
-    const int i = r * g.WW + c;
-    float v[9];
-    const float nob = band::load_cell<kSharded>(g, s, src, y0, r, c, v, io);
-    s.nob[i] = nob;
-    if (s.grow[r] == frow) band::force_cell(v, nob, w1a, w2a);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) w[lbm::opp(k) * n + i] = v[k];
+  band::aa_load(g, s, w1a, w2a, [&](int r, int c, float* v) {
+    return band::load_cell<kSharded>(g, s, src, y0, r, c, v, io);
   });
-  __syncthreads();
   const band::Central cen = band::central(g, y0, x0);
-  const int half = g.T / 2;
-  for (int h = 0; h < half; ++h) {
-    band::aa_step<true>(g, s, w, cen, frow, true, w1a, w2a, rc, 2 * h);
-    band::aa_step<false>(g, s, w, cen, frow, h + 1 < half, w1a, w2a, rc, 2 * h + 1);
-  }
-  band::store_tile<S, true>(g, w, dst, y0, x0, io);
+  band::aa_steps(g, s, cen, w1a, w2a, rc);
+  band::aa_store(g, s.planes, cen, dst, plane, y0 - g.T, x0, io);
   band::finish_sums(g, s, partials, ticket, inv_tot, av);
 }
 

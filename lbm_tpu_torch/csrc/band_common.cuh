@@ -225,10 +225,8 @@ __device__ __forceinline__ void load_window(const Geom& g, const Smem& s, float*
   });
 }
 
-// Stores the central cells of ``win`` that lie inside the grid; with kOpp
-// the value of speed k from the cell's slot opp(k) (the AA arrangement's C
-// space, K9).
-template <class S = lbm::F32, bool kOpp = false>
+// Stores the central cells of ``win`` that lie inside the grid (K11).
+template <class S = lbm::F32>
 __device__ __forceinline__ void store_tile(const Geom& g, const float* win,
                                            typename S::T* __restrict__ dst, int y0, int x0,
                                            const S& st = S()) {
@@ -239,9 +237,7 @@ __device__ __forceinline__ void store_tile(const Geom& g, const float* win,
     const int i = (r + g.T) * g.WW + (c + g.T);
     const size_t gi = (size_t)(y0 + r) * g.nx + (x0 + c);
 #pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      dst[k * plane + gi] = st.store(win[(kOpp ? lbm::opp(k) : k) * g.ncell + i], k);
-    }
+    for (int k = 0; k < 9; ++k) dst[k * plane + gi] = st.store(win[k * g.ncell + i], k);
   });
 }
 
@@ -344,6 +340,81 @@ __device__ __forceinline__ void aa_step(const Geom& g, const Smem& s, float* w, 
   });
   step_partial(s, step, acc);
   __syncthreads();
+}
+
+// The one-window pass of K7, K8, K9, K10 and K13 (band.cu, band2.cu): the
+// window in ONE copy of the 9 planes, stepped in place in the AA
+// arrangement, any T >= 1.
+//
+// aa_load writes each window cell's R_k into its slot opp(k), the C space
+// of the AA steps (the value leaving the cell along k), with the forcing of
+// the cells on the forcing row added cell-locally (the mask from the
+// cell's own values: the forcing K1's pull adds to every value it takes
+// from such a cell). aa_steps then runs odd, even, odd, ...: an odd step
+// gathers, relaxes and scatters (C -> S), an even one relaxes in place
+// (S -> C), each adding the forcing of the step after it but for the
+// pass's last. After an even T the window holds C and R_k of cell i is in
+// its slot opp(k); after an odd T the last step scattered R_k of i to
+// (i + c_k, k), one cell out, which for a central cell (T >= 1 cells from
+// every edge) lies inside the window without a wrap (aa_result). The steps
+// wrap at the window's edges; after step s the cells whose update is
+// genuine are those at least s cells from every edge, so the central cells
+// and their sums stay genuine. One barrier per step; the cell arithmetic
+// is K1's in K1's order, so at f32 the state is bitwise K1's.
+
+// Loads the window: cell(r, c, v) puts window cell (r, c)'s 9 values R_k
+// into v and returns its not-obstacle value. Ends with a barrier.
+template <class Cell>
+__device__ __forceinline__ void aa_load(const Geom& g, const Smem& s, float w1a, float w2a,
+                                        Cell&& cell) {
+  float* w = s.planes;
+  const int n = g.ncell;
+  const int frow = g.nyg - 2;
+  for_cells(g.WH, g.WW, [&](int r, int c) {
+    const int i = r * g.WW + c;
+    float v[9];
+    const float nob = cell(r, c, v);
+    s.nob[i] = nob;
+    if (s.grow[r] == frow) force_cell(v, nob, w1a, w2a);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) w[lbm::opp(k) * n + i] = v[k];
+  });
+  __syncthreads();
+}
+
+// The pass's T steps (any T >= 1), their sums over ``cen`` into red[0..T).
+__device__ __forceinline__ void aa_steps(const Geom& g, const Smem& s, const Central& cen,
+                                         float w1a, float w2a, const lbm::Relax& rc) {
+  const int frow = g.nyg - 2;
+  int st = 0;
+  for (; st + 1 < g.T; st += 2) {
+    aa_step<true>(g, s, s.planes, cen, frow, true, w1a, w2a, rc, st);
+    aa_step<false>(g, s, s.planes, cen, frow, st + 2 < g.T, w1a, w2a, rc, st + 1);
+  }
+  if (st < g.T) aa_step<true>(g, s, s.planes, cen, frow, false, w1a, w2a, rc, st);
+}
+
+// R_k of window cell i after the T steps: its slot opp(k) after an even T,
+// (i + c_k, k) after an odd T.
+__device__ __forceinline__ float aa_result(const Geom& g, const float* w, int i, int k) {
+  return (g.T & 1) ? w[k * g.ncell + i + lbm::cy(k) * g.WW + lbm::cx(k)]
+                   : w[lbm::opp(k) * g.ncell + i];
+}
+
+// Stores the window cells of ``out`` (rows [rlo, rhi), columns [T, chi)),
+// each value encoded once: window cell (r, c) goes to row r_off + r,
+// column x0 + c - T of planes ``plane`` elements apart.
+template <class S>
+__device__ __forceinline__ void aa_store(const Geom& g, const float* w, const Central& out,
+                                         typename S::T* __restrict__ dst, size_t plane, int r_off,
+                                         int x0, const S& st) {
+  for_cells(out.rhi - out.rlo, out.chi - g.T, [&](int rr, int cc) {
+    const int r = rr + out.rlo, c = cc + g.T;
+    const int i = r * g.WW + c;
+    const size_t gi = (size_t)(r_off + r) * g.nx + (x0 + cc);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) dst[k * plane + gi] = st.store(aa_result(g, w, i, k), k);
+  });
 }
 
 // Fixed-order sum of one value per thread; the result is valid in thread 0.

@@ -1,4 +1,4 @@
-"""The value-carrying band route (counterpart of ``lbm_tpu/ops/pallas_band.py``).
+"""The band route (counterpart of ``lbm_tpu/ops/pallas_band.py``).
 
 ``run_band`` advances a ``(9, ny, nx)`` f32 state ``n_iters`` steps on the
 band schedule of ``ops/band_common.py``: ``n_iters // T`` passes, each
@@ -7,18 +7,20 @@ and storing the central ``B x P`` cells, then the ``n_iters % T``
 remainder on K1. It returns ``(cells, av)`` with ``av[t] = inv_tot_cells *
 sum(nobst * |u|)`` of step t.
 
-On a CUDA tensor the passes run kernel K7 (``csrc/band.cu``): each thread
-carries its window cells' 9 values in registers across the T steps, the
-counterpart of ``_kernel``'s planes carried as loop values, and streams
-through one shared-memory exchange window; every pass of a run is issued
-by one C call. On a CPU tensor it runs ``run_band_plain``, the same
-schedule on all windows at once in plain PyTorch. Any other device raises;
-a CUDA tensor never falls back.
+On a CUDA tensor the passes run kernel K7 (``csrc/band.cu``): the window
+in ONE shared-memory copy, stepped in place in the AA arrangement at any
+T (``band_common.cuh``'s one-window pass, K9's body taken to any T and
+any tile; an odd T ends on a scatter step and the store reads each value
+where that step left it); every pass of a run is issued by one C call. On
+a CPU tensor it runs ``run_band_plain``, the same schedule on all windows
+at once in plain PyTorch (the pull); ``run_band_aa_plain`` takes the
+kernel's AA steps instead, for the tests. Any other device raises; a CUDA
+tensor never falls back.
 
 The TPU's full-row and panel kernels (``_kernel``, ``_kernel_panel``) are
 one function here: ``panel=None`` is the full row (window ``nx + 2T``
-wide), ``panel=P`` a tile of P columns with a T-column halo. The kernel
-holds at most ``MAX_WINDOW_CELLS`` window cells (its register budget).
+wide), ``panel=P`` a tile of P columns with a T-column halo. The window
+must fit the shared memory of a block (``band_common.check_smem``).
 ``LBM_BAND_ROWFORCE`` and ``LBM_BAND_UNROLL`` are TPU A/B plumbing and are
 not ported.
 
@@ -32,9 +34,9 @@ The slab route K13 (``ops/slab.py``) runs its remainder here.
 counterpart of ``pallas_band.py::_kernel_sharded`` and ``_kernel_sharded_panel``, takes each
 shard's window rows between its neighbours' T edge rows, copied once per
 pass, and the ``n_iters % T`` remainder runs on the shard step K3;
-``run_band_sharded_plain`` is its plain version. At c16 (``dev``) K8
-decodes and encodes as K7 does, its halos carry the neighbours' codes,
-and the remainder runs on K3 at c16.
+``run_band_sharded_plain`` is its plain version, ``run_band_sharded_aa_plain``
+the kernel's AA steps. At c16 (``dev``) K8 decodes and encodes as K7 does,
+its halos carry the neighbours' codes, and the remainder runs on K3 at c16.
 
 bf16 storage (``dev=devspace.BF16``): K7 and K8 widen their windows and
 round their tiles, once per pass, K8's halos carry bfloat16.
@@ -45,8 +47,7 @@ from __future__ import annotations
 from lbm_tpu_torch.ops import band_common as BC
 from lbm_tpu_torch.ops.step import count_launches, forcing_weights
 
-PLANE_COPIES = 1  # one exchange window of the 9 planes per block
-MAX_WINDOW_CELLS = 4096  # 512 threads x 8 cells held in registers (csrc/band.cu)
+PLANE_COPIES = 1  # one window of the 9 planes per block, stepped in place
 
 
 def band_supported(ny: int, nx: int, block: int, depth: int, panel: int | None = None) -> bool:
@@ -66,18 +67,11 @@ def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
 
 
 def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
-                  dev=None):
+                  dev=None, aa=False):
     w1a, w2a = forcing_weights(density, accel)
-    step = BC.r_step_plain(float(omega), w1a, w2a, paired)
+    step = (BC.aa_step_plain(float(omega), w1a, w2a, paired, depth) if aa
+            else BC.r_step_plain(float(omega), w1a, w2a, paired))
     return BC.plain_passes(nobst, inv_tot_cells, block, depth, panel, lambda p, n: step, dev)
-
-
-def check_window(block, depth, panel, nx):
-    """Raise if the kernel's threads cannot hold a window in registers."""
-    b, p, t = BC.tile_shape(nx, block, depth, panel)
-    if (b + 2 * t) * (p + 2 * t) > MAX_WINDOW_CELLS:
-        raise ValueError(f"band kernel: a {b + 2 * t}x{p + 2 * t} window exceeds the "
-                         f"{MAX_WINDOW_CELLS} cells its threads hold in registers")
 
 
 def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired, device,
@@ -90,8 +84,6 @@ def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, pa
         raise ValueError(f"no band kernel for device {device}")
     if not (isinstance(paired, str) and paired.startswith("fused")):
         raise ValueError("the CUDA band kernel implements the fused collision form only")
-
-    check_window(block, depth, panel, nobst.shape[1])
 
     def run_passes(cells, npasses):
         out = BC.launch_passes("lbm_band_run", "band kernel", cells.contiguous().clone(), nobst,
@@ -109,6 +101,18 @@ def run_band_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *
     _check(cells, nobst, n_iters, block, depth, panel, dev)
     passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
                            paired, dev)
+    return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+                        passes, paired, dev)
+
+
+def run_band_aa_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *,
+                      panel=None, inv_tot_cells=1.0, paired="fused", dev=None):
+    """``run_band_plain``'s function with K7's steps in the AA arrangement
+    (``band_common.aa_step_plain``), the kernel's schedule in plain PyTorch;
+    returns ``(cells, av)``."""
+    _check(cells, nobst, n_iters, block, depth, panel, dev)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
+                           paired, dev, aa=True)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
                         passes, paired, dev)
 
@@ -134,8 +138,7 @@ run_band.launches_c16 = 0  # steps K7 advanced at c16
 run_band.launches_bf16 = 0  # steps K7 advanced at bf16
 
 
-_K8 = BC.ShardedKernel("band", "lbm_band_sharded_run", band_supported, PLANE_COPIES,
-                       MAX_WINDOW_CELLS)
+_K8 = BC.ShardedKernel("band", "lbm_band_sharded_run", band_supported, PLANE_COPIES)
 
 
 def step_band_sharded(shards, nob_shards, density, accel, omega, block, depth, ny, *,
@@ -157,6 +160,19 @@ def run_band_sharded_plain(shards, nob_shards, density, accel, omega, n_iters, b
     plain shard step; returns the shards and their raw sums ``(nshards, n_iters)``."""
     return _K8.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, panel,
                    paired, plain=True, dev=dev)
+
+
+def run_band_sharded_aa_plain(shards, nob_shards, density, accel, omega, n_iters, block,
+                              depth, ny, *, panel=None, paired="fused", dev=None):
+    """``run_band_sharded_plain``'s function with K8's steps in the AA
+    arrangement (``band_common.aa_step_plain``); returns the shards and
+    their raw sums ``(nshards, n_iters)``."""
+    _K8.check(shards, nob_shards, n_iters, block, depth, panel, dev)
+    w1a, w2a = forcing_weights(density, accel)
+    passes = BC.plain_passes_sharded(nob_shards, ny, block, depth, panel,
+                                     BC.aa_step_plain(float(omega), w1a, w2a, paired, depth), dev)
+    return BC.run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny, depth,
+                                passes, paired, plain=True, dev=dev)
 
 
 def run_band_sharded(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, *,

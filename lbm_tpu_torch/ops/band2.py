@@ -42,10 +42,7 @@ round their tiles, once per pass, K10's halos carry bfloat16.
 
 from __future__ import annotations
 
-import torch
-
 from lbm_tpu_torch.ops import band_common as BC
-from lbm_tpu_torch.ops.collision import bgk_relax
 from lbm_tpu_torch.ops.step import count_launches, forcing_weights
 
 PLANE_COPIES = 1  # one window of the 9 planes per block
@@ -67,41 +64,10 @@ def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
                          f"depth {depth}, panel {panel} (needs even depth and block >= 2*depth)")
 
 
-def aa_step_plain(omega, w1a, w2a, paired, depth):
-    """K9's steps on windows as the kernel takes them (csrc/band2.cu), for
-    ``BC.creep_pass_plain``: the window of R values enters the C space of the
-    AA arrangement (slot opp(k) holds the value leaving the cell along k)
-    with the forcing of the ny-2 rows added cell-locally; steps 0, 2, ...
-    gather, relax and scatter (C -> S), adding the next step's forcing;
-    steps 1, 3, ... relax in place (S -> C), adding the forcing of the step
-    after them but for the pass's last; the last step returns to R."""
-    shifts = [(BC.CYS[k], BC.CXS[k]) for k in range(9)]
-
-    def step(s, planes, nob, frow):
-        fluid = nob > 0.0
-        if s == 0:
-            planes = BC.force_windows(planes, nob, frow, w1a, w2a)
-            planes = [planes[BC.OPP[j]] for j in range(9)]
-        if s % 2 == 0:
-            t = [torch.roll(planes[BC.OPP[k]], shifts=shifts[k], dims=(1, 2)) for k in range(9)]
-            relaxed, u_sq = bgk_relax(t, omega, paired=paired)
-            out = BC.force_windows([torch.where(fluid, relaxed[k], t[BC.OPP[k]]) for k in range(9)],
-                                   nob, frow, w1a, w2a)
-            return [torch.roll(out[k], shifts=shifts[k], dims=(1, 2)) for k in range(9)], u_sq
-        relaxed, u_sq = bgk_relax(planes, omega, paired=paired)
-        out = [torch.where(fluid, relaxed[k], planes[BC.OPP[k]]) for k in range(9)]
-        if s < depth - 1:
-            out = BC.force_windows(out, nob, frow, w1a, w2a)
-            return [out[BC.OPP[j]] for j in range(9)], u_sq
-        return out, u_sq  # the pass's last step: back to R for the store
-
-    return step
-
-
 def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
                   dev=None, aa=False):
     w1a, w2a = forcing_weights(density, accel)
-    step = (aa_step_plain(float(omega), w1a, w2a, paired, depth) if aa
+    step = (BC.aa_step_plain(float(omega), w1a, w2a, paired, depth) if aa
             else BC.r_step_plain(float(omega), w1a, w2a, paired))
     return BC.plain_passes(nobst, inv_tot_cells, block, depth, panel, lambda p, n: step, dev)
 
@@ -148,8 +114,8 @@ def run_band2_plain(cells, nobst, density, accel, omega, n_iters, block, depth, 
 def run_band2_aa_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *,
                        panel=None, inv_tot_cells=1.0, paired="fused", dev=None):
     """``run_band2_plain``'s function with K9's steps in the AA arrangement
-    (``aa_step_plain``), the kernel's schedule in plain PyTorch; returns
-    ``(cells, av)``."""
+    (``band_common.aa_step_plain``), the kernel's schedule in plain PyTorch;
+    returns ``(cells, av)``."""
     _check(cells, nobst, n_iters, block, depth, panel, dev)
     passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
                            paired, dev, aa=True)

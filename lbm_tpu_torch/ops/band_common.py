@@ -221,6 +221,60 @@ def r_step_plain(omega, w1a, w2a, paired):
     return step
 
 
+def _shifted(x, dy, dx):
+    """``x`` (``(nwin, H, W)``) moved ``dy`` rows and ``dx`` columns within
+    each window, ``y[r, c] = x[r - dy, c - dx]``; what would wrap past the
+    window's edge is NaN."""
+    y = torch.roll(x, (dy, dx), (1, 2))
+    if dy:
+        y[:, 0 if dy > 0 else -1] = float("nan")
+    if dx:
+        y[:, :, 0 if dx > 0 else -1] = float("nan")
+    return y
+
+
+def aa_step_plain(omega, w1a, w2a, paired, depth):
+    """The one-window pass of K7, K8, K9, K10 and K13 (csrc/band_common.cuh:
+    ``aa_load``, ``aa_steps``, ``aa_store``) as a step of
+    ``creep_pass_plain``, any depth >= 1. Step 0 first puts the window's R
+    values into the C space of the AA arrangement (slot opp(k) holds the
+    value leaving the cell along k) with the forcing of the ny-2 rows added
+    cell-locally; steps 0, 2, ... gather, relax and scatter (C -> S), steps
+    1, 3, ... relax in place (S -> C), each adding the forcing of the step
+    after it but the pass's last. After the last step the window returns to
+    R: from slot opp(k) after an even depth, from ``(x + c_k, k)``, where
+    the last scatter left it, after an odd one. The window does not wrap: a
+    gather from beyond its edge reads NaN and a slot that no cell of the
+    window scatters to becomes NaN, so a central value or sum that depended
+    on the kernel's wrapped edge values would show NaN."""
+    shifts = [(CYS[k], CXS[k]) for k in range(9)]
+
+    def step(s, planes, nob, frow):
+        fluid = nob > 0.0
+        last = s == depth - 1
+        if s == 0:
+            planes = force_windows(planes, nob, frow, w1a, w2a)
+            planes = [planes[OPP[j]] for j in range(9)]
+        if s % 2 == 0:
+            t = [_shifted(planes[OPP[k]], *shifts[k]) for k in range(9)]
+            relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+            out = [torch.where(fluid, relaxed[k], t[OPP[k]]) for k in range(9)]
+            if not last:
+                out = force_windows(out, nob, frow, w1a, w2a)
+            slots = [_shifted(out[k], *shifts[k]) for k in range(9)]
+            if last:  # R_k of x from (x + c_k, k)
+                return [_shifted(slots[k], -shifts[k][0], -shifts[k][1]) for k in range(9)], u_sq
+            return slots, u_sq
+        relaxed, u_sq = bgk_relax(planes, omega, paired=paired)
+        out = [torch.where(fluid, relaxed[k], planes[OPP[k]]) for k in range(9)]
+        if last:
+            return out, u_sq
+        out = force_windows(out, nob, frow, w1a, w2a)
+        return [out[OPP[j]] for j in range(9)], u_sq
+
+    return step
+
+
 def run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
               run_passes, paired="fused", dev=None):
     """The family's pass loop: ``run_passes(cells, n_iters // depth)`` returns
@@ -429,15 +483,13 @@ def launch_passes_sharded(entry: str, what: str, shards, nob_shards, density, ac
 @dataclasses.dataclass(frozen=True)
 class ShardedKernel:
     """The wrappers of a sharded band kernel (K8, K10): its name, its C
-    entry, its schedule check ``supported(ny, nx, block, depth, panel)``,
-    the copies of the window's 9 planes in shared memory, and a cap on the
-    window's cells (None: shared memory only)."""
+    entry, its schedule check ``supported(ny, nx, block, depth, panel)``
+    and the copies of the window's 9 planes in shared memory."""
 
     name: str
     entry: str
     supported: Callable[..., bool]
     plane_copies: int
-    max_window: int | None = None
 
     def check(self, shards, nob_shards, n_iters, block, depth, panel, dev=None) -> None:
         """A 1-D mesh of f32 (with ``dev``: int16) shards of at least
@@ -474,10 +526,6 @@ class ShardedKernel:
         if not (isinstance(paired, str) and paired.startswith("fused")):
             raise ValueError(f"the CUDA {self.name} kernel implements the fused collision form "
                              "only")
-        b, p, t = tile_shape(nob_shards[0][0].shape[1], block, depth, panel)
-        if self.max_window is not None and (b + 2 * t) * (p + 2 * t) > self.max_window:
-            raise ValueError(f"{self.name} kernel: a {b + 2 * t}x{p + 2 * t} window exceeds the "
-                             f"{self.max_window} cells its threads hold in registers")
 
         def run_passes(shards, npasses):
             return launch_passes_sharded(self.entry, f"{self.name} sharded kernel", shards,

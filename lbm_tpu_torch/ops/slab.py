@@ -22,8 +22,8 @@ The ``n_iters % (K*T)`` remainder runs on ``ops/band.py::run_band`` (K7
 passes, then the K1 tail), as ``run_band_slab``'s remainder runs the JAX
 ``run_band`` (``:332-338``).
 
-On a CUDA tensor the generations run kernel K13 (``csrc/band.cu``, the K7
-pass body in its slab mode): the slabs one after another, a slab's first
+On a CUDA tensor the generations run kernel K13 (``csrc/band.cu``, K7's
+one-window pass in its slab mode): the slabs one after another, a slab's first
 pass reading its rows straight from the state and its last pass storing
 its central rows straight into the next state, the passes between them in
 two slab buffers, so no copy of the state is made; the bet is that the two
@@ -56,8 +56,8 @@ def slab_supported(ny: int, nx: int, block: int, depth: int, kpasses: int, sbloc
     neighbour), with the band schedule on the slab's rows. The TPU's
     ``S % block == 0`` and ``2*K*T % block == 0`` keep its BlockSpec tiles
     aligned to the slab; the port's tiles are ragged already, and with its
-    band schedule (24, 4, 56) and K = 4, ``2KT = 32`` is no multiple of 24,
-    so they would refuse every grid: they are not kept."""
+    small-grid band schedule (24, 4, 24) and K = 4, ``2KT = 32`` is no
+    multiple of 24, so they would refuse those grids: they are not kept."""
     return (kpasses >= 1 and sblock >= 1 and ny % sblock == 0 and ny > sblock
             and kpasses * depth <= sblock
             and B.band_supported(sblock + 2 * kpasses * depth, nx, block, depth, panel))
@@ -137,7 +137,6 @@ def run_band_slab(cells, nobst, density, accel, omega, n_iters, block, depth, kp
     kt = kpasses * depth
     rows = sblock + 2 * kt
     BC.check_smem("slab kernel", B.PLANE_COPIES, nx, block, depth, panel)
-    B.check_window(block, depth, panel, nx)
     ngens, rem = divmod(n_iters, kt)
     av = torch.empty(n_iters, dtype=torch.float32, device=cells.device)
     if ngens:

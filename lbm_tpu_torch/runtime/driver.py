@@ -10,7 +10,7 @@ until the loop ends. The final state is the true last state.
 Routes (``select_route``), as in the JAX package:
 
 - ``auto`` at f32 -> ``resident`` (kernel K4) up to a state of
-  ``_RESIDENT_AUTO_MAX_STATE`` bytes (384^2 cells), ``band3`` (kernel K11)
+  ``_RESIDENT_AUTO_MAX_STATE`` bytes (448^2 cells), ``deep`` (kernel K6)
   above; on an explicitly chosen CPU the same routes run their plain
   versions, so the CPU tests drive the card's route;
 - ``pallas`` -> the fused one-step route (kernel K1 / its plain version);
@@ -145,19 +145,19 @@ class SimulationResult:
 
 
 # Band schedules ``(block, depth, panel)``: the tile is block rows by panel
-# columns with a depth-cell halo. Each is the fastest, or within 2% of the
-# fastest, of a sweep of 38-74 schedules per kernel at 2048^2 and 4096^2 on
-# an H100 (PERF.md, "Schedule sweep"); all three settle on 32-row windows.
-_BAND_SCHEDULE = (24, 4, 56)    # K7: a 32 x 64 window, 4 cells per thread
-# Tiers ((block, depth, panel), fewest tiles), in order: the first that the
-# kernel takes and that cuts the grid into at least that many tiles (else
-# the last the kernel takes; ``_tiered``).
-# K9: a 40 x 64 window, one copy, 102 KB of shared memory; on a grid that
+# columns with a depth-cell halo. Tiers ((block, depth, panel), fewest
+# tiles), in order: the first that the kernel takes and that cuts the grid
+# into at least that many tiles (else the last the kernel takes;
+# ``_tiered``).
+# K7 and K9, one table for both (the same one-window body; K7 takes any T):
+# a 40 x 64 window, one copy, 102 KB of shared memory; on a grid that
 # gives it fewer tiles than one wave of blocks (two on each of an H100's
 # 132 SMs), a 32 x 32 window. At 256^2 and 512^2 the small tiles took 33%
 # and 3% less time than the large ones, at 1024^2 16% more (chip_smoke
-# phase 26's sweep, PERF.md).
-_BAND2_TIERS = (((32, 4, 56), 2 * 132), ((24, 4, 24), 0))
+# phase 26's K9 sweep); K7's sweep of T 3, 4, 5 and 8 (phase 28) found
+# (32, 4, 56) the fastest or within 1.1% of it at 1024^2-4096^2, T 3 about
+# 15% slower at 2048^2 and T 5 within 2.1% either way (PERF.md section 6).
+_BAND_TIERS = (((32, 4, 56), 2 * 132), ((24, 4, 24), 0))
 _BAND3_SCHEDULE = (24, 4, 56)   # K11: a 32 x 64 window, 82 KB of shared memory
 # K5 and K6 in one window copy, one table for both. On an H100 (chip_smoke
 # phase 27's sweep, every candidate's window with constant strides, two
@@ -175,19 +175,21 @@ _TRAPEZOID_TIERS = (((36, 4, 56), 2 * 2 * 132), ((32, 4, 40), 132), ((24, 4, 24)
 _RESIDENT_CHUNK = 255
 
 
-# auto at f32: K4 (resident) up to this state size, K11 (band3) above. On an
-# H100 (chip_smoke phase 25, PERF.md "auto"), K4 took less time per step
-# than K11 at every square size from 128^2 to 384^2 (its shared-memory
-# form) and K11 less from 512^2 to 768^2 (against K4's global-memory form).
-_RESIDENT_AUTO_MAX_STATE = 9 * 384 * 384 * 4
+# auto at f32: K4 (resident) up to this state size, K6 (deep) above. On an
+# H100 (chip_smoke phase 25: K4, K6, K7, K9 and K11 in turns, each at its
+# schedule, PERF.md section 6), K4 took the least time per step at 128x256
+# and every square from 256^2 to 448^2 (its shared-memory form), K6 the
+# least from 512^2 (where K4 takes its global-memory form) to 1024^2.
+_RESIDENT_AUTO_MAX_STATE = 9 * 448 * 448 * 4
 
 
 def band_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The band kernel's schedule ``(block, depth, panel)`` (driver.py:468-498
     of the JAX package), or None for a dtype it does not store (f32, c16
     and bf16 take one schedule: the window is f32 in shared memory)."""
-    del params
-    return _BAND_SCHEDULE if _kernel_dtype(dtype) else None
+    from lbm_tpu_torch.ops.band import band_supported
+
+    return _tiered(params, _BAND_TIERS, band_supported) if _kernel_dtype(dtype) else None
 
 
 def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
@@ -196,7 +198,7 @@ def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     tiles where they fill a wave of blocks, the small ones below."""
     from lbm_tpu_torch.ops.band2 import band2_supported
 
-    return _tiered(params, _BAND2_TIERS, band2_supported) if _kernel_dtype(dtype) else None
+    return _tiered(params, _BAND_TIERS, band2_supported) if _kernel_dtype(dtype) else None
 
 
 def band3_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
@@ -366,7 +368,7 @@ def select_route(params: LBMParams, backend: str, dtype) -> str:
             return "pallas"
         if dtype == torch.bfloat16:
             return "aa" if params.ny >= AA_MIN_NY else "pallas"
-        return "resident" if 9 * params.ny * params.nx * 4 <= _RESIDENT_AUTO_MAX_STATE else "band3"
+        return "resident" if 9 * params.ny * params.nx * 4 <= _RESIDENT_AUTO_MAX_STATE else "deep"
     return backend
 
 

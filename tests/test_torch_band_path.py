@@ -102,7 +102,9 @@ def test_api_reaches_band_routes(backend):
     ("band", torch.float32, 1, 128, ValueError),
     ("band2", torch.float32, 1, 128, ValueError),
     ("band3", torch.float32, 1, 128, ValueError),
-    ("auto", torch.float32, 512, 512, "band3"),
+    # auto ran K11 (band3) above K4's states until K6 (deep) took them; the
+    # id is the earlier one.
+    pytest.param("auto", torch.float32, 512, 512, "deep", id="auto-dtype13-512-512-band3"),
 ])
 def test_select_route_band(backend, dtype, ny, nx, want):
     params = LBMParams(nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=0.1,

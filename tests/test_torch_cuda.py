@@ -835,3 +835,77 @@ def test_k9_one_window_matches_plain(cuda_device, storage, nx, ny, block, depth,
         assert_c16_close(got, want)
     else:
         assert_bf16_close(got, want, BF16_SPREAD_TOL)
+
+
+# K7 in one window at any T: (nx, ny, block, depth, panel) at T 1, 3, 4, 5
+# and 8, full row (panel None) and panel, on ragged grids, a tile of one row
+# and one column, and a block shorter than 2T (outside K9's domain).
+K7_SCHEDULES = [(45, 37, 8, 1, 11), (100, 97, 24, 3, 56), (100, 97, 5, 3, None),
+                (100, 97, 24, 4, 20), (70, 97, 7, 5, 13), (40, 70, 16, 5, None),
+                (150, 100, 16, 8, 40), (33, 21, 1, 3, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,block,depth,panel", K7_SCHEDULES)
+@pytest.mark.parametrize("storage", ["f32", "c16", "bf16"])
+def test_k7_one_window_matches_plain(cuda_device, storage, nx, ny, block, depth, panel):
+    """K7 (one window, AA steps) over 2T+3 steps (two passes and a K1
+    remainder) against run_band_plain and run_band_aa_plain; at f32 its
+    state bitwise K1's (an odd T too, whose passes end on a scatter step);
+    a second run bitwise equal."""
+    dev = {"f32": None, "c16": SPEC, "bf16": BF16}[storage]
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=nx + depth)
+    x = cells if dev is None else tdev.encode_state(cells, dev)
+    n = 2 * depth + 3
+    before = tband.run_band.launches if dev is None else getattr(tband.run_band,
+                                                                 f"launches_{storage}")
+
+    def run(fn):
+        return fn(x, nobst, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel, dev=dev)
+
+    got, again = run(tband.run_band), run(tband.run_band)
+    after = tband.run_band.launches if dev is None else getattr(tband.run_band,
+                                                                f"launches_{storage}")
+    assert after == before + 2 * (n // depth * depth)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    for want in (run(tband.run_band_plain), run(tband.run_band_aa_plain)):
+        if storage == "f32":
+            assert_close(got, want)
+        elif storage == "c16":
+            assert_c16_close(got, want)
+        else:
+            assert_bf16_close(got, want, BF16_SPREAD_TOL)
+    if storage == "f32":
+        assert torch.equal(got[0], tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, n, 1.0)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,panel", [(3, 20), (5, None), (1, 7)])
+@pytest.mark.parametrize("storage", ["f32", "c16", "bf16"])
+def test_k8_one_window_odd_t_matches_plain(cuda_device, storage, depth, panel):
+    """K8 at an odd T on 4 row shards of a 100 x 70 grid (25-row shards,
+    16-row tiles) over two passes and a K3 remainder against its plain
+    version and its AA model; at f32 the joined state bitwise K1's."""
+    dev = {"f32": None, "c16": SPEC, "bf16": BF16}[storage]
+    ny, nx = 100, 70
+    cells, nobst, shards, nob = mesh_setup(cuda_device, nx, ny, 4, 1, seed=depth)
+    if dev is not None:
+        shards = [[tdev.encode_state(row[0], dev)] for row in shards]
+    n = 2 * depth + 3
+
+    def run(fn):
+        return fn(shards, nob, DENSITY, ACCEL, OMEGA, n, 16, depth, ny, panel=panel, dev=dev)
+
+    got, again = run(tband.run_band_sharded), run(tband.run_band_sharded)
+    assert torch.equal(joined(got[0]), joined(again[0])) and torch.equal(got[1], again[1])
+    for want in (run(tband.run_band_sharded_plain), run(tband.run_band_sharded_aa_plain)):
+        pair = (joined(got[0]), got[1].sum(0)), (joined(want[0]), want[1].sum(0))
+        if storage == "f32":
+            assert_close(*pair)
+        elif storage == "c16":
+            assert_c16_close(*pair)
+        else:
+            assert_bf16_close(*pair, BF16_SPREAD_TOL)
+    if storage == "f32":
+        assert torch.equal(joined(got[0]),
+                           tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, n, 1.0)[0])

@@ -119,8 +119,8 @@ def test_slab_supported():
     assert not tslab.slab_supported(96, 128, 16, 8, 6, 32)   # K*T > sblock
     assert not tslab.slab_supported(96, 128, 16, 8, 0, 32)   # K < 1
     # The TPU's BlockSpec alignments are not kept: 2KT = 48 is no multiple
-    # of block 32 (pallas_slab refuses), and the port's own schedule
-    # (24, 4, 56) with K = 4 has 2KT = 32.
+    # of block 32 (pallas_slab refuses), and (24, 4, 56) with K = 4 has
+    # 2KT = 32, no multiple of 24.
     assert tslab.slab_supported(96, 128, 32, 8, 3, 32)
     assert tslab.slab_supported(1024, 1024, 24, 4, 4, 512, 56)
     state, obstacles = make_setup(96)
@@ -177,15 +177,15 @@ def test_slab_under_a_mesh_raises(mesh, monkeypatch):
 def test_slab_driver_matches_jax_driver(dtype, monkeypatch):
     """``run_simulation(backend="slab")`` in both packages with the same
     ``LBM_SLAB_K``/``LBM_SLAB_S``; each package's band pass is its own
-    (JAX: LBM_BAND_BLOCK/DEPTH 16/8, the port: its (24, 4, 56) schedule),
-    which the genuine cells do not see."""
+    (JAX: LBM_BAND_BLOCK/DEPTH 16/8, the port: K7's schedule, (24, 4, 24)
+    on this grid), which the genuine cells do not see."""
     monkeypatch.setenv("LBM_ENABLE_SLAB", "1")
     monkeypatch.setenv("LBM_BAND_BLOCK", "16")
     monkeypatch.setenv("LBM_BAND_DEPTH", "8")
     monkeypatch.setenv("LBM_SLAB_K", "2")
     monkeypatch.setenv("LBM_SLAB_S", "32")
     _, obstacles = make_setup(96)
-    assert tdriver.slab_config(PARAMS, torch.float32) == (24, 4, 56, 2, 32)
+    assert tdriver.slab_config(PARAMS, torch.float32) == (24, 4, 24, 2, 32)
     jdtype = jnp.float32 if dtype == "f32" else "c16"
     want = jdriver.run_simulation(JParams(**dataclasses.asdict(PARAMS)), obstacles,
                                   backend="slab", dtype=jdtype)
@@ -204,6 +204,6 @@ def test_slab_default_schedule(monkeypatch):
     monkeypatch.delenv("LBM_SLAB_K", raising=False)
     monkeypatch.delenv("LBM_SLAB_S", raising=False)
     cfg = tdriver.slab_config(dataclasses.replace(PARAMS, ny=1024, nx=1024), torch.float32)
-    assert cfg[:4] == (24, 4, 56, 4) and 1024 % cfg[4] == 0 and 16 <= cfg[4] < 1024
+    assert cfg[:4] == (32, 4, 56, 4) and 1024 % cfg[4] == 0 and 16 <= cfg[4] < 1024
     assert tdriver.slab_config(dataclasses.replace(PARAMS, ny=1024, nx=1024), "c16") == cfg
     assert tdriver.slab_config(PARAMS, torch.float64) is None

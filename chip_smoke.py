@@ -191,9 +191,21 @@ PyTorch built for CUDA. Phases, each printing what it found:
    (T 3, 4, 5, 8) at 1024^2-4096^2; the loop MLUPS of ``band`` and
    ``auto`` on the official decks and the 2048^2 and 4096^2 walls decks
    (``run_simulation``, no files); and the port bench (``python -m
-   lbm_tpu_torch.bench``), its JSON line logged.
+   lbm_tpu_torch.bench``), its JSON line logged;
+29. K1's 16-bit forms and K2's c16 and bf16 forms in aligned words of four
+   cells (``csrc/step.cu::step_word_kernel``, ``csrc/aa.cu::
+   aa_word_kernel``): the c16 codec against its form with conversion
+   instructions over every input (``csrc/codec_check.cu``); each form by
+   the shape rule on 1024^2, 1000 x 1001 (word forms) and 130 x 97 (the
+   one-cell form) against its plain version, two runs bitwise equal, the
+   word forms' state bitwise the one-cell forms' over 200 steps at 1024^2
+   and over three chained calls; registers and blocks per SM of every form;
+   the word and one-cell forms in turns at 1024^2-4096^2; the c16 gate of
+   ``auto`` (K1) and ``aa`` (K2) on the 256^2 and 1024^2 decks, and their
+   loop MLUPS on 1024^2 (``run_simulation``, no files) with the word
+   forms' launch counters.
 
-``python3 chip_smoke.py --phase 25`` (or 26, 27, 28) runs phases 1, 2 and
+``python3 chip_smoke.py --phase 25`` (or 26, 27, 28, 29) runs phases 1, 2 and
 that phase only (no kernel report), and ``--phase 26 --import-from DIR``
 only phase 26's K9 checks and its timing in turns, of the
 ``lbm_tpu_torch`` package under DIR (another checkout, such as the parent
@@ -202,7 +214,10 @@ so that a redesign and the body it replaces are held to the same rivals;
 ``--phase 27 --import-from DIR`` likewise phase 27's K5 and K6 checks,
 their timing beside K9 and K11 and their c16 gate decks, and ``--phase 28
 --import-from DIR`` phase 28's K7 and K8 checks and their timing beside
-K9, K10 and K13.
+K9, K10 and K13, and ``--phase 29 --import-from DIR`` phase 29's checks,
+timings and loop MLUPS of that package, its c16 gate values printed but
+not held (so that a diagnostic trial such as ``trials/k2_noforce.patch``
+can be timed).
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
@@ -2604,11 +2619,230 @@ def redesign11_phase(torch, spec, gpu_line):
     log(f"  {note}")
 
 
+# (nx, ny) of phase 29's checks: 1024^2 and an odd-height 1000-wide grid
+# (word forms), and a width that is not a multiple of the word (one-cell
+# forms, by the shape rule).
+R12_GRIDS = ((1024, 1024), (1000, 1001), (130, 97))
+# The three calls of phase 29's chunked runs (odd and even lengths; 200
+# steps, the unchunked run's).
+R12_CHUNKS = (67, 66, 67)
+# (n, steps) of phase 29's timings in turns.
+R12_TURNS = ((1024, 2000), (2048, 500), (4096, 125))
+
+
+def redesign12_forms(spec):
+    """Phase 29's forms: name -> (module, kernel, plain version, storage):
+    K1 and K2 at c16 and bf16."""
+    from lbm_tpu_torch.ops import aa, devspace, step
+
+    return {f"{k} {dev.name}": (mod, kernel, plain, dev)
+            for k, mod, kernel, plain in (("K1", step, step.run_step, step.run_step_plain),
+                                          ("K2", aa, aa.run_aa, aa.run_aa_plain))
+            for dev in (spec, devspace.BF16)}
+
+
+def word_of(mod, nx, dev):
+    """Whether the shape rule gives ``mod``'s kernel the word form (never
+    in a package without word forms)."""
+    return hasattr(mod, "word_form") and mod.word_form(nx, dev)
+
+
+def hold_16bit(torch, name, got, want, dev):
+    """A 16-bit run against its plain version, at phases 3-4's c16 and
+    phase 21's bf16 tolerances."""
+    if dev.name == "bf16":
+        return bf16_compare(torch, name, got, want, TOL_BF16_SPREAD)
+    return compare(torch, name, got, want, dev)
+
+
+def redesign12_checks(torch, spec):
+    """K1 and K2 at c16 and bf16 on R12_GRIDS: against their plain versions,
+    two runs bitwise equal, the launch counters per form; where the shape
+    rule picks the word form, its state bitwise the one-cell form's over
+    200 steps at 1024^2 (the av series at TOL_AV: another order of the
+    sums), and over three chained calls of R12_CHUNKS steps."""
+    from lbm_tpu_torch.ops import devspace
+
+    for name, (mod, kernel, plain, dev) in redesign12_forms(spec).items():
+        counter = f"launches_word_{dev.name}"
+        for nx, ny in R12_GRIDS:
+            cells, nobst = random_setup(torch, nx, ny, seed=nx + ny)
+            q = devspace.encode_state(cells, dev)
+            n = 200 if nx == 1024 else 50
+            word = word_of(mod, nx, dev)
+
+            def run(fn, x, m):
+                return fn(x, nobst, DENSITY, ACCEL, OMEGA, m, 1.0, dev=dev)
+
+            before = (getattr(kernel, f"launches_{dev.name}"), getattr(kernel, counter, 0))
+            got = run(kernel, q, n)
+            moved = (getattr(kernel, f"launches_{dev.name}") - before[0],
+                     getattr(kernel, counter, 0) - before[1])
+            what = (f"{name} {nx}x{ny} {n} steps, "
+                    + ("word form" if word else "one-cell form (shape rule)"))
+            check(moved == (n, n if word else 0), f"{what}: launch counters moved {moved}")
+            hold_16bit(torch, what + " vs plain", got, run(plain, q, n), dev)
+            again = run(kernel, q, n)
+            check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                  f"{what}: not run-to-run deterministic")
+            if not word:
+                log(f"  {what}: counted as the one-cell form, two runs bitwise equal")
+                continue
+            cell = mod.launch(q, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, False, dev)
+            x, avs = q, []
+            for m in R12_CHUNKS if nx == 1024 else ():
+                x, a = run(kernel, x, m)
+                avs.append(a)
+            torch.cuda.synchronize()
+            av_rel = float(((got[1].double() - cell[1].double()).abs()
+                            / cell[1].double().abs()).max())
+            log(f"  {what}: two runs bitwise equal; state bitwise the one-cell form's: "
+                f"{torch.equal(got[0], cell[0])}, av bitwise: {torch.equal(got[1], cell[1])}, "
+                f"max av rel diff {av_rel:.3e} (limit {TOL_AV})")
+            check(torch.equal(got[0], cell[0]), f"{what}: state differs from the one-cell form")
+            check(av_rel <= TOL_AV, f"{what}: av differs from the one-cell form by {av_rel}")
+            if avs:
+                check(torch.equal(x, got[0]) and torch.equal(torch.cat(avs), got[1]),
+                      f"{name}: {len(R12_CHUNKS)} calls of {R12_CHUNKS} steps differ from one "
+                      "call")
+                log(f"  {name} {nx}x{ny}: {len(R12_CHUNKS)} calls of {R12_CHUNKS} steps give "
+                    "the one call's state and av bit for bit")
+
+
+def redesign12_attrs():
+    """Registers, local memory and resident blocks per SM of each form of
+    K1 and K2 (the build's ctypes handle: cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+
+    from lbm_tpu_torch.ops import _build
+
+    lib = _build.library()
+    if not hasattr(lib, "lbm_step_attrs"):
+        log("  the package reports no kernel attributes")
+        return
+    out = (ctypes.c_int * 3)()
+    kinds = {"f32": 0, "c16": 1, "bf16": 2}
+    for storage, kind in kinds.items():
+        for word in (0, 1) if kind else (0,):
+            form = "word" if word else "one-cell"
+            _build.check(lib.lbm_step_attrs(word, kind, out), "lbm_step_attrs")
+            log(f"  K1 {storage} {form} form: {out[0]} registers, {out[1]} B local, {out[2]} "
+                "blocks of 256 per SM")
+            for odd in (0, 1):
+                _build.check(lib.lbm_aa_attrs(word, odd, kind, out), "lbm_aa_attrs")
+                log(f"  K2 {storage} {form} form, {'odd' if odd else 'even'} step: {out[0]} "
+                    f"registers, {out[1]} B local, {out[2]} blocks of 256 per SM")
+
+
+def codec_sweep(torch, gpu_line):
+    """The c16 codec against its form with conversion instructions over
+    every input (``csrc/codec_check.cu``: encode over all 2^32 f32 bit
+    patterns, decode over all 2^16 codes, each at the 9 keys), for the
+    codecs of the smoke's decks (accel 0.005) and of the 1024^2 deck
+    (0.01)."""
+    from lbm_tpu_torch.ops import _build
+    from lbm_tpu_torch.ops.devspace import DevSpec
+
+    lib = _build.library()
+    if not hasattr(lib, "lbm_c16_sweep"):
+        log("  the package has no codec sweep")
+        return
+    for accel in (ACCEL, DECKS["1024x1024"][0][5]):
+        bad = torch.zeros(2, dtype=torch.int64, device="cuda:0")
+        stream = torch.cuda.current_stream().cuda_stream
+        _, ms = timed(torch, lambda: _build.check(lib.lbm_c16_sweep(
+            _build.storage(DevSpec.for_params(DENSITY, accel)), bad.data_ptr(), stream),
+            "codec sweep"))
+        codes, values = (int(v) for v in bad.tolist())
+        log(f"  c16 codec, density {DENSITY}, accel {accel}: 2^32 f32 inputs x 9 keys encoded, "
+            f"{codes} codes differ from the conversion instructions'; 2^16 codes x 9 keys "
+            f"decoded, {values} values differ ({ms:.1f} ms) [{gpu_line}]")
+        check(codes == 0 and values == 0, "the c16 codec differs from its conversion form")
+
+
+def redesign12_turns(torch, spec, gpu_line):
+    """K1 and K2 at c16 and bf16 at R12_TURNS: in a package with word forms
+    the word form and the one-cell form in turns, whichever the shape rule
+    picks; in one without, the kernel alone. Returns {(name, n): {form: us
+    per step}}."""
+    from lbm_tpu_torch.ops import devspace
+
+    out = {}
+    for nx, n in R12_TURNS:
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        for name, (mod, kernel, _, dev) in redesign12_forms(spec).items():
+            q = devspace.encode_state(cells, dev)
+            if hasattr(mod, "launch"):
+                fns = {w: (lambda w=w: mod.launch(q, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, w, dev))
+                       for w in (True, False)}
+            else:
+                fns = {False: lambda: kernel(q, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, dev=dev)}
+            t = out[name, nx] = turns(torch, fns, n)
+            picked = word_of(mod, nx, dev)
+            log(f"  {name} {nx}x{nx} (us/step in turns): "
+                + ", ".join(f"{'word' if w else 'one-cell'} form {v:.3f}"
+                            + (f" (ratio {v / t[False]:.3f})" if w else "")
+                            + (" [the shape rule's]" if w == picked else "")
+                            for w, v in t.items()) + f" [{gpu_line}]")
+            del q
+        del cells, nobst
+    return out
+
+
+def redesign12_decks(torch, cli, gpu_line, gates=True):
+    """The c16 gate on the 256^2 and 1024^2 decks with ``auto`` (K1) and
+    ``aa`` (K2) through ``cli.main`` (held at 1% with ``gates``, else its
+    values printed only), and the loop MLUPS of both on the 1024^2 deck
+    through ``run_simulation`` (no files, as phase 28's deck_mlups), with
+    the launch counters of the forms that ran."""
+    import numpy as np
+
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import aa, step
+    from lbm_tpu_torch.runtime.driver import run_simulation
+    from lbm_tpu_torch.utils import geometry
+
+    with tempfile.TemporaryDirectory() as work:
+        for tag in ("256x256", "1024x1024"):
+            for backend in ("auto", "aa"):
+                run_deck(cli, tag, backend, work, gpu_line, precision="c16",
+                         gate=1.0 if gates else None)
+    fields, geo, kw = DECKS["1024x1024"]
+    params = LBMParams(*fields)
+    obstacles = getattr(geometry, geo)(fields[0], fields[1], **kw)
+    for backend, fn in (("auto", step.run_step), ("aa", aa.run_aa)):
+        fn.launches_c16 = 0
+        if hasattr(fn, "launches_word_c16"):
+            fn.launches_word_c16 = 0
+        res = run_simulation(params, obstacles, backend=backend, dtype="c16", device="cuda:0",
+                             fetch_final=False)
+        check(np.isfinite(res.av_vels).all(), f"1024x1024 c16 --backend {backend}: non-finite av")
+        words = getattr(fn, "launches_word_c16", 0)
+        log(f"  1024x1024 x {params.max_iters} c16 --backend {backend} (route {res.route}): loop "
+            f"MLUPS {res.mlups(params):.1f}; c16 steps {fn.launches_c16}, of them in the word "
+            f"form {words} [{gpu_line}]")
+        check(fn.launches_c16 == params.max_iters, f"c16 {backend}: not every step in its kernel")
+        check(words == (params.max_iters if hasattr(fn, "launches_word_c16") else 0),
+              f"c16 {backend}: not every step in the word form")
+
+
+def redesign12_phase(torch, spec, cli, gpu_line, gates=True):
+    """Phase 29: K1's 16-bit forms and K2's in aligned multi-cell words:
+    checks, kernel attributes, timing in turns, the c16 decks (``gates``:
+    through the golden gate too)."""
+    codec_sweep(torch, gpu_line)
+    redesign12_checks(torch, spec)
+    redesign12_attrs()
+    redesign12_turns(torch, spec, gpu_line)
+    redesign12_decks(torch, cli, gpu_line, gates)
+
+
 def main():
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", type=int, choices=(25, 26, 27, 28),
+    ap.add_argument("--phase", type=int, choices=(25, 26, 27, 28, 29),
                     help="run phases 1, 2 and this one only (no kernel report)")
     ap.add_argument("--import-from", metavar="DIR",
                     help="with --phase 26: check K9 of the lbm_tpu_torch package under DIR "
@@ -2616,10 +2850,11 @@ def main():
                          "--phase 27: check K5 and K6 of that package, time them beside K9 "
                          "and K11 and run their c16 gate decks; with --phase 28: check K7 "
                          "and K8 of that package and time them beside K9, K10 and K13; "
-                         "nothing else")
+                         "with --phase 29: phase 29's checks, timings and decks of that "
+                         "package; nothing else")
     args = ap.parse_args()
     if args.import_from and args.phase in (None, 25):
-        ap.error("--import-from needs --phase 26, 27 or 28")
+        ap.error("--import-from needs --phase 26, 27, 28 or 29")
     try:
         import torch
     except ImportError:
@@ -2650,6 +2885,18 @@ def main():
         phase("25. the auto crossover: K4, K6, K7, K9 and K11 in turns at 128x256 and "
               "256^2-1024^2")
         crossover_phase(torch, gpu_line)
+        return 0
+    if args.phase == 29:
+        from lbm_tpu_torch.ops.devspace import DevSpec
+
+        build_native_io()
+        phase("29. K1's 16-bit forms and K2's in aligned multi-cell words: vs plain and the "
+              "one-cell forms, attributes, in turns, the c16 decks"
+              + (f", the package under {args.import_from}" if args.import_from else ""))
+        # Another checkout (a trial among them) is checked and timed, and
+        # its gate values printed; the gate holds this tree.
+        redesign12_phase(torch, DevSpec.for_params(DENSITY, ACCEL), cli, gpu_line,
+                         gates=not args.import_from)
         return 0
     if args.phase == 28:
         from lbm_tpu_torch.ops.devspace import DevSpec
@@ -2939,6 +3186,9 @@ def main():
     phase("28. K7 and K8 in one window at any T: vs plain and K1, beside K9, K10 and K13, "
           "K7's schedules, the port bench")
     redesign11_phase(torch, spec, gpu_line)
+    phase("29. K1's 16-bit forms and K2's in aligned multi-cell words: vs plain and the one-cell "
+          "forms, attributes, in turns, the c16 decks")
+    redesign12_phase(torch, spec, cli, gpu_line)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1,
               bytes_per_cell=BYTES_PER_CELL):

@@ -181,33 +181,20 @@ shard_step_kernel(const unsigned long long* __restrict__ table, int s0, int pari
                            av + (size_t)lz * av_stride);
 }
 
-// The 16 bits of a raw element as a word's half, and back.
-__device__ __forceinline__ uint32_t bits_of(int16_t v) { return (uint16_t)v; }
-__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
-template <class T>
-__device__ __forceinline__ T raw_of(uint32_t b);
-template <>
-__device__ __forceinline__ int16_t raw_of<int16_t>(uint32_t b) {
-  return (int16_t)(uint16_t)b;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 raw_of<__nv_bfloat16>(uint32_t b) {
-  return __ushort_as_bfloat16((unsigned short)b);
-}
-
-// Cells per thread of K3's 16-bit forms: one 64-bit word of each plane.
-constexpr int kPairCells = 4;
+// Cells per thread of K3's 16-bit forms: one 64-bit word of each plane
+// (lbm_common.cuh::Word, shared with the word forms of K1 and K2).
+constexpr int kPairCells = lbm::kWordCells;
 
 // K3's 16-bit forms (c16, bf16): shard_step_kernel<false>'s step with
 // kPairCells cells per thread along x, so a warp covers 128 columns, two
 // whole 128-byte lines of each 16-bit plane, and every load and store of a
 // plane is an aligned 64-bit word (two 32-bit halves, each an aligned pair
-// of cells). The x-1 and x+1 pulls are built from the lane's own words and
-// the neighbour lane's edge word (a shuffle, then __byte_perm); lane 0 and
-// lane 31 load the one word outside the warp's span (the ring column at
-// lead-1 or lead+rx, or the next warp's first word). A warp is one row, so
-// the forcing test is warp-uniform; the rare forcing row reads the mask's
-// planes per cell as shard_step_kernel does. The cell arithmetic is
+// of cells). The x-1 and x+1 pulls are built from the lane's own word and
+// the neighbour lane's edge half (a shuffle, then Word::shifted_in_prev or
+// shifted_in_next); lane 0 and lane 31 load the one half outside the warp's
+// span (the ring column at lead-1 or lead+rx, or the next warp's first
+// word). A warp is one row, so the forcing test is warp-uniform; the rare
+// forcing row reads the mask's planes per cell as shard_step_kernel does. The cell arithmetic is
 // shard_step_kernel's (the decode of each element, the forcing, collide_fused,
 // the encode), so the state is bitwise K1's; a thread adds its cells' |u| in
 // cell order before the block tree. A row whose last word holds the right
@@ -222,7 +209,7 @@ shard_step_pair_kernel(const unsigned long long* __restrict__ table, int s0, int
                        lbm::Relax rc, S io) {
   using T = typename S::T;
   static_assert(sizeof(T) == 2, "the paired step takes 16-bit storage");
-  constexpr int kWords = kPairCells / 2;
+  using W = lbm::Word;
   const int lz = blockIdx.z;
   const int z = s0 + lz;
   const T* __restrict__ src = entry<T>(table, z, parity);
@@ -245,34 +232,22 @@ shard_step_pair_kernel(const unsigned long long* __restrict__ table, int s0, int
     for (int k = 0; k < 9; ++k) {
       const int sr = pr - lbm::cy(k);
       const T* row = src + k * m.pplane + (size_t)sr * m.pw;
-      uint32_t w[kWords] = {0u, 0u};
-      if (loads) {
-        const uint2 v = *reinterpret_cast<const uint2*>(row + pc);
-        w[0] = v.x;
-        w[1] = v.y;
-      }
-      uint32_t pulled[kWords];  // elements pc - cx(k) .. pc - cx(k) + 3
-      if (lbm::cx(k) == 0) {
-        pulled[0] = w[0];
-        pulled[1] = w[1];
-      } else if (lbm::cx(k) == 1) {
-        uint32_t prev = __shfl_up_sync(0xffffffffu, w[1], 1);
+      W w{};
+      if (loads) w.load(row + pc);
+      W pulled = w;  // elements pc - cx(k) .. pc - cx(k) + 3
+      if (lbm::cx(k) == 1) {
+        uint32_t prev = __shfl_up_sync(0xffffffffu, w.h[1], 1);
         if (lane == 0 && loads) prev = *reinterpret_cast<const uint32_t*>(row + pc - 2);
-        pulled[0] = __byte_perm(prev, w[0], 0x5432);
-        pulled[1] = __byte_perm(w[0], w[1], 0x5432);
-      } else {
-        uint32_t next = __shfl_down_sync(0xffffffffu, w[0], 1);
+        pulled = w.shifted_in_prev(prev);
+      } else if (lbm::cx(k) == -1) {
+        uint32_t next = __shfl_down_sync(0xffffffffu, w.h[0], 1);
         if (lane == 31 && x0 + kPairCells <= m.rx) {
           next = *reinterpret_cast<const uint32_t*>(row + pc + kPairCells);
         }
-        pulled[0] = __byte_perm(w[0], w[1], 0x5432);
-        pulled[1] = __byte_perm(w[1], next, 0x5432);
+        pulled = w.shifted_in_next(next);
       }
 #pragma unroll
-      for (int c = 0; c < kPairCells; ++c) {
-        const uint32_t b = (c & 1) ? pulled[c >> 1] >> 16 : pulled[c >> 1] & 0xffffu;
-        t[c][k] = io.load(raw_of<T>(b), k);
-      }
+      for (int c = 0; c < kPairCells; ++c) t[c][k] = io.load(lbm::raw_of<T>(pulled.cell(c)), k);
       if (fw[k] != 0.0f) {
         int g = si * m.ry + sr - 1;  // the source cells' global row
         g = g < 0 ? g + m.ny : (g >= m.ny ? g - m.ny : g);
@@ -290,13 +265,7 @@ shard_step_pair_kernel(const unsigned long long* __restrict__ table, int s0, int
     }
     const size_t cidx = (size_t)pr * m.pw + pc;
     float nb[kPairCells] = {};
-    if (loads) {
-      const float4 v = *reinterpret_cast<const float4*>(nob + cidx);
-      nb[0] = v.x;
-      nb[1] = v.y;
-      nb[2] = v.z;
-      nb[3] = v.w;
-    }
+    if (loads) lbm::load_mask(nob + cidx, nb);
 #pragma unroll
     for (int c = 0; c < kPairCells; ++c) {
       if (x0 + c < m.rx) {
@@ -308,12 +277,10 @@ shard_step_pair_kernel(const unsigned long long* __restrict__ table, int s0, int
     for (int k = 0; k < 9; ++k) {
       T* drow = dst + k * m.pplane + cidx;
       if (x0 + kPairCells <= m.rx) {
-        uint32_t out[kWords];
+        W out;
 #pragma unroll
-        for (int i = 0; i < kWords; ++i) {
-          out[i] = bits_of(io.store(t[2 * i][k], k)) | (bits_of(io.store(t[2 * i + 1][k], k)) << 16);
-        }
-        *reinterpret_cast<uint2*>(drow) = make_uint2(out[0], out[1]);
+        for (int c = 0; c < kPairCells; ++c) out.set_cell(c, lbm::bits_of(io.store(t[c][k], k)));
+        out.store(drow);
       } else {
 #pragma unroll
         for (int c = 0; c < kPairCells; ++c) {

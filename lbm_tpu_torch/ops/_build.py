@@ -55,8 +55,15 @@ class Storage(ctypes.Structure):
 STORAGE_KINDS = {"f32": 0, "c16": 1, "bf16": 2}  # lbm_common.cuh::StorageKind
 _S = ctypes.POINTER(Storage)  # passed a Storage, by reference
 _RUN_ARGTYPES = {
-    "lbm_step_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_S, _P],
-    "lbm_aa_run": [_P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_S, _P],
+    # (..., 7 scalars, word, storage, stream): word 1 the word form, 0 the
+    # one-cell form
+    "lbm_step_run": [_P, _P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_I, _S, _P],
+    "lbm_aa_run": [_P, _P, _P, _P, _P, _I, _I, _I] + [_F] * 7 + [_I, _S, _P],
+    # (word, kind, out[3]) and (word, odd, kind, out[3]): registers, local
+    # bytes and blocks per SM of a form's kernel
+    "lbm_step_attrs": [_I, _I, _P],
+    "lbm_aa_attrs": [_I, _I, _I, _P],
+    "lbm_c16_sweep": [_S, _P, _P],  # (codec, bad[2], stream)
     # band kernels: (buf_a, buf_b, nobst, av, partials, ticket, ny, nx,
     # block, depth, panel, n_passes, 7 scalars, codec, stream)
     "lbm_band_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_S, _P],

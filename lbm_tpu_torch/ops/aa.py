@@ -36,6 +36,19 @@ rest of the state keeps its codes.
 bf16 storage (``dev=devspace.BF16``): the same path with bfloat16 in place
 of the codes: every value a step stores and every forcing row the forcing
 stores is rounded once (``pallas_aa.py:230-236, 297-314``).
+
+K2 has two forms, picked by K1's shape rule before any launch
+(``step.word_form``): at c16 and bf16 on a grid whose width is a
+multiple of ``WORD_CELLS`` the word form (``WORD_CELLS`` cells of a row
+per thread, every plane access an aligned word, the odd step's shifted
+accesses rebuilt from neighbour lanes: ``odd_row_plan``), elsewhere, f32
+included, the one-cell form. The word form fuses each step's forcing
+into the step before it (``run_aa_fused_plain`` is that schedule in
+plain PyTorch); a call's first step keeps the standalone even forcing
+launch and its last step fuses nothing. Both forms give the same state
+bit for bit; the av series agrees to the rounding of its sums. The word
+form's steps are counted in ``launches_word_c16`` or
+``launches_word_bf16`` besides the storage's count.
 """
 
 from __future__ import annotations
@@ -46,7 +59,8 @@ from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
 from lbm_tpu_torch.ops.devspace import decode_plane, decode_state, encode_plane, encode_state
 from lbm_tpu_torch.ops.step import (
-    _CXS, _CYS, _OPP, check_inputs, count_launches, force_deltas, forcing_weights, kernel_scalars,
+    _CXS, _CYS, _OPP, WARP, WORD_CELLS, aligned, check_inputs, count_launches, force_deltas,
+    forcing_weights, kernel_scalars, word_form,
 )
 
 MIN_NY = 3
@@ -129,6 +143,112 @@ def unarrange(state, n_steps: int):
     return stream_planes(state, sign=-1)
 
 
+def odd_row_plan(nx: int, cx: int):
+    """The accesses of one periodic row by the word form's odd step
+    (``csrc/aa.cu::aa_word_kernel``) for a speed k with ``cx = cx(k)``, in
+    element columns: per thread, ``(x0, loads, stores)`` of its cells ``x0
+    .. x0 + 3`` (``WORD_CELLS``). The gather of t_k reads slot opp(k), whose element
+    at column w belongs to cell w + cx; the scatter writes slot k, whose
+    element at w belongs to cell w - cx. A thread loads its word, and for
+    the gather from x - 1 (x + 1) the warp's first (last) lane loads the
+    32-bit half before (after) the span, through the periodic wrap. It
+    stores its word, holding one element of a neighbour lane's cell when
+    cx is not 0, except that an element of a cell in another warp is left
+    out of the word and stored alone by the thread of that cell. ``loads``
+    and ``stores`` are ``(first column, elements)``.
+
+    A specification, not executed by the kernel: the CPU tests hold it to
+    the in-place rule, and the card tests (``tests/test_torch_cuda.py``, the
+    word form bitwise the one-cell form's) are what guard the kernel
+    itself."""
+    word = WORD_CELLS
+    if nx % word:
+        raise ValueError(f"the word form takes widths that are multiples of {word}, got {nx}")
+    plan = []
+    for x0 in range(0, nx, word):
+        lane = (x0 // word) % WARP
+        first, last = lane == 0, lane == WARP - 1 or x0 + word == nx
+        loads = [(x0, word)]
+        if cx == 1 and first:
+            loads.append(((x0 - 2) % nx, 2))
+        if cx == -1 and last:
+            loads.append(((x0 + word) % nx, 2))
+        stores = [(x0, word)]
+        if cx == 1:
+            stores = [(x0 + 1, word - 1)] if first else stores
+            if last:
+                stores.append(((x0 + word) % nx, 1))
+        elif cx == -1:
+            stores = [(x0, word - 1)] if last else stores
+            if first:
+                stores.append(((x0 - 1) % nx, 1))
+        plan.append((x0, loads, stores))
+    return plan
+
+
+def _force_cells(q, nobst, w1a, w2a, dev, key):
+    """The forcing of row ny-2 applied to a step's own outputs: ``q[k]`` is
+    the stored value (f32, or codes keyed by slot ``key(k)``) of the value
+    travelling k, at its cell. The mask comes from the decoded f3, f6, f7
+    of each cell; each forced value is decoded, added to and re-encoded.
+    Returns the new list."""
+    r = nobst.shape[0] - 2
+    q = list(q)
+
+    def dec(k):
+        return q[k][r] if dev is None else decode_plane(q[k][r], key(k), dev)
+
+    m = _mask(dec(3), dec(6), dec(7), nobst[r], w1a, w2a)
+    for k, w in force_deltas(w1a, w2a):
+        v = dec(k) + m * w
+        plane = q[k].clone()
+        plane[r] = v if dev is None else encode_plane(v, key(k), dev)
+        q[k] = plane
+    return q
+
+
+def run_aa_fused_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
+                       paired="fused", dev=None):
+    """The word form's schedule in plain PyTorch; returns ``(cells, av)``.
+    The call's first step takes the standalone even forcing; after that
+    each step applies the next step's forcing to its own outputs before
+    they are stored (``_force_cells``): the odd step's C-space forcing in
+    the even step's epilogue, the even step's S-space forcing in the odd
+    step's scatter, at the cells of row ny-2 (the pre-stream lanes). The
+    last step applies none. ``run_aa_plain`` forces the stored state
+    instead, before each step: the two agree bit for bit."""
+    check_inputs(cells, nobst, n_steps, MIN_NY, dev)
+    w1a, w2a = forcing_weights(density, accel)
+    inv = torch.tensor(inv_tot_cells, dtype=torch.float32, device=cells.device)
+    av = torch.empty(n_steps, dtype=torch.float32, device=cells.device)
+    fluid = nobst > 0.0
+    state = force_even_plain(stream_planes(cells), nobst, w1a, w2a, dev)
+    for t in range(n_steps):
+        odd = t % 2 == 1
+        full = state if dev is None else decode_state(state, dev)
+        if odd:
+            pulled = [torch.roll(full[_OPP[k]], shifts=(_CYS[k], _CXS[k]), dims=(0, 1))
+                      for k in range(9)]
+        else:
+            pulled = list(full.unbind(0))
+        relaxed, u_sq = bgk_relax(pulled, float(omega), paired=paired)
+        out = [torch.where(fluid, relaxed[k], pulled[_OPP[k]]) for k in range(9)]
+
+        def key(k, odd=odd):
+            return k if odd else _OPP[k]
+
+        q = [out[k] if dev is None else encode_plane(out[k], key(k), dev) for k in range(9)]
+        if t + 1 < n_steps:
+            q = _force_cells(q, nobst, w1a, w2a, dev, key)
+        if odd:
+            state = torch.stack([torch.roll(q[k], shifts=(_CYS[k], _CXS[k]), dims=(0, 1))
+                                 for k in range(9)])
+        else:
+            state = torch.stack([q[_OPP[j]] for j in range(9)])
+        av[t] = torch.sum(nobst * u_mag(u_sq)) * inv
+    return unarrange(state, n_steps), av
+
+
 def run_aa_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
                  paired="fused", dev=None):
     """The AA schedule in plain PyTorch; returns ``(cells, av)``. With
@@ -165,11 +285,19 @@ def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="
         raise ValueError(f"no AA kernel for device {cells.device}")
     if not (isinstance(paired, str) and paired.startswith("fused")):
         raise ValueError("the CUDA AA kernel implements the fused collision form only")
+    return launch(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
+                  word_form(cells.shape[2], dev), dev)
+
+
+def launch(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, word: bool, dev=None):
+    """K2 on a CUDA state in the word form (``word``; 16-bit storage
+    only) or the one-cell form; returns ``(cells, av)``. ``run_aa`` picks
+    the form by ``word_form``."""
     check_inputs(cells, nobst, n_steps, MIN_NY, dev)
     lib = _build.library()
     _, ny, nx = cells.shape
     state = stream_planes(cells).contiguous()  # R -> S, once per run
-    nobst = nobst.contiguous()
+    nobst = aligned(nobst)
     av = torch.empty(n_steps, dtype=torch.float32, device=cells.device)
     partials = torch.empty(lib.lbm_aa_num_blocks(ny, nx), dtype=torch.float32,
                            device=cells.device)
@@ -179,13 +307,16 @@ def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="
         rc = lib.lbm_aa_run(
             state.data_ptr(), nobst.data_ptr(), av.data_ptr(), partials.data_ptr(),
             ticket.data_ptr(), ny, nx, n_steps,
-            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.storage(dev), stream,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), int(word),
+            _build.storage(dev), stream,
         )
-    _build.check(rc, "AA kernel")
-    count_launches(run_aa, n_steps, dev)
+    _build.check(rc, f"AA kernel ({'word' if word else 'one-cell'} form)")
+    count_launches(run_aa, n_steps, dev, word)
     return unarrange(state, n_steps), av
 
 
 run_aa.launches = 0  # K2 steps launched in this process
-run_aa.launches_c16 = 0  # K2 steps launched at c16
-run_aa.launches_bf16 = 0  # K2 steps launched at bf16
+run_aa.launches_c16 = 0  # K2 steps launched at c16 (either form)
+run_aa.launches_bf16 = 0  # K2 steps launched at bf16 (either form)
+run_aa.launches_word_c16 = 0  # of those at c16, the word form's
+run_aa.launches_word_bf16 = 0  # of those at bf16, the word form's

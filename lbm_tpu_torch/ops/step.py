@@ -23,6 +23,15 @@ bf16 storage (``dev=devspace.BF16``): the state is bfloat16; K1 widens
 each value it reads and rounds each value it writes to nearest even, and
 the plain version is widen, ``step_plain``, round: one rounding per step,
 as the JAX kernel casts its results to the state's dtype.
+
+K1 has two forms, picked by shape before any launch (``word_form``): at
+16-bit storage on a grid whose width is a multiple of ``WORD_CELLS`` the
+word form (``WORD_CELLS`` cells of a row per thread, every plane access an
+aligned word: ``word_row_plan``), elsewhere, f32 included, the one-cell
+form. Both give the same state bit for bit; the av series agrees to the
+rounding of its sums, which the two forms take in another order. The
+word form's steps are counted in ``launches_word_c16`` or
+``launches_word_bf16`` besides the storage's count.
 """
 
 from __future__ import annotations
@@ -32,6 +41,11 @@ import torch
 from lbm_tpu_torch.models.d2q9 import W0, W1, W2
 from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
+
+# Cells per thread of the word forms of K1 and K2 (csrc/lbm_common.cuh::
+# kWordCells), and the lanes of a warp.
+WORD_CELLS = 4
+WARP = 32
 
 _CYS = (0, 0, 1, 0, -1, 1, 1, -1, -1)
 _CXS = (0, 1, 0, -1, 0, 1, -1, -1, 1)
@@ -59,12 +73,54 @@ def kernel_scalars(density: float, accel: float, omega: float, inv_tot_cells: fl
             float(inv_tot_cells))
 
 
-def count_launches(wrapper, steps: int, dev) -> None:
+def count_launches(wrapper, steps: int, dev, word: bool = False) -> None:
     """Add ``steps`` to a kernel wrapper's launch count for the storage
     ``dev``: ``launches`` at f32, ``launches_c16`` at c16, ``launches_bf16``
-    at bf16."""
-    name = "launches" if dev is None else f"launches_{dev.name}"
-    setattr(wrapper, name, getattr(wrapper, name) + steps)
+    at bf16; with ``word``, also to the word form's count
+    (``launches_word_c16``, ``launches_word_bf16``)."""
+    names = ["launches" if dev is None else f"launches_{dev.name}"]
+    if word:
+        names.append(f"launches_word_{dev.name}")
+    for name in names:
+        setattr(wrapper, name, getattr(wrapper, name) + steps)
+
+
+def word_form(nx: int, dev) -> bool:
+    """The shape rule of K1's and K2's forms: the word form at 16-bit
+    storage when ``nx`` is a multiple of ``WORD_CELLS``, so every row starts
+    on a word; the one-cell form at f32 and for widths the words cannot
+    tile."""
+    return dev is not None and nx % WORD_CELLS == 0
+
+
+def word_row_plan(nx: int):
+    """The accesses of one periodic row of a 16-bit plane by the word form
+    of K1 (``csrc/step.cu::step_word_kernel``), in element columns: per
+    thread, ``(x0, loads, stores)``. Thread j of the row takes cells ``x0 =
+    4j .. 4j + 3`` (``WORD_CELLS``) when ``x0 < nx`` (a row's last warp may
+    hold idle lanes). It loads its word; the first lane of a warp also
+    loads the 32-bit half before its span and the last lane (lane 31, or
+    the row's last thread) the half after it, through the periodic wrap at
+    the row's ends; it stores its word. ``loads`` and ``stores`` are
+    ``(first column, elements)``.
+
+    A specification, not executed by the kernel: the CPU tests hold it to
+    the in-place and coverage rules, and the card tests
+    (``tests/test_torch_cuda.py``, the word form bitwise the one-cell form's)
+    are what guard the kernel itself."""
+    word = WORD_CELLS
+    if nx % word:
+        raise ValueError(f"the word form takes widths that are multiples of {word}, got {nx}")
+    plan = []
+    for x0 in range(0, nx, word):
+        lane = (x0 // word) % WARP
+        loads = [(x0, word)]
+        if lane == 0:
+            loads.append(((x0 - 2) % nx, 2))
+        if lane == WARP - 1 or x0 + word == nx:
+            loads.append(((x0 + word) % nx, 2))
+        plan.append((x0, loads, [(x0, word)]))
+    return plan
 
 
 def check_inputs(cells: torch.Tensor, nobst: torch.Tensor, n_steps: int, min_ny: int,
@@ -144,12 +200,27 @@ def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired
         raise ValueError(f"no step kernel for device {cells.device}")
     if not (isinstance(paired, str) and paired.startswith("fused")):
         raise ValueError("the CUDA step kernel implements the fused collision form only")
+    return launch(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
+                  word_form(cells.shape[2], dev), dev)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on a 16-byte boundary, as the word forms' widest
+    loads need (a copy only for a view that starts elsewhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, word: bool, dev=None):
+    """K1 on a CUDA state in the word form (``word``; 16-bit storage
+    only) or the one-cell form; returns ``(cells, av)``. ``run_step`` picks
+    the form by ``word_form``."""
     check_inputs(cells, nobst, n_steps, 2, dev)
     lib = _build.library()
     _, ny, nx = cells.shape
     a = cells.contiguous().clone()
     b = torch.empty_like(a)
-    nobst = nobst.contiguous()
+    nobst = aligned(nobst)
     av = torch.empty(n_steps, dtype=torch.float32, device=cells.device)
     partials = torch.empty(lib.lbm_step_num_blocks(ny, nx), dtype=torch.float32,
                            device=cells.device)
@@ -159,13 +230,16 @@ def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired
         rc = lib.lbm_step_run(
             a.data_ptr(), b.data_ptr(), nobst.data_ptr(), av.data_ptr(),
             partials.data_ptr(), ticket.data_ptr(), ny, nx, n_steps,
-            *kernel_scalars(density, accel, omega, inv_tot_cells), _build.storage(dev), stream,
+            *kernel_scalars(density, accel, omega, inv_tot_cells), int(word),
+            _build.storage(dev), stream,
         )
-    _build.check(rc, "step kernel")
-    count_launches(run_step, n_steps, dev)
+    _build.check(rc, f"step kernel ({'word' if word else 'one-cell'} form)")
+    count_launches(run_step, n_steps, dev, word)
     return (a if n_steps % 2 == 0 else b), av
 
 
 run_step.launches = 0  # K1 steps launched in this process
-run_step.launches_c16 = 0  # K1 steps launched at c16
-run_step.launches_bf16 = 0  # K1 steps launched at bf16
+run_step.launches_c16 = 0  # K1 steps launched at c16 (either form)
+run_step.launches_bf16 = 0  # K1 steps launched at bf16 (either form)
+run_step.launches_word_c16 = 0  # of those at c16, the word form's
+run_step.launches_word_bf16 = 0  # of those at bf16, the word form's

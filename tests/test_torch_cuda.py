@@ -5,7 +5,11 @@ K3, K5-K11 and K13 against their plain versions; K3's 16-bit forms (four
 cells per thread) bitwise against K1 at odd widths and ragged rows, K9 in
 one window at T 4, 8 and 16, full row and panel, and K5 and K6 in one
 window (AA steps on the trapezoid) at T 3, 4 and 8, on the driver's
-schedules and a window at the shared-memory limit, bitwise against K1.
+schedules and a window at the shared-memory limit, bitwise against K1;
+K1's and K2's 16-bit word forms bitwise against their one-cell forms on
+ragged, odd-height grids and over chained calls, the shape rule's route,
+and the c16 codec against its conversion-instruction form over every
+input.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -909,3 +913,94 @@ def test_k8_one_window_odd_t_matches_plain(cuda_device, storage, depth, panel):
     if storage == "f32":
         assert torch.equal(joined(got[0]),
                            tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, n, 1.0)[0])
+
+
+WORD_FORMS = {"K1": (tstep, tstep.run_step, tstep.run_step_plain),
+              "K2": (taa, taa.run_aa, taa.run_aa_plain)}
+WORD_STORAGES = {"c16": SPEC, "bf16": tdev.BF16}
+
+
+def assert_16bit_close(got, want, dev):
+    if dev.name == "c16":
+        assert_c16_close(got, want)
+    else:
+        assert_bf16_close(got, want, BF16_SPREAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(64, 9), (1000, 41), (8, 3), (136, 7)])
+@pytest.mark.parametrize("storage", list(WORD_STORAGES))
+@pytest.mark.parametrize("name", list(WORD_FORMS))
+def test_word_form_matches_one_cell(cuda_device, name, storage, nx, ny):
+    """The word form by the shape rule: the one-cell form's state bit for
+    bit (av at rtol 1e-4, another order of its sums), its plain version's
+    within the storage's tolerance, two runs bitwise equal, counted as the
+    word form."""
+    mod, kernel, plain = WORD_FORMS[name]
+    dev = WORD_STORAGES[storage]
+    assert mod.word_form(nx, dev)
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=nx + ny)
+    q = tdev.encode_state(cells, dev)
+    counts = (getattr(kernel, f"launches_{storage}"), getattr(kernel, f"launches_word_{storage}"))
+    got = kernel(q, nobst, DENSITY, ACCEL, OMEGA, 13, 1.0, dev=dev)
+    assert (getattr(kernel, f"launches_{storage}"),
+            getattr(kernel, f"launches_word_{storage}")) == (counts[0] + 13, counts[1] + 13)
+    cell = mod.launch(q, nobst, DENSITY, ACCEL, OMEGA, 13, 1.0, False, dev)
+    again = kernel(q, nobst, DENSITY, ACCEL, OMEGA, 13, 1.0, dev=dev)
+    assert torch.equal(got[0], cell[0])
+    np.testing.assert_allclose(got[1].cpu().numpy(), cell[1].cpu().numpy(), rtol=1e-4)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert_16bit_close(got, plain(q, nobst, DENSITY, ACCEL, OMEGA, 13, 1.0, dev=dev), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", list(WORD_STORAGES))
+@pytest.mark.parametrize("name", list(WORD_FORMS))
+def test_word_form_in_calls(cuda_device, name, storage):
+    """Three chained calls of odd and even lengths give the one call's
+    state and av bit for bit (K2: a call's last step fuses no forcing)."""
+    _, kernel, _ = WORD_FORMS[name]
+    dev = WORD_STORAGES[storage]
+    cells, nobst = make_setup(cuda_device, 256, 33, seed=4)
+    q = tdev.encode_state(cells, dev)
+    want = kernel(q, nobst, DENSITY, ACCEL, OMEGA, 14, 1.0, dev=dev)
+    avs = []
+    for n in (5, 4, 5):
+        q, av = kernel(q, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, dev=dev)
+        avs.append(av)
+    assert torch.equal(q, want[0]) and torch.equal(torch.cat(avs), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "c16", "bf16"])
+@pytest.mark.parametrize("name", list(WORD_FORMS))
+def test_word_shape_rule_on_card(cuda_device, name, storage):
+    """A width the words do not tile (130) and f32 run the one-cell form:
+    the word counter stays; a word launch the kernels do not take raises."""
+    mod, kernel, plain = WORD_FORMS[name]
+    dev = None if storage == "f32" else WORD_STORAGES[storage]
+    cells, nobst = make_setup(cuda_device, 130, 11, seed=6)
+    x = cells if dev is None else tdev.encode_state(cells, dev)
+    assert not mod.word_form(130, dev)
+    words = (kernel.launches_word_c16, kernel.launches_word_bf16)
+    got = kernel(x, nobst, DENSITY, ACCEL, OMEGA, 9, 1.0, dev=dev)
+    assert (kernel.launches_word_c16, kernel.launches_word_bf16) == words
+    want = plain(x, nobst, DENSITY, ACCEL, OMEGA, 9, 1.0, dev=dev)
+    if dev is None:
+        assert_close(got, want)
+    else:
+        assert_16bit_close(got, want, dev)
+    with pytest.raises(RuntimeError, match="word form"):
+        mod.launch(x, nobst, DENSITY, ACCEL, OMEGA, 9, 1.0, True, dev)
+
+
+@pytest.mark.cuda
+def test_c16_codec_sweep(cuda_device):
+    """The c16 codec gives the codes and decoded values of its form with
+    the card's conversion instructions for every input (csrc/codec_check.cu)."""
+    lib = _build.library()
+    bad = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    rc = lib.lbm_c16_sweep(_build.storage(SPEC), bad.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "codec sweep")
+    assert bad.tolist() == [0, 0]

@@ -164,8 +164,8 @@ PyTorch built for CUDA. Phases, each printing what it found:
    ragged grids; K9 at f32, c16 and bf16 against its plain version at T 4,
    8 and 16, full row and panel, on ragged grids, two runs bitwise equal,
    and at f32 on the driver's schedule against K1 over 200 steps at 1024^2;
-   K3 timed beside K1 of the same storage and K9 beside K11 and K2 of the
-   same storage, in turns, at 1024^2, 2048^2 and 4096^2; K9's schedule
+   K3 (f32 too) timed beside K1 of the same storage and K9 beside K11 and
+   K2 of the same storage, in turns, at 1024^2, 2048^2 and 4096^2; K9's schedule
    sweep at 2048^2, and at 256^2-1024^2 for the smaller tiles;
 27. K5 and K6 in one window, AA steps on the trapezoid (``csrc/temporal.cu``,
    ``deep.cu``, ``trapezoid.cuh``): at f32, c16 and bf16 against their
@@ -203,9 +203,33 @@ PyTorch built for CUDA. Phases, each printing what it found:
    the word and one-cell forms in turns at 1024^2-4096^2; the c16 gate of
    ``auto`` (K1) and ``aa`` (K2) on the 256^2 and 1024^2 decks, and their
    loop MLUPS on 1024^2 (``run_simulation``, no files) with the word
-   forms' launch counters.
+   forms' launch counters;
+30. the row mesh across processes (``parallel/multihost.py``): K3 with its
+   ring filled from received rows (``shard_step.RowShard``) on 2 shards of
+   1024^2 on the card, their rows handed over by hand, against the plain
+   shard step (50 steps), bitwise K3 with the peer fill, timed beside it
+   in turns; then 2 ranks of ``python -m lbm_tpu_torch --multihost``
+   (``torch.distributed`` over gloo, both on ``--device 0``) on the 1024^2
+   deck cut to 200 steps with ``auto`` (K3) and ``band`` (K8 and a K3
+   remainder): rank 0's files must be the bytes of the one-process
+   ``--mesh 2 --device 0`` run, its stats the same route and Reynolds
+   number, every rank's result digest equal, and the ranks' launch
+   counters must account for every step; each layout's loop us/step
+   printed. With two cards or more, the NCCL layout (one card per rank)
+   against ``--mesh 2`` on those cards; with one, a line says it was not
+   run;
+31. diagnostics, profile and viz on the card: ``--debug --check-nan`` on
+   the 128^2 deck cut to 50 steps at f32 (K4) and c16 (K1), 50 reports,
+   each ``tot density`` within 1e-5 of ``total_density`` of the plain run
+   (the route's plain version on the CPU); ``--check-nan`` on a run resumed
+   from a state seeded with a NaN exits 1; ``--profile-dir`` on the 1024^2
+   deck cut to 2,000 steps under ``auto``: the trace must parse and name
+   K6's kernel, and the device's busy and idle shares of the loop's
+   window are printed; ``python -m lbm_tpu_torch.utils.viz`` renders the
+   128^2 run's ``final_state.dat`` (a PPM of 128 x 128 pixels where
+   matplotlib is missing).
 
-``python3 chip_smoke.py --phase 25`` (or 26, 27, 28, 29) runs phases 1, 2 and
+``python3 chip_smoke.py --phase 25`` (or 26-31) runs phases 1, 2 and
 that phase only (no kernel report), and ``--phase 26 --import-from DIR``
 only phase 26's K9 checks and its timing in turns, of the
 ``lbm_tpu_torch`` package under DIR (another checkout, such as the parent
@@ -1994,8 +2018,8 @@ def cluster_floor(torch, blocks, threads, cluster, syncs=2000):
 
 
 def redesign9_turns(torch, spec, gpu_line):
-    """Phase 26's times: K3's 16-bit forms beside K1 of the same storage (4
-    row shards), K9 beside K11 and K2 of the same storage, in turns at
+    """Phase 26's times: K3 at f32, c16 and bf16 beside K1 of the same
+    storage (4 row shards), K9 beside K11 and K2 of the same storage, in turns at
     1024^2-4096^2, with the driver's schedules of the imported package."""
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import band2, band3, devspace, shard_step
@@ -2012,16 +2036,15 @@ def redesign9_turns(torch, spec, gpu_line):
         cells, nobst = random_setup(torch, nx, nx, seed=7)
         for name, dev in forms.items():
             q = cells if dev is None else devspace.encode_state(cells, dev)
-            if dev is not None:
-                s, o = on_mesh(q, nobst, 4, 1)
-                t = turns(torch, {
-                    "K3": lambda: shard_step.run_shard_step(s, o, DENSITY, ACCEL, OMEGA, n, nx,
-                                                            dev=dev),
-                    "K1": lambda: run_step(q, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, dev=dev)}, n)
-                out["K3", name, nx] = t
-                log(f"  K3 {name} {nx}x{nx} (4 shards): {t['K3']:.2f} us/step, K1 {t['K1']:.2f} "
-                    f"(in turns): K3/K1 {t['K3'] / t['K1']:.3f} [{gpu_line}]")
-                del s, o
+            s, o = on_mesh(q, nobst, 4, 1)
+            t = turns(torch, {
+                "K3": lambda: shard_step.run_shard_step(s, o, DENSITY, ACCEL, OMEGA, n, nx,
+                                                        dev=dev),
+                "K1": lambda: run_step(q, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, dev=dev)}, n)
+            out["K3", name, nx] = t
+            log(f"  K3 {name} {nx}x{nx} (4 shards): {t['K3']:.2f} us/step, K1 {t['K1']:.2f} "
+                f"(in turns): K3/K1 {t['K3'] / t['K1']:.3f} [{gpu_line}]")
+            del s, o
             m = 2 * n - 2 * n % k9_cfg[1]
 
             def band(fn, cfg):
@@ -2838,11 +2861,351 @@ def redesign12_phase(torch, spec, cli, gpu_line, gates=True):
     redesign12_decks(torch, cli, gpu_line, gates)
 
 
+PHASE_30 = ("30. the row mesh across processes: K3 with its ring from received rows, 2 ranks "
+            "of --multihost against --mesh 2 (auto, band)")
+PHASE_31 = ("31. diagnostics, profile and viz on the card: --debug --check-nan, a NaN state, "
+            "--profile-dir, utils.viz")
+# Phase 30: the 1024^2 deck cut to this many steps for the multi-process
+# runs, and the backends run there.
+MULTIHOST_ITERS = 200
+MULTIHOST_BACKENDS = ("auto", "band")
+# The stats of a run that the multi-process run must repeat.
+SAME_STATS = ("nx", "ny", "max_iters", "backend", "route", "precision", "reynolds")
+K3_ROWS = ("K3 ring filled from received rows (multi-process mesh)",
+           "lbm_tpu_torch/csrc/shard_step.cu", "lbm_tpu/ops/pallas_step.py:164")
+
+
+def write_deck(work, tag, iters):
+    """The official deck ``tag`` cut to ``iters`` steps, in the reference's
+    files; returns (params path, obstacles path)."""
+    from lbm_tpu_torch.utils import geometry
+
+    fields, geo, kw = DECKS[tag]
+    fields = (fields[0], fields[1], iters, *fields[3:])
+    deck_dir = os.path.join(work, f"deck-{tag}-{iters}")
+    os.makedirs(deck_dir, exist_ok=True)
+    params_path = os.path.join(deck_dir, f"input_{tag}.params")
+    obst_path = os.path.join(deck_dir, f"obstacles_{tag}.dat")
+    geometry.write_params_file(params_path, *fields)
+    geometry.write_obstacle_file(obst_path, getattr(geometry, geo)(fields[0], fields[1], **kw))
+    return params_path, obst_path
+
+
+def rows_kernel_phase(torch, gpu_line):
+    """K3 with its ring filled from received rows (``RowShard``) on 2 row
+    shards of 1024^2 on cuda:0, stepped in turns with their edge rows handed
+    over on the card: against the plain shard step over 50 steps, bitwise
+    K3 with the peer fill, and timed per mesh step beside it (200 steps,
+    in turns) and the plain step. Returns (max_abs_err, ms, plain_ms)."""
+    from lbm_tpu_torch.ops.shard_step import (RowShard, run_shard_step, run_shard_step_plain,
+                                              with_ring)
+
+    n_grid = 1024
+    cells, nobst = random_setup(torch, n_grid, n_grid, seed=30)
+    s, o = on_mesh(cells, nobst, 2, 1)
+    rings = with_ring([[x[None] for x in row] for row in o])
+
+    def rows_run(n):
+        shards = [RowShard(s[z][0], rings[z][0][0], z, 2, n_grid, DENSITY, ACCEL, OMEGA, n)
+                  for z in range(2)]
+        for _ in range(n):
+            edges = [x.edges() for x in shards]
+            for z, x in enumerate(shards):
+                dn, up = x.halos()
+                dn.copy_(edges[z - 1][1])
+                up.copy_(edges[(z + 1) % 2][0])
+            for x in shards:
+                x.step()
+        return [[x.state()] for x in shards], torch.stack([x.sums for x in shards])
+
+    got = rows_run(50)
+    err = compare(torch, "K3 rows 2x1 1024x1024 50 steps", joined(torch, got),
+                  joined(torch, run_shard_step_plain(s, o, DENSITY, ACCEL, OMEGA, 50, n_grid)))
+    peer = run_shard_step(s, o, DENSITY, ACCEL, OMEGA, 50, n_grid)
+    same = all(torch.equal(got[0][z][0], peer[0][z][0]) for z in range(2))
+    check(same and torch.equal(got[1], peer[1]), "K3 with rows from a buffer is not bitwise "
+          "K3 with the peer fill")
+    log("  K3 rows: state and per-step sums bitwise K3 with the peer fill over 50 steps")
+    n = 200
+    t = turns(torch, {"rows": lambda: rows_run(n),
+                      "peer": lambda: run_shard_step(s, o, DENSITY, ACCEL, OMEGA, n, n_grid)}, n)
+    run_shard_step_plain(s, o, DENSITY, ACCEL, OMEGA, 2, n_grid)
+    _, p_ms = timed(torch, lambda: run_shard_step_plain(s, o, DENSITY, ACCEL, OMEGA, 5, n_grid))
+    log(f"  K3 2 shards of {n_grid}x{n_grid}: ring from received rows {t['rows']:.2f} us/step "
+        f"(one C call per shard per step, rows copied on the card), peer fill {t['peer']:.2f} "
+        f"(one call), in turns; plain {1e3 * p_ms / 5:.2f} us/step [{gpu_line}]")
+    return err, t["rows"] * 1e-3, p_ms / 5
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(argv, world, devices, timeout=300):
+    """``python -m lbm_tpu_torch ARGV --multihost`` as ``world`` ranks (the
+    variables torchrun sets; rank r on ``devices[r]``, None: its
+    LOCAL_RANK's card); returns their (stdout, stderr). Every rank is
+    stopped before this returns."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                   PYTHONPATH=ROOT)
+        extra = [] if devices[rank] is None else ["--device", str(devices[rank])]
+        procs.append(subprocess.Popen([sys.executable, "-m", "lbm_tpu_torch", *argv, "--multihost",
+                                       "-v", *extra], cwd=ROOT, env=env, text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout))
+    except subprocess.TimeoutExpired:
+        fail(f"a rank of the multi-process run did not end within {timeout} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, (_, err)) in enumerate(zip(procs, outs)):
+        check(proc.returncode == 0, f"rank {rank} of the multi-process run exited "
+              f"{proc.returncode}: {err.strip()[-2000:]}")
+    return outs
+
+
+def same_files(a, b, what):
+    for name in ("av_vels.dat", "final_state.dat"):
+        check(filecmp.cmp(os.path.join(a, name), os.path.join(b, name), shallow=False),
+              f"{what}: {name} differs from the one-process run's")
+
+
+def multihost_phase(torch, cli, gpu_line, work):
+    """Phase 30; returns (max_abs_err, ms, plain_ms, launches) of K3 with its
+    ring from received rows, launches the steps the ranks ran in it."""
+    import contextlib
+    import io
+
+    from lbm_tpu_torch.io import read_params
+    from lbm_tpu_torch.parallel.sharded import pick_shard_step
+
+    err, ms, plain_ms = rows_kernel_phase(torch, gpu_line)
+    params_path, obst_path = write_deck(work, "1024x1024", MULTIHOST_ITERS)
+    layouts = [("gloo", [0, 0], ["--device", "0"])]
+    if torch.cuda.device_count() >= 2:
+        layouts.append(("nccl", [None, None], []))
+        # The one-process mesh on cards 0 and 1 once before it is timed:
+        # the second card's context and the peer mappings are made then.
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(cli.main([params_path, obst_path, "--mesh", "2", "--out-dir",
+                            os.path.join(work, "warm")]) == 0, "--mesh 2 on cards 0 and 1 failed")
+    launches = 0
+    for channel, devices, one_process in layouts:
+        for backend in MULTIHOST_BACKENDS:
+            tag = f"{backend}-{channel}"
+            one = os.path.join(work, f"one-{tag}")
+            many = os.path.join(work, f"many-{tag}")
+            rc = cli.main([params_path, obst_path, "--backend", backend, "--mesh", "2",
+                           *one_process, "--out-dir", one, "--stats-json", one + ".json"])
+            check(rc == 0, f"--mesh 2 {' '.join(one_process)} --backend {backend}: rc {rc}")
+            t0 = time.time()
+            outs = run_ranks([params_path, obst_path, "--backend", backend, "--out-dir", many,
+                              "--stats-json", many + ".json"], 2, devices)
+            wall = time.time() - t0
+            with open(one + ".json") as f:
+                want = json.load(f)
+            with open(many + ".json") as f:
+                got = json.load(f)
+            same_files(one, many, f"--multihost --backend {backend} ({channel})")
+            for key in SAME_STATS:
+                check(got[key] == want[key], f"--multihost {backend}: stats {key} {got[key]} != "
+                      f"{want[key]}")
+            check([x["device"] for x in got["shards"]] == [x["device"] for x in want["shards"]],
+                  f"--multihost {backend}: shards on {got['shards']}, not {want['shards']}")
+            ranks = got["multihost"]["ranks"]
+            check(got["multihost"]["channel"] == channel and
+                  all(r["channel"] == channel for r in ranks),
+                  f"--multihost {backend}: rows over {got['multihost']['channel']}, not {channel}")
+            check(len({r["result_sha256"] for r in ranks}) == 1,
+                  f"--multihost {backend}: the ranks' results differ")
+            _, cfg = pick_shard_step(read_params(params_path), 2, backend, torch.float32)
+            want_k8 = 0 if cfg is None else MULTIHOST_ITERS // cfg[1] * cfg[1]
+            for r in ranks:
+                counts = r["launches"]
+                check(counts["K3 rows"] == MULTIHOST_ITERS - want_k8 and counts["K8"] == want_k8,
+                      f"--multihost {backend}: rank {r['rank']} counted {counts}")
+                launches += counts["K3 rows"]
+            verbose = [line for _, e in outs for line in e.splitlines() if "halo rows over" in line]
+            check(len(verbose) == 2, f"--multihost -v did not say which channel ran: {verbose}")
+            log(f"  --backend {backend}, route {want['route']}: one process --mesh 2 "
+                f"{' '.join(one_process)} loop {1e6 * want['loop_s'] / MULTIHOST_ITERS:.2f} "
+                f"us/step; 2 ranks over {channel} ({', '.join(x['device'] for x in got['shards'])})"
+                f" rank 0 loop {1e6 * got['loop_s'] / MULTIHOST_ITERS:.2f} us/step, {wall:.1f} s "
+                f"wall for both ranks; files and Reynolds number equal, digests equal; launches "
+                f"{ranks[0]['launches']} per rank [{gpu_line}]")
+            for d in (one, many):
+                shutil.rmtree(d)
+    if torch.cuda.device_count() < 2:
+        log(f"  the NCCL layout (a card per rank) was not run: this machine has "
+            f"{torch.cuda.device_count()} card")
+    return err, ms, plain_ms, launches
+
+
+def debug_reports(text):
+    lines = text.splitlines()
+    steps = [int(x.strip("=").split(":")[1]) for x in lines if x.startswith("==timestep")]
+    dens = [float(x.split(":")[1]) for x in lines if x.startswith("tot density")]
+    return steps, dens
+
+
+def union_us(spans, lo, hi):
+    """Microseconds of [lo, hi) covered by the union of ``spans``."""
+    total, end = 0.0, lo
+    for a, b in sorted((max(a, lo), min(b, hi)) for a, b in spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def trace_shares(torch, trace_path, want_kernel):
+    """The device's busy and idle share of the loop's window
+    (``lbm_tpu_torch.loop``) in a torch.profiler trace, and the kernels by
+    name; fails unless a kernel's name holds ``want_kernel``."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    check(any(want_kernel in name for name in by_name),
+          f"the trace names no {want_kernel}: {sorted(by_name)[:10]}")
+    loops = [e for e in events if e.get("name") == "lbm_tpu_torch.loop"
+             and e.get("cat") == "user_annotation"]
+    check(len(loops) == 1, f"{len(loops)} loop spans in the trace")
+    lo, hi = loops[0]["ts"], loops[0]["ts"] + loops[0]["dur"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in kernels if lo <= e["ts"] < hi]
+    busy = union_us(spans, lo, hi)
+    first, last = min(a for a, _ in spans), max(b for _, b in spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return {"window_us": hi - lo, "busy_us": busy, "device_span_us": last - first,
+            "kernels": len(spans), "top": top}
+
+
+def diagnostics_phase(torch, cli, gpu_line, work):
+    """Phase 31."""
+    import contextlib
+    import glob
+    import io
+
+    import numpy as np
+
+    from lbm_tpu_torch.io import read_obstacles, read_params
+    from lbm_tpu_torch.models.d2q9 import D2Q9
+    from lbm_tpu_torch.ops import resident, step
+    from lbm_tpu_torch.runtime.checkpoint import save_checkpoint
+    from lbm_tpu_torch.runtime.driver import run_simulation
+    from lbm_tpu_torch.utils.diagnostics import total_density
+
+    steps = 50
+    params_path, obst_path = write_deck(work, "128x128", steps)
+    params = read_params(params_path)
+    obstacles = read_obstacles(obst_path, params)
+    out_f32 = os.path.join(work, "debug-f32")
+    for precision, counter, name in (("f32", (resident.run_resident, "launches_smem"), "K4"),
+                                     ("c16", (step.run_step, "launches_c16"), "K1")):
+        out_dir = os.path.join(work, f"debug-{precision}")
+        setattr(*counter, 0)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main([params_path, obst_path, "--debug", "--check-nan", "--precision",
+                           precision, "--out-dir", out_dir])
+        check(rc == 0, f"--debug --check-nan --precision {precision}: rc {rc}")
+        got_steps, dens = debug_reports(text.getvalue())
+        check(got_steps == list(range(steps)), f"--debug {precision}: reports {got_steps}")
+        check(getattr(*counter) == steps, f"--debug {precision}: {name} ran "
+              f"{getattr(*counter)} of {steps} steps")
+        plain = []
+        run_simulation(params, obstacles, dtype="c16" if precision == "c16" else torch.float32,
+                       device="cpu", chunk_every=1,
+                       on_chunk=lambda s, cells, av: plain.append(total_density(cells)))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(dens, plain))
+        check(rel <= 1e-5, f"--debug {precision}: tot density {rel:.3e} from the plain run's")
+        log(f"  --debug --check-nan --precision {precision} on 128^2 x {steps}: {len(dens)} "
+            f"reports, {name} ran every step, tot density within {rel:.3e} of the plain run's "
+            f"(limit 1e-5)")
+
+    # A state with a NaN, resumed from a checkpoint, must end the run with 1.
+    cells = D2Q9.initial_state(params, dtype=torch.float32).numpy().copy()
+    cells[3, 64, 64] = np.nan
+    ckpt = os.path.join(work, "nan.npz")
+    save_checkpoint(ckpt, params, cells, np.zeros(steps // 2, np.float32), steps // 2)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main([params_path, obst_path, "--check-nan", "--resume", "--checkpoint-path",
+                       ckpt, "--out-dir", os.path.join(work, "nan")])
+    check(rc == 1 and "non-finite" in err.getvalue(),
+          f"--check-nan on a NaN state: rc {rc}, {err.getvalue().strip()}")
+    log(f"  --check-nan on a state seeded with a NaN: exit 1, {err.getvalue().strip()}")
+
+    # The first trace of the port: 1024^2 under auto (K6), after the same
+    # run without the profiler.
+    prof_iters = 2000
+    p1024, o1024 = write_deck(work, "1024x1024", prof_iters)
+    prof = os.path.join(work, "profile")
+    loops = {}
+    for traced in (False, True):
+        t0 = time.time()
+        stats_path = os.path.join(work, f"prof-{traced}.json")
+        rc = cli.main([p1024, o1024, "--out-dir", os.path.join(work, "prof"), "--stats-json",
+                       stats_path] + (["--profile-dir", prof] if traced else []))
+        check(rc == 0, f"1024^2 x {prof_iters} (profiled: {traced}): rc {rc}")
+        with open(stats_path) as f:
+            stats = json.load(f)
+        loops[traced] = (stats["loop_s"], time.time() - t0)
+    traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    check(len(traces) == 1, f"--profile-dir wrote {traces}")
+    tr = trace_shares(torch, traces[0], "deep_kernel")
+    share = tr["busy_us"] / tr["window_us"]
+    log(f"  --profile-dir on 1024^2 x {prof_iters} (route {stats['route']}): trace "
+        f"{os.path.getsize(traces[0])} bytes, {tr['kernels']} kernels in the loop's window of "
+        f"{tr['window_us'] / 1e3:.3f} ms (the loop {1e3 * loops[True][0]:.3f} ms under the "
+        f"profiler, {1e3 * loops[False][0]:.3f} ms without it; {loops[True][1]:.1f} s and "
+        f"{loops[False][1]:.1f} s in all): the device busy {share:.4f} and idle {1 - share:.4f} "
+        f"of the window, busy {tr['busy_us'] / tr['device_span_us']:.4f} from its first "
+        f"kernel's start to its last's end; the kernels' {tr['busy_us'] / 1e3:.3f} ms over "
+        f"the loop without the profiler {tr['busy_us'] / 1e6 / loops[False][0]:.4f}; kernels "
+        f"by time: " + ", ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in tr["top"])
+        + f" [{gpu_line}]")
+
+    # The 128^2 run's final state as a picture.
+    src = os.path.join(out_f32, "final_state.dat")
+    dst = os.path.join(work, "final_state.png")
+    proc = subprocess.run([sys.executable, "-m", "lbm_tpu_torch.utils.viz", src, dst], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"viz: {proc.stderr.strip()[-500:]}")
+    ppm = dst[:-4] + ".ppm"
+    if os.path.exists(ppm):
+        with open(ppm, "rb") as f:
+            data = f.read()
+        head = b"P6\n128 128\n255\n"
+        check(data.startswith(head) and len(data) == len(head) + 128 * 128 * 3,
+              f"viz: a bad PPM ({len(data)} bytes)")
+        log(f"  viz: {os.path.basename(ppm)}, a 128 x 128 PPM ({len(data)} bytes; no matplotlib)")
+    else:
+        with open(dst, "rb") as f:
+            check(f.read(8) == b"\x89PNG\r\n\x1a\n", "viz: neither a PPM nor a PNG")
+        log(f"  viz: {os.path.basename(dst)}, a PNG (matplotlib)")
+
+
 def main():
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", type=int, choices=(25, 26, 27, 28, 29),
+    ap.add_argument("--phase", type=int, choices=(25, 26, 27, 28, 29, 30, 31),
                     help="run phases 1, 2 and this one only (no kernel report)")
     ap.add_argument("--import-from", metavar="DIR",
                     help="with --phase 26: check K9 of the lbm_tpu_torch package under DIR "
@@ -2853,7 +3216,7 @@ def main():
                          "with --phase 29: phase 29's checks, timings and decks of that "
                          "package; nothing else")
     args = ap.parse_args()
-    if args.import_from and args.phase in (None, 25):
+    if args.import_from and args.phase in (None, 25, 30, 31):
         ap.error("--import-from needs --phase 26, 27, 28 or 29")
     try:
         import torch
@@ -2885,6 +3248,16 @@ def main():
         phase("25. the auto crossover: K4, K6, K7, K9 and K11 in turns at 128x256 and "
               "256^2-1024^2")
         crossover_phase(torch, gpu_line)
+        return 0
+    if args.phase in (30, 31):
+        build_native_io()
+        with tempfile.TemporaryDirectory() as work:
+            if args.phase == 30:
+                phase(PHASE_30)
+                multihost_phase(torch, cli, gpu_line, work)
+            else:
+                phase(PHASE_31)
+                diagnostics_phase(torch, cli, gpu_line, work)
         return 0
     if args.phase == 29:
         from lbm_tpu_torch.ops.devspace import DevSpec
@@ -3189,6 +3562,13 @@ def main():
     phase("29. K1's 16-bit forms and K2's in aligned multi-cell words: vs plain and the one-cell "
           "forms, attributes, in turns, the c16 decks")
     redesign12_phase(torch, spec, cli, gpu_line)
+    with tempfile.TemporaryDirectory() as work:
+        phase(PHASE_30)
+        rows_err, rows_ms, rows_plain_ms, rows_launches = multihost_phase(torch, cli, gpu_line,
+                                                                          work)
+    with tempfile.TemporaryDirectory() as work:
+        phase(PHASE_31)
+        diagnostics_phase(torch, cli, gpu_line, work)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1,
               bytes_per_cell=BYTES_PER_CELL):
@@ -3249,6 +3629,8 @@ def main():
               (1024 if name in ("K1", "K2") else 2048) ** 2, forms_bf16[name][2],
               BYTES_PER_CELL_BF16 * (slab_bytes if name == "K13" else 1))
         for name in BF16_KERNELS
+    ] + [
+        entry(*K3_ROWS, rows_launches, rows_err, rows_ms, rows_plain_ms, 1024 * 1024),
     ]}
     log(gpu_line)
     log(json.dumps(report))

@@ -21,12 +21,16 @@ unchanged as the reference each module is held against.
                               ``ops/band.py``, ``ops/band2.py``) serve
                               ``lbm_tpu_torch.parallel``.
 - ``lbm_tpu_torch.parallel`` — ``--mesh N|PYxPX``: a mesh of devices driven
-                              from this process (``parallel/sharded.py``).
+                              from this process (``parallel/sharded.py``);
+                              ``--multihost``: one row shard per process
+                              (``parallel/multihost.py``).
 - ``lbm_tpu_torch.runtime`` — the driver (whole run on the device, av_vels kept
                               there, chunks ending on checkpoints), npz
                               checkpoints and device selection.
 - ``lbm_tpu_torch.io``      — the reference's file formats, byte for byte.
-- ``lbm_tpu_torch.utils``   — the 1% result checker and the deck geometries.
+- ``lbm_tpu_torch.utils``   — the 1% result checker, the deck geometries,
+                              diagnostics (``--debug``, ``--check-nan``) and
+                              the |u| heat map (``utils/viz.py``).
 
 This module imports torch and numpy only, never JAX.
 """

@@ -16,7 +16,11 @@ both packages; so do ``--mesh N|PYxPX`` (shards over a mesh of devices in
 this process; with ``--device`` or ``$LBM_DEVICE`` every shard goes to
 that device, else the mesh is the first N cards) and
 ``--checkpoint-every``/``--checkpoint-path``/``--resume``, whose npz
-checkpoints either package resumes. Bad inputs end
+checkpoints either package resumes; ``--debug`` (the reference's per-step
+report), ``--check-nan``, ``--profile-dir`` (a ``torch.profiler`` trace)
+and ``--multihost`` (one row shard per process, ``parallel/multihost.py``:
+``torchrun --nproc-per-node 2 -m lbm_tpu_torch ... --multihost``; rank 0
+alone writes the output files and prints the block). Bad inputs end
 with ``lbm_tpu_torch: error: ...`` on stderr and exit code 1, never a
 traceback.
 """
@@ -97,6 +101,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from --checkpoint-path if it exists")
     p.add_argument("--list-devices", action="store_true",
                    help="print the device table and exit")
+    p.add_argument("--debug", action="store_true",
+                   help="per-step av-velocity + total-density report (the reference's -DDEBUG "
+                   "mode)")
+    p.add_argument("--check-nan", action="store_true",
+                   help="fail if the run ends with a non-finite mean velocity or state")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the run (*.pt.trace.json: Chrome, "
+                   "TensorBoard) into this directory")
+    p.add_argument("--multihost", action="store_true",
+                   help="one row shard per process of a torch.distributed group (reads "
+                   "MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK as torchrun sets "
+                   "them); --mesh defaults to the world size")
     p.add_argument("--stats-json", default=None, metavar="PATH",
                    help="write run metrics (MLUPS, timings, Reynolds, route) as JSON")
     p.add_argument("--verbose", "-v", action="store_true",
@@ -107,6 +123,16 @@ def build_parser() -> argparse.ArgumentParser:
 def _error(msg) -> int:
     print(f"lbm_tpu_torch: error: {msg}", file=sys.stderr)
     return 1
+
+
+def _mesh(text):
+    """``(mesh_2d, mesh_n)`` of a ``--mesh`` value; raises ValueError."""
+    if "x" in text:
+        mesh_2d = tuple(int(v) for v in text.split("x"))
+        if len(mesh_2d) != 2:
+            raise ValueError
+        return mesh_2d, 0
+    return None, int(text)
 
 
 def main(argv=None) -> int:
@@ -121,15 +147,38 @@ def main(argv=None) -> int:
     )
     from lbm_tpu_torch.runtime.driver import run_simulation
 
+    rank, world_size = 0, 1
+    if args.multihost:
+        # Before the device is chosen, as the JAX CLI does (lbm_tpu/cli.py:168-171).
+        from lbm_tpu_torch.parallel import multihost
+
+        joined = not torch.distributed.is_initialized()
+        try:
+            multihost.initialize_multihost()
+        except ValueError as e:
+            return _error(e)
+        rank, world_size = multihost.world()
+        if joined and torch.distributed.is_initialized():
+            # Leave the group on every way out: a process that exits with
+            # its gloo threads still running may abort.
+            import atexit
+
+            atexit.register(torch.distributed.destroy_process_group)
+    lead = rank == 0  # rank 0 alone prints the reference's block and writes the files
+
     if args.list_devices:
         print_devices(file=sys.stdout)
         return 0
     try:
-        device = select_device(args.device)
+        if args.multihost and args.device is None and os.environ.get("LBM_DEVICE") is None:
+            device = multihost.local_device()
+        else:
+            device = select_device(args.device)
     except (IndexError, ValueError) as e:
         return _error(e)
-    print(format_device_list())
-    print(format_selected(device))
+    if lead:
+        print(format_device_list())
+        print(format_selected(device))
 
     try:
         params = read_params(args.paramfile)
@@ -156,6 +205,23 @@ def main(argv=None) -> int:
         return _error("orbax checkpoints are JAX-only (lbm_tpu); use --checkpoint-format npz")
     if args.checkpoint_every < 0:
         return _error(f"--checkpoint-every must be >= 0, got {args.checkpoint_every}")
+    try:
+        mesh_2d, mesh_n = _mesh(args.mesh)
+    except ValueError:
+        return _error(f"bad --mesh {args.mesh!r}")
+    if args.multihost:
+        if mesh_2d is not None:
+            return _error("--multihost runs a 1-D row mesh; a 2-D mesh across processes is not "
+                          "supported (nor is it in the JAX package)")
+        if mesh_n not in (0, world_size):
+            return _error(f"--multihost shards over the {world_size} processes; --mesh "
+                          f"{args.mesh} does not match")
+        if args.checkpoint_every or args.resume:
+            return _error("checkpoint/resume stays single-controller-only; drop --multihost or "
+                          "the checkpoint options")
+    if args.debug and (args.multihost or mesh_2d is not None or mesh_n > 1):
+        return _error("--debug (per-step report) is not supported with --mesh or --multihost; "
+                      "run single-device")
     checkpoint_path = args.checkpoint_path
     if checkpoint_path is None and (args.checkpoint_every or args.resume):
         checkpoint_path = os.path.join(args.out_dir, "checkpoint.npz")
@@ -174,23 +240,38 @@ def main(argv=None) -> int:
             print(f"[lbm_tpu_torch] resuming from step {start_step}", file=sys.stderr)
         resumed = dict(initial_cells=cells, start_step=start_step, av_vels_prefix=av_prefix)
 
-    mesh_2d, mesh_n = None, 0
-    try:
-        if "x" in args.mesh:
-            mesh_2d = tuple(int(v) for v in args.mesh.split("x"))
-            if len(mesh_2d) != 2:
-                raise ValueError
-        else:
-            mesh_n = int(args.mesh)
-    except ValueError:
-        return _error(f"bad --mesh {args.mesh!r}")
+    on_chunk, chunk_every = None, 0
+    if args.debug:
+        # The reference's -DDEBUG per-step report (d2q9-bgk.c:229-233).
+        from lbm_tpu_torch.utils.diagnostics import debug_report
+
+        chunk_every = 1
+
+        def on_chunk(step, cells, av_chunk):
+            print(debug_report(step - 1, float(av_chunk[-1]), cells))
+
+    profiler = None
+    if args.profile_dir is not None:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(args.profile_dir))
+        profiler.start()
     # A named device takes every shard; otherwise the mesh is the first cards.
     named = args.device is not None or os.environ.get("LBM_DEVICE") is not None
     run_kw = dict(backend=args.backend, dtype=dtype, checkpoint_every=args.checkpoint_every,
                   checkpoint_path=checkpoint_path if args.checkpoint_every else None, **resumed)
     tic = time.time()
     try:
-        if mesh_2d is not None:
+        if args.multihost:
+            result = multihost.run_simulation_multihost(params, obstacles, backend=args.backend,
+                                                        dtype=dtype, device=device)
+            if args.verbose:
+                print(f"[lbm_tpu_torch] rank {rank} of {world_size} on {device}, halo rows over "
+                      f"{result.channel}", file=sys.stderr)
+        elif mesh_2d is not None:
             from lbm_tpu_torch.parallel.sharded import run_simulation_sharded_2d
 
             result = run_simulation_sharded_2d(
@@ -203,12 +284,28 @@ def main(argv=None) -> int:
                                             devices=[device] * mesh_n if named else None,
                                             **run_kw)
         else:
-            result = run_simulation(params, obstacles, device=device, **run_kw)
+            result = run_simulation(params, obstacles, device=device, chunk_every=chunk_every,
+                                    on_chunk=on_chunk, **run_kw)
+        if args.check_nan:
+            from lbm_tpu_torch.utils.diagnostics import NaNError, check_finite
+
+            try:
+                check_finite(result.av_vels, result.cells, context="end of run")
+            except NaNError as e:
+                return _error(e)
     except ValueError as e:
         return _error(e)
+    finally:
+        if profiler is not None:
+            profiler.stop()
     toc = time.time()
     ru = resource.getrusage(resource.RUSAGE_SELF)
     reynolds = result.reynolds(params, obstacles)
+    ranks = None
+    if args.multihost:
+        ranks = multihost.rank_reports(result)  # every process takes part
+    if not lead:
+        return 0
 
     # The reference's stdout block (d2q9-bgk.c:283-287).
     print("==done==")
@@ -241,6 +338,9 @@ def main(argv=None) -> int:
             "mlups": result.mlups(params),
             "reynolds": reynolds,
         }
+        if ranks is not None:
+            stats["multihost"] = {"world": world_size, "channel": result.channel,
+                                  "ranks": ranks}
         with open(args.stats_json, "w") as f:
             json.dump(stats, f, indent=2)
             f.write("\n")

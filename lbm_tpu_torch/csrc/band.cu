@@ -252,7 +252,9 @@ extern "C" int lbm_band_run(void* buf_a, void* buf_b, const float* nobst, float*
 // 2 * nshards addresses on this card: each shard's two buffers, of this
 // call or another, on this card or a peer. Each pass first copies the
 // call's halo_dn, halo_up (count, 9, depth, nx) from the neighbour shards'
-// edge rows of the pass's source buffer. nobst (count, ny, nx) and nob_dn,
+// edge rows of the pass's source buffer; with a null table the caller has
+// filled them (rows received from shards in other processes), and a call
+// takes one pass at a time. nobst (count, ny, nx) and nob_dn,
 // nob_up (count, depth, nx) hold the mask and its halos. av receives count
 // x (n_passes * depth) values (shard-major, av_stride apart); partials
 // count * depth * lbm_band_num_tiles floats; ticket count zeroed unsigned

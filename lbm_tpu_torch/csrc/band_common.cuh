@@ -512,12 +512,13 @@ static __global__ void halo_rows_kernel(const unsigned long long* __restrict__ t
 // buffer: pass p reads a when (parity + p) is even, else b.
 // launch(src, dst, av + p * T, p) as run_passes. The halo copy reads the
 // neighbour shards, so across calls the caller orders a pass after the
-// neighbours' previous one. Returns the first launch error, or 0. E is the
-// raw element of the state planes and halos (the not-obstacle halos stay
-// f32).
+// neighbours' previous one. A null table: the caller has filled the halos
+// (rows received from neighbour shards in other processes) and no copy
+// runs. Returns the first launch error, or 0. E is the raw element of the
+// state planes and halos (the not-obstacle halos stay f32).
 template <class E>
 struct ShardsT {
-  const unsigned long long* table;  // 2 * nshards addresses: each shard's two buffers
+  const unsigned long long* table;  // 2 * nshards addresses: each shard's two buffers (or null)
   int s0, count, nshards;           // the call's shards [s0, s0 + count) of the ring
   int parity;                       // the first pass reads buffer a when even
   E* halo_dn;                       // (count, 9, T, nx)
@@ -532,8 +533,10 @@ inline int run_sharded_passes(const Geom& g, const ShardsT<E>& sh, int n_passes,
   const int blocks = (int)(want < 4096 ? want : 4096);
   for (int p = 0; p < n_passes; ++p) {
     const int w = (sh.parity + p) & 1;
-    halo_rows_kernel<E><<<blocks, kThreads, 0, st>>>(sh.table, w, sh.s0, sh.count, sh.nshards,
-                                                     sh.halo_dn, sh.halo_up, g.ny, g.nx, g.T);
+    if (sh.table != nullptr) {
+      halo_rows_kernel<E><<<blocks, kThreads, 0, st>>>(sh.table, w, sh.s0, sh.count, sh.nshards,
+                                                       sh.halo_dn, sh.halo_up, g.ny, g.nx, g.T);
+    }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     launch(w ? b : a, w ? a : b, av + (size_t)p * g.T, p);

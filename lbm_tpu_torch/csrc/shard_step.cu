@@ -40,7 +40,10 @@
 // planes), one launch for all of them; the neighbours may lie in another
 // call's shards or on another card (peer addresses). A shard may be its own
 // neighbour (px = 1, or a mesh of one): its ring then holds its own
-// opposite edges.
+// opposite edges. Across processes (lbm_shard_rows_run, a 1-D
+// mesh with one shard per process): ring_fill_rows_kernel fills the ring
+// from the two rows the caller received from the neighbour processes, the
+// step kernel unchanged.
 //
 // K12: the threads that compute a shard's edge cells also store them
 // straight into the ghost ring of every shard that reads them next step
@@ -332,6 +335,64 @@ __global__ void ring_fill_kernel(const unsigned long long* __restrict__ table, i
   }
 }
 
+// Fills the state ring of entry p (0 or 1) of shards [s0, s0 + gridDim.y)
+// of a 1-D row mesh (px = 1) whose neighbours live in other processes:
+// ``rows`` holds, per shard, (2, 9, rx) raw elements received from them,
+// the previous shard's last row and the next shard's first row. They fill
+// padded rows 0 and ry + 1, their columns wrapped (the corners are their
+// last and first cells); the left and right ghost columns of rows 1..ry
+// come from the shard's own cells, wrapped. The ring is ring_fill_kernel's
+// for px = 1, element for element, with the neighbour rows read from the
+// buffer in place of the neighbours' state. Like that fill it moves 9 x
+// (2 (ry + rx) + 4) elements, a launch's latency more than its bytes; across
+// processes the step's cost is the swap of the two rows around it.
+template <class E>
+__global__ void ring_fill_rows_kernel(const unsigned long long* __restrict__ table, int s0,
+                                      int p, Mesh m, const E* __restrict__ rows) {
+  const int lz = blockIdx.y;
+  E* buf = entry<E>(table, s0 + lz, p);  // the ring is written, the cells read
+  const E* __restrict__ got = rows + (size_t)lz * 2 * 9 * m.rx;
+  const int rw = m.rx + 2;  // ring row width
+  const int nring = 2 * rw + 2 * m.ry;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < 9 * nring;
+       i += gridDim.x * blockDim.x) {
+    const int k = i / nring;
+    const int e = i - k * nring;
+    int pr, rc;  // padded row, ring column (0 = the left ghost, rx + 1 the right)
+    if (e < rw) {
+      pr = 0;
+      rc = e;
+    } else if (e < 2 * rw) {
+      pr = m.ry + 1;
+      rc = e - rw;
+    } else {
+      const int e2 = e - 2 * rw;
+      pr = 1 + (e2 >> 1);
+      rc = (e2 & 1) ? m.rx + 1 : 0;
+    }
+    const int col = rc == 0 ? m.rx - 1 : (rc == m.rx + 1 ? 0 : rc - 1);  // wrapped
+    E v;
+    if (pr == 0) {
+      v = got[k * m.rx + col];
+    } else if (pr == m.ry + 1) {
+      v = got[(9 + k) * m.rx + col];
+    } else {
+      v = buf[k * m.pplane + (size_t)pr * m.pw + m.lead + col];
+    }
+    buf[k * m.pplane + (size_t)pr * m.pw + m.lead - 1 + rc] = v;
+  }
+}
+
+// The state ring fill of entry p from received rows (ring_fill_rows_kernel).
+template <class E>
+int fill_rows(const unsigned long long* table, int s0, int count, int p, const Mesh& m,
+              const E* rows, cudaStream_t st) {
+  const int per = 9 * (2 * (m.rx + 2) + 2 * m.ry);
+  const dim3 grid((per + lbm::kThreads - 1) / lbm::kThreads, count);
+  ring_fill_rows_kernel<E><<<grid, lbm::kThreads, 0, st>>>(table, s0, p, m, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The ring fill of entry p; E is the state's element.
 template <class E>
 int fill(const unsigned long long* table, int s0, int count, int p, const Mesh& m,
@@ -351,7 +412,7 @@ template <class S>
 int run(const unsigned long long* table, int s0, int count, const Mesh& m, float* av,
         int av_stride, float* partials, unsigned int* ticket, int parity, int n_steps, int mode,
         int fill_first, float w1a, float w2a, const lbm::Relax& rc, cudaStream_t st,
-        const S& io) {
+        const S& io, const void* rows = nullptr) {
   using T = typename S::T;
   int err = 0;
   if (fill_first) {
@@ -367,7 +428,9 @@ int run(const unsigned long long* table, int s0, int count, const Mesh& m, float
       shard_step_kernel<true, S><<<grid, block, 0, st>>>(table, s0, p, m, partials, ticket,
                                                          av + t, av_stride, w1a, w2a, rc, io);
     } else {
-      if ((err = fill<T>(table, s0, count, p, m, st)) != 0) return err;
+      err = rows != nullptr ? fill_rows<T>(table, s0, count, p, m, static_cast<const T*>(rows), st)
+                            : fill<T>(table, s0, count, p, m, st);
+      if (err != 0) return err;
       if constexpr (sizeof(T) == 2) {
         const int span = lbm::kBlockX * kPairCells;  // columns of a block
         shard_step_pair_kernel<S><<<dim3((m.rx + span - 1) / span, grid.y, count), block, 0, st>>>(
@@ -417,6 +480,32 @@ extern "C" int lbm_shard_run(const unsigned long long* table, int s0, int count,
   return lbm::with_storage(storage, [&](const auto& io) {
     return run(table, s0, count, m, av, av_stride, partials, ticket, parity, n_steps, mode,
                fill_first, w1a, w2a, rc, st, io);
+  });
+}
+
+// K3 on shards [s0, s0 + count) of a 1-D row mesh of py shards (px = 1)
+// whose neighbour shards live in other processes: one step, its state ring
+// filled from ``rows`` (per shard (2, 9, rx) raw elements: the previous
+// shard's last row, the next shard's first row, received by the caller)
+// and the shards' own wrapped columns, then K3's step. table, buffers,
+// parity, av, partials, ticket and storage as lbm_shard_run (the table
+// needs only the call's shards); the not-obstacle rings are the caller's
+// (filled before the first call). Returns the first CUDA error, or 0.
+extern "C" int lbm_shard_rows_run(const unsigned long long* table, int s0, int count, int py,
+                                  int ry, int rx, int ny, int pitch, int lead, const void* rows,
+                                  float* av, int av_stride, float* partials,
+                                  unsigned int* ticket, int parity, float w1a, float w2a,
+                                  float beta, float ow0, float ow1, float ow2,
+                                  const lbm::Storage* storage, void* stream) {
+  const Mesh m{py, 1, ry, rx, ny, pitch, lead, (size_t)(ry + 2) * pitch};
+  if (count < 1 || s0 < 0 || s0 + count > py || lead < 1 || pitch < lead + rx + 1 ||
+      rows == nullptr || storage == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const lbm::Relax rc{beta, ow0, ow1, ow2};
+  return lbm::with_storage(storage, [&](const auto& io) {
+    return run(table, s0, count, m, av, av_stride, partials, ticket, parity, 1, 1, 0, w1a, w2a,
+               rc, static_cast<cudaStream_t>(stream), io, rows);
   });
 }
 

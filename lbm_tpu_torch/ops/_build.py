@@ -91,6 +91,9 @@ _RUN_ARGTYPES = {
     # partials, ticket, parity, n_steps, mode, fill_first, 6 scalars, codec,
     # stream)
     "lbm_shard_run": [_P] + [_I] * 9 + [_P, _I, _P, _P] + [_I] * 4 + [_F] * 6 + [_S, _P],
+    # (table, s0, count, py, ry, rx, ny, pitch, lead, rows, av, av_stride,
+    # partials, ticket, parity, 6 scalars, codec, stream)
+    "lbm_shard_rows_run": [_P] + [_I] * 8 + [_P, _P, _I, _P, _P, _I] + [_F] * 6 + [_S, _P],
     "lbm_enable_peer": [_I, _I],
     # (table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst,
     # nob_dn, nob_up, av, av_stride, partials, ticket, ny, nx, block, depth,

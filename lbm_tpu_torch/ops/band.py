@@ -191,3 +191,13 @@ def run_band_sharded(shards, nob_shards, density, accel, omega, n_iters, block, 
 run_band_sharded.launches = 0  # mesh steps K8 advanced in this process
 run_band_sharded.launches_c16 = 0  # mesh steps K8 advanced at c16
 run_band_sharded.launches_bf16 = 0  # mesh steps K8 advanced at bf16
+
+
+def row_shard(cells, nobst, nob_dn, nob_up, rank, world, ny, density, accel, omega, block, depth,
+              panel, n_passes, *, paired="fused", dev=None):
+    """``n_passes`` passes of ``depth`` steps on shard ``rank`` of a 1-D row
+    mesh of ``world`` shards, one per process, its halos received from the
+    neighbour processes (``band_common.BandRowShard``): K8 on CUDA, its
+    steps counted in ``run_band_sharded``'s launches; the plain pass on CPU."""
+    return BC.BandRowShard(_K8, run_band_sharded, cells, nobst, nob_dn, nob_up, rank, world, ny, density,
+                           accel, omega, block, depth, panel, n_passes, paired=paired, dev=dev)

@@ -69,8 +69,8 @@ from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
 from lbm_tpu_torch.ops.shard_step import (address_table, device_runs, enable_peers, issue,
                                           neighbour_runs, run_shard_step, run_shard_step_plain)
-from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, check_inputs, forcing_weights,
-                                    kernel_scalars, run_step)
+from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, check_inputs, count_launches,
+                                    forcing_weights, kernel_scalars, run_step)
 
 CYS, CXS, OPP = _CYS, _CXS, _OPP
 # The forcing planes as (plane, sign, weight kind): kind 1 -> w1a, 2 -> w2a
@@ -554,3 +554,101 @@ class ShardedKernel:
                              device, dev)
         return run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny, depth,
                                  passes, paired, plain=plain or device.type == "cpu", dev=dev)
+
+
+class BandRowShard:
+    """``kernel``'s passes (K8, K10) on shard ``rank`` of a 1-D row mesh of
+    ``world`` shards, one per process (``parallel/multihost.py``), its T-row
+    halos received from the neighbour processes: the kernel's C entry with
+    a null table (no halo copy: the caller has filled the halos) on CUDA,
+    ``creep_pass_plain`` between the halos on the CPU; ``counter`` is the
+    wrapper whose launch count the kernel's passes add to.
+
+    A pass: the caller sends ``edges()`` (the shard's first and last T
+    rows) to the previous and the next process, receives theirs into
+    ``halos()`` (``dn``, the previous shard's last T rows; ``up``, the next
+    shard's first T rows), then calls ``step()``. ``nob_dn`` and ``nob_up``
+    are the not-obstacle rows of those halos (``(T, nx)``, fixed). The pass
+    is ``run_band_sharded``'s, so the result is bitwise the one-process
+    mesh's. ``state()``, ``sums``: as ``shard_step.RowShard``, per step."""
+
+    def __init__(self, kernel, counter, cells, nobst, nob_dn, nob_up, rank, world, ny, density,
+                 accel, omega, block, depth, panel, n_passes, *, paired="fused", dev=None):
+        kernel.check([[cells]], [[nobst]], n_passes * depth, block, depth, panel, dev)
+        ry, nx = cells.shape[1:]
+        if not 0 <= rank < world or world * ry != ny:
+            raise ValueError(f"shard {rank} of {world} shards of {ry} rows is not a row of a "
+                             f"grid of ny={ny} rows")
+        self.kernel, self.counter, self.dev = kernel, counter, dev
+        self.rank, self.world, self.ny, self.n_passes = rank, world, ny, n_passes
+        self.schedule = (block, depth, panel)
+        self.depth, self.device, self.q = depth, cells.device, 0
+        self.halo = torch.empty((2, 1, 9, depth, nx), dtype=cells.dtype, device=self.device)
+        self.sums = torch.empty(n_passes * depth, dtype=torch.float32, device=self.device)
+        if self.device.type == "cpu":
+            w1a, w2a = forcing_weights(density, accel)
+            self.cells, self.nob = cells, (nobst, nob_dn, nob_up)
+            self.plain_step = r_step_plain(float(omega), w1a, w2a, paired)
+            return
+        if self.device.type != "cuda":
+            raise ValueError(f"no {kernel.name} kernel for device {self.device}")
+        if not (isinstance(paired, str) and paired.startswith("fused")):
+            raise ValueError(f"the CUDA {kernel.name} kernel implements the fused collision form "
+                             "only")
+        b, p, t = tile_shape(nx, block, depth, panel)
+        check_smem(f"{kernel.name} sharded kernel", kernel.plane_copies, nx, block, depth, panel)
+        self.tile = (b, t, p)  # the entry's block, depth, panel
+        self.lib = _build.library()
+        self.a = cells.contiguous()[None].clone()
+        self.other = torch.empty_like(self.a)
+        self.nob = tuple(x.contiguous()[None] for x in (nobst, nob_dn, nob_up))
+        ntiles = self.lib.lbm_band_num_tiles(ry, nx, b, p)
+        self.partials = torch.empty(t * ntiles, dtype=torch.float32, device=self.device)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self.scalars = kernel_scalars(density, accel, omega, 1.0)
+        self.storage = _build.storage(dev)
+
+    def state(self):
+        if self.device.type == "cpu":
+            return self.cells
+        return (self.a if self.q % 2 == 0 else self.other)[0]
+
+    def edges(self):
+        cells = self.state()
+        return cells[:, :self.depth], cells[:, -self.depth:]
+
+    def halos(self):
+        return self.halo[0, 0], self.halo[1, 0]
+
+    def step(self) -> None:
+        if self.q >= self.n_passes:
+            raise ValueError(f"the shard was set up for {self.n_passes} passes")
+        block, depth, panel = self.schedule
+        ry, nx = self.state().shape[1:]
+        if self.device.type == "cpu":
+            from lbm_tpu_torch.ops.devspace import decode_state, encode_state
+
+            dev = self.dev
+            cells, dn, up = [x if dev is None else decode_state(x, dev)
+                             for x in (self.cells, self.halo[0, 0], self.halo[1, 0])]
+            nobst, nob_dn, nob_up = self.nob
+            out, sums = creep_pass_plain(cells, nobst, block, depth, panel, self.plain_step,
+                                         halo=(dn, up, nob_dn, nob_up), r0=self.rank * ry,
+                                         ny_global=self.ny)
+            self.cells = out if dev is None else encode_state(out, dev)
+            self.sums[self.q * depth:(self.q + 1) * depth] = sums
+        else:
+            nob, nob_dn, nob_up = self.nob
+            with torch.cuda.device(self.device):
+                stream = torch.cuda.current_stream(self.device).cuda_stream
+                rc = getattr(self.lib, self.kernel.entry)(
+                    0, self.rank, 1, self.world, self.a.data_ptr(), self.other.data_ptr(),
+                    self.halo[0].data_ptr(), self.halo[1].data_ptr(), nob.data_ptr(),
+                    nob_dn.data_ptr(), nob_up.data_ptr(),
+                    self.sums.data_ptr() + 4 * self.q * depth, self.n_passes * depth,
+                    self.partials.data_ptr(), self.ticket.data_ptr(), ry, nx, *self.tile,
+                    self.q % 2, 1, *self.scalars, self.storage, stream)
+            _build.check(rc, f"{self.kernel.name} sharded kernel (halos from other processes)")
+            count_launches(self.counter, depth, self.dev)
+        self.q += 1
+

@@ -386,3 +386,113 @@ run_shard_step.launches = 0  # mesh steps K3 advanced in this process
 run_shard_step.launches_c16 = 0  # mesh steps K3 advanced at c16
 run_shard_step.launches_bf16 = 0  # mesh steps K3 advanced at bf16
 run_shard_overlap.launches = 0  # mesh steps K12 advanced in this process
+
+
+def ring_from_rows(shard, dn, up):
+    """``with_ring``'s ring of a shard of a 1-D row mesh (px = 1) whose
+    neighbour shards lie elsewhere: ``shard`` ``(C, ry, rx)`` between ``dn``,
+    the previous shard's last row, and ``up``, the next shard's first row
+    (each ``(C, 1, rx)``), every row's columns wrapped: ``(C, ry+2, rx+2)``."""
+
+    def wrapped(x):
+        return torch.cat([x[:, :, -1:], x, x[:, :, :1]], dim=2)
+
+    return torch.cat([wrapped(dn), wrapped(shard), wrapped(up)], dim=1)
+
+
+class RowShard:
+    """Shard ``rank`` of a 1-D row mesh of ``world`` shards, one per process
+    (``parallel/multihost.py``), stepped by K3 with the rows of its ring
+    received from the neighbour processes: ``lbm_shard_rows_run`` (the ring
+    filled from a received buffer, then K3's step) on CUDA,
+    ``shard_step_plain`` on ``ring_from_rows`` on the CPU.
+
+    A step: the caller sends ``edges()`` (the shard's first and last row,
+    ``(9, 1, rx)`` in the storage's type) to the previous and the next
+    process, receives theirs into ``halos()`` (``dn``, the previous shard's
+    last row; ``up``, the next shard's first row), then calls ``step()``.
+    ``cells`` is the shard ``(9, ry, rx)`` (``dev``: 16-bit storage, as
+    ``run_shard_step``; left unchanged), ``nob_ring`` its not-obstacle plane
+    inside the ring of the neighbours' ``(ry+2, rx+2)``. ``state()`` is the
+    shard's state, ``sums`` its raw per-step sums ``(n_steps,)``. The ring
+    and the step are ``run_shard_step``'s, so the result is bitwise the
+    one-process mesh's."""
+
+    launches = 0  # steps K3 advanced across processes in this process
+    launches_c16 = 0
+    launches_bf16 = 0
+
+    def __init__(self, cells, nob_ring, rank, world, ny, density, accel, omega, n_steps, *,
+                 paired="fused", dev=None):
+        ry, rx = cells.shape[1:]
+        check_inputs(cells, nob_ring[1:-1, 1:-1], n_steps, 1, dev)
+        if tuple(nob_ring.shape) != (ry + 2, rx + 2):
+            raise ValueError(f"nob_ring {tuple(nob_ring.shape)} is not the ring of a {ry}x{rx} "
+                             "shard")
+        if not 0 <= rank < world or world * ry != ny or ny < 2:
+            raise ValueError(f"shard {rank} of {world} shards of {ry} rows is not a row of a "
+                             f"grid of ny={ny} >= 2 rows")
+        self.rank, self.world, self.ny, self.n_steps, self.dev = rank, world, ny, n_steps, dev
+        self.ry, self.rx, self.device = ry, rx, cells.device
+        self.t = 0
+        self.rows = torch.empty((2, 9, 1, rx), dtype=cells.dtype, device=self.device)
+        self.sums = torch.empty(n_steps, dtype=torch.float32, device=self.device)
+        if self.device.type == "cpu":
+            self.cells, self.nob_ring = cells, nob_ring
+            self.plain = (*forcing_weights(density, accel), float(omega), paired)
+            return
+        if self.device.type != "cuda":
+            raise ValueError(f"no shard kernel for device {self.device}")
+        if not (isinstance(paired, str) and paired.startswith("fused")):
+            raise ValueError("the CUDA shard kernels implement the fused collision form only")
+        self.lib = _build.library()
+        self.lead, self.pitch = lead_of(cells.dtype), pitch_of(rx, cells.dtype)
+        self.bufs = torch.empty((2, 9, ry + 2, self.pitch), dtype=cells.dtype, device=self.device)
+        self.bufs[0, :, 1:-1, self.lead:self.lead + rx] = cells
+        self.nob = torch.zeros((ry + 2, self.pitch), dtype=torch.float32, device=self.device)
+        self.nob[:, self.lead - 1:self.lead + rx + 1] = nob_ring
+        # The kernel reads the table's row of this shard alone.
+        self.table = torch.zeros((world, 3), dtype=torch.int64, device=self.device)
+        self.table[rank] = address_table([(self.bufs[0], self.bufs[1], self.nob)], self.device)[0]
+        self.partials = torch.empty(self.lib.lbm_step_num_blocks(ry, rx), dtype=torch.float32,
+                                    device=self.device)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self.scalars = kernel_scalars(density, accel, omega, 1.0)[:6]
+        self.storage = _build.storage(dev)
+
+    def state(self):
+        if self.device.type == "cpu":
+            return self.cells
+        return self.bufs[self.t % 2, :, 1:-1, self.lead:self.lead + self.rx]
+
+    def edges(self):
+        cells = self.state()
+        return cells[:, :1], cells[:, -1:]
+
+    def halos(self):
+        return self.rows[0], self.rows[1]
+
+    def step(self) -> None:
+        if self.t >= self.n_steps:
+            raise ValueError(f"the shard was set up for {self.n_steps} steps")
+        ry, rx = self.ry, self.rx
+        if self.device.type == "cpu":
+            dev = self.dev
+            full = [x if dev is None else decode_state(x, dev)
+                    for x in (self.cells, self.rows[0], self.rows[1])]
+            cells, tot = shard_step_plain(ring_from_rows(*full), self.nob_ring, self.rank * ry,
+                                          self.ny, *self.plain)
+            self.cells = cells if dev is None else encode_state(cells, dev)
+            self.sums[self.t] = tot
+        else:
+            with torch.cuda.device(self.device):
+                stream = torch.cuda.current_stream(self.device).cuda_stream
+                rc = self.lib.lbm_shard_rows_run(
+                    self.table.data_ptr(), self.rank, 1, self.world, ry, rx, self.ny, self.pitch,
+                    self.lead, self.rows.data_ptr(), self.sums.data_ptr() + 4 * self.t,
+                    self.n_steps, self.partials.data_ptr(), self.ticket.data_ptr(), self.t % 2,
+                    *self.scalars, self.storage, stream)
+            _build.check(rc, "shard step kernel (rows from other processes)")
+            count_launches(RowShard, 1, self.dev)
+        self.t += 1
+

@@ -1,2 +1,3 @@
-"""Runs over a mesh of devices in one process (counterpart of
-``lbm_tpu/parallel``): ``parallel/sharded.py``."""
+"""Runs over a mesh of devices (counterpart of ``lbm_tpu/parallel``): in
+one process, ``parallel/sharded.py``; one row shard per process,
+``parallel/multihost.py``."""

@@ -528,8 +528,10 @@ def run_simulation(
     for n in compute_chunk_sizes(start_step, params.max_iters, checkpoint_every, chunk_every):
         _sync(device)
         t0 = time.perf_counter()
-        cells, av = advance(cells, n)
-        _sync(device)
+        # The chunk's span in a torch.profiler trace (--profile-dir).
+        with torch.profiler.record_function("lbm_tpu_torch.loop"):
+            cells, av = advance(cells, n)
+            _sync(device)
         elapsed += time.perf_counter() - t0
         av_chunks.append(av.cpu().numpy())
         step += n

@@ -1,4 +1,4 @@
-"""Utility subpackage: checker and geometry.
+"""Utility subpackage: checker, geometry, diagnostics and viz.
 
 Submodules are imported lazily so ``python -m lbm_tpu_torch.utils.checker``
 runs without the double-import runpy warning.

@@ -8,8 +8,10 @@ window (AA steps on the trapezoid) at T 3, 4 and 8, on the driver's
 schedules and a window at the shared-memory limit, bitwise against K1;
 K1's and K2's 16-bit word forms bitwise against their one-cell forms on
 ragged, odd-height grids and over chained calls, the shape rule's route,
-and the c16 codec against its conversion-instruction form over every
-input.
+the c16 codec against its conversion-instruction form over every
+input; and the multi-process path's kernels on one card (shards stepped
+in turns, their rows handed over): K3 with its ring filled from received
+rows and K8/K10 with received halos, bitwise the one-process mesh.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -1004,3 +1006,82 @@ def test_c16_codec_sweep(cuda_device):
                            torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "codec sweep")
     assert bad.tolist() == [0, 0]
+
+
+def rows_in_turns(shards, n):
+    """``n`` steps (or passes) of row shards that stand for processes, each
+    given its neighbours' edge rows on the card, as the multi-process
+    path's exchange delivers them."""
+    for _ in range(n):
+        edges = [s.edges() for s in shards]
+        for z, s in enumerate(shards):
+            dn, up = s.halos()
+            dn.copy_(edges[z - 1][1])
+            up.copy_(edges[(z + 1) % len(shards)][0])
+        for s in shards:
+            s.step()
+
+
+ROW_STORAGES = {"f32": None, "c16": SPEC, "bf16": tdev.BF16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", list(ROW_STORAGES))
+@pytest.mark.parametrize("ry,rx,py", [(7, 9, 3), (1, 33, 4), (64, 130, 2), (5, 8, 1)])
+def test_k3_ring_fill_from_rows_is_the_peer_fill(cuda_device, storage, ry, rx, py):
+    """K3 with its ring filled from received rows (``RowShard``,
+    ``lbm_shard_rows_run``: the multi-process path) on ragged shards, each
+    shard's rows handed over on the card: state and per-step sums bitwise
+    those of K3 with the ring filled through the neighbours' addresses
+    (``run_shard_step``), at f32, c16 and bf16; its own launch counter."""
+    dev = ROW_STORAGES[storage]
+    ny, steps = py * ry, 6
+    cells, nobst, shards, nob = mesh_setup(cuda_device, rx, ny, py, 1, seed=ry + rx)
+    if dev is not None:
+        shards = [[tdev.encode_state(s, dev) for s in row] for row in shards]
+    want, want_sums = tshard.run_shard_step(shards, nob, DENSITY, ACCEL, OMEGA, steps, ny, dev=dev)
+    rings = tshard.with_ring([[n[None] for n in row] for row in nob])
+    name = "launches" if dev is None else f"launches_{dev.name}"
+    before = getattr(tshard.RowShard, name)
+    rows = [tshard.RowShard(shards[z][0], rings[z][0][0], z, py, ny, DENSITY, ACCEL, OMEGA, steps,
+                            dev=dev) for z in range(py)]
+    rows_in_turns(rows, steps)
+    torch.cuda.synchronize()
+    assert getattr(tshard.RowShard, name) == before + py * steps
+    for z, s in enumerate(rows):
+        assert torch.equal(s.state(), want[z][0])
+        assert torch.equal(s.sums, want_sums[z])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("name", list(SHARD_BANDS))
+def test_sharded_band_halos_from_rows_are_the_peer_copy(cuda_device, name, storage):
+    """K8 and K10 with their halos received (``BandRowShard``: a null table,
+    no halo copy) on 4 shards of 25 rows under 16-row tiles, T 4, three
+    passes: bitwise the one-call mesh (``run_band_sharded``)."""
+    dev = ROW_STORAGES[storage]
+    kernel = SHARD_BANDS[name][0]
+    mod = tband if name == "K8" else tband2
+    ny, nx, py, depth, passes = 100, 70, 4, 4, 3
+    cells, nobst, shards, nob = mesh_setup(cuda_device, nx, ny, py, 1, seed=11)
+    if dev is not None:
+        shards = [[tdev.encode_state(s, dev) for s in row] for row in shards]
+    want, want_sums = kernel(shards, nob, DENSITY, ACCEL, OMEGA, passes * depth, 16, depth, ny,
+                             dev=dev)
+    ry = ny // py
+
+    def rows(lo):
+        return nobst[torch.arange(lo, lo + depth, device=cuda_device) % ny]
+
+    before = kernel.launches if dev is None else kernel.launches_bf16
+    bands = [mod.row_shard(shards[z][0], nob[z][0], rows(z * ry - depth), rows((z + 1) * ry), z,
+                           py, ny, DENSITY, ACCEL, OMEGA, 16, depth, None, passes, dev=dev)
+             for z in range(py)]
+    rows_in_turns(bands, passes)
+    torch.cuda.synchronize()
+    after = kernel.launches if dev is None else kernel.launches_bf16
+    assert after == before + py * passes * depth
+    for z, s in enumerate(bands):
+        assert torch.equal(s.state(), want[z][0])
+        assert torch.equal(s.sums, want_sums[z])

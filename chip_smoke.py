@@ -208,16 +208,23 @@ PyTorch built for CUDA. Phases, each printing what it found:
    ring filled from received rows (``shard_step.RowShard``) on 2 shards of
    1024^2 on the card, their rows handed over by hand, against the plain
    shard step (50 steps), bitwise K3 with the peer fill, timed beside it
-   in turns; then 2 ranks of ``python -m lbm_tpu_torch --multihost``
-   (``torch.distributed`` over gloo, both on ``--device 0``) on the 1024^2
-   deck cut to 200 steps with ``auto`` (K3) and ``band`` (K8 and a K3
-   remainder): rank 0's files must be the bytes of the one-process
-   ``--mesh 2 --device 0`` run, its stats the same route and Reynolds
-   number, every rank's result digest equal, and the ranks' launch
-   counters must account for every step; each layout's loop us/step
-   printed. With two cards or more, the NCCL layout (one card per rank)
-   against ``--mesh 2`` on those cards; with one, a line says it was not
-   run;
+   in turns; K12 across 2 processes on the card (``shard_step.IpcRowShard``,
+   each process mapping its neighbour's shard with CUDA IPC; spawned as
+   ``tests/torch_multihost_worker.py ipc``) on the 1024^2 deck's two
+   shards: over 50 steps bitwise the one-process K12 and against the plain
+   shard step, then timed over 2,000 steps; then 2 ranks of ``python -m
+   lbm_tpu_torch --multihost`` (``torch.distributed`` over gloo, both on
+   ``--device 0``) on the 1024^2 deck cut to 200 steps with ``auto`` (K3)
+   and ``band`` (K8 and a K3 remainder), and cut to 2,000 steps with
+   ``pallas-overlap`` (K12, the ``ipc`` channel; and at bf16, the f32 K12
+   between two casts, on 200): rank 0's files must be
+   the bytes of the one-process ``--mesh 2 --device 0`` run, its stats the
+   same route and Reynolds number, every rank's result digest equal, and
+   the ranks' launch counters must account for every step; each layout's
+   loop us/step printed, K12 over ipc beside gloo's ``auto`` and the
+   one-process K12. With two cards or more, the same with one card per rank
+   (rows over NCCL, K12 over ipc between the cards) against ``--mesh 2`` on
+   those cards; with one, a line says it was not run;
 31. diagnostics, profile and viz on the card: ``--debug --check-nan`` on
    the 128^2 deck cut to 50 steps at f32 (K4) and c16 (K1), 50 reports,
    each ``tot density`` within 1e-5 of ``total_density`` of the plain run
@@ -2861,18 +2868,27 @@ def redesign12_phase(torch, spec, cli, gpu_line, gates=True):
     redesign12_decks(torch, cli, gpu_line, gates)
 
 
-PHASE_30 = ("30. the row mesh across processes: K3 with its ring from received rows, 2 ranks "
-            "of --multihost against --mesh 2 (auto, band)")
+PHASE_30 = ("30. the row mesh across processes: K3 with its ring from received rows, K12 with "
+            "its neighbours mapped by CUDA IPC, 2 ranks of --multihost against --mesh 2 (auto, "
+            "band, pallas-overlap)")
 PHASE_31 = ("31. diagnostics, profile and viz on the card: --debug --check-nan, a NaN state, "
             "--profile-dir, utils.viz")
 # Phase 30: the 1024^2 deck cut to this many steps for the multi-process
 # runs, and the backends run there.
 MULTIHOST_ITERS = 200
 MULTIHOST_BACKENDS = ("auto", "band")
+# K12 across processes (``--backend pallas-overlap``, the ``ipc`` channel):
+# the 1024^2 deck cut to this many steps, and the steps of its kernel check
+# and of its timed run (tests/torch_multihost_worker.py ``ipc``).
+MULTIHOST_ITERS_IPC = 2000
+IPC_CHECK_STEPS = 50
+IPC_TIMED_STEPS = 2000
 # The stats of a run that the multi-process run must repeat.
 SAME_STATS = ("nx", "ny", "max_iters", "backend", "route", "precision", "reynolds")
 K3_ROWS = ("K3 ring filled from received rows (multi-process mesh)",
            "lbm_tpu_torch/csrc/shard_step.cu", "lbm_tpu/ops/pallas_step.py:164")
+K12_IPC = ("K12 across processes (neighbour shards mapped with CUDA IPC)",
+           "lbm_tpu_torch/csrc/shard_step.cu", "lbm_tpu/ops/pallas_remote.py:49")
 
 
 def write_deck(work, tag, iters):
@@ -2937,6 +2953,73 @@ def rows_kernel_phase(torch, gpu_line):
     return err, t["rows"] * 1e-3, p_ms / 5
 
 
+def ipc_kernel_phase(torch, gpu_line, work):
+    """K12 across 2 processes on cuda:0 (``IpcRowShard``, spawned as
+    tests/torch_multihost_worker.py ``ipc``) on the 1024^2 deck's two
+    shards: over ``IPC_CHECK_STEPS`` steps each process's state and sums
+    bitwise the one-process K12's and within the tolerance of the plain
+    shard step; then a timed run of ``IPC_TIMED_STEPS`` steps. Returns
+    (max_abs_err, ms per mesh step, plain ms per mesh step)."""
+    import numpy as np
+
+    from lbm_tpu_torch.ops.shard_step import run_shard_overlap, run_shard_step_plain
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_multihost_worker as worker
+
+    cells, nob = worker.ipc_deck()
+    ny = cells.shape[1]
+    ry = ny // 2
+    dev = torch.device("cuda", 0)
+    s = [[cells[:, z * ry:(z + 1) * ry].to(dev)] for z in range(2)]
+    o = [[nob[z * ry:(z + 1) * ry].to(dev)] for z in range(2)]
+    scalars = (worker.DENSITY, worker.ACCEL, worker.OMEGA)
+    want, want_sums = run_shard_overlap(s, o, *scalars, IPC_CHECK_STEPS, ny)
+    port = free_port()
+    outs = [os.path.join(work, f"ipc{rank}.npz") for rank in range(2)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "torch_multihost_worker.py"),
+                               "ipc", str(rank), "2", str(port), outs[rank], "--steps",
+                               str(IPC_CHECK_STEPS), "--timed", str(IPC_TIMED_STEPS)],
+                              cwd=ROOT, env=dict(env, PYTHONPATH=ROOT), text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for rank in range(2)]
+    texts = []
+    try:
+        for proc in procs:
+            texts.append(proc.communicate(timeout=300)[0])
+    except subprocess.TimeoutExpired:
+        fail("a process of K12 across processes did not end within 300 s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, text) in enumerate(zip(procs, texts)):
+        check(proc.returncode == 0, f"K12 across processes, rank {rank} exited "
+              f"{proc.returncode}: {text.strip()[-2000:]}")
+    got = [np.load(out) for out in outs]
+    same = all(np.array_equal(g["state"], want[z][0].cpu().numpy()) and
+               np.array_equal(g["sums"], want_sums[z].cpu().numpy()) for z, g in enumerate(got))
+    check(same, "K12 across processes is not bitwise the one-process K12")
+    check(all(int(g["launches"]) == IPC_CHECK_STEPS for g in got),
+          f"K12 across processes counted {[int(g['launches']) for g in got]} steps")
+    log(f"  K12 across 2 processes on cuda:0: state and per-step sums bitwise the one-process "
+        f"K12 over {IPC_CHECK_STEPS} steps")
+    gs = [[torch.as_tensor(g["state"]).to(dev)] for g in got]
+    err = compare(torch, f"K12 across processes 2x1 1024x1024 {IPC_CHECK_STEPS} steps",
+                  joined(torch, (gs, torch.as_tensor(np.stack([g["sums"] for g in got])).to(dev))),
+                  joined(torch, run_shard_step_plain(s, o, *scalars, IPC_CHECK_STEPS, ny)))
+    ms = max(float(g["seconds"]) for g in got) * 1e3 / IPC_TIMED_STEPS
+    run_shard_step_plain(s, o, *scalars, 2, ny)
+    _, p_ms = timed(torch, lambda: run_shard_step_plain(s, o, *scalars, 5, ny))
+    log(f"  K12 across 2 processes on cuda:0, 2 shards of 1024x1024: {1e3 * ms:.2f} us per mesh "
+        f"step over {IPC_TIMED_STEPS} steps (the slower rank's run), plain "
+        f"{1e3 * p_ms / 5:.2f} [{gpu_line}]")
+    return err, ms, p_ms / 5
+
+
 def free_port():
     import socket
 
@@ -2984,36 +3067,46 @@ def same_files(a, b, what):
 
 
 def multihost_phase(torch, cli, gpu_line, work):
-    """Phase 30; returns (max_abs_err, ms, plain_ms, launches) of K3 with its
-    ring from received rows, launches the steps the ranks ran in it."""
+    """Phase 30; returns {name: (launches, max_abs_err, ms, plain_ms)} of K3
+    with its ring from received rows ("K3 rows") and K12 across processes
+    ("K12 ipc"), launches the steps the ranks ran in them."""
     import contextlib
     import io
 
     from lbm_tpu_torch.io import read_params
     from lbm_tpu_torch.parallel.sharded import pick_shard_step
 
-    err, ms, plain_ms = rows_kernel_phase(torch, gpu_line)
-    params_path, obst_path = write_deck(work, "1024x1024", MULTIHOST_ITERS)
+    kernels = {"K3 rows": rows_kernel_phase(torch, gpu_line),
+               "K12 ipc": ipc_kernel_phase(torch, gpu_line, work)}
+    decks = {n: write_deck(work, "1024x1024", n) for n in (MULTIHOST_ITERS, MULTIHOST_ITERS_IPC)}
+    runs = [(b, MULTIHOST_ITERS, "f32") for b in MULTIHOST_BACKENDS] + [
+        ("pallas-overlap", MULTIHOST_ITERS_IPC, "f32"), ("pallas-overlap", MULTIHOST_ITERS, "bf16")]
     layouts = [("gloo", [0, 0], ["--device", "0"])]
     if torch.cuda.device_count() >= 2:
         layouts.append(("nccl", [None, None], []))
         # The one-process mesh on cards 0 and 1 once before it is timed:
         # the second card's context and the peer mappings are made then.
         with contextlib.redirect_stdout(io.StringIO()):
-            check(cli.main([params_path, obst_path, "--mesh", "2", "--out-dir",
+            check(cli.main([*decks[MULTIHOST_ITERS], "--mesh", "2", "--out-dir",
                             os.path.join(work, "warm")]) == 0, "--mesh 2 on cards 0 and 1 failed")
-    launches = 0
-    for channel, devices, one_process in layouts:
-        for backend in MULTIHOST_BACKENDS:
-            tag = f"{backend}-{channel}"
+    launches = dict.fromkeys(kernels, 0)
+    for layout, devices, one_process in layouts:
+        loop_us = {}
+        for backend, iters, precision in runs:
+            params_path, obst_path = decks[iters]
+            channel = "ipc" if backend == "pallas-overlap" else layout
+            tag = f"{backend}-{precision}-{layout}"
             one = os.path.join(work, f"one-{tag}")
             many = os.path.join(work, f"many-{tag}")
-            rc = cli.main([params_path, obst_path, "--backend", backend, "--mesh", "2",
-                           *one_process, "--out-dir", one, "--stats-json", one + ".json"])
-            check(rc == 0, f"--mesh 2 {' '.join(one_process)} --backend {backend}: rc {rc}")
+            argv = [params_path, obst_path, "--backend", backend, "--precision", precision]
+            with contextlib.redirect_stderr(io.StringIO()):  # bf16's warning
+                rc = cli.main([*argv, "--mesh", "2", *one_process, "--out-dir", one,
+                               "--stats-json", one + ".json"])
+            check(rc == 0, f"--mesh 2 {' '.join(one_process)} --backend {backend} "
+                  f"--precision {precision}: rc {rc}")
             t0 = time.time()
-            outs = run_ranks([params_path, obst_path, "--backend", backend, "--out-dir", many,
-                              "--stats-json", many + ".json"], 2, devices)
+            outs = run_ranks([*argv, "--out-dir", many, "--stats-json", many + ".json"], 2,
+                             devices)
             wall = time.time() - t0
             with open(one + ".json") as f:
                 want = json.load(f)
@@ -3032,26 +3125,35 @@ def multihost_phase(torch, cli, gpu_line, work):
             check(len({r["result_sha256"] for r in ranks}) == 1,
                   f"--multihost {backend}: the ranks' results differ")
             _, cfg = pick_shard_step(read_params(params_path), 2, backend, torch.float32)
-            want_k8 = 0 if cfg is None else MULTIHOST_ITERS // cfg[1] * cfg[1]
+            want_k8 = 0 if cfg is None else iters // cfg[1] * cfg[1]
+            want_k12 = iters if backend == "pallas-overlap" else 0
             for r in ranks:
                 counts = r["launches"]
-                check(counts["K3 rows"] == MULTIHOST_ITERS - want_k8 and counts["K8"] == want_k8,
+                check(counts["K3 rows"] == iters - want_k8 - want_k12 and
+                      counts["K8"] == want_k8 and counts["K12 ipc"] == want_k12,
                       f"--multihost {backend}: rank {r['rank']} counted {counts}")
-                launches += counts["K3 rows"]
+                launches["K3 rows"] += counts["K3 rows"]
+                launches["K12 ipc"] += counts["K12 ipc"]
             verbose = [line for _, e in outs for line in e.splitlines() if "halo rows over" in line]
             check(len(verbose) == 2, f"--multihost -v did not say which channel ran: {verbose}")
-            log(f"  --backend {backend}, route {want['route']}: one process --mesh 2 "
-                f"{' '.join(one_process)} loop {1e6 * want['loop_s'] / MULTIHOST_ITERS:.2f} "
-                f"us/step; 2 ranks over {channel} ({', '.join(x['device'] for x in got['shards'])})"
-                f" rank 0 loop {1e6 * got['loop_s'] / MULTIHOST_ITERS:.2f} us/step, {wall:.1f} s "
-                f"wall for both ranks; files and Reynolds number equal, digests equal; launches "
+            us = loop_us[backend, precision] = (1e6 * want["loop_s"] / iters,
+                                                1e6 * got["loop_s"] / iters)
+            log(f"  --backend {backend} --precision {precision}, route {want['route']}: one "
+                f"process --mesh 2 {' '.join(one_process)} loop {us[0]:.2f} us/step; 2 ranks over "
+                f"{channel} ({', '.join(x['device'] for x in got['shards'])}) rank 0 loop "
+                f"{us[1]:.2f} us/step over {iters} steps, {wall:.1f} s wall for "
+                f"both ranks; files and Reynolds number equal, digests equal; launches "
                 f"{ranks[0]['launches']} per rank [{gpu_line}]")
             for d in (one, many):
                 shutil.rmtree(d)
+        k12, k3 = loop_us["pallas-overlap", "f32"], loop_us["auto", "f32"]
+        log(f"  1024x1024, 2 ranks ({layout} layout): K12 across processes over ipc "
+            f"{k12[1]:.2f} us/step, rows over {layout} with auto (K3) {k3[1]:.2f}, one-process "
+            f"K12 (--mesh 2 --backend pallas-overlap) {k12[0]:.2f} [{gpu_line}]")
     if torch.cuda.device_count() < 2:
-        log(f"  the NCCL layout (a card per rank) was not run: this machine has "
-            f"{torch.cuda.device_count()} card")
-    return err, ms, plain_ms, launches
+        log(f"  the layout with a card per rank (NCCL rows, K12 over ipc between two cards) was "
+            f"not run: this machine has {torch.cuda.device_count()} card")
+    return {name: (launches[name], *kernels[name]) for name in kernels}
 
 
 def debug_reports(text):
@@ -3564,8 +3666,7 @@ def main():
     redesign12_phase(torch, spec, cli, gpu_line)
     with tempfile.TemporaryDirectory() as work:
         phase(PHASE_30)
-        rows_err, rows_ms, rows_plain_ms, rows_launches = multihost_phase(torch, cli, gpu_line,
-                                                                          work)
+        across = multihost_phase(torch, cli, gpu_line, work)
     with tempfile.TemporaryDirectory() as work:
         phase(PHASE_31)
         diagnostics_phase(torch, cli, gpu_line, work)
@@ -3630,7 +3731,8 @@ def main():
               BYTES_PER_CELL_BF16 * (slab_bytes if name == "K13" else 1))
         for name in BF16_KERNELS
     ] + [
-        entry(*K3_ROWS, rows_launches, rows_err, rows_ms, rows_plain_ms, 1024 * 1024),
+        entry(*K3_ROWS, *across["K3 rows"], 1024 * 1024),
+        entry(*K12_IPC, *across["K12 ipc"], 1024 * 1024),
     ]}
     log(gpu_line)
     log(json.dumps(report))

@@ -19,8 +19,9 @@ that device, else the mesh is the first N cards) and
 checkpoints either package resumes; ``--debug`` (the reference's per-step
 report), ``--check-nan``, ``--profile-dir`` (a ``torch.profiler`` trace)
 and ``--multihost`` (one row shard per process, ``parallel/multihost.py``:
-``torchrun --nproc-per-node 2 -m lbm_tpu_torch ... --multihost``; rank 0
-alone writes the output files and prints the block). Bad inputs end
+``torchrun --nproc-per-node 2 -m lbm_tpu_torch ... --multihost``, with
+``--backend pallas-overlap`` the neighbours' shards mapped with CUDA IPC;
+rank 0 alone writes the output files and prints the block). Bad inputs end
 with ``lbm_tpu_torch: error: ...`` on stderr and exit code 1, never a
 traceback.
 """
@@ -60,8 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
         "barrier between steps; temporal, deep: T steps per pass on a "
         "shrinking trapezoid in shared memory, halo rows from carried row "
         "packs or straight from the state, remainder on the step kernel; "
-        "reference: plain PyTorch step; pallas-overlap (--mesh N only): the "
-        "shard step kernel storing its edge rows into the neighbour shards"
+        "reference: plain PyTorch step; pallas-overlap (--mesh N or --multihost): "
+        "the shard step kernel storing its edge rows into the neighbour shards "
+        "(across processes mapped with CUDA IPC)"
         + ("; slab (quarantined, LBM_ENABLE_SLAB=1): band passes over y-slabs, "
            "K per slab visit" if "slab" in backends else ""),
     )

@@ -51,11 +51,14 @@
 // the buffer those shards read next. No copy runs between steps. A write
 // of step t lands in a buffer nobody reads during step t; on one stream the
 // launch order puts it after the readers of step t-1 and before those of
-// step t+1, and across cards the caller orders the streams with events.
-// No block waits on another (no spin waits: a block that is not resident
-// would hang the card). One card shows K12's result, not an overlap: its
-// blocks run in parallel and in no order, so the TPU kernel's
-// interior-first block order (_order) has no counterpart here.
+// step t+1; across cards in one process the caller orders the streams with
+// events; across processes (lbm_shard_ipc_run, one shard per process) the
+// neighbours' buffers are mapped into this process with CUDA IPC and the
+// streams wait on step counters (below). No block waits on another (no
+// spin waits: a block that is not resident would hang the card). One card
+// shows K12's result, not an overlap: its blocks run in parallel and in no
+// order, so the TPU kernel's interior-first block order (_order) has no
+// counterpart here.
 //
 // What bounds it on the H100: bytes, as K1: 76 B per cell per step (9
 // planes in, 9 out, the mask), plus the ring, 2 (ry + rx) + 4 cells per
@@ -88,6 +91,10 @@
 // the sharded runner runs the f32 K12 between one cast in and one cast
 // out per chunk (parallel/sharded.py), and this entry refuses bf16 in
 // mode 2 as it refuses c16.
+#include <cuda.h>  // libcuda's stream memory operations (lbm_shard_ipc_run)
+
+#include <cstring>
+
 #include "lbm_common.cuh"
 
 namespace {
@@ -525,4 +532,190 @@ extern "C" int lbm_enable_peer(int device, int peer) {
   }
   cudaSetDevice(prev);
   return static_cast<int>(err);
+}
+
+// K12 across processes: a 1-D row mesh of `world` shards, one per process
+// (parallel/multihost.py, --backend pallas-overlap; ops/shard_step.py::
+// IpcRowShard). Each process holds its shard in one allocation of its own
+// (cudaMalloc, not torch's caching allocator, whose blocks are
+// sub-allocations that cudaIpcGetMemHandle cannot export on their own):
+// buffer 0, buffer 1, the padded not-obstacle plane and an inbox of two
+// step counters (lbm_shard_ipc_layout). It exports the allocation with
+// cudaIpcGetMemHandle; its neighbours open the handle with
+// cudaIpcOpenMemHandle(cudaIpcMemLazyEnablePeerAccess), so the table row of
+// a neighbour shard holds that shard's buffers as mapped into this process,
+// and K12's stores into the neighbours' rings, unchanged, reach the other
+// processes' memory (on this card, or on a peer card over NVLink).
+//
+// The order between processes is kept on the streams, never by the host
+// and never by a block: step s (numbered from 1 over the whole run) reads
+// this shard's ring, which the neighbours wrote in their step s-1, and
+// writes the neighbours' rings in the buffer they read in their step s-1.
+// So before step s the stream waits until both neighbours have finished
+// step s-1 (cuStreamWaitValue32, GEQ); after step s it tells them it has
+// finished (cuStreamWriteValue32). Each process writes THE NEIGHBOURS'
+// counters and waits on its OWN: inbox word 0 is written by the previous
+// shard, word 1 by the next one (a rank writes word 0 of its next shard's
+// inbox and word 1 of its previous one's). The wait thus polls this
+// card's memory, also when the neighbour is on another card. With two shards the
+// previous and the next are one process: it writes word 0 alone, and the
+// stream waits on word 0 alone. The write is issued without
+// CU_STREAM_WRITE_VALUE_NO_MEMORY_BARRIER, so it is preceded by a fence
+// scoped to the stream with __threadfence_system()'s semantics: the
+// kernel's remote ring stores are visible to the neighbour before the
+// counter says step s is done. These waits run in the card's front end: no
+// kernel polls a flag, so two processes that time-slice one card cannot
+// deadlock on each other's kernels. A neighbour that stops leaves the
+// stream waiting; the host waits for it with a deadline, then releases the
+// stream (lbm_shard_ipc_release: the inbox set past every step, so the
+// queued steps run out and the process can exit) and raises.
+namespace {
+
+struct IpcLayout {
+  size_t buf0, buf1, nob, inbox, bytes;
+};
+
+IpcLayout ipc_layout(int ry, int pitch) {
+  const size_t plane = (size_t)(ry + 2) * pitch * sizeof(float);
+  auto up = [](size_t v) { return (v + 511) & ~size_t(511); };
+  IpcLayout l;
+  l.buf0 = 0;
+  l.buf1 = up(9 * plane);
+  l.nob = l.buf1 + up(9 * plane);
+  l.inbox = l.nob + up(plane);
+  l.bytes = l.inbox + 512;
+  return l;
+}
+
+}  // namespace
+
+// Byte offsets in one shard's allocation of buffer 0, buffer 1, the padded
+// not-obstacle plane and the inbox (two unsigned ints), and its size, for
+// f32 buffers of (9, ry + 2, pitch): out[0..4].
+extern "C" int lbm_shard_ipc_layout(int ry, int pitch, unsigned long long* out) {
+  if (ry < 1 || pitch < 1 || out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const IpcLayout l = ipc_layout(ry, pitch);
+  out[0] = l.buf0;
+  out[1] = l.buf1;
+  out[2] = l.nob;
+  out[3] = l.inbox;
+  out[4] = l.bytes;
+  return 0;
+}
+
+// Allocates `bytes` on the current device, zeroes them (the inbox starts at
+// step 0) and exports them: *base the address, handle the
+// cudaIpcMemHandle_t (CUDA_IPC_HANDLE_SIZE bytes). The zeroing is queued
+// on the legacy stream; the caller synchronises before it hands the handle
+// out.
+extern "C" int lbm_shard_ipc_alloc(unsigned long long bytes, unsigned long long* base,
+                                   void* handle) {
+  void* p = nullptr;
+  cudaError_t err = cudaMalloc(&p, bytes);
+  if (err == cudaSuccess) err = cudaMemset(p, 0, bytes);
+  cudaIpcMemHandle_t h;
+  if (err == cudaSuccess) err = cudaIpcGetMemHandle(&h, p);
+  if (err != cudaSuccess) {
+    if (p != nullptr) cudaFree(p);
+    return static_cast<int>(err);
+  }
+  std::memcpy(handle, &h, sizeof(h));
+  *base = reinterpret_cast<unsigned long long>(p);
+  return 0;
+}
+
+// Maps another process's allocation into this one: *base its address here.
+extern "C" int lbm_shard_ipc_open(const void* handle, unsigned long long* base) {
+  cudaIpcMemHandle_t h;
+  std::memcpy(&h, handle, sizeof(h));
+  void* p = nullptr;
+  const cudaError_t err = cudaIpcOpenMemHandle(&p, h, cudaIpcMemLazyEnablePeerAccess);
+  *base = reinterpret_cast<unsigned long long>(p);
+  return static_cast<int>(err);
+}
+
+// Unmaps an allocation that lbm_shard_ipc_open mapped.
+extern "C" int lbm_shard_ipc_close(unsigned long long base) {
+  return static_cast<int>(cudaIpcCloseMemHandle(reinterpret_cast<void*>(base)));
+}
+
+// Frees this process's allocation: only once every neighbour has unmapped it.
+extern "C" int lbm_shard_ipc_free(unsigned long long base) {
+  return static_cast<int>(cudaFree(reinterpret_cast<void*>(base)));
+}
+
+// Copies `bytes` between two device addresses on `stream` (the upload of
+// the shard into the allocation, and its state out of it).
+extern "C" int lbm_shard_ipc_copy(unsigned long long dst, unsigned long long src,
+                                  unsigned long long bytes, void* stream) {
+  return static_cast<int>(cudaMemcpyAsync(reinterpret_cast<void*>(dst),
+                                          reinterpret_cast<const void*>(src), bytes,
+                                          cudaMemcpyDeviceToDevice,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// Sets both words of this shard's inbox past every step number, from a
+// stream of its own that does not wait for the shard's stream: the waits
+// queued there pass, so the stream runs out. The error path of a rank
+// whose neighbour stopped: the steps that run then compute nothing
+// meaningful, and the caller raises. GEQ is a cyclic comparison
+// ((int32_t)(*addr - value) >= 0), so the words become 0x7f7f7f7f, ahead
+// of every step number below it, not 0xffffffff, which is behind them.
+extern "C" int lbm_shard_ipc_release(unsigned long long inbox) {
+  cudaStream_t side;
+  cudaError_t err = cudaStreamCreateWithFlags(&side, cudaStreamNonBlocking);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(reinterpret_cast<void*>(inbox), 0x7f, 2 * sizeof(cuuint32_t), side);
+  const cudaError_t sync = cudaStreamSynchronize(side);
+  cudaStreamDestroy(side);
+  return static_cast<int>(err != cudaSuccess ? err : sync);
+}
+
+// Issues steps done + 1 .. done + n_steps of shard `rank` of a 1-D row mesh
+// of `world` shards (one per process) on `stream`, in one call: per step
+// the waits on this shard's inbox (`inbox`: word 0; and word 1 when
+// `to_prev` is not 0), K12 (shard_step_kernel<true>, its table rows of the
+// neighbour shards mapped from the other processes), and the writes of the
+// step's number to the neighbours' inboxes (`to_next`: word 0 of the next
+// shard's; `to_prev`: word 1 of the previous shard's, 0 when the previous
+// and the next shard are one). The first step of the run (done == 0) fills
+// the not-obstacle ring and the state ring of buffer 0 first, reading the
+// neighbours' cells through the table; every process has uploaded its
+// shard before any of them calls this. av receives n_steps raw sums;
+// table, partials, ticket and the scalars as lbm_shard_run (f32 only).
+// Returns the first CUDA error (a libcuda error as its CUresult), or 0.
+extern "C" int lbm_shard_ipc_run(const unsigned long long* table, int rank, int world, int ry,
+                                 int rx, int ny, int pitch, int lead, unsigned long long inbox,
+                                 unsigned long long to_next, unsigned long long to_prev, int done,
+                                 int n_steps, float* av, float* partials, unsigned int* ticket,
+                                 float w1a, float w2a, float beta, float ow0, float ow1,
+                                 float ow2, void* stream) {
+  const Mesh m{world, 1, ry, rx, ny, pitch, lead, (size_t)(ry + 2) * pitch};
+  if (world < 1 || rank < 0 || rank >= world || lead < 1 || pitch < lead + rx + 1 || done < 0 ||
+      n_steps < 0 || (long long)done + n_steps >= 0x7f7f7f7fLL || inbox == 0 || to_next == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const lbm::Relax rc{beta, ow0, ow1, ow2};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUstream cs = static_cast<CUstream>(stream);
+  for (int i = 0; i < n_steps; ++i) {
+    const cuuint32_t s = static_cast<cuuint32_t>(done + i + 1);  // this step's number
+    CUresult r = CUDA_SUCCESS;
+    if (s > 1) {
+      r = cuStreamWaitValue32(cs, inbox, s - 1, CU_STREAM_WAIT_VALUE_GEQ);
+      if (r == CUDA_SUCCESS && to_prev != 0) {
+        r = cuStreamWaitValue32(cs, inbox + sizeof(cuuint32_t), s - 1, CU_STREAM_WAIT_VALUE_GEQ);
+      }
+      if (r != CUDA_SUCCESS) return static_cast<int>(r);
+    }
+    const int err = run(table, rank, 1, m, av + i, 1, partials, ticket, (done + i) & 1, 1, 2,
+                        done + i == 0, w1a, w2a, rc, st, lbm::F32());
+    if (err != 0) return err;
+    r = cuStreamWriteValue32(cs, to_next, s, CU_STREAM_WRITE_VALUE_DEFAULT);
+    if (r == CUDA_SUCCESS && to_prev != 0) {
+      r = cuStreamWriteValue32(cs, to_prev, s, CU_STREAM_WRITE_VALUE_DEFAULT);
+    }
+    if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  }
+  return 0;
 }

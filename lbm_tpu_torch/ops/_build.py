@@ -5,8 +5,12 @@ per source, all started together, and links the objects into one shared
 library with a plain C interface in ``lbm_tpu_torch/build/``. The
 file name carries a hash of the sources and flags, so a changed source
 builds anew and an unchanged one loads the library already built. The
+link takes libcuda (``-lcuda``, against the toolkit's stub where it has
+one: the card's own ``libcuda.so.1`` is loaded at run time) for the
+stream memory operations of ``lbm_shard_ipc_run``. The
 library is bound with ctypes: ``c_void_p`` for every pointer and the
-stream, ``c_int``/``c_float`` for sizes and scalars. Each entry point
+stream, ``c_ulonglong`` for device addresses and sizes held as integers,
+``c_int``/``c_float`` for sizes and scalars. Each entry point
 returns the CUDA error code of its launches; callers raise when it is not
 0. Nothing is built at import time: the first call that needs a kernel
 builds it, and a build failure raises.
@@ -40,6 +44,7 @@ NVCC_FLAGS = (
 )
 
 _P = ctypes.c_void_p
+_U = ctypes.c_ulonglong
 _I = ctypes.c_int
 _F = ctypes.c_float
 
@@ -95,6 +100,18 @@ _RUN_ARGTYPES = {
     # partials, ticket, parity, 6 scalars, codec, stream)
     "lbm_shard_rows_run": [_P] + [_I] * 8 + [_P, _P, _I, _P, _P, _I] + [_F] * 6 + [_S, _P],
     "lbm_enable_peer": [_I, _I],
+    # K12 across processes: (ry, pitch, offsets[5]); (bytes, base*, handle);
+    # (handle, base*); (base); (base); (dst, src, bytes, stream); (table,
+    # rank, world, ry, rx, ny, pitch, lead, inbox, to_next, to_prev, done,
+    # n_steps, av, partials, ticket, 6 scalars, stream)
+    "lbm_shard_ipc_layout": [_I, _I, _P],
+    "lbm_shard_ipc_alloc": [_U, _P, _P],
+    "lbm_shard_ipc_open": [_P, _P],
+    "lbm_shard_ipc_close": [_U],
+    "lbm_shard_ipc_free": [_U],
+    "lbm_shard_ipc_copy": [_U, _U, _U, _P],
+    "lbm_shard_ipc_release": [_U],  # (inbox)
+    "lbm_shard_ipc_run": [_P] + [_I] * 7 + [_U] * 3 + [_I] * 2 + [_P] * 3 + [_F] * 6 + [_P],
     # (table, s0, count, nshards, buf_a, buf_b, halo_dn, halo_up, nobst,
     # nob_dn, nob_up, av, av_stride, partials, ticket, ny, nx, block, depth,
     # panel, parity, n_passes, 7 scalars, codec, stream)
@@ -156,6 +173,13 @@ def windows_define() -> str:
     return f"#define LBM_TRAP_WINDOWS {pairs}\n"
 
 
+def link_flags() -> list[str]:
+    """libcuda for the link: ``-lcuda``, with the toolkit's stub
+    directory where it has one."""
+    stubs = os.path.join(os.path.dirname(os.path.dirname(_nvcc())), "lib64", "stubs")
+    return (["-L" + stubs] if os.path.isdir(stubs) else []) + ["-lcuda"]
+
+
 def _source_hash(define: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(define.encode())
@@ -184,7 +208,7 @@ def library() -> ctypes.CDLL:
         objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
         cmds = [[_nvcc(), *NVCC_FLAGS, "-include", header, "-c", src, "-o", obj]
                 for src, obj in zip(sources(), objs)]
-        cmds.append([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
+        cmds.append([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs, *link_flags()])
         try:
             procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True) for cmd in cmds[:-1]]

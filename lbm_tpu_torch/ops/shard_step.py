@@ -26,6 +26,12 @@ whole grid. A shard may be its own neighbour (``px = 1``, a mesh of one).
   that read them next step; nothing runs between steps. On one card that
   shows K12's result, not an overlap of exchange and compute.
 
+Across processes (``parallel/multihost.py``, one row shard per process):
+``RowShard`` runs K3 with its ring filled from rows the caller received
+(``RowExchange`` swaps them over NCCL or gloo); ``IpcRowShard`` runs K12
+with the neighbours' shards mapped into the process with CUDA IPC, the
+steps ordered by waits on the streams, no row through the host.
+
 The shards of a mesh fall into runs of consecutive shards on one device
 (``device_runs``); each run's shards share one allocation and one launch.
 With every shard on one device there is one run, and one C call issues a
@@ -54,6 +60,10 @@ runner runs it on f32 between two casts per chunk.
 """
 
 from __future__ import annotations
+
+import ctypes
+import socket
+import time
 
 import torch
 
@@ -496,3 +506,265 @@ class RowShard:
             count_launches(RowShard, 1, self.dev)
         self.t += 1
 
+
+
+class RowExchange:
+    """Swaps a shard's edge rows with the previous and the next process of
+    a ring of ``world`` processes. ``__call__(first, last, dn, up)`` sends
+    ``first`` (the shard's first rows) to the previous process and ``last``
+    to the next, and receives into ``dn`` the previous process's last rows
+    and into ``up`` the next one's first rows. ``channel``: ``nccl`` (the
+    tensors stay on the card; ``group`` an NCCL group), ``gloo`` (staged
+    through the host) or ``local`` (a world of one: the shard is its own
+    neighbour)."""
+
+    def __init__(self, rank: int, world_size: int, channel: str, group=None):
+        self.rank, self.world, self.channel, self.group = rank, world_size, channel, group
+
+    def __call__(self, first, last, dn, up) -> None:
+        if self.channel == "local":
+            dn.copy_(last)
+            up.copy_(first)
+            return
+        import torch.distributed as dist
+
+        staged = self.channel == "gloo"
+        send_last, send_first = ((x.cpu() if staged else x).contiguous() for x in (last, first))
+        got_dn, got_up = ((torch.empty(x.shape, dtype=x.dtype) if staged else x)
+                          for x in (dn, up))
+        prev, nxt = (self.rank - 1) % self.world, (self.rank + 1) % self.world
+        # Two processes are each other's previous and next: the ops between
+        # one pair are matched in the order issued, so rows going down
+        # (tag 1) come before rows going up (tag 2) on both sides.
+        ops = [dist.P2POp(dist.isend, send_last, nxt, self.group, tag=1),
+               dist.P2POp(dist.isend, send_first, prev, self.group, tag=2),
+               dist.P2POp(dist.irecv, got_dn, prev, self.group, tag=1),
+               dist.P2POp(dist.irecv, got_up, nxt, self.group, tag=2)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if staged:
+            dn.copy_(got_dn)
+            up.copy_(got_up)
+
+
+def gather_objects(obj, group, world: int) -> list:
+    """Every process's ``obj``, in rank order, over ``group`` (gloo)."""
+    if world == 1:
+        return [obj]
+    import torch.distributed as dist
+
+    out = [None] * world
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+IPC_HANDLE_BYTES = 64  # CUDA_IPC_HANDLE_SIZE: a cudaIpcMemHandle_t
+IPC_CHUNK = 128  # steps per C call of IpcRowShard.run; at most two are queued
+STALL_S = 60.0  # seconds a rank waits for a chunk of steps before it raises
+
+
+class IpcRowShard:
+    """Shard ``rank`` of a 1-D row mesh of ``world`` shards, one per process
+    (``parallel/multihost.py``, ``--backend pallas-overlap``), stepped by
+    K12 with no rows through the host: ``lbm_shard_ipc_run`` on CUDA,
+    ``shard_step_plain`` on ``ring_from_rows`` with the rows swapped over
+    gloo (``RowShard`` and ``RowExchange``) on the CPU. ``RowShard``'s
+    arguments (f32 only: K12 stores f32, and the caller casts a bf16 shard
+    once in and once out), plus ``group``, the gloo group of the processes.
+
+    On CUDA every process allocates its shard's buffers, its padded
+    not-obstacle plane and an inbox of two step counters in one
+    ``cudaMalloc`` of its own, uploads the shard, and exports the allocation
+    with CUDA IPC. The handles are swapped with ``all_gather_object``; each
+    process maps its neighbours' allocations and builds K12's table from
+    them, so the kernel stores its edge cells straight into the neighbours'
+    rings. ``run(n)`` issues the steps ``IPC_CHUNK`` at a time, one C call
+    each, every step ordered after the neighbours' step before it by waits
+    on the stream (``csrc/shard_step.cu``); the host waits for each chunk
+    with a deadline (``deadline`` seconds, ``STALL_S``) and, when a
+    neighbour has stopped, releases its stream and raises, naming the
+    ranks. Ranks whose memory cannot be mapped (other hosts, cards without
+    peer access) raise at set-up. ``close()`` unmaps the neighbours, waits for every process at a barrier
+    and only then frees the allocation. With ``world == 1`` nothing is
+    mapped: the shard is its own neighbour. ``state()`` and ``sums`` as
+    ``RowShard``'s; the result is bitwise ``run_shard_overlap``'s on the
+    one-process mesh."""
+
+    launches = 0  # steps K12 advanced across processes in this process
+
+    def __init__(self, cells, nob_ring, rank, world, ny, density, accel, omega, n_steps, *,
+                 group=None, paired="fused", deadline=STALL_S):
+        ry, rx = cells.shape[1:]
+        check_inputs(cells, nob_ring[1:-1, 1:-1], n_steps, 1, None)
+        if tuple(nob_ring.shape) != (ry + 2, rx + 2):
+            raise ValueError(f"nob_ring {tuple(nob_ring.shape)} is not the ring of a {ry}x{rx} "
+                             "shard")
+        if not 0 <= rank < world or world * ry != ny or ny < 2:
+            raise ValueError(f"shard {rank} of {world} shards of {ry} rows is not a row of a "
+                             f"grid of ny={ny} >= 2 rows")
+        self.rank, self.world, self.ny, self.n_steps = rank, world, ny, n_steps
+        self.ry, self.rx, self.device, self.group = ry, rx, cells.device, group
+        self.prev, self.next = (rank - 1) % world, (rank + 1) % world
+        self.deadline, self.t = deadline, 0
+        if self.device.type == "cpu":
+            self.plain = RowShard(cells, nob_ring, rank, world, ny, density, accel, omega,
+                                  n_steps, paired=paired)
+            self.exchange = RowExchange(rank, world, "gloo" if world > 1 else "local", group)
+            self.sums = self.plain.sums
+            return
+        if self.device.type != "cuda":
+            raise ValueError(f"no shard kernel for device {self.device}")
+        if not (isinstance(paired, str) and paired.startswith("fused")):
+            raise ValueError("the CUDA shard kernels implement the fused collision form only")
+        self.lib = lib = _build.library()
+        self.lead, self.pitch = lead_of(torch.float32), pitch_of(rx)
+        self.sums = torch.empty(n_steps, dtype=torch.float32, device=self.device)
+        self.partials = torch.empty(lib.lbm_step_num_blocks(ry, rx), dtype=torch.float32,
+                                    device=self.device)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self.scalars = kernel_scalars(density, accel, omega, 1.0)[:6]
+        layout = (ctypes.c_ulonglong * 5)()
+        _build.check(lib.lbm_shard_ipc_layout(ry, self.pitch, layout), "IPC layout")
+        self.offsets = tuple(layout[:4])  # buffer 0, buffer 1, padded mask, inbox
+        base, handle = ctypes.c_ulonglong(), ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+        self.mapped = {}  # rank: its allocation mapped into this process
+        with torch.cuda.device(self.device):
+            _build.check(lib.lbm_shard_ipc_alloc(layout[4], ctypes.byref(base), handle),
+                         "the shard's allocation (cudaMalloc, cudaIpcGetMemHandle)")
+            self.base = base.value
+            padded = torch.zeros((9, ry + 2, self.pitch), dtype=torch.float32, device=self.device)
+            padded[:, 1:-1, self.lead:self.lead + rx] = cells
+            nob = torch.zeros((ry + 2, self.pitch), dtype=torch.float32, device=self.device)
+            nob[:, self.lead - 1:self.lead + rx + 1] = nob_ring
+            self._copy(self.base + self.offsets[0], padded.data_ptr(), padded.nbytes)
+            self._copy(self.base + self.offsets[2], nob.data_ptr(), nob.nbytes)
+            torch.cuda.synchronize(self.device)  # zeroed and uploaded before the handle goes out
+        props = torch.cuda.get_device_properties(self.device)
+        me = {"host": socket.gethostname(), "device": self.device.index,
+              "card": str(getattr(props, "uuid", self.device.index)), "handle": handle.raw}
+        everyone = gather_objects(me, group, world)  # every shard is uploaded after this
+        check_mappable(everyone)
+        failed = []
+        for q in sorted({self.prev, self.next} - {rank}):
+            got = ctypes.c_ulonglong()
+            with torch.cuda.device(self.device):
+                rc = lib.lbm_shard_ipc_open(everyone[q]["handle"], ctypes.byref(got))
+            if rc != 0:
+                failed.append(f"rank {rank} cannot map rank {q}'s shard: CUDA error {rc} "
+                              "(cudaIpcOpenMemHandle)")
+            else:
+                self.mapped[q] = got.value
+        failed = [f for fs in gather_objects(failed, group, world) for f in fs]
+        if failed:
+            raise RuntimeError("; ".join(failed))
+        bases = {**self.mapped, rank: self.base}
+        table = [[0, 0, 0] for _ in range(world)]
+        for q, b in bases.items():
+            table[q] = [b + off for off in self.offsets[:3]]
+        self.table = torch.tensor(table, dtype=torch.int64, device=self.device)
+        inbox = self.offsets[3]
+        self.inbox = self.base + inbox
+        self.to_next = bases[self.next] + inbox  # word 0: written by the previous shard
+        self.to_prev = 0 if self.prev == self.next else bases[self.prev] + inbox + 4
+
+    def _copy(self, dst, src, nbytes):
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        _build.check(self.lib.lbm_shard_ipc_copy(dst, src, nbytes, stream), "IPC shard copy")
+
+    def state(self):
+        if self.device.type == "cpu":
+            return self.plain.state()
+        out = torch.empty((9, self.ry + 2, self.pitch), dtype=torch.float32, device=self.device)
+        with torch.cuda.device(self.device):
+            self._copy(out.data_ptr(), self.base + self.offsets[self.t % 2], out.nbytes)
+        return out[:, 1:-1, self.lead:self.lead + self.rx]
+
+    def run(self, n: int) -> None:
+        """Advance ``n`` steps."""
+        if self.t + n > self.n_steps:
+            raise ValueError(f"the shard was set up for {self.n_steps} steps")
+        if self.device.type == "cpu":
+            for _ in range(n):
+                first, last = self.plain.edges()
+                self.exchange(first, last, *self.plain.halos())
+                self.plain.step()
+            self.t += n
+            return
+        queued = []
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device)
+            for lo in range(0, n, IPC_CHUNK):
+                if len(queued) == 2:
+                    self._wait(*queued.pop(0))
+                k = min(IPC_CHUNK, n - lo)
+                first = self.t + 1
+                rc = self.lib.lbm_shard_ipc_run(
+                    self.table.data_ptr(), self.rank, self.world, self.ry, self.rx, self.ny,
+                    self.pitch, self.lead, self.inbox, self.to_next, self.to_prev, self.t, k,
+                    self.sums.data_ptr() + 4 * self.t, self.partials.data_ptr(),
+                    self.ticket.data_ptr(), *self.scalars, stream.cuda_stream)
+                _build.check(rc, "K12 across processes (lbm_shard_ipc_run)")
+                self.t += k
+                done = torch.cuda.Event()
+                done.record(stream)
+                queued.append((done, first, self.t))
+            for item in queued:
+                self._wait(*item)
+        IpcRowShard.launches += n
+
+    def _wait(self, done, first, last) -> None:
+        """Wait for the event ``done`` after steps ``first``..``last``,
+        polling, at most ``deadline`` seconds. When it does not come, release
+        the stream (its queued steps run out, so the process can exit) and
+        raise naming the ranks."""
+        limit = time.monotonic() + self.deadline
+        pause = 1e-5
+        while not done.query():
+            if time.monotonic() > limit:
+                rc = self.lib.lbm_shard_ipc_release(self.inbox)
+                them = " and ".join(f"rank {q}" for q in sorted({self.prev, self.next}))
+                raise RuntimeError(
+                    f"K12 across processes: rank {self.rank} of {self.world} did not finish steps "
+                    f"{first}-{last} within {self.deadline:g} s; each step waits for the step "
+                    f"before on its neighbours ({them}), so a neighbour has stopped or stalled"
+                    + (f" (releasing the stream failed: CUDA error {rc})" if rc else ""))
+            time.sleep(pause)
+            pause = min(2 * pause, 2e-4)
+
+    def close(self) -> None:
+        """Unmap the neighbours, wait for every process, free the shard.
+        Call it on every process once the steps are done and the state is
+        read: a neighbour may store into this shard until its last step."""
+        if self.device.type == "cpu" or self.base is None:
+            return
+        with torch.cuda.device(self.device):
+            torch.cuda.synchronize(self.device)  # a copy out of the shard may be queued
+            for q, b in self.mapped.items():
+                _build.check(self.lib.lbm_shard_ipc_close(b), f"unmapping rank {q}'s shard")
+            self.mapped = {}
+            if self.world > 1:
+                import torch.distributed as dist
+
+                dist.barrier(group=self.group)  # no process maps this shard any more
+            _build.check(self.lib.lbm_shard_ipc_free(self.base), "freeing the shard")
+        self.base = None
+
+
+def check_mappable(everyone) -> None:
+    """Raise unless every rank can map its previous and next rank's memory
+    (``everyone``: per rank its host, card index and card id): one host,
+    and the same card or a card with peer access to it."""
+    world = len(everyone)
+    for r, me in enumerate(everyone):
+        for q in sorted({(r - 1) % world, (r + 1) % world} - {r}):
+            them = everyone[q]
+            if me["host"] != them["host"]:
+                raise RuntimeError(f"ranks {r} and {q} run on different hosts ({me['host']}, "
+                                   f"{them['host']}): CUDA IPC maps memory between the "
+                                   "processes of one host only, and K12 stores into its "
+                                   "neighbours' shards")
+            if me["card"] != them["card"] and not torch.cuda.can_device_access_peer(
+                    me["device"], them["device"]):
+                raise RuntimeError(f"rank {r}'s card cuda:{me['device']} has no peer access to "
+                                   f"rank {q}'s card cuda:{them['device']}: K12 stores into its "
+                                   "neighbours' shards")

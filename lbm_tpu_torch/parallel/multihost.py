@@ -6,7 +6,8 @@ feeds its shards and the sharded loop's halo ppermutes become
 cross-process collectives. PyTorch runs one process per card
 (``torchrun``), and the one-process mesh (``parallel/sharded.py``) reads
 its neighbours' cells through addresses in its own process, which another
-process's shard does not give. Here each process owns one row shard:
+process's shard does not give until it is mapped into this one. Here each
+process owns one row shard:
 
 - ``initialize_multihost`` joins the processes in a ``torch.distributed``
   group over gloo, from explicit arguments or ``torchrun``'s variables
@@ -16,28 +17,34 @@ process's shard does not give. Here each process owns one row shard:
   ``[r*ny/W, (r+1)*ny/W)`` on its device (default ``cuda:$LOCAL_RANK``).
   The route is ``pick_shard_step``'s: ``auto``/``pallas`` K3, ``band`` K8,
   ``band2`` K10 (the ``n % T`` remainder on K3), ``reference`` the plain
-  step of ``lbm_step_sharded_2d``; on the CPU the plain versions. Before
-  each step (K3, reference) or pass (K8, K10) a process sends its first
-  and last rows (1 row, or T) to the previous and the next process and
-  receives theirs (``RowExchange``); the shard objects of the ops
-  (``shard_step.RowShard``, ``band_common.BandRowShard``) take them.
-- Which channel carries the rows is decided by the layout, not by a
-  fallback: ``nccl`` when every process has its own card (on the card's
-  stream, no host copy), ``gloo`` staged through the host when processes
-  share a card (NCCL refuses two ranks on one device) or run on the CPU.
-  The start-up check (same inputs, devices of one kind) and the gathers
-  run on gloo.
+  step of ``lbm_step_sharded_2d``, ``pallas-overlap`` K12; on the CPU the
+  plain versions. Before each step (K3, reference) or pass (K8, K10) a
+  process sends its first and last rows (1 row, or T) to the previous and
+  the next process and receives theirs (``RowExchange``); the shard
+  objects of the ops (``shard_step.RowShard``,
+  ``band_common.BandRowShard``) take them. K12 (``shard_step.IpcRowShard``)
+  swaps no rows: each process maps its neighbours' shards with CUDA IPC,
+  the kernel stores its edge cells into their rings, and the steps are
+  ordered by waits on the streams; no row passes through the host and no
+  collective runs between steps.
+- Which channel carries the rows is decided by the layout and the route,
+  not by a fallback: ``ipc`` for K12 on CUDA (ranks that cannot map each
+  other's memory raise), ``nccl`` when every process has its own card (on
+  the card's stream, no host copy), ``gloo`` staged through the host when
+  processes share a card (NCCL refuses two ranks on one device) or run on
+  the CPU (K12's plain version too). The start-up check (same inputs,
+  devices of one kind), K12's handles and the gathers run on gloo.
+- At bf16, K12 steps the f32 values between one cast in and one rounding
+  out, as the one-process runner does (the JAX package's ``init_state``).
 - The per-step sums: every process's raw sums are gathered to every
   process and added in rank order, then multiplied by ``inv_tot_cells``
   (``sharded.mesh_totals``), so the series is the one-process mesh's bit
   for bit; so is the state, gathered to every process. Every process
   returns the same full result.
 
-Refused, as in the JAX package: c16 storage, the single-device backends,
-checkpoints (the CLI). Refused here and left for later: ``pallas-overlap``
-(K12 stores into the neighbours' rings through peer addresses, which
-needs the other processes' memory mapped into this one) and a 2-D mesh
-(the JAX multi-process path is 1-D too).
+Refused, as in the JAX package: c16 storage (every route, K12's too),
+the single-device backends, checkpoints (the CLI) and a 2-D mesh (the JAX
+multi-process path is 1-D only).
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ from lbm_tpu_torch.models.d2q9 import D2Q9, LBMParams
 from lbm_tpu_torch.ops import devspace
 from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import collide
-from lbm_tpu_torch.ops.shard_step import RowShard, ring_from_rows
+from lbm_tpu_torch.ops.shard_step import (IpcRowShard, RowExchange, RowShard, gather_objects,
+                                          ring_from_rows)
 from lbm_tpu_torch.parallel.sharded import (_accelerate_local, _stream_local_2d, mesh_totals,
                                             pick_shard_step)
 from lbm_tpu_torch.runtime.driver import SimulationResult, is_c16, storage_spec
@@ -109,45 +117,6 @@ def local_device() -> torch.device:
     return select_device(int(os.environ.get("LOCAL_RANK", "0")))
 
 
-class RowExchange:
-    """Swaps a shard's edge rows with the previous and the next process of
-    a ring of ``world`` processes. ``__call__(first, last, dn, up)`` sends
-    ``first`` (the shard's first rows) to the previous process and ``last``
-    to the next, and receives into ``dn`` the previous process's last rows
-    and into ``up`` the next one's first rows. ``channel``: ``nccl`` (the
-    tensors stay on the card; ``group`` an NCCL group), ``gloo`` (staged
-    through the host) or ``local`` (a world of one: the shard is its own
-    neighbour)."""
-
-    def __init__(self, rank: int, world_size: int, channel: str, group=None):
-        self.rank, self.world, self.channel, self.group = rank, world_size, channel, group
-
-    def __call__(self, first, last, dn, up) -> None:
-        if self.channel == "local":
-            dn.copy_(last)
-            up.copy_(first)
-            return
-        import torch.distributed as dist
-
-        staged = self.channel == "gloo"
-        send_last, send_first = ((x.cpu() if staged else x).contiguous() for x in (last, first))
-        got_dn, got_up = ((torch.empty(x.shape, dtype=x.dtype) if staged else x)
-                          for x in (dn, up))
-        prev, nxt = (self.rank - 1) % self.world, (self.rank + 1) % self.world
-        # Two processes are each other's previous and next: the ops between
-        # one pair are matched in the order issued, so rows going down
-        # (tag 1) come before rows going up (tag 2) on both sides.
-        ops = [dist.P2POp(dist.isend, send_last, nxt, self.group, tag=1),
-               dist.P2POp(dist.isend, send_first, prev, self.group, tag=2),
-               dist.P2POp(dist.irecv, got_dn, prev, self.group, tag=1),
-               dist.P2POp(dist.irecv, got_up, nxt, self.group, tag=2)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        if staged:
-            dn.copy_(got_dn)
-            up.copy_(got_up)
-
-
 def _gloo_group():
     """The group of every process over gloo (None without a group): the
     default one that ``initialize_multihost`` makes, or a new one where the
@@ -170,16 +139,6 @@ def _all_gather(x: torch.Tensor, group, world_size: int) -> list[torch.Tensor]:
     out = [torch.empty_like(wire) for _ in range(world_size)]
     dist.all_gather(out, wire.contiguous(), group=group)
     return [o.view(x.dtype) for o in out]
-
-
-def _all_gather_object(obj, group, world_size: int) -> list:
-    import torch.distributed as dist
-
-    if world_size == 1:
-        return [obj]
-    out = [None] * world_size
-    dist.all_gather_object(out, obj, group=group)
-    return out
 
 
 class ReferenceRowShard:
@@ -232,12 +191,14 @@ def _setup_digest(params, obstacles, backend, dtype) -> str:
     return h.hexdigest()
 
 
-def _layout(rank, world_size, device, setup, group) -> tuple[str, list]:
+def _layout(rank, world_size, device, setup, group, ipc) -> tuple[str, list]:
     """The channel of the rows from every process's host, device and
     inputs (gathered on gloo); raises if the inputs differ or the devices
-    are not all CUDA or all CPU."""
+    are not all CUDA or all CPU. ``ipc``: the route is K12, whose shards
+    map each other's memory on CUDA (``ipc``) and swap rows over gloo on
+    the CPU."""
     me = {"rank": rank, "host": socket.gethostname(), "device": str(device), "setup": setup}
-    everyone = _all_gather_object(me, group, world_size)
+    everyone = gather_objects(me, group, world_size)
     if len({p["setup"] for p in everyone}) != 1:
         raise ValueError("the processes of a multi-process run were given different decks, "
                          "backends or precisions")
@@ -247,6 +208,8 @@ def _layout(rank, world_size, device, setup, group) -> tuple[str, list]:
                          f"{sorted(kinds)}")
     if world_size == 1:
         return "local", everyone
+    if ipc and kinds == {"cuda"}:
+        return "ipc", everyone
     own_card = len({(p["host"], p["device"]) for p in everyone}) == world_size
     return ("nccl" if kinds == {"cuda"} and own_card else "gloo"), everyone
 
@@ -264,11 +227,6 @@ def run_simulation_multihost(params: LBMParams, obstacles: np.ndarray, *, backen
     if is_c16(dtype):
         raise ValueError("c16 storage is not supported on the multi-process path yet")
     dtype = torch.float32 if dtype is None else dtype
-    if backend == "pallas-overlap":
-        raise ValueError("pallas-overlap does not run across processes: its kernel (K12) stores "
-                         "into the neighbour shards' rings through peer addresses, which another "
-                         "process's memory does not give; use --backend auto/pallas/band/band2/"
-                         "reference")
     rank, world_size = world()
     if params.ny % world_size != 0:
         raise ValueError(f"ny={params.ny} not divisible by {world_size} processes")
@@ -281,12 +239,12 @@ def run_simulation_multihost(params: LBMParams, obstacles: np.ndarray, *, backen
         device = torch.device("cuda", torch.cuda.current_device())
     group = _gloo_group()
     channel, everyone = _layout(rank, world_size, device,
-                                _setup_digest(params, obstacles, backend, dtype), group)
+                                _setup_digest(params, obstacles, backend, dtype), group,
+                                ipc=route == "pallas-overlap")
     rows_group = None
     if channel == "nccl":
         torch.cuda.set_device(device)
         rows_group = dist.new_group(backend="nccl")  # every process decided alike
-    exchange = RowExchange(rank, world_size, channel, rows_group if channel == "nccl" else group)
 
     spec = storage_spec(params, dtype)
     full = D2Q9.initial_state(params, dtype=torch.float32 if spec is not None else dtype)
@@ -306,9 +264,10 @@ def run_simulation_multihost(params: LBMParams, obstacles: np.ndarray, *, backen
         """Rows ``[lo, lo + n)`` of a global plane, wrapped, on the device."""
         return x[torch.arange(lo, lo + n) % ny].to(device).contiguous()
 
+    nob_ring = ring_from_rows(rows(nob, r0, ry)[None], rows(nob, r0 - 1, 1)[None],
+                              rows(nob, r0 + ry, 1)[None])[0]
+
     def k3(state, n):
-        nob_ring = ring_from_rows(rows(nob, r0, ry)[None], rows(nob, r0 - 1, 1)[None],
-                                  rows(nob, r0 + ry, 1)[None])[0]
         return RowShard(state, nob_ring, rank, world_size, ny, *scalars, n, **kw)
 
     t0 = time.perf_counter()
@@ -325,18 +284,32 @@ def run_simulation_multihost(params: LBMParams, obstacles: np.ndarray, *, backen
             shard.step()
         return shard
 
-    # One swap outside the timed loop: NCCL builds its communicator at the
-    # first operation (seconds), gloo its pair connections.
-    probe = torch.zeros((4, 9, 1, params.nx), dtype=cells.dtype, device=device)
-    exchange(*probe)
+    n_iters = params.max_iters
+    ipc = None
+    if route == "pallas-overlap":
+        # K12 stores f32: at bf16 the run steps the f32 values between one
+        # cast in and one rounding out, as the one-process runner does.
+        # Set-up (the allocation, the handles swapped and mapped) is not timed.
+        ipc = IpcRowShard(cells if spec is None else devspace.decode_state(cells, spec),
+                          nob_ring, rank, world_size, ny, *scalars, n_iters, group=group,
+                          paired=kw["paired"])
+    else:
+        exchange = RowExchange(rank, world_size, channel,
+                               rows_group if channel == "nccl" else group)
+        # One swap outside the timed loop: NCCL builds its communicator at
+        # the first operation (seconds), gloo its pair connections.
+        probe = torch.zeros((4, 9, 1, params.nx), dtype=cells.dtype, device=device)
+        exchange(*probe)
     if group is not None:
         dist.barrier(group=group)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    n_iters = params.max_iters
     t0 = time.perf_counter()
     with torch.profiler.record_function("lbm_tpu_torch.loop"):
-        if route == "reference":
+        if ipc is not None:
+            ipc.run(n_iters)
+            shards = [ipc]
+        elif route == "reference":
             shards = [drive(ReferenceRowShard(cells, rows(obst, r0, ry), r0, ny, *scalars,
                                               n_iters), n_iters)]
         elif route == "pallas":
@@ -364,6 +337,9 @@ def run_simulation_multihost(params: LBMParams, obstacles: np.ndarray, *, backen
     sums = torch.cat([s.sums for s in shards]).cpu()
     av = mesh_totals(torch.stack(_all_gather(sums, group, world_size)), inv_np)
     state = shards[-1].state()
+    if ipc is not None:
+        ipc.close()  # after the state is read: every process takes part
+        state = state if spec is None else devspace.encode_state(state, spec)
     state = state if spec is None else devspace.decode_state(state, spec)
     cells_np = torch.cat(_all_gather(state.cpu().contiguous(), group, world_size), dim=1).numpy()
     return MultihostResult(
@@ -394,6 +370,7 @@ def rank_reports(result: MultihostResult) -> list[dict]:
     for name, fn in (("K3 rows", RowShard), ("K8", run_band_sharded), ("K10", run_band2_sharded)):
         for suffix in ("", "_bf16"):
             launches[name + suffix.replace("_", " ")] = getattr(fn, "launches" + suffix)
+    launches["K12 ipc"] = IpcRowShard.launches  # f32 steps, at bf16 too
     me = {"rank": result.rank, "device": result.device, "channel": result.channel,
           "launches": launches, "result_sha256": h.hexdigest()}
-    return _all_gather_object(me, _gloo_group(), result.world)
+    return gather_objects(me, _gloo_group(), result.world)

@@ -11,7 +11,10 @@ ragged, odd-height grids and over chained calls, the shape rule's route,
 the c16 codec against its conversion-instruction form over every
 input; and the multi-process path's kernels on one card (shards stepped
 in turns, their rows handed over): K3 with its ring filled from received
-rows and K8/K10 with received halos, bitwise the one-process mesh.
+rows and K8/K10 with received halos, bitwise the one-process mesh; and
+K12 across 2 processes, each mapping its neighbour's shard with CUDA IPC
+(tests/torch_multihost_worker.py ``ipc``), bitwise the one-process K12,
+and its deadline when a neighbour stops.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -1085,3 +1088,87 @@ def test_sharded_band_halos_from_rows_are_the_peer_copy(cuda_device, name, stora
     for z, s in enumerate(bands):
         assert torch.equal(s.state(), want[z][0])
         assert torch.equal(s.sums, want_sums[z])
+
+
+def spawn_ipc_ranks(tmp_path, world, *args, timeout=300):
+    """``world`` processes of tests/torch_multihost_worker.py ``ipc``; every
+    one gets ``timeout`` seconds, so a lost wait fails instead of hanging.
+    Returns their (returncode, output) and result files."""
+    import socket
+    import subprocess
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = repo
+    outs = [str(tmp_path / f"ipc{rank}.npz") for rank in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.join(repo, "tests", "torch_multihost_worker.py"),
+                               "ipc", str(rank), str(world), str(port), outs[rank], *args],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(world)]
+    got = []
+    try:
+        for p in procs:
+            got.append((p.communicate(timeout=timeout)[0], p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(rc, text) for text, rc in got], outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("cards", ["one card", "a card per rank"])
+def test_ipc_row_shard_is_the_one_process_k12(cuda_device, tmp_path, cards, world):
+    """K12 across 2 or 4 processes (``IpcRowShard``: each maps its
+    neighbours' shards with CUDA IPC, the steps ordered by waits on the
+    streams; with 4 the previous and the next rank differ, so each stream
+    waits on both words of its inbox) on the 1024^2 deck's shards, 50
+    steps, all on cuda:0 or one card each: every process's state and
+    per-step sums bitwise those of ``run_shard_overlap`` on the same shards
+    in one process, and 50 steps in its launch counter."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__))))
+    import torch_multihost_worker as worker
+
+    own = cards != "one card"
+    if own and torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    cells, nob = worker.ipc_deck()
+    ny, steps = cells.shape[1], 50
+    ry = ny // world
+    devices = [torch.device("cuda", z if own else 0) for z in range(world)]
+    shards = [[cells[:, z * ry:(z + 1) * ry].to(devices[z])] for z in range(world)]
+    nobs = [[nob[z * ry:(z + 1) * ry].to(devices[z])] for z in range(world)]
+    want, want_sums = tshard.run_shard_overlap(shards, nobs, worker.DENSITY, worker.ACCEL,
+                                               worker.OMEGA, steps, ny)
+    ranks, outs = spawn_ipc_ranks(tmp_path, world, "--steps", str(steps),
+                                  *(["--own-card"] if own else []))
+    for rank, (rc, text) in enumerate(ranks):
+        assert rc == 0, f"rank {rank}: {text[-3000:]}"
+    for z, out in enumerate(outs):
+        got = np.load(out)
+        assert int(got["launches"]) == steps
+        assert np.array_equal(got["state"], want[z][0].cpu().numpy())
+        assert np.array_equal(got["sums"], want_sums[z].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_ipc_row_shard_raises_when_a_neighbour_stops(cuda_device, tmp_path):
+    """Rank 1 maps rank 0's shard and then steps nothing: rank 0's step 2
+    waits on the stream for rank 1's step 1, and rank 0 raises within its
+    deadline (5 s), naming the ranks, and exits (its stream released, the
+    waits passed); no process hangs."""
+    deadline = 5.0
+    ranks, _ = spawn_ipc_ranks(tmp_path, 2, "--deadline", str(deadline), "--stop",
+                               str(deadline + 20), timeout=120)
+    (rc0, text0), (rc1, text1) = ranks
+    assert rc0 == 3, text0[-3000:]
+    assert "rank 0 of 2 did not finish steps 1-50" in text0 and "rank 1" in text0, text0[-3000:]
+    waited = float(text0.split("after ")[1].split(" s:")[0])
+    assert deadline <= waited < deadline + 2.0
+    assert rc1 == 0, text1[-3000:]

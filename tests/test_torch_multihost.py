@@ -10,14 +10,20 @@
   the one-process mesh's bits.
 - A real run of 2 processes over gloo on the CPU
   (tests/torch_multihost_worker.py), 16 x 16, 5 steps, at ``reference``,
-  ``pallas``, ``band`` and ``band2`` (T 4: a pass and a K3 remainder) in
-  f32 and ``pallas``, ``band`` in bf16: each process's result is bitwise
-  the one-process ``run_simulation_sharded(n_devices=2)`` on the CPU, and
-  the f32 results within 1e-6 (absolute) of the JAX package's
+  ``pallas``, ``band``, ``band2`` (T 4: a pass and a K3 remainder) and
+  ``pallas-overlap`` (K12's plain version in ``shard_step.IpcRowShard``,
+  its rows swapped over gloo) in f32 and ``pallas``, ``band`` and
+  ``pallas-overlap`` in bf16: each process's result is bitwise the
+  one-process ``run_simulation_sharded(n_devices=2)`` on the CPU, and the
+  f32 results within 1e-6 (absolute) of the JAX package's
   ``run_simulation(backend="reference", dtype=jnp.float32)``, the av
   series also at tests/test_sharded.py's rtol 5e-5 (the port's fused
-  collision form against JAX's literal one: 1.5e-5 seen).
-- The refusals: c16, ``pallas-overlap``, a 2-D mesh, checkpoints and
+  collision form against JAX's literal one: 1.5e-5 seen). K12 on the card,
+  its neighbours mapped with CUDA IPC, is tests/test_torch_cuda.py's
+  ``test_ipc_row_shard_is_the_one_process_k12``.
+- A world of one (no group) with ``pallas-overlap``, through the API and
+  the CLI: the one-shard mesh's bits, ``--mesh 1``'s files.
+- The refusals: c16 (``pallas-overlap`` too), a 2-D mesh, checkpoints and
   ``--debug`` under ``--multihost``.
 """
 
@@ -226,7 +232,7 @@ def test_band_row_shard_plain_is_the_mesh(route):
         assert torch.equal(s.sums, want_sums[z])
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas", "band"])
+@pytest.mark.parametrize("backend", ["reference", "pallas", "band", "pallas-overlap"])
 def test_world_of_one_is_the_one_shard_mesh(backend):
     """Without a group the path runs a mesh of one process, its own
     neighbour: the bits of ``run_simulation_sharded(n_devices=1)``."""
@@ -294,7 +300,7 @@ def test_two_processes_match_jax(two_processes, backend):
 
 @pytest.mark.parametrize("backend,dtype,match", [
     ("auto", "c16", "c16"),
-    ("pallas-overlap", torch.float32, "peer addresses"),
+    ("pallas-overlap", "c16", "c16"),
     ("aa", torch.float32, "single-device"),
 ])
 def test_refusals(backend, dtype, match):
@@ -344,3 +350,24 @@ def test_cli_multihost_one_process(tiny_deck, capsys):
         stats = json.load(f)
     assert stats["multihost"]["world"] == 1 and stats["multihost"]["channel"] == "local"
     assert stats["multihost"]["ranks"][0]["rank"] == 0
+
+
+def test_cli_multihost_overlap_one_process(tiny_deck, capsys):
+    """``--multihost --backend pallas-overlap`` without a group: a world of
+    one (K12's plain version, the shard its own neighbour), the files of
+    ``--mesh 1``."""
+    param, obst, out = tiny_deck
+    assert cli.main([param, obst, "--device", "cpu", "--multihost", "--backend",
+                     "pallas-overlap", "--out-dir", out, "--stats-json", out + ".json"]) == 0
+    assert "==done==" in capsys.readouterr().out
+    assert cli.main([param, obst, "--device", "cpu", "--mesh", "1", "--backend", "pallas",
+                     "--out-dir", out + "1"]) == 0
+    for name in ("av_vels.dat", "final_state.dat"):
+        with open(os.path.join(out, name), "rb") as a, open(os.path.join(out + "1", name),
+                                                             "rb") as b:
+            assert a.read() == b.read()
+    with open(out + ".json") as f:
+        stats = json.load(f)
+    assert stats["route"] == "pallas-overlap"
+    assert stats["multihost"]["channel"] == "local"
+    assert stats["multihost"]["ranks"][0]["launches"]["K12 ipc"] == 0  # no card: no kernel

@@ -234,9 +234,23 @@ PyTorch built for CUDA. Phases, each printing what it found:
    K6's kernel, and the device's busy and idle shares of the loop's
    window are printed; ``python -m lbm_tpu_torch.utils.viz`` renders the
    128^2 run's ``final_state.dat`` (a PPM of 128 x 128 pixels where
-   matplotlib is missing).
+   matplotlib is missing);
+32. K11 on the trapezoid (its load fused into its first step, its store
+   into its last) at f32, c16 and bf16 against its plain version, two runs
+   bitwise equal, at T 4, 8 and 16, full row and panel, and at the
+   driver's schedule on a ragged 998 x 1000 grid and the 1000^2 walls
+   mask; K4's global-memory form (one copy stepped in place) against its
+   plain version at 512^2-1024^2 and 1000 x 998 over 254-511 steps,
+   bitwise K1 over 200 steps, bitwise repeatable and resumed to the whole
+   run's bits; both timed in turns beside their rivals (K9 and K2; K2 and
+   K6). With ``--phase 32`` alone, also: K4 with and without its
+   persisting-L2 window at 768^2-1280^2 and the L2's rate; K11's schedule
+   sweep in a process whose kernels are built with every candidate's
+   window at constant strides; the loop MLUPS of ``band3``, ``deep`` and
+   ``auto`` on the 1024^2 deck and the walls 2048^2 and 4096^2 decks; and
+   phase 25's crossover.
 
-``python3 chip_smoke.py --phase 25`` (or 26-31) runs phases 1, 2 and
+``python3 chip_smoke.py --phase 25`` (or 26-32) runs phases 1, 2 and
 that phase only (no kernel report), and ``--phase 26 --import-from DIR``
 only phase 26's K9 checks and its timing in turns, of the
 ``lbm_tpu_torch`` package under DIR (another checkout, such as the parent
@@ -248,7 +262,8 @@ their timing beside K9 and K11 and their c16 gate decks, and ``--phase 28
 K9, K10 and K13, and ``--phase 29 --import-from DIR`` phase 29's checks,
 timings and loop MLUPS of that package, its c16 gate values printed but
 not held (so that a diagnostic trial such as ``trials/k2_noforce.patch``
-can be timed).
+can be timed), and ``--phase 32 --import-from DIR`` phase 32's K11 and K4
+checks and their timings beside K9, K2 and K6.
 
 Tolerances: kernel against plain version, cells within 1e-5 of the
 state's scale and av series at rtol 1e-4 (f32 with FMA contraction in the
@@ -1538,6 +1553,13 @@ BF16_KERNELS = {
 # av series within 3e-4; a rounding in the wrong place moves most values).
 TOL_BF16 = (2, 0.01, 1e-3)
 TOL_BF16_SPREAD = (16, 0.1, 1e-3)
+# K11 over 2T+3 steps in phase 32: the card tests' spread tolerance
+# (tests/test_torch_cuda.py::BF16_SPREAD_TOL). K11 stores its S state with
+# the next forcing added, a delta of about 1.4 bf16 ulps on the ny-2 row,
+# so a flipped rounding there moves |u| of its cells by up to a tenth: on
+# a 40 x 70 grid at T 16 the av series moved by 1.05e-3 on an H100, in the
+# parent's body and the new one alike (PERF.md section 6).
+TOL_BF16_K11_SPREAD = (4, 0.05, 5e-3)
 # The route of ``auto`` at bf16 (runtime/driver.py::select_route).
 AUTO_ROUTE_BF16 = "aa"
 BYTES_PER_CELL_BF16 = 40  # 9 bf16 planes read, 9 written, the f32 mask read
@@ -1875,7 +1897,7 @@ def k4_smem_phase(torch, gpu_line):
     for nx, ny in K4_SIZES[:4]:
         cells, nobst = random_setup(torch, nx, ny, seed=7)
         cfg = resident.resident_smem_config(ny, nx, sms)
-        blocks = min(k4_blocks, -(-ny * nx // resident._THREADS))
+        blocks = k4_grid(resident, ny, nx)
         per[nx, ny] = turns(torch, {
             "global-memory form": lambda: resident.launch(cells, nobst, DENSITY, ACCEL, OMEGA, n,
                                                           1.0, 255, blocks),
@@ -2606,12 +2628,13 @@ def bench_line():
     return line, err.getvalue().strip()
 
 
-def deck_mlups(torch, gpu_line):
+def deck_mlups(torch, gpu_line, backends=("band", "auto"), tags=None):
     """Loop MLUPS (``SimulationResult.mlups``, the number ``cli.main``
-    reports) of ``band`` (K7) and ``auto`` on the four official decks and
-    the 2048^2 x 2048 and 4096^2 x 1024 walls decks, through
-    ``run_simulation`` without fetching the final state; returns {(deck,
-    backend): (MLUPS, route)}."""
+    reports) of ``backends`` (``band``, K7, and ``auto`` by default) on the
+    decks of ``tags`` (the four official decks and the 2048^2 x 2048 and
+    4096^2 x 1024 walls decks by default), through ``run_simulation``
+    without fetching the final state; returns {(deck, backend): (MLUPS,
+    route)}."""
     import numpy as np
 
     from lbm_tpu_torch.models.d2q9 import LBMParams
@@ -2626,13 +2649,16 @@ def deck_mlups(torch, gpu_line):
         decks[f"walls {n}^2"] = (LBMParams(n, n, iters, 10, DENSITY, ACCEL, OMEGA), mask)
     out = {}
     for tag, (params, obstacles) in decks.items():
-        for backend in ("band", "auto"):
+        if tags is not None and tag not in tags:
+            continue
+        for backend in backends:
             res = run_simulation(params, obstacles, backend=backend, device="cuda:0",
                                  fetch_final=False)
             check(np.isfinite(res.av_vels).all(), f"{tag} --backend {backend}: non-finite av")
             out[tag, backend] = (res.mlups(params), res.route)
-        log(f"  {tag} x {params.max_iters}: loop MLUPS band (K7) {out[tag, 'band'][0]:.1f}, auto "
-            f"({out[tag, 'auto'][1]}) {out[tag, 'auto'][0]:.1f} [{gpu_line}]")
+        log(f"  {tag} x {params.max_iters}: loop MLUPS "
+            + ", ".join(f"{b} ({out[tag, b][1]}) {out[tag, b][0]:.1f}" for b in backends)
+            + f" [{gpu_line}]")
     return out
 
 
@@ -2866,6 +2892,342 @@ def redesign12_phase(torch, spec, cli, gpu_line, gates=True):
     redesign12_attrs()
     redesign12_turns(torch, spec, gpu_line)
     redesign12_decks(torch, cli, gpu_line, gates)
+
+
+# Phase 32's K11 schedule sweep (block, depth, panel): T 4, 8 and 16, the
+# parent's (24, 4, 56), K6's tiers and windows of one and two blocks per
+# SM; at 512^2-4096^2, every storage, each with its window compiled at
+# constant strides (k11_sweep_process).
+K11_SWEEP = ((24, 4, 56), (28, 4, 56), (36, 4, 56), (40, 4, 48), (32, 4, 40), (24, 4, 24),
+             (24, 8, 32), (32, 8, 32), (40, 8, 40), (32, 16, 32), (32, 16, 40))
+# (n, steps) of phase 32's K11 timings and sweep: steps a multiple of 16.
+K11_SIZES = ((512, 960), (1024, 480), (2048, 240), (4096, 64))
+# (nx, ny) of phase 32's K4 checks: its global-memory form's sizes and a
+# ragged grid; the chunks of a check run.
+K4_AA_SIZES = ((512, 512), (768, 768), (1024, 1024), (1000, 998))
+K4_AA_CHUNKS = (254, 255, 256, 511)
+# (n, steps) of phase 32's K4 timings: four 255-step launches up to 1024^2
+# (whole K6 passes), one above, where a step reads the state from HBM.
+K4_AA_TURNS = ((512, 1020), (768, 1020), (1024, 1020), (2048, 255), (4096, 255))
+# The squares at which phase 32 (``--phase 32``) times K4's global-memory
+# form at two grid sizes, and from 768^2 to 1280^2 (states of 21.2-59.0 MB
+# around the card's 50 MB L2) with and without its persisting-L2 window.
+K4_GRID_SIZES = (512, 768, 832, 896, 960, 1024, 1088, 1152, 1216, 1280, 2048, 4096)
+
+
+def k11_checks(torch, spec, skip_refused=False):
+    """K11 at f32, c16 and bf16 against its plain version, two runs bitwise
+    equal: at T 4, 8 and 16, full row and panel (K9_CHECKS) over 2T+3
+    steps, and at the driver's 1024^2 schedule on a ragged 998 x 1000 grid
+    and the 1000^2 walls mask over T and 2T+3 steps. ``skip_refused``
+    (another checkout): a schedule its K11 refuses is logged, not held."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band3, devspace
+    from lbm_tpu_torch.runtime.driver import band3_config
+
+    forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
+    params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    cfg = band3_config(params, torch.float32)
+    cases = [(nx, ny, sched, (2 * sched[1] + 3,)) for nx, ny, sched in K9_CHECKS]
+    cases += [(1000, 998, cfg, (cfg[1], 2 * cfg[1] + 3)), ("walls", 1000, cfg,
+                                                           (cfg[1], 2 * cfg[1] + 3))]
+    for name, dev in forms.items():
+        for nx, ny, (block, depth, panel), counts in cases:
+            if nx == "walls":
+                cells, nobst = walls_setup(torch, ny, seed=31)
+                tag = f"walls {ny}^2"
+            else:
+                cells, nobst = random_setup(torch, nx, ny, seed=nx + depth)
+                tag = f"{nx}x{ny}"
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+            for n in counts:
+                def run(fn):
+                    return fn(q, nobst, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel,
+                              dev=dev)
+
+                what = f"K11 {name} {tag} ({block}, {depth}, {panel}) {n} steps"
+                try:
+                    got = run(band3.run_band3)
+                except (ValueError, RuntimeError) as e:
+                    check(skip_refused, f"{what}: {e}")
+                    log(f"  {what}: refused by this package ({e})")
+                    continue
+                again = run(band3.run_band3)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                      f"{what}: two runs differ")
+                want = run(band3.run_band3_plain)
+                if name == "bf16":
+                    bf16_compare(torch, what, got, want,
+                                 TOL_BF16 if n == depth else TOL_BF16_K11_SPREAD)
+                else:
+                    compare(torch, what, got, want, dev)
+    log("  K11 determinism: two runs of each case give bitwise-equal av and state")
+
+
+def k4_grid(resident, ny, nx):
+    """The blocks ``run_resident`` gives K4's global-memory form on an ny x
+    nx grid in the imported package (all the card holds at once in one
+    without ``grid_blocks``)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    if hasattr(resident, "grid_blocks"):
+        return resident.grid_blocks(dev, ny, nx)
+    return min(resident.max_blocks(dev), -(-ny * nx // resident._THREADS))
+
+
+def k4_aa_checks(torch, gpu_line):
+    """K4's global-memory form (``resident.launch``) against its plain
+    version at K4_AA_SIZES over K4_AA_CHUNKS steps (a plain run continued
+    step by step), two runs bitwise equal, bitwise K1 over 200 steps, and a
+    255-step run cut at step 101 bitwise the whole run."""
+    from lbm_tpu_torch.ops import resident
+    from lbm_tpu_torch.ops.step import run_step
+
+    for nx, ny in K4_AA_SIZES:
+        cells, nobst = random_setup(torch, nx, ny, seed=nx + ny)
+        blocks = k4_grid(resident, ny, nx)
+
+        def run(c, n):
+            return resident.launch(c, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, 255, blocks)
+
+        state, av, done = cells, [], 0
+        for n in K4_AA_CHUNKS:
+            state, a = resident.run_resident_plain(state, nobst, DENSITY, ACCEL, OMEGA, n - done,
+                                                   1.0)
+            av.append(a)
+            done = n
+            before = resident.run_resident.launches
+            got = run(cells, n)
+            check(resident.run_resident.launches == before + n,
+                  f"K4 {nx}x{ny}: its global-memory form's counter did not count {n} steps")
+            compare(torch, f"K4 global-memory form {nx}x{ny} {n} steps ({blocks} blocks)", got,
+                    (state, torch.cat(av)))
+        again = run(cells, 511)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"K4 global-memory form {nx}x{ny}: two runs differ")
+        k1 = run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 200, 1.0)
+        check(torch.equal(run(cells, 200)[0], k1[0]),
+              f"K4 global-memory form {nx}x{ny}: 200 steps not bitwise K1")
+        head = run(cells, 101)
+        tail = run(head[0], 154)
+        whole = run(cells, 255)
+        torch.cuda.synchronize()
+        check(torch.equal(tail[0], whole[0]) and torch.equal(torch.cat([head[1], tail[1]]),
+                                                             whole[1]),
+              f"K4 global-memory form {nx}x{ny}: a run cut at step 101 differs from the whole")
+    log("  K4 global-memory form: two 511-step runs bitwise equal, 200 steps bitwise K1, a "
+        f"255-step run cut at step 101 bitwise the whole run, at every size [{gpu_line}]")
+
+
+def l2_rate(torch, mib=16, calls=200):
+    """GB/s of torch's in-place add on an f32 tensor of ``mib`` MiB, which
+    stays in the L2: read and written once per call."""
+    x = torch.zeros(mib << 18, dtype=torch.float32, device="cuda:0")
+    for _ in range(10):
+        x.add_(1.0)
+
+    def go():
+        for _ in range(calls):
+            x.add_(1.0)
+
+    return 2 * x.numel() * 4 * calls / (timed(torch, go)[1] * 1e-3) / 1e9
+
+
+def redesign15_turns(torch, spec, gpu_line):
+    """Phase 32's times with the driver's schedules of the imported package:
+    K11 beside K9 and K2 of the same storage at 1024^2-4096^2 (and at the
+    other schedules of its tiers); K4's global-memory form beside K2 and
+    K6 at 512^2-4096^2 (f32)."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import aa, band2, band3, deep, devspace, resident
+    from lbm_tpu_torch.runtime import driver
+    from lbm_tpu_torch.runtime.driver import pass_schedule
+
+    forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
+    # K11 at every schedule of its tiers, where the package has a table.
+    others = driver.band3_schedules() if hasattr(driver, "band3_schedules") else ()
+    for nx, n in K11_SIZES[1:]:
+        params = LBMParams(nx=nx, ny=nx, max_iters=1, reynolds_dim=10, density=DENSITY,
+                           accel=ACCEL, omega=OMEGA)
+        cfg = {route: pass_schedule(route, params, torch.float32)[1]
+               for route in ("band2", "band3")}
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        for name, dev in forms.items():
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+
+            def pas(fn, route):
+                b, t, p = cfg[route]
+                return lambda: fn(q, nobst, DENSITY, ACCEL, OMEGA, n, b, t, panel=p, dev=dev)
+
+            fns = {"K11": pas(band3.run_band3, "band3"), "K9": pas(band2.run_band2, "band2"),
+                   "K2": lambda: aa.run_aa(q, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, dev=dev)}
+            for other in others:
+                if other != cfg["band3"]:
+                    fns[f"K11 at {other}"] = (lambda o=other: band3.run_band3(
+                        q, nobst, DENSITY, ACCEL, OMEGA, n, o[0], o[1], panel=o[2], dev=dev))
+            t = turns(torch, fns, n)
+            # The host's share of a K11 call: R -> S, the first forcing, S -> R.
+            convert = band3._in_s_space(nobst, DENSITY, ACCEL,
+                                        lambda x, _: (x, None), dev)
+            convert(q, 0)
+            conv_ms = timed(torch, lambda: convert(q, 0))[1]
+            log(f"  K11 {name} {nx}x{nx} (K11 {cfg['band3']}, K9 {cfg['band2']}): "
+                + ", ".join(f"{k} {v:.2f}" for k, v in t.items())
+                + f" us/step (in turns): K11/K9 {t['K11'] / t['K9']:.3f}, K11/K2 "
+                f"{t['K11'] / t['K2']:.3f}; a call's R <-> S conversion {conv_ms:.3f} ms "
+                f"({1e3 * conv_ms / n:.2f} us/step over {n} steps) [{gpu_line}]")
+        del cells, nobst
+    for nx, n in K4_AA_TURNS:
+        params = LBMParams(nx=nx, ny=nx, max_iters=1, reynolds_dim=10, density=DENSITY,
+                           accel=ACCEL, omega=OMEGA)
+        k6 = pass_schedule("deep", params, torch.float32)[1]
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        blocks = k4_grid(resident, nx, nx)
+        fns = {"K4": lambda: resident.launch(cells, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, 255,
+                                             blocks),
+               "K2": lambda: aa.run_aa(cells, nobst, DENSITY, ACCEL, OMEGA, n, 1.0),
+               "K6": lambda: deep.run_deep(cells, nobst, DENSITY, ACCEL, OMEGA, n, k6[0], k6[1],
+                                           panel=k6[2])}
+        t = turns(torch, fns, n)
+        log(f"  K4 global-memory form {nx}x{nx} ({blocks} blocks; K6 {k6}; us/step in "
+            "turns): " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+            + f"; K4/K6 {t['K4'] / t['K6']:.3f}, K4/K2 {t['K4'] / t['K2']:.3f} [{gpu_line}]")
+        del cells, nobst
+
+
+def k4_grid_window(torch, gpu_line):
+    """K4's global-memory form at 3 and 4 blocks per SM, each with and
+    without its persisting-L2 window from 768^2 to 1280^2, in turns, at
+    K4_GRID_SIZES (1020 steps up to 1280^2, 255 above), the state of every
+    variant bitwise the others (the av series on the same grid), beside
+    the grid and window ``run_resident`` picks; and the L2 rate that
+    PERF.md's floor of the form is written at."""
+    from lbm_tpu_torch.ops import resident
+
+    log(f"  L2 rate: {l2_rate(torch):.1f} GB/s (torch's in-place add on a 16 MiB f32 "
+        f"tensor, read and written) [{gpu_line}]")
+    dev = torch.device("cuda", 0)
+    sms = resident.sm_count(dev)
+    picker = resident.l2_window
+    for nx in K4_GRID_SIZES:
+        n = 1020 if nx <= 1280 else 255
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        state = 36 * nx * nx
+
+        def run(blocks, window, steps=n):
+            resident.l2_window = lambda state_bytes, device: window
+            try:
+                return resident.launch(cells, nobst, DENSITY, ACCEL, OMEGA, steps, 1.0, 255,
+                                       blocks)
+            finally:
+                resident.l2_window = picker
+
+        variants = {f"{b} blocks{', L2 window' if w else ''}": (b, w)
+                    for b in sorted({min(per_sm * sms, -(-nx * nx // resident._THREADS))
+                                     for per_sm in (3, 4)})
+                    for w in ((False, True) if 768 <= nx <= 1280 else (False,))}
+        # The state is K1's bits on any grid; the av series sums per block,
+        # so it is bitwise only on the same grid.
+        first = {}
+        for name, (blocks, window) in variants.items():
+            got = run(blocks, window, min(n, 300))
+            torch.cuda.synchronize()
+            cells0, av0 = first.setdefault("state", got)[0], first.setdefault(blocks, got)[1]
+            check(torch.equal(got[0], cells0) and torch.equal(got[1], av0),
+                  f"K4 {nx}x{nx} {name}: not bitwise the other grids and windows")
+        t = turns(torch, {name: (lambda v=v: run(*v)) for name, v in variants.items()}, n)
+        log(f"  K4 global-memory form {nx}x{nx} ({state / 1e6:.1f} MB state; the form picks "
+            f"{k4_grid(resident, nx, nx)} blocks and "
+            f"{'the window' if picker(state, dev) else 'no window'}; us/step in turns): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in t.items()) + f" [{gpu_line}]")
+        del cells, nobst
+
+
+def k11_sweep(torch, gpu_line):
+    """K11's schedules (K11_SWEEP) in turns beside K9 at its driver
+    schedule, at K11_SIZES and every storage."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import band2, band3, devspace
+    from lbm_tpu_torch.ops import band_common as BC
+    from lbm_tpu_torch.runtime.driver import band2_config
+
+    forms = {"f32": None, "c16": devspace.DevSpec.for_params(DENSITY, ACCEL),
+             "bf16": devspace.BF16}
+    for nx, n in K11_SIZES:
+        params = LBMParams(nx=nx, ny=nx, max_iters=1, reynolds_dim=10, density=DENSITY,
+                           accel=ACCEL, omega=OMEGA)
+        k9 = band2_config(params, torch.float32)
+        fits = [cfg for cfg in K11_SWEEP if BC.smem_bytes(1, nx, *cfg) <= BC.SMEM_LIMIT
+                and band3.band3_supported(nx, nx, *cfg)]
+        cells, nobst = random_setup(torch, nx, nx, seed=7)
+        for name, dev in forms.items():
+            q = cells if dev is None else devspace.encode_state(cells, dev)
+            fns = {cfg: (lambda cfg=cfg: band3.run_band3(q, nobst, DENSITY, ACCEL, OMEGA, n,
+                                                         cfg[0], cfg[1], panel=cfg[2], dev=dev))
+                   for cfg in fits}
+            fns["K9"] = lambda: band2.run_band2(q, nobst, DENSITY, ACCEL, OMEGA, n, k9[0], k9[1],
+                                                panel=k9[2], dev=dev)
+            t = turns(torch, fns, n)
+            best = min(fits, key=t.get)
+            log(f"  K11 schedules at {nx}^2 {name} ((block, depth, panel): us/step, in turns "
+                f"beside K9 {k9} {t['K9']:.3f}): " + ", ".join(f"{cfg}: {t[cfg]:.3f}"
+                                                                 for cfg in fits)
+                + f"; fastest {best} [{gpu_line}]")
+        del cells, nobst
+
+
+def k11_sweep_main():
+    """The body of k11_sweep_process: builds the kernels with every
+    candidate's window at constant strides, as the build compiles the
+    windows of the driver's schedules, and sweeps."""
+    import torch
+
+    from lbm_tpu_torch.ops import _build
+
+    windows = _build.trap_windows
+    _build.trap_windows = lambda: tuple(sorted(set(windows()) | {(p + 2 * t, b + 2 * t)
+                                                                 for b, t, p in K11_SWEEP}))
+    b = _build.library().build_info
+    log(f"  sweep's kernels {'built' if b['built'] else 'loaded'} in {b['seconds']:.1f} s, "
+        f"with constant strides for the windows {b['windows']}")
+    k11_sweep(torch, nvidia_smi())
+    return 0
+
+
+def k11_sweep_process():
+    """Runs k11_sweep_main in a process of its own, so that every candidate
+    is timed under the same stride regime."""
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.k11_sweep_main())"
+    rc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, timeout=600).returncode
+    check(rc == 0, f"the K11 schedule sweep exited {rc}")
+
+
+def redesign15_phase(torch, spec, gpu_line, alone=True):
+    """Phase 32: K11 on the trapezoid and K4's global-memory form in one
+    copy, against their plain versions, K1 and their own repeats; timed
+    beside their rivals in turns. ``alone`` (``--phase 32``) also: K11's
+    schedule sweep, K4 with and without its L2 window, the loop MLUPS of
+    ``band3``, ``deep`` and ``auto``, and phase 25's crossover (one-off
+    measurements, which the whole run leaves out to keep within its
+    limit)."""
+    k11_checks(torch, spec)
+    k4_aa_checks(torch, gpu_line)
+    redesign15_turns(torch, spec, gpu_line)
+    if alone:
+        k4_grid_window(torch, gpu_line)
+        k11_sweep_process()
+        deck_mlups(torch, gpu_line, ("band3", "deep", "auto"),
+                   ("1024x1024", "walls 2048^2", "walls 4096^2"))
+        crossover_phase(torch, gpu_line)
+
+
+PHASE_32 = ("32. K11 on the trapezoid, its load and store fused into its first and last steps, "
+            "and K4's global-memory form in one copy stepped in place: vs plain and K1, beside "
+            "their rivals")
 
 
 PHASE_30 = ("30. the row mesh across processes: K3 with its ring from received rows, K12 with "
@@ -3307,7 +3669,7 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", type=int, choices=(25, 26, 27, 28, 29, 30, 31),
+    ap.add_argument("--phase", type=int, choices=(25, 26, 27, 28, 29, 30, 31, 32),
                     help="run phases 1, 2 and this one only (no kernel report)")
     ap.add_argument("--import-from", metavar="DIR",
                     help="with --phase 26: check K9 of the lbm_tpu_torch package under DIR "
@@ -3316,10 +3678,11 @@ def main():
                          "and K11 and run their c16 gate decks; with --phase 28: check K7 "
                          "and K8 of that package and time them beside K9, K10 and K13; "
                          "with --phase 29: phase 29's checks, timings and decks of that "
-                         "package; nothing else")
+                         "package; with --phase 32: check K11 and K4's global-memory form of "
+                         "that package and time them beside K9, K2 and K6; nothing else")
     args = ap.parse_args()
     if args.import_from and args.phase in (None, 25, 30, 31):
-        ap.error("--import-from needs --phase 26, 27, 28 or 29")
+        ap.error("--import-from needs --phase 26, 27, 28, 29 or 32")
     try:
         import torch
     except ImportError:
@@ -3360,6 +3723,20 @@ def main():
             else:
                 phase(PHASE_31)
                 diagnostics_phase(torch, cli, gpu_line, work)
+        return 0
+    if args.phase == 32:
+        from lbm_tpu_torch.ops.devspace import DevSpec
+
+        spec = DevSpec.for_params(DENSITY, ACCEL)
+        if args.import_from:
+            phase(f"32. K11 and K4's global-memory form vs their plain versions and K1, beside "
+                  f"K9, K2 and K6, the package under {args.import_from}")
+            k11_checks(torch, spec, skip_refused=True)
+            k4_aa_checks(torch, gpu_line)
+            redesign15_turns(torch, spec, gpu_line)
+        else:
+            phase(PHASE_32)
+            redesign15_phase(torch, spec, gpu_line)
         return 0
     if args.phase == 29:
         from lbm_tpu_torch.ops.devspace import DevSpec
@@ -3670,6 +4047,8 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         phase(PHASE_31)
         diagnostics_phase(torch, cli, gpu_line, work)
+    phase(PHASE_32)
+    redesign15_phase(torch, spec, gpu_line, alone=False)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, cells, depth=1,
               bytes_per_cell=BYTES_PER_CELL):

@@ -210,37 +210,6 @@ __device__ __forceinline__ float load_cell(const Geom& g, const Smem& s,
   return nbase[gi];
 }
 
-// Loads the window's 9 planes into ``win`` (9 x ncell) and its
-// not-obstacle plane into s.nob.
-template <bool kSharded, class S = lbm::F32>
-__device__ __forceinline__ void load_window(const Geom& g, const Smem& s, float* win,
-                                            const SourceT<typename S::T>& src, int y0,
-                                            const S& st = S()) {
-  for_cells(g.WH, g.WW, [&](int r, int c) {
-    const int i = r * g.WW + c;
-    float v[9];
-    s.nob[i] = load_cell<kSharded>(g, s, src, y0, r, c, v, st);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) win[k * g.ncell + i] = v[k];
-  });
-}
-
-// Stores the central cells of ``win`` that lie inside the grid (K11).
-template <class S = lbm::F32>
-__device__ __forceinline__ void store_tile(const Geom& g, const float* win,
-                                           typename S::T* __restrict__ dst, int y0, int x0,
-                                           const S& st = S()) {
-  const size_t plane = (size_t)g.ny * g.nx;
-  const int rows = min(g.B, g.ny - y0);
-  const int cols = min(g.P, g.nx - x0);
-  for_cells(rows, cols, [&](int r, int c) {
-    const int i = (r + g.T) * g.WW + (c + g.T);
-    const size_t gi = (size_t)(y0 + r) * g.nx + (x0 + c);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) dst[k * plane + gi] = st.store(win[k * g.ncell + i], k);
-  });
-}
-
 // Central cells inside the grid: window rows [rlo, rhi), columns [T, chi).
 struct Central {
   int rlo, rhi, chi, T;
@@ -290,7 +259,8 @@ __device__ __forceinline__ void force_cell(float v[9], float nob, float w1a, flo
 }
 
 // One step of the window ``w`` (9 x ncell, one copy) in the AA
-// arrangement, in place (K9, K11), its sum into red[step] and a barrier:
+// arrangement, in place (aa_steps below), its sum into red[step] and a
+// barrier:
 //   even (S -> C, kOdd false): cell-local; read the 9 slots of the cell,
 //     relax, write the value travelling k into slot opp(k) of the cell;
 //   odd (C -> S): gather t_k from (x - c_k, opp(k)), relax, scatter to

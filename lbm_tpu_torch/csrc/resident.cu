@@ -4,26 +4,51 @@
 // _make_mega_call), up to 255 steps per call with the whole state in VMEM,
 // ping-ponging between the input and output windows.
 //
-// What bounds it on the H100: below ~590^2 cells a copy of the state is at
-// most 12.5 MB, so both copies stay in the 50 MB L2 and a step costs its L2
-// traffic (76 B per cell) plus one grid-wide barrier; above that it streams
-// from HBM like K1. On small grids the barrier is the cost that matters:
-// K1 pays a kernel launch per step instead.
+// What bounds it on the H100, global-memory form: a step reads and writes
+// the whole state (72 B per cell, and the not-obstacle plane) and meets the
+// whole grid at one grid-wide barrier. Two copies of the state, ping-ponged,
+// stay in the 50 MB L2 only below about 590^2 cells; ONE copy, stepped in
+// place, fits it up to about 1100^2 (37.7 MB and the 4.2 MB mask at
+// 1024^2), so a step can cost its L2 traffic instead of HBM's. On small
+// grids the barrier is the cost that matters: K1 pays a kernel launch per
+// step instead.
 //
 // What the design does about it: one cooperative launch per chunk of steps,
-// with the grid sized to what the card holds at once (occupancy x SMs,
-// never more than one thread per cell). Each block keeps one fixed slab of
-// consecutive cells for the whole chunk; every step it runs K1's cell body
-// (lbm_common.cuh::pull_collide, the forcing fused into the pulls from row
-// ny-2) from one buffer into the other, reading through L2 (another block
-// wrote those lines since this SM last read them), then the whole grid
-// meets at grid.sync(). No step writes the buffer it reads, so the forcing
-// mask needs no extra pass. Per-step sums: each block writes its partial to
-// partials[step][block]; after the chunk, block b reduces steps b, b + G,
-// ... over all blocks in a fixed order, so two runs are bitwise equal (no
-// float atomics). A grid larger than the card can hold at once is refused
-// by cudaLaunchCooperativeKernel, and the error is returned, never a
-// smaller grid.
+// with the grid sized to what the card holds at once (occupancy x SMs, at
+// most 3 blocks per SM: ops/resident.py::grid_blocks; never more than one
+// thread per cell). The state is ONE copy in K2's AA
+// arrangement (aa.cu), stepped in place, and each block keeps one fixed
+// slab of consecutive cells for the whole call, so the lines it touches
+// are the same every step. With slot j of the AA arrangement kept in plane
+// opp(j), the regular arrangement R is the C arrangement: a call starts on
+// R with the gather step (t_k from plane k at x - c_k, relaxed, scattered to
+// plane opp(k) at x + c_k), then the cell-local step (plane opp(k) of the
+// cell in, plane k out), and so on; after an even number of steps the state
+// is R again, after an odd number the S arrangement, which the wrapper
+// turns into R as K2's exit does (ops/resident.py). Address (x, j) has one
+// reader and one writer each step, the same cell, so a step needs no
+// barrier but the one after it (the gather needs its neighbours' last
+// writes). Forcing of row ny-2, K9's placement (band_common.cuh::aa_load):
+// the call's first launch forces the cells of row ny-2 of R in place before
+// its first step (one more barrier per call), and each step adds the
+// forcing of the next to the outputs of its cells on row ny-2, but the
+// call's last step. The cell arithmetic is K1's in K1's order, so the state
+// is bitwise K1's. Reads go through L2 (__ldcg: other blocks wrote those
+// lines since this SM last read them). A thread issues each cell's loads
+// before the stores of the cell before it: with two cells' loads in
+// flight a step from HBM took 0.75 of the time at 2048^2 (PERF.md).
+//
+// The not-obstacle plane is read as one byte per cell, built by the call's
+// first launch in the caller's scratch (1 B instead of 4 per cell and step:
+// 1-21% less time than the f32 plane at 512^2-4096^2 on an H100, PERF.md).
+// Where the caller asks, a persisting-L2 access-policy window covers the
+// state (set on the stream for the call's launches, reset after them).
+// Per-step sums: each block writes its partial to partials[step][block];
+// after the chunk, block b reduces steps b, b + G, ... over all blocks in a
+// fixed order, so two runs are bitwise equal (no float atomics). A grid
+// larger than the card can hold at once is refused by
+// cudaLaunchCooperativeKernel, and the error is returned, never a smaller
+// grid.
 #include <cooperative_groups.h>
 
 #include "band_common.cuh"
@@ -47,10 +72,85 @@ __device__ __forceinline__ float block_sum(float v, float* sm) {
   return total;
 }
 
+// The 9 values t_k of the cell at (y, x), index c, for a step of the
+// global-memory form: kGather, from plane k at x - c_k; else from plane
+// opp(k) of the cell.
+template <bool kGather>
+__device__ __forceinline__ void aa_global_load(const float* buf, size_t plane, int ny, int nx,
+                                               long long c, int y, int x, float t[9]) {
+  const int yu = y == 0 ? ny - 1 : y - 1, yd = y + 1 == ny ? 0 : y + 1;
+  const int xl = x == 0 ? nx - 1 : x - 1, xr = x + 1 == nx ? 0 : x + 1;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    if (kGather) {
+      const int sy = lbm::cy(k) == 1 ? yu : (lbm::cy(k) == -1 ? yd : y);
+      const int sx = lbm::cx(k) == 1 ? xl : (lbm::cx(k) == -1 ? xr : x);
+      t[k] = __ldcg(buf + k * plane + (size_t)sy * nx + sx);
+    } else {
+      t[k] = __ldcg(buf + lbm::opp(k) * plane + c);
+    }
+  }
+}
+
+// One step of the global-memory form over this thread's cells of its
+// block's slab, cells [start, c1) at a stride of kThreads, starting at
+// (y, x): kGather, t_k from plane k at x - c_k, relaxed, scattered to
+// plane opp(k) at x + c_k; else t_k from plane opp(k) of the cell, written
+// to plane k of the cell. ``force``: a cell on row ny-2 adds the next
+// step's forcing to its outputs. Each cell's loads are issued before the
+// stores of the cell before it (every address a step reads and writes
+// belongs to one cell, so the two never meet), which keeps two cells'
+// loads in flight per thread. Returns the thread's sum of nob * |u|.
+template <bool kGather>
+__device__ __forceinline__ float aa_global_step(float* buf, const unsigned char* nob8, int ny,
+                                                int nx, long long start, long long c1, int y,
+                                                int x, int dy, int dx, bool force, float w1a,
+                                                float w2a, const lbm::Relax& rc) {
+  const size_t plane = (size_t)ny * nx;
+  const int frow = ny - 2;
+  float acc = 0.0f;
+  float t[9];
+  if (start < c1) aa_global_load<kGather>(buf, plane, ny, nx, start, y, x, t);
+  for (long long c = start; c < c1; c += kThreads) {
+    int yn = y + dy, xn = x + dx;
+    if (xn >= nx) {
+      xn -= nx;
+      ++yn;
+    }
+    float tn[9];
+    if (c + kThreads < c1) aa_global_load<kGather>(buf, plane, ny, nx, c + kThreads, yn, xn, tn);
+    const float nob = (float)nob8[c];
+    const float usq = lbm::collide_fused(t, nob, rc);
+    if (force && y == frow) band::force_cell(t, nob, w1a, w2a);
+    const int yu = y == 0 ? ny - 1 : y - 1, yd = y + 1 == ny ? 0 : y + 1;
+    const int xl = x == 0 ? nx - 1 : x - 1, xr = x + 1 == nx ? 0 : x + 1;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if (kGather) {
+        const int ty = lbm::cy(k) == 1 ? yd : (lbm::cy(k) == -1 ? yu : y);
+        const int tx = lbm::cx(k) == 1 ? xr : (lbm::cx(k) == -1 ? xl : x);
+        buf[lbm::opp(k) * plane + (size_t)ty * nx + tx] = t[k];
+      } else {
+        buf[k * plane + c] = t[k];
+      }
+    }
+    acc += nob * sqrtf(usq);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) t[k] = tn[k];
+    y = yn;
+    x = xn;
+  }
+  return acc;
+}
+
+// ``steps`` steps of a call, the first of them the call's step ``first``
+// (a gather step when even); ``last``: the launch ends the call. nob8: the
+// one-byte not-obstacle plane, which the call's first launch builds from
+// nobst.
 __global__ void __launch_bounds__(kThreads)
-resident_kernel(float* buf_a, float* buf_b, const float* __restrict__ nobst,
+resident_kernel(float* buf, const float* __restrict__ nobst, unsigned char* nob8,
                 float* __restrict__ partials, float* __restrict__ av, int ny, int nx, int steps,
-                int first_parity, float w1a, float w2a, lbm::Relax rc, float inv_tot) {
+                int first, int last, float w1a, float w2a, lbm::Relax rc, float inv_tot) {
   __shared__ float sm[kThreads];
   cg::grid_group grid = cg::this_grid();
   const int nblocks = gridDim.x;
@@ -59,32 +159,37 @@ resident_kernel(float* buf_a, float* buf_b, const float* __restrict__ nobst,
   const long long c0 = per * blockIdx.x;
   const long long c1 = c0 + per < ncell ? c0 + per : ncell;
   const size_t plane = (size_t)ncell;
+  const int frow = ny - 2;
+  if (first == 0) {
+    // The call's entry: its first forcing, cell-local on R, and the byte plane.
+    const long long f0 = c0 > (long long)frow * nx ? c0 : (long long)frow * nx;
+    const long long f1 = c1 < (long long)(frow + 1) * nx ? c1 : (long long)(frow + 1) * nx;
+    for (long long c = f0 + threadIdx.x; c < f1; c += kThreads) {
+      float v[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) v[k] = buf[k * plane + c];
+      band::force_cell(v, nobst[c], w1a, w2a);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) buf[k * plane + c] = v[k];
+    }
+    for (long long c = c0 + threadIdx.x; c < c1; c += kThreads) nob8[c] = nobst[c] > 0.0f;
+    grid.sync();
+  }
   // The first cell of this thread, and the row/column step of a stride of
   // kThreads cells, so the loop needs no division per cell.
-  const long long first = c0 + threadIdx.x;
-  const int y_start = (int)(first / nx);
-  const int x_start = (int)(first - (long long)y_start * nx);
+  const long long start = c0 + threadIdx.x;
+  const int y0 = (int)(start / nx);
+  const int x0 = (int)(start - (long long)y0 * nx);
   const int dy = kThreads / nx;
   const int dx = kThreads - dy * nx;
   for (int st = 0; st < steps; ++st) {
-    const bool odd = ((first_parity + st) & 1) != 0;
-    const float* src = odd ? buf_b : buf_a;
-    float* dst = odd ? buf_a : buf_b;
-    float acc = 0.0f;
-    int y = y_start, x = x_start;
-    for (long long c = first; c < c1; c += kThreads) {
-      float t[9];
-      const float usq = lbm::pull_collide<true>(src, nobst, ny, nx, y, x, w1a, w2a, rc, t);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) dst[k * plane + c] = t[k];
-      acc += nobst[c] * sqrtf(usq);
-      x += dx;
-      y += dy;
-      if (x >= nx) {
-        x -= nx;
-        ++y;
-      }
-    }
+    const bool force = !(last && st + 1 == steps);
+    const float acc =
+        ((first + st) & 1) == 0
+            ? aa_global_step<true>(buf, nob8, ny, nx, start, c1, y0, x0, dy, dx, force, w1a,
+                                   w2a, rc)
+            : aa_global_step<false>(buf, nob8, ny, nx, start, c1, y0, x0, dy, dx, force, w1a,
+                                    w2a, rc);
     const float total = block_sum(acc, sm);
     if (threadIdx.x == 0) partials[(size_t)st * nblocks + blockIdx.x] = total;
     grid.sync();
@@ -104,9 +209,9 @@ resident_kernel(float* buf_a, float* buf_b, const float* __restrict__ nobst,
 // steps.
 //
 // What bounds the form above on small grids is the barrier: every step
-// reads the whole state from one global buffer, writes it to the other and
-// meets the whole grid at grid.sync(), about 2 us per step whatever the
-// grid's size (PERF.md). This form pays a barrier per T steps instead.
+// reads and writes the whole state in global memory and meets the whole
+// grid at grid.sync(), about 2 us per step whatever the grid's size
+// (PERF.md). This form pays a barrier per T steps instead.
 //
 // Block b owns the whole rows [b*B, b*B + B) (the last block fewer). For
 // the whole launch it keeps in dynamic shared memory its rows, T ghost rows
@@ -327,33 +432,72 @@ extern "C" int lbm_resident_max_blocks() {
 }
 
 // Runs n_steps steps in cooperative launches of ``chunk`` steps (the last
-// one shorter) on ``blocks`` blocks. buf_a holds the initial state; global
-// step t reads buf[t % 2] and writes buf[(t + 1) % 2], so the final state
-// is in buf_a for even n_steps and in buf_b for odd. av receives n_steps
-// values; partials needs chunk * blocks floats. Returns the first CUDA
-// error (cudaErrorCooperativeLaunchTooLarge for a grid the card cannot
-// hold at once), or 0.
-extern "C" int lbm_resident_run(float* buf_a, float* buf_b, const float* nobst, float* av,
+// one shorter) on ``blocks`` blocks, in place on ``buf``, which holds R on
+// entry and, on return, R after an even n_steps and the S arrangement (slot
+// k in plane opp(k)) after an odd one. nob8: scratch of ny * nx bytes for
+// the one-byte not-obstacle plane. l2_bytes: the
+// persisting-L2 access-policy window over the first l2_bytes of buf (0:
+// none), set on the stream for these launches and reset after them, the
+// call then waiting for them. av receives n_steps values; partials needs
+// chunk * blocks floats. Returns the first CUDA error
+// (cudaErrorCooperativeLaunchTooLarge for a grid the card cannot hold at
+// once), or 0.
+extern "C" int lbm_resident_run(float* buf, void* nob8, const float* nobst, float* av,
                                 float* partials, int ny, int nx, int n_steps, int chunk,
-                                int blocks, float w1a, float w2a, float beta, float ow0,
-                                float ow1, float ow2, float inv_tot, void* stream) {
+                                int blocks, unsigned long long l2_bytes, float w1a, float w2a,
+                                float beta, float ow0, float ow1, float ow2, float inv_tot,
+                                void* stream) {
   lbm::Relax rc{beta, ow0, ow1, ow2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int start = 0; start < n_steps; start += chunk) {
-    int steps = n_steps - start < chunk ? n_steps - start : chunk;
-    int parity = start & 1;
-    float* av_c = av + start;
-    void* args[] = {&buf_a, &buf_b, &nobst, &partials, &av_c, &ny, &nx, &steps, &parity,
-                    &w1a, &w2a, &rc, &inv_tot};
-    cudaError_t err = cudaLaunchCooperativeKernel((const void*)resident_kernel, dim3(blocks),
-                                                  dim3(kThreads), args, 0, s);
-    if (err == cudaSuccess) err = cudaGetLastError();
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear a launch-configuration error
-      return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
+  cudaStreamAttrValue window = {};
+  if (l2_bytes > 0) {
+    int dev = 0, max_window = 0, max_persist = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&max_window, cudaDevAttrMaxAccessPolicyWindowSize, dev);
     }
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize, dev);
+    }
+    const size_t bytes = l2_bytes < (size_t)max_window ? l2_bytes : (size_t)max_window;
+    const size_t persist = bytes < (size_t)max_persist ? bytes : (size_t)max_persist;
+    if (err == cudaSuccess) err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, persist);
+    window.accessPolicyWindow.base_ptr = buf;
+    window.accessPolicyWindow.num_bytes = bytes;
+    window.accessPolicyWindow.hitRatio = bytes > 0 ? (float)((double)persist / bytes) : 0.0f;
+    window.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
+    window.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
+    if (err == cudaSuccess) {
+      err = cudaStreamSetAttribute(s, cudaStreamAttributeAccessPolicyWindow, &window);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return 0;
+  unsigned char* bytes8 = static_cast<unsigned char*>(nob8);
+  for (int start = 0; start < n_steps && err == cudaSuccess; start += chunk) {
+    int steps = n_steps - start < chunk ? n_steps - start : chunk;
+    int first = start;
+    int last = start + steps == n_steps;
+    float* av_c = av + start;
+    void* args[] = {&buf, &nobst, &bytes8, &partials, &av_c, &ny, &nx, &steps, &first, &last,
+                    &w1a, &w2a, &rc, &inv_tot};
+    err = cudaLaunchCooperativeKernel((const void*)resident_kernel, dim3(blocks),
+                                      dim3(kThreads), args, 0, s);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) cudaGetLastError();  // clear a launch-configuration error
+  }
+  if (l2_bytes > 0) {
+    // The window's lines stay persisting until reset: wait for the
+    // launches, then give the L2 back.
+    cudaError_t e = cudaStreamSynchronize(s);
+    window.accessPolicyWindow.num_bytes = 0;
+    window.accessPolicyWindow.hitRatio = 0.0f;
+    if (e == cudaSuccess) e = cudaStreamSetAttribute(s, cudaStreamAttributeAccessPolicyWindow, &window);
+    if (e == cudaSuccess) e = cudaCtxResetPersistingL2Cache();
+    if (e == cudaSuccess) e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
+    if (err == cudaSuccess) err = e;
+  }
+  return static_cast<int>(err);
 }
 
 // Dynamic shared memory of the shared-memory form for a window of

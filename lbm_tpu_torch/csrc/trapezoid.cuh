@@ -37,9 +37,10 @@
 // The steps run an instruction-bound loop: a cell update's 18 shared-memory
 // accesses take their addresses from the window's row and plane strides.
 // For the windows of LBM_TRAP_WINDOWS, which the build sets to those of the
-// driver's schedules (ops/_build.py), the kernels are compiled with those
-// strides as constants (with_layout), so each access is a register plus an
-// immediate offset; any other window runs with the strides of its geometry.
+// driver's K5, K6 and K11 schedules (ops/_build.py), the kernels are
+// compiled with those strides as constants (with_layout), so each access
+// is a register plus an immediate offset; any other window runs with the
+// strides of its geometry.
 //
 // K5 and K6 differ only in where the window's halo rows come from (K5: the
 // carried row packs; K6: the input state) and in K5's pack stores.
@@ -120,21 +121,23 @@ __device__ __forceinline__ void load(const band::Geom& g, const band::Smem& s, c
   __syncthreads();
 }
 
-// Step st (1-based) on window rows [st, wh - st) and columns [st, ww - st),
-// in place: odd, gather-relax-scatter; even, cell-local. ``force``: a cell
-// on a forcing row adds the next step's forcing to its outputs. The step's
-// sum of nob * |u| over the central cells goes to red[st - 1]; a barrier
-// ends the step.
+// One step on window rows [inset, wh - inset) and columns [inset, ww -
+// inset), in place: kOdd, gather-relax-scatter; else cell-local. ``force``:
+// a cell on a forcing row adds the next step's forcing to its outputs. The
+// step's sum of nob * |u| over the central cells goes to red[step]; a
+// barrier ends the step. K5 and K6 run step st (1-based) at inset st, K11
+// (band3.cu) step st (0-based) at inset st.
 template <bool kOdd, class L>
 __device__ __forceinline__ void aa_step(const band::Geom& g, const band::Smem& s, const Tile& tl,
                                         const L& lay, const band::Central& cen, bool force,
-                                        float w1a, float w2a, const lbm::Relax& rc, int st) {
+                                        float w1a, float w2a, const lbm::Relax& rc, int inset,
+                                        int step) {
   float* w = s.planes;
   const int n = lay.n(), ww = lay.ww();
   const int frow = g.ny - 2;
   float acc = 0.0f;
-  band::for_cells(tl.wh - 2 * st, tl.ww - 2 * st, [&](int rr, int cc) {
-    const int r = rr + st, c = cc + st;
+  band::for_cells(tl.wh - 2 * inset, tl.ww - 2 * inset, [&](int rr, int cc) {
+    const int r = rr + inset, c = cc + inset;
     const int i = r * ww + c;
     float t[9];
 #pragma unroll
@@ -154,7 +157,7 @@ __device__ __forceinline__ void aa_step(const band::Geom& g, const band::Smem& s
     }
     if (cen.has(r, c)) acc += nob * sqrtf(usq);
   });
-  band::step_partial(s, st - 1, acc);
+  band::step_partial(s, step, acc);
   __syncthreads();
 }
 
@@ -165,9 +168,9 @@ __device__ __forceinline__ void steps(const band::Geom& g, const band::Smem& s, 
   const band::Central cen = band::central(g, tl.y0, tl.x0);
   for (int st = 1; st <= g.T; ++st) {
     if (st & 1) {
-      aa_step<true>(g, s, tl, lay, cen, st < g.T, w1a, w2a, rc, st);
+      aa_step<true>(g, s, tl, lay, cen, st < g.T, w1a, w2a, rc, st, st - 1);
     } else {
-      aa_step<false>(g, s, tl, lay, cen, st < g.T, w1a, w2a, rc, st);
+      aa_step<false>(g, s, tl, lay, cen, st < g.T, w1a, w2a, rc, st, st - 1);
     }
   }
 }

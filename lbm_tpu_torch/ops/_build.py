@@ -15,13 +15,14 @@ returns the CUDA error code of its launches; callers raise when it is not
 0. Nothing is built at import time: the first call that needs a kernel
 builds it, and a build failure raises.
 
-K5 and K6 (``csrc/trapezoid.cuh``) are compiled with constant row and
-plane strides for the windows of the driver's schedules
-(``runtime/driver.py::trapezoid_schedules``), and with the strides of its
-geometry for any other window. The windows reach the sources as a line
-``#define LBM_TRAP_WINDOWS ww, wh, ...`` in a header that nvcc includes
-before each of them (not a ``-D`` flag: nvcc reads its value as a
-comma-separated list of macros).
+The kernels built on ``csrc/trapezoid.cuh`` (K5, K6 and K11) are compiled
+with constant row and plane strides for one list of windows, those of the
+driver's schedules (``runtime/driver.py::trapezoid_schedules`` and
+``band3_schedules``, K11's 16-bit split final passes included), and with
+the strides of its geometry for any other window. The windows reach the
+sources as a line ``#define LBM_TRAP_WINDOWS ww, wh, ...`` in a header that
+nvcc includes before each of them (not a ``-D`` flag: nvcc reads its value
+as a comma-separated list of macros).
 """
 
 from __future__ import annotations
@@ -82,9 +83,9 @@ _RUN_ARGTYPES = {
     # partials, ticket, ny, nx, block, depth, panel, n_passes, 7 scalars,
     # codec, stream)
     "lbm_temporal_run": [_P] * 10 + [_I] * 6 + [_F] * 7 + [_S, _P],
-    # (buf_a, buf_b, nobst, av, partials, ny, nx, n_steps, chunk, blocks,
-    # 7 scalars, stream)
-    "lbm_resident_run": [_P] * 5 + [_I] * 5 + [_F] * 7 + [_P],
+    # (buf, nob8, nobst, av, partials, ny, nx, n_steps, chunk, blocks,
+    # l2_bytes, 7 scalars, stream)
+    "lbm_resident_run": [_P] * 5 + [_I] * 5 + [_U] + [_F] * 7 + [_P],
     "lbm_resident_max_blocks": [],
     # (buf_a, buf_b, exch, nobst, av, partials, ny, nx, n_steps, chunk,
     # blocks, rows, depth, smem_bytes, 7 scalars, stream)
@@ -159,12 +160,17 @@ def _nvcc() -> str:
 
 
 def trap_windows() -> tuple[tuple[int, int], ...]:
-    """The windows ``(width, height)`` that K5 and K6 are compiled for
-    with constant strides: those of the driver's schedules."""
+    """The windows ``(width, height)`` that K5, K6 and K11 are compiled
+    for with constant strides: those of the driver's K5/K6 schedules, and
+    of its K11 schedules with the passes of T-2 and 2 steps that split a
+    16-bit K11 run's final pass (``ops/band3.py::split_final``)."""
     from lbm_tpu_torch.runtime import driver
 
-    return tuple(sorted({(panel + 2 * depth, block + 2 * depth)
-                         for block, depth, panel in driver.trapezoid_schedules()}))
+    trap = {(panel + 2 * depth, block + 2 * depth)
+            for block, depth, panel in driver.trapezoid_schedules()}
+    band3 = {(panel + 2 * t, block + 2 * t) for block, depth, panel in driver.band3_schedules()
+             for t in {depth, depth - 2, 2} if t >= 2}
+    return tuple(sorted(trap | band3))
 
 
 def windows_define() -> str:

@@ -7,9 +7,9 @@ window buffer in the AA arrangement of ``ops/aa.py``:
 - C (before an odd step): slot ``(x, opp(i))`` holds ``f*_i(x)``.
 
 The even step is cell-local (S -> C); the odd step gathers ``t_k`` from
-``(x - c_k, opp(k))`` and scatters to ``(x + c_k, k)`` (C -> S), with wrap
-inside the window, so garbage creeps 0 + 2 cells per double step: T over
-T steps, the band invariant. T is even, so a pass maps S to S, and the
+``(x - c_k, opp(k))`` and scatters to ``(x + c_k, k)`` (C -> S), so the
+values that stay genuine shrink by 0 + 2 cells per double step: T over T
+steps, the band invariant. T is even, so a pass maps S to S, and the
 state stays in S between passes (two copies in device memory, because
 neighbouring tiles read each other's halos). ``stream_planes`` converts
 R -> S once per run and S -> R at the end; the ``n_iters % T`` remainder
@@ -34,9 +34,15 @@ of the state after step T-2 of the final pass, so at 16 bits both the
 kernel route and the plain version split the final pass the same way
 (``split_final``).
 
-On a CUDA tensor the passes run kernel K11 (``csrc/band3.cu``); on a CPU
-tensor ``run_band3_plain``, which keeps K11's arrangements and forcing
-placement on all windows at once. Any other device raises.
+On a CUDA tensor the passes run kernel K11 (``csrc/band3.cu``). Its pass
+opens with the even step and closes with the odd one, so its load is step
+0 (each window cell relaxed as it arrives from S) and its store is step
+T-1 (each central S slot sent to device memory by its one writer, the cell
+x - c_k), and step s updates only the window cells at least s cells from
+every edge (K6's trapezoid). On a CPU tensor ``run_band3_plain`` runs that
+pass on all windows at once (``k11_step_plain``): the same arrangements,
+forcing placement and regions, NaN wherever the kernel's window is not
+updated. Any other device raises.
 
 c16 storage (``dev``): the S arrangement is int16 codes between passes
 (``stream_planes`` rolls raw codes); K11 decodes its window and encodes
@@ -98,8 +104,9 @@ def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
 
 
 def s_step_plain(omega, w1a, w2a, paired, depth, fuse_last):
-    """K11's even/odd steps on windows; the last odd step of the pass fuses
-    the next forcing only if ``fuse_last``."""
+    """K11's even/odd steps on whole windows, wrapping at their edges; the
+    last odd step of the pass fuses the next forcing only if
+    ``fuse_last``."""
     shifts = [(BC.CYS[k], BC.CXS[k]) for k in range(9)]
 
     def step(s, planes, nob, frow):
@@ -115,6 +122,35 @@ def s_step_plain(omega, w1a, w2a, paired, depth, fuse_last):
         if fuse_last or s < depth - 1:
             out = BC.force_windows(out, nob, frow, w1a, w2a)
         return [torch.roll(out[k], shifts=shifts[k], dims=(1, 2)) for k in range(9)], u_sq
+
+    return step
+
+
+def k11_step_plain(omega, w1a, w2a, paired, depth, fuse_last):
+    """K11's pass as the kernel runs it (``csrc/band3.cu``): the steps of
+    ``s_step_plain``, step s (0-based) updating only what the window cells
+    at least s cells from every edge write (an even step: every slot of the
+    cell; an odd step: slot k of the cell x + c_k), every other slot and
+    sum NaN. The central tile after the last step is what the kernel
+    stores, so a NaN there would be a value it never computed."""
+    inner = s_step_plain(omega, w1a, w2a, paired, depth, fuse_last)
+    nan = float("nan")
+
+    def step(s, planes, nob, frow):
+        out, u_sq = inner(s, planes, nob, frow)
+        wh, ww = nob.shape[1:]
+        rows = torch.arange(wh, device=nob.device)[:, None]
+        cols = torch.arange(ww, device=nob.device)[None, :]
+
+        def region(dy, dx):  # the writer cell of each slot is at inset >= s
+            r, c = rows - dy, cols - dx
+            return (r >= s) & (r < wh - s) & (c >= s) & (c < ww - s)
+
+        cell = region(0, 0)
+        if s % 2 == 0:
+            return [torch.where(cell, p, nan) for p in out], torch.where(cell, u_sq, nan)
+        return ([torch.where(region(BC.CYS[k], BC.CXS[k]), out[k], nan) for k in range(9)],
+                torch.where(cell, u_sq, nan))
 
     return step
 
@@ -152,7 +188,12 @@ def _in_s_space(nobst, density, accel, s_passes, dev=None):
     w1a, w2a = forcing_weights(density, accel)
 
     def run_passes(cells, npasses):
-        state = force_s(stream_planes(cells).contiguous(), nobst, w1a, w2a, dev)
+        state = stream_planes(cells).contiguous()
+        ny = state.shape[1]
+        if ny >= 3:  # the forcing changes rows ny-3..ny-1 only: force them in place
+            state[:, ny - 3:] = force_s(state[:, ny - 3:], nobst[ny - 3:], w1a, w2a, dev)
+        else:
+            state = force_s(state, nobst, w1a, w2a, dev)
         state, av = s_passes(state, npasses)
         return stream_planes(state, -1).contiguous(), av
 
@@ -165,8 +206,8 @@ def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, pan
 
     def passes(steps, fuse_last):
         def step_for(p, npasses):
-            return s_step_plain(float(omega), w1a, w2a, paired, steps,
-                                fuse_last or p < npasses - 1)
+            return k11_step_plain(float(omega), w1a, w2a, paired, steps,
+                                  fuse_last or p < npasses - 1)
 
         return BC.plain_passes(nobst, inv_tot_cells, block, steps, panel, step_for, dev)
 

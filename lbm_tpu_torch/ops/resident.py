@@ -16,14 +16,22 @@ one of two forms picked from the shapes before any launch:
   memory, double-buffered by pass parity, at one grid-wide barrier per
   pass. ``run_resident_slabs_plain`` is that schedule in plain PyTorch;
 - the global-memory form elsewhere (grids whose window rows do not fit a
-  block's shared memory): each block a fixed slab of cells, the two state
-  buffers ping-ponged with a grid-wide barrier between steps.
+  block's shared memory): ONE copy of the state, stepped in place in K2's
+  AA arrangement with a grid-wide barrier between steps, each block a
+  fixed slab of cells for the whole call. The call starts on R with the
+  gather step (slot j of the arrangement in plane opp(j), so R is the C
+  arrangement), forces the cells of row ny-2 of R once before it, and
+  adds each next step's forcing to the outputs of those cells, but the
+  call's last step; after an odd number of steps the wrapper turns the S
+  arrangement back into R as K2's exit does (``aa.stream_planes``).
+  ``run_resident_aa_plain`` is that schedule in plain PyTorch, bitwise
+  ``run_resident_plain``.
 
-The final state is whichever buffer the last step (or launch) wrote (the
-TPU kernel ends an even-length chunk with a whole-state copy into its
-output window; the card has no output window to fill). On a CPU tensor it
-runs ``run_resident_plain``, the same steps in plain PyTorch. Any other
-device raises; a CUDA tensor never falls back.
+The shared-memory form's final state is whichever buffer its last launch
+wrote (the TPU kernel ends an even-length chunk with a whole-state copy
+into its output window; the card has no output window to fill). On a CPU
+tensor ``run_resident`` runs ``run_resident_plain``, the same steps in
+plain PyTorch. Any other device raises; a CUDA tensor never falls back.
 
 The TPU kernel's gates (``nx % 128``, ``ny % 8``, the 40 MB VMEM budget,
 ``_pick_tile`` and the value-carried path for states up to 4 MB) exist for
@@ -35,9 +43,10 @@ from __future__ import annotations
 import torch
 
 from lbm_tpu_torch.ops import _build
+from lbm_tpu_torch.ops.aa import stream_planes
 from lbm_tpu_torch.ops.band_common import SMEM_LIMIT
 from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
-from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, check_inputs, force_deltas,
+from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, check_inputs, force_deltas, force_row,
                                     forcing_weights, kernel_scalars, step_plain)
 
 CHUNK_STEPS = 255  # steps per launch, as pallas_resident._CHUNK_STEPS
@@ -46,6 +55,13 @@ _SMEM_THREADS = 512  # csrc/resident.cu::kSmemThreads, a block of the shared-mem
 _SMEM_WARPS = _SMEM_THREADS // 32
 # The most steps per pass of the shared-memory form.
 SMEM_MAX_DEPTH = 4
+# The most blocks per SM of the global-memory form. On an H100 (chip_smoke
+# phase 32, in turns, two runs, PERF.md section 6) 3 blocks per SM took
+# 2-16% less time than 4 at 512^2, 768^2, 896^2-1024^2 (with the L2
+# window where ``l2_window`` sets it) and 2048^2, the sizes of the 1024^2
+# deck and the 2048^2 walls deck; 2-27% more at 832^2 and 1088^2-1280^2,
+# and 22% more at 4096^2.
+BLOCKS_PER_SM = 3
 
 
 def resident_supported(ny: int, nx: int) -> bool:
@@ -110,6 +126,64 @@ def run_resident_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_cel
             cells, tot = step_plain(cells, nobst, w1a, w2a, float(omega), paired)
             av[t] = tot * inv
     return cells, av
+
+
+def _aa_launch_plain(state, nobst, w1a, w2a, omega, first, steps, last, paired):
+    """One launch of the global-memory form: ``steps`` steps of a call on
+    ``state`` (plane j holds slot opp(j) of the AA arrangement), the first
+    of them the call's step ``first`` (a gather step when even); ``last``:
+    the launch ends the call. Returns the state and the per-step sums."""
+    planes = list(state.unbind(0))
+    if first == 0:
+        planes = force_row(planes, nobst, w1a, w2a)
+    fluid = nobst > 0.0
+    sums = torch.empty(steps, dtype=state.dtype, device=state.device)
+    for st in range(steps):
+        gather = (first + st) % 2 == 0
+        if gather:  # t_k from plane k at x - c_k
+            t = [torch.roll(planes[k], shifts=(_CYS[k], _CXS[k]), dims=(0, 1)) for k in range(9)]
+        else:  # t_k from plane opp(k) of the cell
+            t = [planes[_OPP[k]] for k in range(9)]
+        relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+        out = [torch.where(fluid, relaxed[k], t[_OPP[k]]) for k in range(9)]
+        if not (last and st + 1 == steps):
+            out = force_row(out, nobst, w1a, w2a)
+        if gather:  # value k to plane opp(k) at x + c_k
+            planes = [torch.roll(out[_OPP[j]], shifts=(_CYS[_OPP[j]], _CXS[_OPP[j]]),
+                                 dims=(0, 1)) for j in range(9)]
+        else:  # value k to plane k of the cell
+            planes = out
+        sums[st] = torch.sum(nobst * u_mag(u_sq))
+    return torch.stack(planes), sums
+
+
+def as_regular(state, n_steps: int):
+    """R from the global-memory form's state after ``n_steps`` steps of a
+    call: R itself after an even count, the S arrangement (slot k in plane
+    opp(k)) after an odd one, which ``stream_planes`` turns back as K2's
+    exit does."""
+    if n_steps % 2 == 0:
+        return state
+    return stream_planes(state[torch.as_tensor(_OPP, device=state.device)], -1).contiguous()
+
+
+def run_resident_aa_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, *,
+                          chunk=CHUNK_STEPS, paired="fused"):
+    """The global-memory form's schedule in plain PyTorch, launch by launch
+    of ``chunk`` steps: one copy of the state stepped in the AA arrangement
+    from R, the forcing placed as the kernel places it. Returns ``(cells,
+    av)``, bitwise ``run_resident_plain``'s."""
+    _check(cells, nobst, n_iters, chunk)
+    w1a, w2a = forcing_weights(density, accel)
+    inv = torch.tensor(inv_tot_cells, dtype=torch.float32, device=cells.device)
+    av = torch.empty(n_iters, dtype=torch.float32, device=cells.device)
+    state = cells
+    for start in range(0, n_iters, chunk):
+        steps = min(chunk, n_iters - start)
+        state, sums = _aa_launch_plain(state, nobst, w1a, w2a, float(omega), start, steps,
+                                       start + steps == n_iters, paired)
+        av[start:start + steps] = sums * inv
+    return as_regular(state, n_iters), av
 
 
 def _window_step(win, nob, frow, r0, r1, own, w1a, w2a, omega, paired):
@@ -220,27 +294,51 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def grid_blocks(device, ny: int, nx: int) -> int:
+    """The blocks ``run_resident`` gives the global-memory form: what the
+    card holds at once, at most ``BLOCKS_PER_SM`` per SM, and never more
+    than one thread per cell."""
+    per_sm = min(max_blocks(device), BLOCKS_PER_SM * sm_count(device))
+    return min(per_sm, -(-ny * nx // _THREADS))
+
+
+def l2_window(state_bytes: int, device) -> bool:
+    """Whether the global-memory form sets a persisting-L2 access-policy
+    window over a state of ``state_bytes``: from 0.6 to 0.85 of the card's
+    L2. On an H100 (50 MiB of L2; chip_smoke phase 32 at 3 blocks per SM,
+    in turns, two runs, PERF.md section 6) the window took 3-13% less time
+    at 960^2-1088^2 (33.2-42.6 MB, 0.63-0.81 of the L2), 0.2-2.3% more at
+    768^2-896^2 (0.40-0.55), 20% more at 1152^2 (0.91) and 1.4-2.9x the
+    time above the L2; between those sizes it is unmeasured."""
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    return 3 * l2 <= 5 * state_bytes and 20 * state_bytes <= 17 * l2
+
+
 def launch(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk, blocks):
     """K4's global-memory form on ``blocks`` blocks: one cooperative launch
-    per chunk, all from one C call. A grid larger than the card can hold at
-    once raises (the launch is refused); nothing shrinks it."""
+    per chunk, all from one C call, on one copy of the state, with a
+    persisting-L2 window over it where ``l2_window`` says. A grid larger
+    than the card can hold at once raises (the launch is refused); nothing
+    shrinks it."""
     lib = _build.library()
     _, ny, nx = cells.shape
-    a = cells.contiguous().clone()
-    b = torch.empty_like(a)
+    buf = cells.contiguous().clone()
+    l2 = l2_window(buf.numel() * buf.element_size(), buf.device)
     nobst = nobst.contiguous()
-    av = torch.empty(n_iters, dtype=torch.float32, device=a.device)
-    partials = torch.empty(min(chunk, n_iters) * blocks, dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+    nob8 = torch.empty((ny, nx), dtype=torch.uint8, device=buf.device)
+    av = torch.empty(n_iters, dtype=torch.float32, device=buf.device)
+    partials = torch.empty(min(chunk, n_iters) * blocks, dtype=torch.float32, device=buf.device)
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
         rc = lib.lbm_resident_run(
-            a.data_ptr(), b.data_ptr(), nobst.data_ptr(), av.data_ptr(), partials.data_ptr(),
-            ny, nx, n_iters, chunk, blocks,
+            buf.data_ptr(), nob8.data_ptr(), nobst.data_ptr(),
+            av.data_ptr(), partials.data_ptr(), ny, nx, n_iters, chunk, blocks,
+            buf.numel() * buf.element_size() if l2 else 0,
             *kernel_scalars(density, accel, omega, inv_tot_cells), stream,
         )
     _build.check(rc, f"resident kernel ({blocks} blocks)")
     run_resident.launches += n_iters
-    return (a if n_iters % 2 == 0 else b), av
+    return as_regular(buf, n_iters), av
 
 
 def launch_smem(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk, config):
@@ -290,7 +388,7 @@ def run_resident(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, *,
     if config is not None:
         return launch_smem(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk,
                            config)
-    blocks = min(max_blocks(cells.device), -(-ny * nx // _THREADS))
+    blocks = grid_blocks(cells.device, ny, nx)
     return launch(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk, blocks)
 
 

@@ -148,18 +148,26 @@ def check_inputs(cells: torch.Tensor, nobst: torch.Tensor, n_steps: int, min_ny:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
 
 
-def step_plain(cells, nobst, w1a, w2a, omega, paired="fused"):
-    """One fused step in plain PyTorch (``pallas_step._physics``): forcing of
-    row ny-2 under the joint mask, pull streaming with periodic wrap, BGK,
-    bounce-back. Returns ``(new_cells, tot_u)``."""
-    r = cells.shape[1] - 2
-    m = list(cells.unbind(0))
+def force_row(m, nobst, w1a, w2a):
+    """The forcing of row ny-2 under the joint mask on the 9 planes ``m``
+    (speed k in ``m[k]``), the mask from each cell's own values 3, 6, 7;
+    returns the new list."""
+    r = nobst.shape[0] - 2
+    m = list(m)
     ok = ((m[3][r] - w1a > 0.0) & (m[6][r] - w2a > 0.0) & (m[7][r] - w2a > 0.0))
-    amask = ok.to(cells.dtype) * nobst[r]
+    amask = ok.to(m[0].dtype) * nobst[r]
     for k, w in force_deltas(w1a, w2a):
         plane = m[k].clone()
         plane[r] = plane[r] + w * amask
         m[k] = plane
+    return m
+
+
+def step_plain(cells, nobst, w1a, w2a, omega, paired="fused"):
+    """One fused step in plain PyTorch (``pallas_step._physics``): forcing of
+    row ny-2 under the joint mask, pull streaming with periodic wrap, BGK,
+    bounce-back. Returns ``(new_cells, tot_u)``."""
+    m = force_row(cells.unbind(0), nobst, w1a, w2a)
     t = [torch.roll(m[k], shifts=(_CYS[k], _CXS[k]), dims=(0, 1)) for k in range(9)]
     relaxed, u_sq = bgk_relax(t, omega, paired=paired)
     fluid = nobst > 0.0

@@ -158,7 +158,16 @@ class SimulationResult:
 # (32, 4, 56) the fastest or within 1.1% of it at 1024^2-4096^2, T 3 about
 # 15% slower at 2048^2 and T 5 within 2.1% either way (PERF.md section 6).
 _BAND_TIERS = (((32, 4, 56), 2 * 132), ((24, 4, 24), 0))
-_BAND3_SCHEDULE = (24, 4, 56)   # K11: a 32 x 64 window, 82 KB of shared memory
+# K11 (its load fused into its first step, its store into its last, the
+# steps between on K6's trapezoid), a window of one copy at constant
+# strides. On an H100 (chip_smoke phase 32's sweep of T 4, 8 and 16 at
+# 512^2-4096^2 and every storage, each candidate at constant strides,
+# and the two tiers in turns in one process, PERF.md section 6): (36, 4,
+# 56), a 44 x 64 window, took 4-14% less time than (24, 4, 56) at 4096^2
+# (8,436 tiles) in every storage; (24, 4, 56), a 32 x 64 window, took 4-28%
+# less at 1024^2 and 512^2, and at 2048^2 (3,182 tiles) was within 1% at
+# f32 and 4-7% faster at c16, 3% slower at bf16.
+_BAND3_TIERS = (((36, 4, 56), 4000), ((24, 4, 56), 0))
 # K5 and K6 in one window copy, one table for both. On an H100 (chip_smoke
 # phase 27's sweep, every candidate's window with constant strides, two
 # runs, PERF.md section 6): (36, 4, 56), a 44 x 64 window of 113 KB, two
@@ -180,6 +189,12 @@ _RESIDENT_CHUNK = 255
 # schedule, PERF.md section 6), K4 took the least time per step at 128x256
 # and every square from 256^2 to 448^2 (its shared-memory form), K6 the
 # least from 512^2 (where K4 takes its global-memory form) to 1024^2.
+# With K4's global-memory form in one copy and K11 on the trapezoid
+# (phases 25 and 32, four runs) K6 stayed the fastest from 512^2 to 768^2
+# (K11 within 1% at 768^2; K4 once 3.5% faster at 640^2, 9-10% slower in
+# the final tree's two runs) and K11 took 1-3% less at 1024^2, but K11
+# is not the same bits when a run is cut and resumed (its S state carries
+# the forcing, re-applied on the host), so neither limit moved.
 _RESIDENT_AUTO_MAX_STATE = 9 * 448 * 448 * 4
 
 
@@ -204,8 +219,16 @@ def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
 def band3_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
     """The band3 kernel's schedule ``(block, depth, panel)`` (driver.py:691-720),
     or None for a dtype it does not store (f32, c16 and bf16)."""
-    del params
-    return _BAND3_SCHEDULE if _kernel_dtype(dtype) else None
+    from lbm_tpu_torch.ops.band3 import band3_supported
+
+    return _tiered(params, _BAND3_TIERS, band3_supported) if _kernel_dtype(dtype) else None
+
+
+def band3_schedules() -> tuple[tuple[int, int, int], ...]:
+    """Every schedule of K11's tiers. The build compiles their windows, and
+    those of their split 16-bit final passes, with constant strides
+    (ops/_build.py, csrc/band3.cu)."""
+    return tuple(cfg for cfg, _ in _BAND3_TIERS)
 
 
 # K13: passes per slab visit (the JAX package's default).

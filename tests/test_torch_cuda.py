@@ -846,6 +846,95 @@ def test_k9_one_window_matches_plain(cuda_device, storage, nx, ny, block, depth,
         assert_bf16_close(got, want, BF16_SPREAD_TOL)
 
 
+# K11 on the trapezoid, its load and store fused into its first and last
+# steps: (nx, ny, block, depth, panel) at T 2, 4, 8 and 16, full row (panel
+# None) and panel, on ragged grids.
+K11_SCHEDULES = [(46, 37, 12, 2, 15), (100, 97, 24, 4, 56), (100, 97, 8, 4, None),
+                 (150, 100, 16, 8, 40), (130, 100, 16, 8, None), (200, 150, 32, 16, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,block,depth,panel", K11_SCHEDULES)
+@pytest.mark.parametrize("storage", ["f32", "c16", "bf16"])
+def test_k11_trapezoid_matches_plain(cuda_device, storage, nx, ny, block, depth, panel):
+    """K11 over one pass and over 2T+3 steps (two passes, the first fused
+    into the second, and a K1 remainder) against run_band3_plain; a second
+    run bitwise equal."""
+    dev = {"f32": None, "c16": SPEC, "bf16": BF16}[storage]
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=nx + depth)
+    x = cells if dev is None else tdev.encode_state(cells, dev)
+    for n in (depth, 2 * depth + 3):
+        def run(fn):
+            return fn(x, nobst, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel, dev=dev)
+
+        got, again = run(tband3.run_band3), run(tband3.run_band3)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        want = run(tband3.run_band3_plain)
+        if storage == "f32":
+            assert_close(got, want)
+        elif storage == "c16":
+            assert_c16_close(got, want)
+        else:
+            assert_bf16_close(got, want, BF16_TOL if n == depth else BF16_SPREAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(70, 97), (33, 3), (64, 4), (300, 257)])
+@pytest.mark.parametrize("iters,chunk", [(12, 5), (13, 5), (255, 255), (256, 255)])
+def test_resident_aa_form_matches_plain_and_k1(cuda_device, nx, ny, iters, chunk):
+    """K4's global-memory form (one copy in the AA arrangement) over launches
+    of ``chunk`` steps, both exit parities: its state bitwise K1's, its av
+    series bitwise repeatable and within K4's tolerance of the plain
+    version's, and a run cut between calls the whole run's bits."""
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=iters + nx)
+    blocks = min(tres.max_blocks(cuda_device), -(-nx * ny // tres._THREADS))
+
+    def run(c, n):
+        return tres.launch(c, nobst, DENSITY, ACCEL, OMEGA, n, 1.0, chunk, blocks)
+
+    got, again = run(cells, iters), run(cells, iters)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[0], tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0)[0])
+    assert_close(got, tres.run_resident_aa_plain(cells, nobst, DENSITY, ACCEL, OMEGA, iters, 1.0,
+                                                 chunk=chunk))
+    head = run(cells, 7)
+    tail = run(head[0], iters - 7)
+    assert torch.equal(tail[0], got[0]) and torch.equal(torch.cat([head[1], tail[1]]), got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(16, 16), (300, 257), (1024, 1024)])
+def test_resident_grid_blocks(cuda_device, nx, ny):
+    """``run_resident``'s grid for the global-memory form: what the card
+    holds at once, at most BLOCKS_PER_SM per SM, at most one thread per
+    cell."""
+    blocks = tres.grid_blocks(cuda_device, ny, nx)
+    assert 1 <= blocks <= tres.max_blocks(cuda_device)
+    assert blocks <= tres.BLOCKS_PER_SM * tres.sm_count(cuda_device)
+    assert blocks <= -(-nx * ny // tres._THREADS)
+    if nx * ny >= tres._THREADS * tres.BLOCKS_PER_SM * tres.sm_count(cuda_device):
+        assert blocks == min(tres.max_blocks(cuda_device),
+                             tres.BLOCKS_PER_SM * tres.sm_count(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny", [(128, 96), (300, 257)])
+def test_resident_aa_form_l2_window_is_bitwise(cuda_device, monkeypatch, nx, ny):
+    """The global-memory form gives the same bits with and without its
+    persisting-L2 window over the state (``resident.l2_window`` set either
+    way), and a run without it after one with it gives those bits again."""
+    cells, nobst = make_setup(cuda_device, nx, ny, seed=2)
+    blocks = min(tres.max_blocks(cuda_device), -(-nx * ny // tres._THREADS))
+
+    def run(window):
+        monkeypatch.setattr(tres, "l2_window", lambda state_bytes, device: window)
+        return tres.launch(cells, nobst, DENSITY, ACCEL, OMEGA, 37, 1.0, 16, blocks)
+
+    want, got = run(False), run(True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(run(False)[1], want[1])
+
+
 # K7 in one window at any T: (nx, ny, block, depth, panel) at T 1, 3, 4, 5
 # and 8, full row (panel None) and panel, on ragged grids, a tile of one row
 # and one column, and a block shorter than 2T (outside K9's domain).

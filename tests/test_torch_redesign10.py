@@ -166,18 +166,26 @@ def test_schedule_fits_two_blocks_per_sm(route, n, storage):
 def test_driver_windows_have_constant_strides(monkeypatch):
     """Every window of the driver's K5 and K6 tiers is one that the build
     gives ``csrc/trapezoid.cuh::with_layout`` to compile with constant
-    strides (``#define LBM_TRAP_WINDOWS ww, wh, ...``), and the windows
-    follow ``driver.trapezoid_schedules`` (chip_smoke phase 27's sweep sets
-    it to its candidates)."""
+    strides (``#define LBM_TRAP_WINDOWS ww, wh, ...``), in one list with
+    K11's (its tiers' windows and those of the T-2 and 2 steps of a split
+    16-bit final pass), and the windows follow
+    ``driver.trapezoid_schedules`` (chip_smoke phase 27's sweep sets it to
+    its candidates) and ``driver.band3_schedules``."""
     tiers = [cfg for cfg, _ in tdriver._TRAPEZOID_TIERS]
     assert set(tdriver.trapezoid_schedules()) == set(tiers)
+    band3 = [cfg for cfg, _ in tdriver._BAND3_TIERS]
+    assert set(tdriver.band3_schedules()) == set(band3)
     name, values = _build.windows_define().split(None, 2)[1:]
     assert name == "LBM_TRAP_WINDOWS"
     pairs = [int(v) for v in values.split(",")]
     listed = set(zip(pairs[::2], pairs[1::2]))
-    assert listed == {(panel + 2 * depth, block + 2 * depth) for block, depth, panel in tiers}
+    want = {(panel + 2 * depth, block + 2 * depth) for block, depth, panel in tiers}
+    want |= {(panel + 2 * t, block + 2 * t) for block, depth, panel in band3
+             for t in (depth, depth - 2, 2) if t >= 2}
+    assert listed == want
     monkeypatch.setattr(tdriver, "trapezoid_schedules", lambda: ((36, 4, 56), (32, 4, 72)))
-    assert _build.trap_windows() == ((64, 44), (80, 40))
+    monkeypatch.setattr(tdriver, "band3_schedules", lambda: ((24, 4, 56), (16, 2, 30)))
+    assert _build.trap_windows() == ((34, 20), (60, 28), (64, 32), (64, 44), (80, 40))
 
 
 @pytest.mark.parametrize("depth", [3, 4, 8])

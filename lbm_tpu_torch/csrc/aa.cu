@@ -306,6 +306,7 @@ int run_words(typename S::T* state, const float* nobst, float* av, float* partia
   const dim3 grid((nx / kWordCells + lbm::kBlockX - 1) / lbm::kBlockX,
                   (ny + lbm::kBlockY - 1) / lbm::kBlockY);
   const int fthreads = 256;
+  lbm::count_launch();
   force_even_kernel<S><<<(nx + fthreads - 1) / fthreads, fthreads, 0, st>>>(state, nobst, ny, nx,
                                                                             w1a, w2a, stor);
   cudaError_t err = cudaGetLastError();
@@ -313,9 +314,11 @@ int run_words(typename S::T* state, const float* nobst, float* av, float* partia
   for (int t = 0; t < n_steps; ++t) {
     const int force_next = t + 1 < n_steps;
     if (t & 1) {
+      lbm::count_launch();
       aa_word_kernel<true, S><<<grid, block, 0, st>>>(
           state, nobst, partials, ticket, av + t, ny, nx, rc, inv_tot, w1a, w2a, force_next, stor);
     } else {
+      lbm::count_launch();
       aa_word_kernel<false, S><<<grid, block, 0, st>>>(
           state, nobst, partials, ticket, av + t, ny, nx, rc, inv_tot, w1a, w2a, force_next, stor);
     }
@@ -345,16 +348,20 @@ int run(void* planes, const float* nobst, float* av, float* partials, unsigned i
   const dim3 fgrid((nx + fthreads - 1) / fthreads);
   for (int t = 0; t < n_steps; ++t) {
     if (t & 1) {
+      lbm::count_launch();
       force_odd_kernel<S><<<fgrid, fthreads, 0, st>>>(state, nobst, ny, nx, w1a, w2a, stor);
     } else {
+      lbm::count_launch();
       force_even_kernel<S><<<fgrid, fthreads, 0, st>>>(state, nobst, ny, nx, w1a, w2a, stor);
     }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     if (t & 1) {
+      lbm::count_launch();
       aa_step_kernel<true, S><<<grid, block, 0, st>>>(state, nobst, partials, ticket, av + t, ny,
                                                       nx, rc, inv_tot, stor);
     } else {
+      lbm::count_launch();
       aa_step_kernel<false, S><<<grid, block, 0, st>>>(state, nobst, partials, ticket, av + t, ny,
                                                        nx, rc, inv_tot, stor);
     }

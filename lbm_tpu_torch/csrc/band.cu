@@ -142,6 +142,7 @@ int run(const band::Geom& g, const band::ShardsT<typename S::T>* sh, typename S:
   auto launch = [&](const T* from, T* to, float* av_p, int) {
     band::SourceT<T> s = src;
     s.cells = from;
+    lbm::count_launch();
     band_kernel<kMode, S><<<grid, band::kThreads, smem, st>>>(
         s, to, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot, SlabIO{}, stor);
   };
@@ -185,6 +186,7 @@ int run_slab(typename S::T* state, typename S::T* next, typename S::T* slab_a,
                         kt, kt + sblock, j > 0};
         const band::SourceT<T> src{first ? cur : bufs[(p + 1) & 1], nobst,
                                    nullptr, nullptr, nullptr, nullptr};
+        lbm::count_launch();
         band_kernel<Mode::kSlab, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
             src, last ? nxt : bufs[p & 1], partials, ticket,
             av + (size_t)gen * kt + (size_t)p * g.T, g, w1a, w2a, rc, inv_tot, io, stor);

@@ -102,6 +102,7 @@ int run_grid(typename S::T* buf_a, typename S::T* buf_b, const float* nobst, flo
   return band::run_passes(n_passes, g.T, buf_a, buf_b, av,
                           [&](const T* src, T* dst, float* av_p, int) {
     const band::SourceT<T> from{src, nobst, nullptr, nullptr, nullptr, nullptr};
+    lbm::count_launch();
     band2_kernel<false, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
         from, dst, partials, ticket, av_p, g, w1a, w2a, rc, inv_tot, io);
   });
@@ -126,6 +127,7 @@ int run_sharded(const unsigned long long* table, int s0, int count, int nshards,
   return band::run_sharded_passes(g, sh, n_passes, static_cast<T*>(buf_a), static_cast<T*>(buf_b),
                                   av, st, [&](const T* src, T* dst, float* av_p, int) {
     const band::SourceT<T> from{src, nobst, sh.halo_dn, sh.halo_up, nob_dn, nob_up};
+    lbm::count_launch();
     band2_kernel<true, S><<<grid, band::kThreads, smem, st>>>(from, dst, partials, ticket, av_p,
                                                               g, w1a, w2a, rc, inv_tot, io);
   });
@@ -194,6 +196,7 @@ extern "C" int lbm_cluster_sync_probe(int blocks, int threads, int cluster, int 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  lbm::count_launch();
   const cudaError_t err = cudaLaunchKernelEx(&cfg, cluster_sync_loop, syncs);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

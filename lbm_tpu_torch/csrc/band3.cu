@@ -143,6 +143,7 @@ int run(typename S::T* buf_a, typename S::T* buf_b, const float* nobst, float* a
     if (err != cudaSuccess) return static_cast<int>(err);
     return band::run_passes(n_passes, g.T, buf_a, buf_b, av,
                             [&](const T* src, T* dst, float* av_p, int p) {
+      lbm::count_launch();
       band3_kernel<L, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
           src, dst, nobst, partials, ticket, av_p, g, lay, w1a, w2a, rc, inv_tot,
           fuse_last || p + 1 < n_passes, io);

@@ -504,6 +504,7 @@ inline int run_sharded_passes(const Geom& g, const ShardsT<E>& sh, int n_passes,
   for (int p = 0; p < n_passes; ++p) {
     const int w = (sh.parity + p) & 1;
     if (sh.table != nullptr) {
+      lbm::count_launch();
       halo_rows_kernel<E><<<blocks, kThreads, 0, st>>>(sh.table, w, sh.s0, sh.count, sh.nshards,
                                                        sh.halo_dn, sh.halo_up, g.ny, g.nx, g.T);
     }

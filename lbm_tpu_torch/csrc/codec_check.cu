@@ -55,6 +55,7 @@ extern "C" int lbm_c16_sweep(const lbm::Storage* storage, unsigned long long* ba
   if (storage == nullptr || storage->kind != lbm::kStorageC16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  lbm::count_launch();
   codec_sweep_kernel<<<132 * 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       lbm::make_c16(storage->codec), bad);
   return static_cast<int>(cudaGetLastError());

@@ -481,6 +481,7 @@ extern "C" int lbm_resident_run(float* buf, void* nob8, const float* nobst, floa
     float* av_c = av + start;
     void* args[] = {&buf, &nobst, &bytes8, &partials, &av_c, &ny, &nx, &steps, &first, &last,
                     &w1a, &w2a, &rc, &inv_tot};
+    lbm::count_launch();
     err = cudaLaunchCooperativeKernel((const void*)resident_kernel, dim3(blocks),
                                       dim3(kThreads), args, 0, s);
     if (err == cudaSuccess) err = cudaGetLastError();
@@ -548,6 +549,7 @@ extern "C" int lbm_resident_smem_run(float* buf_a, float* buf_b, float* exch, co
     float* av_c = av + start;
     void* args[] = {&src, &dst, &exch, &nobst, &partials, &av_c, &ny, &nx, &rows, &depth,
                     &steps, &w1a, &w2a, &rc, &inv_tot};
+    lbm::count_launch();
     err = cudaLaunchCooperativeKernel((const void*)resident_smem_kernel, dim3(blocks),
                                       dim3(kSmemThreads), args, (size_t)smem_bytes, s);
     if (err == cudaSuccess) err = cudaGetLastError();
@@ -565,6 +567,7 @@ extern "C" int lbm_resident_smem_run(float* buf_a, float* buf_b, float* exch, co
 // CUDA error, or 0.
 extern "C" int lbm_grid_sync_probe(int blocks, int threads, int syncs, void* stream) {
   void* args[] = {&syncs};
+  lbm::count_launch();
   cudaError_t err = cudaLaunchCooperativeKernel((const void*)grid_sync_kernel, dim3(blocks),
                                                 dim3(threads), args, 0,
                                                 static_cast<cudaStream_t>(stream));

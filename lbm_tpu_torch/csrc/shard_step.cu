@@ -396,6 +396,7 @@ int fill_rows(const unsigned long long* table, int s0, int count, int p, const M
               const E* rows, cudaStream_t st) {
   const int per = 9 * (2 * (m.rx + 2) + 2 * m.ry);
   const dim3 grid((per + lbm::kThreads - 1) / lbm::kThreads, count);
+  lbm::count_launch();
   ring_fill_rows_kernel<E><<<grid, lbm::kThreads, 0, st>>>(table, s0, p, m, rows);
   return static_cast<int>(cudaGetLastError());
 }
@@ -408,8 +409,10 @@ int fill(const unsigned long long* table, int s0, int count, int p, const Mesh& 
   const int per = (p == 2 ? 1 : 9) * nring;
   const dim3 grid((per + lbm::kThreads - 1) / lbm::kThreads, count);
   if (p == 2) {
+    lbm::count_launch();
     ring_fill_kernel<float><<<grid, lbm::kThreads, 0, st>>>(table, s0, p, m);
   } else {
+    lbm::count_launch();
     ring_fill_kernel<E><<<grid, lbm::kThreads, 0, st>>>(table, s0, p, m);
   }
   return static_cast<int>(cudaGetLastError());
@@ -432,6 +435,7 @@ int run(const unsigned long long* table, int s0, int count, const Mesh& m, float
   for (int t = 0; t < n_steps; ++t) {
     const int p = (parity + t) & 1;
     if (mode == 2) {
+      lbm::count_launch();
       shard_step_kernel<true, S><<<grid, block, 0, st>>>(table, s0, p, m, partials, ticket,
                                                          av + t, av_stride, w1a, w2a, rc, io);
     } else {
@@ -440,9 +444,11 @@ int run(const unsigned long long* table, int s0, int count, const Mesh& m, float
       if (err != 0) return err;
       if constexpr (sizeof(T) == 2) {
         const int span = lbm::kBlockX * kPairCells;  // columns of a block
+        lbm::count_launch();
         shard_step_pair_kernel<S><<<dim3((m.rx + span - 1) / span, grid.y, count), block, 0, st>>>(
             table, s0, p, m, partials, ticket, av + t, av_stride, w1a, w2a, rc, io);
       } else {
+        lbm::count_launch();
         shard_step_kernel<false, S><<<grid, block, 0, st>>>(table, s0, p, m, partials, ticket,
                                                             av + t, av_stride, w1a, w2a, rc, io);
       }

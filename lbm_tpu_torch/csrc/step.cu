@@ -172,11 +172,13 @@ int run(void* buf_a, void* buf_b, const float* nobst, float* av, float* partials
     T* dst = static_cast<T*>((t & 1) ? buf_a : buf_b);
     if constexpr (sizeof(T) == 2) {
       if (word) {
+        lbm::count_launch();
         step_word_kernel<S><<<grid, block, 0, s>>>(src, dst, nobst, partials, ticket, av + t, ny,
                                                    nx, w1a, w2a, rc, inv_tot, st);
       }
     }
     if (!word) {
+      lbm::count_launch();
       step_kernel<S><<<grid, block, 0, s>>>(src, dst, nobst, partials, ticket, av + t, ny, nx,
                                             w1a, w2a, rc, inv_tot, st);
     }
@@ -225,6 +227,14 @@ extern "C" int lbm_step_attrs(int word, int kind, int* out) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return lbm::func_attrs(fn, out);
+}
+
+std::atomic<unsigned long long> lbm::g_launch_count{0};
+
+// The kernel launches of this library in this process so far, from every
+// entry point (lbm_common.cuh::count_launch).
+extern "C" unsigned long long lbm_launch_count() {
+  return lbm::g_launch_count.load(std::memory_order_relaxed);
 }
 
 extern "C" unsigned int lbm_step_num_blocks(int ny, int nx) {

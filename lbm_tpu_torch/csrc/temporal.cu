@@ -117,6 +117,7 @@ int run(void* const bufs[6], const float* nobst, float* av, float* partials,
     return band::run_passes(n_passes, g.T, static_cast<T*>(bufs[0]), static_cast<T*>(bufs[1]),
                             av, [&](const T* src, T* dst, float* av_p, int p) {
       const bool odd = (p & 1) != 0;
+      lbm::count_launch();
       temporal_kernel<L, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
           src, odd ? last_b : last_a, odd ? first_b : first_a, dst, odd ? last_a : last_b,
           odd ? first_a : first_b, nobst, partials, ticket, av_p, g, lay, w1a, w2a, rc, inv_tot,

@@ -12,8 +12,9 @@ library is bound with ctypes: ``c_void_p`` for every pointer and the
 stream, ``c_ulonglong`` for device addresses and sizes held as integers,
 ``c_int``/``c_float`` for sizes and scalars. Each entry point
 returns the CUDA error code of its launches; callers raise when it is not
-0. Nothing is built at import time: the first call that needs a kernel
-builds it, and a build failure raises.
+0. ``lbm_launch_count`` reads the library's count of its own kernel
+launches in the process. Nothing is built at import time: the first call
+that needs a kernel builds it, and a build failure raises.
 
 The kernels built on ``csrc/trapezoid.cuh`` (K5, K6 and K11) are compiled
 with constant row and plane strides for one list of windows, those of the
@@ -242,6 +243,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_uint
+    lib.lbm_launch_count.argtypes = []
+    lib.lbm_launch_count.restype = ctypes.c_ulonglong
     lib.build_info = dict(
         path=out, built=built, seconds=time.perf_counter() - t0,
         flags=" ".join(NVCC_FLAGS), windows=trap_windows(),

@@ -87,6 +87,7 @@ from lbm_tpu_torch.ops import devspace
 from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import lbm_step_reference
 from lbm_tpu_torch.ops.resident import resident_supported
+from lbm_tpu_torch.runtime import trace
 
 BACKENDS = ("auto", "aa", "pallas", "reference", "band", "band2", "band3", "resident",
             "temporal", "deep", "slab")
@@ -128,6 +129,7 @@ class SimulationResult:
     route: str = "reference"  # the route that ran: a BACKENDS name other than "auto"
     device: str = "cpu"  # the torch device the loop ran on (a mesh: its devices, comma-joined)
     shard_devices: tuple = ()  # a mesh run: the device of each shard, in shard order
+    trace: trace.CallRecord | None = None  # the call's spans and counters (runtime/trace.py)
 
     def mlups(self, params: LBMParams) -> float:
         return params.nx * params.ny * params.max_iters / self.elapsed / 1e6
@@ -429,6 +431,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array; its bytes count as ``d2h_bytes`` when it
+    leaves a card."""
+    if t.device.type == "cuda":
+        trace.count("d2h_bytes", t.nbytes)
+    return t.cpu().numpy()
+
+
 def run_simulation(
     params: LBMParams,
     obstacles: np.ndarray,
@@ -465,119 +475,161 @@ def run_simulation(
     ``fetch_final=False`` leaves ``result.cells`` None. ``dtype="c16"``
     runs on c16 storage, ``torch.bfloat16`` on bf16 (module docstring).
     """
-    if checkpoint_format != "npz":
-        raise ValueError("orbax checkpoints are JAX-only (lbm_tpu); use checkpoint_format='npz'")
-    if device is None:
-        from lbm_tpu_torch.runtime.device import select_device
+    with trace.call() as record:
+        if checkpoint_format != "npz":
+            raise ValueError("orbax checkpoints are JAX-only (lbm_tpu); use "
+                             "checkpoint_format='npz'")
+        if device is None:
+            from lbm_tpu_torch.runtime.device import select_device
 
-        device = select_device(None)
-    device = torch.device(device)
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    dtype = torch.float32 if dtype is None else dtype
-    route = select_route(params, backend, dtype)
-    obstacles = np.asarray(obstacles)
-    if obstacles.shape != (params.ny, params.nx):
-        raise ValueError(f"obstacle mask {obstacles.shape} != grid ({params.ny}, {params.nx})")
-    if start_step >= params.max_iters:
-        raise ValueError("start_step is beyond max_iters")
-    spec = storage_spec(params, dtype)
-    full_dtype = torch.float32 if spec is not None else dtype
-    if initial_cells is None:
-        cells = D2Q9.initial_state(params, dtype=full_dtype, device=device)
-    else:
-        cells = torch.as_tensor(np.asarray(initial_cells)).to(device=device, dtype=full_dtype)
-    if spec is not None:
-        cells = devspace.encode_state(cells, spec)  # c16: the rest state encodes to 0
-    obst = obstacles_from_numpy(obstacles, device)
-    tot_cells = int(np.sum(obstacles == 0))  # d2q9-bgk.c:146-152
-    # The f32 (or f64) value of 1/tot_cells multiplies each step's sum, so
-    # the series rounds as the JAX driver's does (driver.py:1366-1368).
-    inv_np = np.asarray(1.0 / tot_cells, dtype=np.float64 if dtype == torch.float64 else np.float32)
-    paired = paired_default()  # read once, outside the loop
-    nobst = (obst == 0).to(torch.float32)
-    scalars = (params.density, params.accel, params.omega)
-    # Every route but K4's takes ``dev`` (select_route refused K4 at 16 bits).
-    kw = dict(paired=paired) if spec is None else dict(paired=paired, dev=spec)
+            device = select_device(None)
+        device = torch.device(device)
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {device}")
+        cuda = device.type == "cuda"
+        dtype = torch.float32 if dtype is None else dtype
+        route = select_route(params, backend, dtype)
+        obstacles = np.asarray(obstacles)
+        if obstacles.shape != (params.ny, params.nx):
+            raise ValueError(f"obstacle mask {obstacles.shape} != grid ({params.ny}, {params.nx})")
+        if start_step >= params.max_iters:
+            raise ValueError("start_step is beyond max_iters")
+        spec = storage_spec(params, dtype)
+        full_dtype = torch.float32 if spec is not None else dtype
+        with trace.span("upload"):
+            if initial_cells is None:
+                cells = D2Q9.initial_state(params, dtype=full_dtype, device=device)
+                up = D2Q9.NSPEEDS * cells.element_size()  # the 9 weights, expanded there
+            else:
+                cells = torch.as_tensor(np.asarray(initial_cells)).to(device=device,
+                                                                      dtype=full_dtype)
+                up = cells.nbytes
+            if cuda:
+                trace.count("h2d_bytes", up)
+        if spec is not None:
+            with trace.span("encode"):
+                cells = devspace.encode_state(cells, spec)  # c16: the rest state encodes to 0
+        with trace.span("mask"):
+            obst = obstacles_from_numpy(obstacles, device)
+            if cuda:
+                trace.count("h2d_bytes", obst.nbytes)
+            tot_cells = int(np.sum(obstacles == 0))  # d2q9-bgk.c:146-152
+            nobst = (obst == 0).to(torch.float32)
+        # The f32 (or f64) value of 1/tot_cells multiplies each step's sum, so
+        # the series rounds as the JAX driver's does (driver.py:1366-1368).
+        inv_np = np.asarray(1.0 / tot_cells,
+                            dtype=np.float64 if dtype == torch.float64 else np.float32)
+        paired = paired_default()  # read once, outside the loop
+        scalars = (params.density, params.accel, params.omega)
+        # Every route but K4's takes ``dev`` (select_route refused K4 at 16 bits).
+        kw = dict(paired=paired) if spec is None else dict(paired=paired, dev=spec)
 
-    def advance(cells, n):
-        """``n`` steps of the route; returns ``(cells, av)``."""
-        if route == "reference":
-            inv = torch.tensor(inv_np, device=device)
-            av = torch.empty(n, dtype=full_dtype, device=device)
-            for t in range(n):
-                if not is_c16(dtype):  # bf16: the step computes in bf16
-                    cells, tot_u = lbm_step_reference(cells, obst, *scalars)
-                else:
-                    cells, tot_u = devspace.lbm_step_reference_c16(cells, obst, *scalars, spec)
-                av[t] = tot_u * inv
-            return cells, av
-        if route in PASS_BACKENDS:
-            run, (block, depth, panel) = pass_schedule(route, params, dtype)
-            return run(cells, nobst, *scalars, n, block, depth, panel=panel,
-                       inv_tot_cells=float(inv_np), **kw)
-        if route == "slab":
-            from lbm_tpu_torch.ops.slab import run_band_slab
+        def advance(cells, n):
+            """``n`` steps of the route; returns ``(cells, av)``."""
+            if route == "reference":
+                inv = torch.tensor(inv_np, device=device)
+                if cuda:
+                    trace.count("h2d_bytes", inv.nbytes)
+                av = torch.empty(n, dtype=full_dtype, device=device)
+                for t in range(n):
+                    if not is_c16(dtype):  # bf16: the step computes in bf16
+                        cells, tot_u = lbm_step_reference(cells, obst, *scalars)
+                    else:
+                        cells, tot_u = devspace.lbm_step_reference_c16(cells, obst, *scalars,
+                                                                       spec)
+                    av[t] = tot_u * inv
+                return cells, av
+            if route in PASS_BACKENDS:
+                run, (block, depth, panel) = pass_schedule(route, params, dtype)
+                return run(cells, nobst, *scalars, n, block, depth, panel=panel,
+                           inv_tot_cells=float(inv_np), **kw)
+            if route == "slab":
+                from lbm_tpu_torch.ops.slab import run_band_slab
 
-            block, depth, panel, kpasses, sblock = select_slab(params, dtype)
-            return run_band_slab(cells, nobst, *scalars, n, block, depth, kpasses, sblock,
-                                 panel=panel, inv_tot_cells=float(inv_np), **kw)
-        if route == "resident":
-            from lbm_tpu_torch.ops.resident import run_resident
+                block, depth, panel, kpasses, sblock = select_slab(params, dtype)
+                return run_band_slab(cells, nobst, *scalars, n, block, depth, kpasses, sblock,
+                                     panel=panel, inv_tot_cells=float(inv_np), **kw)
+            if route == "resident":
+                from lbm_tpu_torch.ops.resident import run_resident
 
-            return run_resident(cells, nobst, *scalars, n, float(inv_np),
-                                chunk=resident_config(params, dtype), paired=paired)
-        if route == "aa":
-            from lbm_tpu_torch.ops.aa import run_aa as run
-        else:
-            from lbm_tpu_torch.ops.step import run_step as run
-        return run(cells, nobst, *scalars, n, float(inv_np), **kw)
+                return run_resident(cells, nobst, *scalars, n, float(inv_np),
+                                    chunk=resident_config(params, dtype), paired=paired)
+            if route == "aa":
+                from lbm_tpu_torch.ops.aa import run_aa as run
+            else:
+                from lbm_tpu_torch.ops.step import run_step as run
+            return run(cells, nobst, *scalars, n, float(inv_np), **kw)
 
-    def as_full(cells):
-        """The observer's view of the state: c16 codes decode to f32, bf16
-        widens to f32 exactly."""
-        return cells if spec is None else devspace.decode_state(cells, spec)
+        def as_full(cells):
+            """The observer's view of the state: c16 codes decode to f32, bf16
+            widens to f32 exactly."""
+            return cells if spec is None else devspace.decode_state(cells, spec)
 
-    t0 = time.perf_counter()
-    if route != "reference" and device.type == "cuda":
-        from lbm_tpu_torch.ops import _build
-
-        _build.library()  # build or load before the timed loop
-    compile_time = time.perf_counter() - t0
-
-    av_chunks = [] if av_vels_prefix is None else [np.asarray(av_vels_prefix)]
-    elapsed = 0.0
-    step = start_step
-    for n in compute_chunk_sizes(start_step, params.max_iters, checkpoint_every, chunk_every):
-        _sync(device)
+        lib = None
         t0 = time.perf_counter()
-        # The chunk's span in a torch.profiler trace (--profile-dir).
-        with torch.profiler.record_function("lbm_tpu_torch.loop"):
-            cells, av = advance(cells, n)
-            _sync(device)
-        elapsed += time.perf_counter() - t0
-        av_chunks.append(av.cpu().numpy())
-        step += n
-        if on_chunk is not None:
-            on_chunk(step, as_full(cells), av_chunks[-1])
-        if checkpoint_path is not None and checkpoint_every and (
-                step % checkpoint_every == 0 or step == params.max_iters):
-            from lbm_tpu_torch.runtime.checkpoint import save_checkpoint
+        if route != "reference" and cuda:
+            from lbm_tpu_torch.ops import _build
 
-            # 16-bit checkpoints hold the decoded f32 state, the format of
-            # either package; a resume re-encodes it to the same values
-            # (bf16: to the same bits).
-            save_checkpoint(checkpoint_path, params, as_full(cells).cpu().numpy(),
-                            np.concatenate(av_chunks), step)
+            with trace.span("library"):
+                lib = _build.library()  # build or load before the timed loop
+        compile_time = time.perf_counter() - t0
 
-    final = as_full(cells).cpu().numpy() if fetch_final else None
-    if is_c16(dtype):
-        warn_saturation(devspace.max_abs_code(cells), spec)
-    return SimulationResult(
-        cells=final,
-        av_vels=np.concatenate(av_chunks),
-        elapsed=elapsed,
-        compile_time=compile_time,
-        route=route,
-        device=str(cells.device),
-    )
+        av_chunks = [] if av_vels_prefix is None else [np.asarray(av_vels_prefix)]
+        elapsed = 0.0
+        step = start_step
+        for n in compute_chunk_sizes(start_step, params.max_iters, checkpoint_every,
+                                     chunk_every):
+            record.chunks += 1
+            with trace.span("sync"):
+                _sync(device)
+            launched = 0 if lib is None else lib.lbm_launch_count()
+            t0 = time.perf_counter()
+            # The chunk's span, lbm_tpu_torch.loop in a torch.profiler trace.
+            with trace.span("loop"):
+                cells, av = advance(cells, n)
+                _sync(device)
+            elapsed += time.perf_counter() - t0
+            if lib is not None:
+                trace.count("kernel_launches", lib.lbm_launch_count() - launched)
+            with trace.span("av"):
+                av_chunks.append(_to_host(av))
+            step += n
+            if on_chunk is not None:
+                with trace.span("on_chunk"):
+                    on_chunk(step, as_full(cells), av_chunks[-1])
+            if checkpoint_path is not None and checkpoint_every and (
+                    step % checkpoint_every == 0 or step == params.max_iters):
+                from lbm_tpu_torch.runtime.checkpoint import save_checkpoint
+
+                # 16-bit checkpoints hold the decoded f32 state, the format of
+                # either package; a resume re-encodes it to the same values
+                # (bf16: to the same bits).
+                with trace.span("checkpoint"):
+                    save_checkpoint(checkpoint_path, params, _to_host(as_full(cells)),
+                                    np.concatenate(av_chunks), step)
+
+        final = None
+        if fetch_final:
+            full = cells
+            if spec is not None:
+                with trace.span("decode"):
+                    full = as_full(cells)
+            with trace.span("fetch"):
+                final = _to_host(full)
+            del full  # the decoded copy goes before the saturation check allocates
+        if is_c16(dtype):
+            with trace.span("saturation"):
+                maxq = devspace.max_abs_code(cells)
+                if cuda:
+                    trace.count("d2h_bytes", 4)  # max_abs_code's int32 scalar
+                warn_saturation(maxq, spec)
+        record.elapsed = elapsed
+        return SimulationResult(
+            cells=final,
+            av_vels=np.concatenate(av_chunks),
+            elapsed=elapsed,
+            compile_time=compile_time,
+            route=route,
+            device=str(cells.device),
+            trace=record,
+        )

@@ -14,7 +14,8 @@ in turns, their rows handed over): K3 with its ring filled from received
 rows and K8/K10 with received halos, bitwise the one-process mesh; and
 K12 across 2 processes, each mapping its neighbour's shard with CUDA IPC
 (tests/torch_multihost_worker.py ``ipc``), bitwise the one-process K12,
-and its deadline when a neighbour stops.
+and its deadline when a neighbour stops; and the driver's counters of
+bytes copied and kernel launches on K1, K6 and K4.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -1261,3 +1262,45 @@ def test_ipc_row_shard_raises_when_a_neighbour_stops(cuda_device, tmp_path):
     waited = float(text0.split("after ")[1].split(" s:")[0])
     assert deadline <= waited < deadline + 2.0
     assert rc1 == 0, text1[-3000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,storage", [("pallas", "f32"), ("pallas", "c16"),
+                                             ("deep", "f32"), ("deep", "c16"),
+                                             ("resident", "f32")])
+def test_the_driver_counts_its_copies_and_launches(cuda_device, backend, storage, monkeypatch):
+    """The driver's counters on a 96 x 64 deck of 301 steps in chunks of 200
+    and 101 (``runtime/trace.py``): the bytes of the state, the mask, the av
+    series and, at c16, the saturation scalar; the kernel launches the
+    route's schedule implies (K1 one a step; K6 one a pass of T steps and
+    K1 on the remainder; K4 one per 255 steps); and no synchronisation but
+    the driver's two per chunk."""
+    nx, ny, iters, chunks = 96, 64, 301, (200, 101)
+    params = LBMParams(nx=nx, ny=ny, max_iters=iters, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    rng = np.random.RandomState(5)
+    obstacles = np.zeros((ny, nx), np.int32)
+    obstacles[0, :] = obstacles[-1, :] = 1
+    start = ((WEIGHTS * DENSITY)[:, None, None] * (1 + 0.05 * rng.rand(9, ny, nx)))
+    dtype = torch.float32 if storage == "f32" else "c16"
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: (syncs.append(1), real(*a)))
+    res = tdriver.run_simulation(params, obstacles, backend=backend, dtype=dtype,
+                                 initial_cells=start.astype(np.float32), device=cuda_device,
+                                 chunk_every=200)
+    rec = res.trace
+    assert len(syncs) == 2 * len(chunks) and rec.chunks == len(chunks)
+    state = 9 * ny * nx * 4
+    assert rec.counts["h2d_bytes"] == state + ny * nx * 4
+    assert rec.counts["d2h_bytes"] == state + 4 * iters + (4 if storage == "c16" else 0)
+    if backend == "pallas":
+        launches = iters
+    elif backend == "resident":
+        launches = sum(-(-n // 255) for n in chunks)
+    else:
+        depth = tdriver.deep_config(params, dtype)[1]
+        launches = sum(n // depth + n % depth for n in chunks)
+    assert rec.counts["kernel_launches"] == launches
+    assert {"library", "sync", "loop", "av", "fetch"} <= set(rec.spans)
+    assert rec.elapsed == res.elapsed

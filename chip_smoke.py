@@ -250,7 +250,18 @@ PyTorch built for CUDA. Phases, each printing what it found:
    ``auto`` on the 1024^2 deck and the walls 2048^2 and 4096^2 decks; and
    phase 25's crossover.
 
-``python3 chip_smoke.py --phase 25`` (or 26-32) runs phases 1, 2 and
+33. (``--phase 33`` only) K5 and K6 by rounds of blocks: in a process
+   whose kernels are built with every candidate's window at constant
+   strides, K6's registers and blocks per SM and both kernels in turns at
+   1024^2 and 2048^2 on the tier's (36, 4, 56) and the cuts of K56_WAVES;
+   each cut against (36, 4, 56) over 2 passes at 1024^2, the state
+   bitwise and the av within 1e-6; both kernels' us per pass on grids of
+   whole tiles making 1-8 rounds and at 1008^2-2048^2; ``pass_tiles`` and
+   ``tail_tiles`` of a 1024^2 deck of 20,000 steps through ``auto``.
+   ``--phase 33 --import-from DIR`` times the passes of the package under
+   DIR alone (run it and this tree in turns, in processes of their own).
+
+``python3 chip_smoke.py --phase 25`` (or 26-33) runs phases 1, 2 and
 that phase only (no kernel report), and ``--phase 26 --import-from DIR``
 only phase 26's K9 checks and its timing in turns, of the
 ``lbm_tpu_torch`` package under DIR (another checkout, such as the parent
@@ -2218,6 +2229,17 @@ K56_SWEEP = {n: ((32, 4, 56), (24, 4, 56), (32, 4, 72), (40, 4, 48), (24, 4, 24)
              for n in (2048, 4096)}
 K56_SWEEP.update({n: ((16, 4, 24), (24, 4, 24), (32, 4, 24), (16, 4, 40), (32, 4, 40),
                       (32, 4, 56), (36, 4, 56)) for n in (256, 512, 1024, 1536)})
+# Phase 33's sweep at 1024^2 and 2048^2: the tier's schedule and cuts of
+# 1024^2 into whole rounds of two blocks on 132 SMs whose window holds two
+# blocks per SM (528 tiles: (47, 4, 43), (43, 4, 47), (43, 4, 48); 522:
+# (36, 4, 57); 513: (38, 4, 54)), and windows of 44 rows whose panel is a
+# multiple of 8 columns or not.
+K56_WAVES = {n: ((36, 4, 56), (47, 4, 43), (43, 4, 47), (43, 4, 48), (36, 4, 57), (38, 4, 54),
+                 (36, 4, 48), (36, 4, 52)) for n in (1024, 2048)}
+# (ny, nx) of phase 33's times per pass at the tier's (36, 4, 56): grids of
+# whole tiles making 1, 2, 3, 4 and 8 rounds of 264, and the decks' sides.
+K56_ROUND_GRIDS = ((792, 672), (792, 1344), (1188, 1344), (1584, 1344), (1584, 2688),
+                   (1008, 1008), (1024, 1024), (1536, 1536), (2048, 2048))
 
 
 def k56_routes():
@@ -2362,12 +2384,16 @@ def k56_gate_decks(cli, gpu_line):
                 run_deck(cli, tag, backend, work, gpu_line, precision="c16", gate=PASS_GATE_C16)
 
 
-def k56_sweep(torch, gpu_line):
-    """K5's and K6's schedules (K56_SWEEP) at f32 in turns beside K11."""
-    from lbm_tpu_torch.ops import band3
+def k56_sweep(torch, gpu_line, sweep):
+    """K5's and K6's schedules (``sweep``: side -> schedules) at f32 in turns
+    beside K11, and K6's registers and blocks per SM on each window."""
+    from lbm_tpu_torch.ops import band3, deep
 
     routes = k56_routes()
-    for nx, schedules in K56_SWEEP.items():
+    for nx, schedules in sweep.items():
+        if hasattr(deep, "kernel_attrs"):
+            log(f"  K6 f32 at {nx}^2 (registers, local bytes, blocks of 512 per SM): "
+                + ", ".join(f"{cfg}: {deep.kernel_attrs(nx, nx, *cfg)}" for cfg in schedules))
         cells, nobst = random_setup(torch, nx, nx, seed=7)
         n = max(8, 240 * 2048 // nx) // 8 * 8
         for route, (label, kernel, _) in routes.items():
@@ -2382,30 +2408,92 @@ def k56_sweep(torch, gpu_line):
         del cells, nobst
 
 
-def k56_sweep_main():
+def k56_sweep_main(name="K56_SWEEP"):
     """The body of k56_sweep_process: builds the kernels with every
-    candidate's window at constant strides, as the build compiles the
-    windows of the driver's schedules, and sweeps."""
+    candidate's window of the sweep ``name`` (K56_SWEEP, K56_WAVES) at
+    constant strides, as the build compiles the windows of the driver's
+    schedules, and sweeps."""
     import torch
 
     from lbm_tpu_torch.ops import _build
     from lbm_tpu_torch.runtime import driver
 
-    candidates = tuple(dict.fromkeys(cfg for cfgs in K56_SWEEP.values() for cfg in cfgs))
+    sweep = globals()[name]
+    candidates = tuple(dict.fromkeys(cfg for cfgs in sweep.values() for cfg in cfgs))
     driver.trapezoid_schedules = lambda: candidates
     b = _build.library().build_info
     log(f"  sweep's kernels {'built' if b['built'] else 'loaded'} in {b['seconds']:.1f} s, "
         f"K5 and K6 with constant strides for the windows {b['windows']}")
-    k56_sweep(torch, nvidia_smi())
+    k56_sweep(torch, nvidia_smi(), sweep)
     return 0
 
 
-def k56_sweep_process():
+def k56_sweep_process(name="K56_SWEEP"):
     """Runs k56_sweep_main in a process of its own, so that every candidate
     is timed under the same stride regime."""
-    code = "import sys, chip_smoke; sys.exit(chip_smoke.k56_sweep_main())"
+    code = f"import sys, chip_smoke; sys.exit(chip_smoke.k56_sweep_main({name!r}))"
     rc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, timeout=600).returncode
-    check(rc == 0, f"the K5 and K6 schedule sweep exited {rc}")
+    check(rc == 0, f"the K5 and K6 schedule sweep {name} exited {rc}")
+
+
+def k56_pass_times(torch, gpu_line):
+    """K5's and K6's us per pass at (36, 4, 56) on K56_ROUND_GRIDS (the best
+    of 3 runs of many passes from one C call, CUDA events); a round is
+    264 tiles, two blocks on each of an H100's 132 SMs."""
+    for ny, nx in K56_ROUND_GRIDS:
+        cells, nobst = random_setup(torch, nx, ny, seed=3)
+        passes = max(200, int(2e9 // (ny * nx)))
+        tiles = -(-ny // 36) * -(-nx // 56)
+        line = []
+        for route, (label, kernel, _) in k56_routes().items():
+            kernel(cells, nobst, 200, 36, 4, 56, None)
+            ms = min(timed(torch, lambda: kernel(cells, nobst, 4 * passes, 36, 4, 56, None))[1]
+                     for _ in range(3))
+            line.append(f"{label} {1e3 * ms / passes:.2f}")
+        log(f"  {ny}x{nx}, {tiles} tiles ({tiles / 264:.2f} rounds), us per pass of "
+            f"(36, 4, 56): {', '.join(line)} [{gpu_line}]")
+        del cells, nobst
+
+
+def waves_phase(torch, gpu_line):
+    """Phase 33: K5's and K6's passes by rounds of blocks, cut and order.
+    The sweep K56_WAVES in a process of its own (blocks per SM, times in
+    turns); each whole-round cut of 1024^2 against the tier's (36, 4, 56)
+    over 2 passes, the state bitwise; the times per pass on
+    K56_ROUND_GRIDS; the tile counters of a 1024^2 deck of 20,000 steps
+    through auto."""
+    import numpy as np
+
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.ops import temporal
+    from lbm_tpu_torch.runtime import driver
+
+    k56_sweep_process("K56_WAVES")
+    cells, nobst = random_setup(torch, 1024, 1024, seed=33)
+    for route, (label, kernel, _) in k56_routes().items():
+        want = kernel(cells, nobst, 8, 36, 4, 56, None)
+        for cfg in K56_WAVES[1024][1:]:
+            got = kernel(cells, nobst, 8, *cfg, None)
+            rel = float(((got[1] - want[1]).abs() / want[1].abs()).max())
+            check(torch.equal(got[0], want[0]) and rel <= 1e-6,
+                  f"{label} {cfg} vs (36, 4, 56) at 1024^2: the state differs or av by {rel:.2e}")
+            log(f"  {label} {cfg} vs (36, 4, 56), 1024^2, 2 passes: state bitwise equal, av "
+                f"within {rel:.2e} relative; tiles and tail a pass "
+                f"{temporal.tiles_of_pass(1024, 1024, cfg[0], cfg[2])}")
+    del cells, nobst
+    k56_pass_times(torch, gpu_line)
+    params = LBMParams(nx=1024, ny=1024, max_iters=20000, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    obstacles = np.zeros((1024, 1024), np.int32)
+    obstacles[0, :] = obstacles[-1, :] = 1
+    obstacles[:, 341] = 1
+    res = driver.run_simulation(params, obstacles, device="cuda:0", fetch_final=False)
+    counts = res.trace.counts
+    log(f"  a 1024^2 deck of 20,000 steps through auto: route {res.route}, pass_tiles "
+        f"{counts['pass_tiles']}, tail_tiles {counts['tail_tiles']}, loop "
+        f"{res.mlups(params):.1f} MLUPS [{gpu_line}]")
+    check(counts["pass_tiles"] == 2755000 and counts["tail_tiles"] == 115000,
+          "the 1024^2 deck's tile counters are not 5,000 passes of 551 tiles, 23 in a last round")
 
 
 def redesign10_phase(torch, spec, cli, gpu_line):
@@ -3669,7 +3757,7 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", type=int, choices=(25, 26, 27, 28, 29, 30, 31, 32),
+    ap.add_argument("--phase", type=int, choices=(25, 26, 27, 28, 29, 30, 31, 32, 33),
                     help="run phases 1, 2 and this one only (no kernel report)")
     ap.add_argument("--import-from", metavar="DIR",
                     help="with --phase 26: check K9 of the lbm_tpu_torch package under DIR "
@@ -3679,10 +3767,11 @@ def main():
                          "and K8 of that package and time them beside K9, K10 and K13; "
                          "with --phase 29: phase 29's checks, timings and decks of that "
                          "package; with --phase 32: check K11 and K4's global-memory form of "
-                         "that package and time them beside K9, K2 and K6; nothing else")
+                         "that package and time them beside K9, K2 and K6; with --phase 33: "
+                         "time K5's and K6's passes of that package; nothing else")
     args = ap.parse_args()
     if args.import_from and args.phase in (None, 25, 30, 31):
-        ap.error("--import-from needs --phase 26, 27, 28, 29 or 32")
+        ap.error("--import-from needs --phase 26, 27, 28, 29, 32 or 33")
     try:
         import torch
     except ImportError:
@@ -3709,6 +3798,16 @@ def main():
     check("sm_90a" in b["flags"], "kernels not built for sm_90a")
     log(f"  {'built' if b['built'] else 'loaded'} {os.path.relpath(b['path'], ROOT)} "
         f"in {b['seconds']:.1f} s with nvcc {b['flags']} from {', '.join(b['sources'])}")
+    if args.phase == 33:
+        if args.import_from:
+            phase(f"33. K5's and K6's times per pass by rounds of blocks, the package under "
+                  f"{args.import_from}")
+            k56_pass_times(torch, gpu_line)
+        else:
+            phase("33. K5 and K6 by rounds of blocks: blocks per SM, whole-round cuts of "
+                  "1024^2 beside the tier's and bitwise it, times per pass, a deck's tiles")
+            waves_phase(torch, gpu_line)
+        return 0
     if args.phase == 25:
         phase("25. the auto crossover: K4, K6, K7, K9 and K11 in turns at 128x256 and "
               "256^2-1024^2")

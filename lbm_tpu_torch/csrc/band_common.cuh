@@ -59,6 +59,7 @@ struct Geom {
   int nyg;       // global rows: the forcing row is nyg - 2
   int r0;        // global row of the first row (of shard 0 of the launch)
   int av_stride; // sharded: av values between two shards
+  int flip;      // 1: the launch's blocks take the tiles from the last one back (tile_id)
 };
 
 inline Geom make_geom(int ny, int nx, int B, int T, int P) {
@@ -68,6 +69,7 @@ inline Geom make_geom(int ny, int nx, int B, int T, int P) {
   g.nyg = ny;
   g.r0 = 0;
   g.av_stride = 0;
+  g.flip = 0;
   g.B = B;
   g.P = P;
   g.T = T;
@@ -132,10 +134,16 @@ __device__ __forceinline__ void for_cells(int rows, int cols, F&& f) {
   }
 }
 
+// The block's tile, row-major: blockIdx.x, or with g.flip counted from the
+// last tile, so that the launch's first blocks take the last tiles.
+__device__ __forceinline__ int tile_id(const Geom& g) {
+  return g.flip ? g.nty * g.ntx - 1 - (int)blockIdx.x : (int)blockIdx.x;
+}
+
 // The tile's origin and its window's global rows and columns; the caller
 // syncs before reading them. Sharded, blockIdx.y is the shard.
 __device__ __forceinline__ void fill_tables(const Geom& g, const Smem& s, int& y0, int& x0) {
-  const int tile = blockIdx.x;
+  const int tile = tile_id(g);
   y0 = (tile / g.ntx) * g.B;
   x0 = (tile % g.ntx) * g.P;
   const int r0 = g.r0 + blockIdx.y * g.ny;
@@ -402,7 +410,8 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
 }
 
 // After the pass (and a __syncthreads() since the last step_partial):
-// writes this tile's T partials, and the last block to finish reduces all
+// writes this tile's T partials (at its tile_id, so the order of the sum
+// does not depend on g.flip), and the last block to finish reduces all
 // tiles' partials into av[0..T) * inv_tot, or adds them to av with
 // ``accumulate``. partials: T x ntiles floats; ticket: one zeroed unsigned
 // int, reset to 0 for the next pass.
@@ -415,7 +424,7 @@ __device__ __forceinline__ void finish_sums(const Geom& g, const Smem& s, float*
   for (int st = threadIdx.x; st < g.T; st += kThreads) {
     float acc = 0.0f;
     for (int w = 0; w < kWarps; ++w) acc += s.red[st * kWarps + w];
-    partials[(size_t)st * ntiles + blockIdx.x] = acc;
+    partials[(size_t)st * ntiles + tile_id(g)] = acc;
   }
   __threadfence();
   __syncthreads();
@@ -433,6 +442,19 @@ __device__ __forceinline__ void finish_sums(const Geom& g, const Smem& s, float*
     if (threadIdx.x == 0) av[st] = (accumulate ? av[st] : 0.0f) + total * inv_tot;
   }
   if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// The geometry of pass p of a run: its tiles in row-major order on even
+// passes, from the last tile back on odd ones (tile_id). Blocks start
+// about in blockIdx order, so each pass begins on the tiles that the pass
+// before stored last, whose rows are still in the L2; on an H100 that
+// took 6.8% off K6's pass at 1024^2, 3.3% at 1536^2 and 1.9% at 2048^2,
+// and 7.7% off K5's at 1024^2 (PERF.md section 6). Each tile's cells and
+// partial sums are the same in either order, so the results are bitwise
+// those of one order.
+inline Geom pass_order(Geom g, int p) {
+  g.flip = p & 1;
+  return g;
 }
 
 // Issues n_passes passes on one stream: launch(src, dst, av + p * T, p)

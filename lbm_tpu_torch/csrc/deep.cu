@@ -22,8 +22,10 @@
 // columns included, is loaded straight from it with wrapped global indices
 // (the TPU kernel's strip BlockSpecs; T % 8 == 0 and B % T == 0 existed for
 // them and do not apply). The central cells go to the other state buffer,
-// every pass of a run is issued by one C call, and the per-step sums are
-// reduced in a fixed order (band_common.cuh::finish_sums).
+// every pass of a run is issued by one C call, odd passes taking the
+// tiles from the last one back (band_common.cuh::pass_order: a pass
+// starts where the one before ended, in the L2), and the per-step sums
+// are reduced in a fixed order (band_common.cuh::finish_sums).
 //
 // K6 at c16 (pallas_deep.py:114-116, :157-163, ``dev=``): templated on the
 // storage of lbm_common.cuh. The window, halos included, is decoded from
@@ -68,10 +70,11 @@ int run(typename S::T* buf_a, typename S::T* buf_b, const float* nobst, float* a
     const cudaError_t err = band::allow_smem(deep_kernel<L, S>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     return band::run_passes(n_passes, g.T, buf_a, buf_b, av,
-                            [&](const T* src, T* dst, float* av_p, int) {
+                            [&](const T* src, T* dst, float* av_p, int p) {
       lbm::count_launch();
       deep_kernel<L, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
-          src, dst, nobst, partials, ticket, av_p, g, lay, w1a, w2a, rc, inv_tot, io);
+          src, dst, nobst, partials, ticket, av_p, band::pass_order(g, p), lay, w1a, w2a, rc,
+          inv_tot, io);
     });
   });
 }
@@ -96,5 +99,23 @@ extern "C" int lbm_deep_run(void* buf_a, void* buf_b, const float* nobst, float*
     using T = lbm::Raw<decltype(io)>;
     return run(static_cast<T*>(buf_a), static_cast<T*>(buf_b), nobst, av, partials, ticket, g,
                n_passes, w1a, w2a, rc, inv_tot, st, io);
+  });
+}
+
+// Registers per thread, local memory per thread (bytes) and resident blocks
+// per SM of K6 on the window of a schedule, at its dynamic shared memory
+// and its storage, into out[0..2]. Returns the first CUDA error, or 0.
+extern "C" int lbm_deep_attrs(int ny, int nx, int block, int depth, int panel,
+                              const lbm::Storage* storage, int* out) {
+  const band::Geom g = band::make_geom(ny, nx, block, depth, panel);
+  const size_t smem = band::smem_bytes(g, 1);
+  return lbm::with_storage(storage, [&](const auto& io) {
+    using S = std::decay_t<decltype(io)>;
+    return trap::with_layout(g, [&](auto lay) {
+      const auto fn = deep_kernel<decltype(lay), S>;
+      const cudaError_t err = band::allow_smem(fn, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      return lbm::func_attrs((const void*)fn, out, band::kThreads, smem);
+    });
   });
 }

@@ -62,7 +62,7 @@ temporal_kernel(const typename S::T* __restrict__ src, const typename S::T* __re
   __syncthreads();
   const int Tn = g.T;
   const size_t plane = (size_t)g.ny * g.nx;
-  const int ty = blockIdx.x / g.ntx;
+  const int ty = band::tile_id(g) / g.ntx;
   const size_t pack = (size_t)9 * Tn * g.nx;  // one block's pack
   const T* above = last_in + (size_t)((ty + g.nty - 1) % g.nty) * pack;
   const T* below = first_in + (size_t)((ty + 1) % g.nty) * pack;
@@ -120,8 +120,8 @@ int run(void* const bufs[6], const float* nobst, float* av, float* partials,
       lbm::count_launch();
       temporal_kernel<L, S><<<g.nty * g.ntx, band::kThreads, smem, st>>>(
           src, odd ? last_b : last_a, odd ? first_b : first_a, dst, odd ? last_a : last_b,
-          odd ? first_a : first_b, nobst, partials, ticket, av_p, g, lay, w1a, w2a, rc, inv_tot,
-          io);
+          odd ? first_a : first_b, nobst, partials, ticket, av_p, band::pass_order(g, p), lay,
+          w1a, w2a, rc, inv_tot, io);
     });
   });
 }

@@ -80,6 +80,9 @@ _RUN_ARGTYPES = {
     # block, depth, panel, kpasses, sblock, n_gens, 7 scalars, codec, stream)
     "lbm_slab_run": [_P] * 8 + [_I] * 8 + [_F] * 7 + [_S, _P],
     "lbm_deep_run": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_S, _P],
+    # (ny, nx, block, depth, panel, storage, out[3]): registers, local
+    # bytes and blocks per SM of K6 on the schedule's window
+    "lbm_deep_attrs": [_I] * 5 + [_S, _P],
     # (state_a, state_b, last_a, first_a, last_b, first_b, nobst, av,
     # partials, ticket, ny, nx, block, depth, panel, n_passes, 7 scalars,
     # codec, stream)

@@ -81,6 +81,11 @@ FORCE = ((1, 1.0, 1), (3, -1.0, 1), (5, 1.0, 2),
 # Dynamic shared memory a band kernel's block may use on the H100: the
 # 227 KB opt-in, less 1 KB for the kernels' static shared memory.
 SMEM_LIMIT = 232448 - 1024
+# Blocks of K5 or K6 that an H100 runs at once: two on each of its 132 SMs
+# (64 registers a thread, and a window of up to 113 KB, the driver's
+# largest tier's; ``deep.kernel_attrs`` reads it on the card). A pass of
+# more tiles runs in rounds of these.
+TRAP_SLOTS = 2 * 132
 # Warps of a band kernel's 512-thread block: each keeps one partial sum per
 # step in shared memory (band_common.cuh::smem_bytes).
 _WARPS = 16

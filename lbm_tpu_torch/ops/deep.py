@@ -14,7 +14,9 @@ output goes to a second buffer. No row packs are carried.
 On a CUDA tensor the passes run kernel K6 (``csrc/deep.cu``) on 2-D tiles
 of ``block`` rows by ``panel`` columns, each tile's window in ONE
 shared-memory copy stepped in place in the AA arrangement on the
-trapezoid (``csrc/trapezoid.cuh``), every pass of a run from one C call.
+trapezoid (``csrc/trapezoid.cuh``), every pass of a run from one C call,
+the odd passes taking the tiles from the last one back
+(``band_common.cuh::pass_order``).
 On a CPU tensor it runs the plain versions (``step_deep_plain``,
 ``run_deep_plain``) on full rows; ``run_deep_aa_plain`` takes the
 kernel's schedule instead (``temporal.trapezoid_aa_plain``), for the
@@ -40,7 +42,7 @@ import torch
 from lbm_tpu_torch.ops import band_common as BC
 from lbm_tpu_torch.ops.step import count_launches, forcing_weights
 from lbm_tpu_torch.ops.temporal import (PLANE_COPIES, aa_trapezoid, blocks_to_state,
-                                        trapezoid_plain, window_rows)
+                                        count_tiles, trapezoid_plain, window_rows)
 
 
 def deep_supported(ny: int, nx: int, block: int, depth: int, panel: int | None = None) -> bool:
@@ -104,6 +106,20 @@ def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, pa
     return run_passes
 
 
+def kernel_attrs(ny: int, nx: int, block: int, depth: int, panel: int, dev=None):
+    """``(registers, local bytes, blocks per SM)`` of K6 on the window of a
+    schedule at its shared memory (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; needs the card)."""
+    import ctypes
+
+    from lbm_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().lbm_deep_attrs(ny, nx, block, depth, panel,
+                                                  _build.storage(dev), out), "lbm_deep_attrs")
+    return tuple(out)
+
+
 def step_deep(cells, nobst, density, accel, omega, block, depth, *, panel=None,
               inv_tot_cells=1.0, paired="fused", dev=None):
     """One pass of ``depth`` steps: kernel K6 on CUDA, ``step_deep_plain`` on
@@ -140,15 +156,19 @@ def run_deep(cells, nobst, density, accel, omega, n_iters, block, depth, *, pane
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K6 on CUDA (and K1
     for the remainder), ``run_deep_plain`` on CPU. ``cells`` is left
     unchanged. The kernel implements the fused collision form. ``dev``:
-    16-bit storage (int16 c16 codes or bf16 ``cells``)."""
+    16-bit storage (int16 c16 codes or bf16 ``cells``). The passes' tiles go
+    to the open call's counters (``count_tiles``)."""
     if cells.device.type == "cpu":
-        return run_deep_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
-                              panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
-    BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
-    passes = _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
-                     cells.device, dev)
-    return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired, dev)
+        out = run_deep_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
+                             panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
+    else:
+        BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
+        passes = _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
+                         paired, cells.device, dev)
+        out = BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+                           passes, paired, dev)
+    count_tiles(cells, block, panel, n_iters // depth)
+    return out
 
 
 run_deep.launches = 0  # steps K6 advanced in this process

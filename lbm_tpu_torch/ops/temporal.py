@@ -24,9 +24,10 @@ tiles of ``block`` rows by ``panel`` columns whose x halo comes from the
 pass's read-only input state, the y halo from the packs, each tile's
 window in ONE shared-memory copy stepped in place in the AA arrangement
 on the trapezoid (``csrc/trapezoid.cuh``); every pass of a run is issued
-by one C call. On a CPU tensor it runs the plain versions
-(``step_t_plain``, ``run_temporal_plain``) on full rows with a periodic
-roll in x, the same function; ``run_temporal_aa_plain`` takes the
+by one C call, the odd passes taking the tiles from the last one back
+(``band_common.cuh::pass_order``). On a CPU tensor it runs the plain
+versions (``step_t_plain``, ``run_temporal_plain``) on full rows with a
+periodic roll in x, the same function; ``run_temporal_aa_plain`` takes the
 kernel's schedule instead (``trapezoid_aa_plain``), for the tests. Any
 other device raises; a CUDA tensor never falls back.
 
@@ -54,8 +55,27 @@ from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
 from lbm_tpu_torch.ops.devspace import decode_state, encode_state
 from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, count_launches, forcing_weights,
                                     kernel_scalars)
+from lbm_tpu_torch.runtime import trace
 
 PLANE_COPIES = 1  # one window of the 9 planes per block, stepped in place (csrc/trapezoid.cuh)
+
+
+def tiles_of_pass(ny: int, nx: int, block: int, panel: int | None) -> tuple[int, int]:
+    """``(tiles, tail)`` of one pass of K5 or K6: the ``block`` x ``panel``
+    tiles it launches, and those in its last round of ``BC.TRAP_SLOTS``
+    blocks when that round is partial (else 0)."""
+    tiles = -(-ny // block) * (1 if panel is None else -(-nx // panel))
+    return tiles, tiles % BC.TRAP_SLOTS
+
+
+def count_tiles(cells, block, panel, npasses) -> None:
+    """Add ``npasses`` passes of the schedule to the open call's counters
+    ``pass_tiles`` and ``tail_tiles`` (runtime/trace.py). They count the
+    schedule's tiles on either device: K5 and K6 launch them on a card, and
+    the plain versions on the CPU run the same passes on full rows."""
+    tiles, tail = tiles_of_pass(cells.shape[-2], cells.shape[-1], block, panel)
+    trace.count("pass_tiles", npasses * tiles)
+    trace.count("tail_tiles", npasses * tail)
 
 
 def block_heights(ny: int, block: int) -> tuple[int, int]:
@@ -358,22 +378,25 @@ def run_temporal(cells, nobst, density, accel, omega, n_iters, block, depth, *, 
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K5 on CUDA (and K1
     for the remainder), ``run_temporal_plain`` on CPU. ``cells`` is left
     unchanged. The kernel implements the fused collision form. ``dev``:
-    16-bit storage (int16 c16 codes or bf16 ``cells``)."""
+    16-bit storage (int16 c16 codes or bf16 ``cells``). The passes' tiles go
+    to the open call's counters (``count_tiles``)."""
     if cells.device.type == "cpu":
-        return run_temporal_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
-                                  panel=panel, inv_tot_cells=inv_tot_cells, paired=paired,
-                                  dev=dev)
-    _check(cells, nobst, n_iters, block, depth, panel, dev)
-    _device_check(cells.device, paired)
+        out = run_temporal_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
+                                 panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
+    else:
+        _check(cells, nobst, n_iters, block, depth, panel, dev)
+        _device_check(cells.device, paired)
 
-    def run_passes(c, npasses):
-        state = (c, *make_halos_t(c, block, depth))
-        (c, _, _), av = _launch(state, nobst, density, accel, omega, inv_tot_cells, block, depth,
-                                panel, npasses, dev)
-        return c, av
+        def run_passes(c, npasses):
+            state = (c, *make_halos_t(c, block, depth))
+            (c, _, _), av = _launch(state, nobst, density, accel, omega, inv_tot_cells, block,
+                                    depth, panel, npasses, dev)
+            return c, av
 
-    return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        run_passes, paired, dev)
+        out = BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+                           run_passes, paired, dev)
+    count_tiles(cells, block, panel, n_iters // depth)
+    return out
 
 
 run_temporal.launches = 0  # steps K5 advanced in this process

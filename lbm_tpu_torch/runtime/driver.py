@@ -83,6 +83,7 @@ import torch
 
 from lbm_tpu_torch.models.d2q9 import D2Q9, LBMParams, obstacles_from_numpy
 from lbm_tpu_torch.ops.aa import MIN_NY as AA_MIN_NY
+from lbm_tpu_torch.ops.band_common import TRAP_SLOTS
 from lbm_tpu_torch.ops import devspace
 from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import lbm_step_reference
@@ -173,14 +174,20 @@ _BAND3_TIERS = (((36, 4, 56), 4000), ((24, 4, 56), 0))
 # K5 and K6 in one window copy, one table for both. On an H100 (chip_smoke
 # phase 27's sweep, every candidate's window with constant strides, two
 # runs, PERF.md section 6): (36, 4, 56), a 44 x 64 window of 113 KB, two
-# blocks per SM, was the fastest or within 2.3% of it for both kernels
-# from 1024^2 (551 tiles, two waves of two blocks on each of 132 SMs) to
-# 4096^2, and took 7-9% less time than (32, 4, 40) at 1024^2; at 512^2
-# (150 tiles) it took 26-27% more, and (32, 4, 40) was the fastest; at
-# 256^2, where that makes under half a wave, the 32 x 32 window of
-# (24, 4, 24) took 15-19% less time. The kernels are compiled with these
-# windows' strides as constants (``trapezoid_schedules``, ops/_build.py).
-_TRAPEZOID_TIERS = (((36, 4, 56), 2 * 2 * 132), ((32, 4, 40), 132), ((24, 4, 24), 0))
+# blocks per SM (TRAP_SLOTS on the card), was the fastest or within 2.3%
+# of it for both kernels from 1024^2 to 4096^2, and took 7-9% less time
+# than (32, 4, 40) at 1024^2; at 512^2 (150 tiles) it took 26-27% more,
+# and (32, 4, 40) was the fastest; at 256^2, where that makes under half
+# a wave, the 32 x 32 window of (24, 4, 24) took 15-19% less time. At
+# 1024^2 its 551 tiles run as two whole rounds of TRAP_SLOTS and a third
+# of 23, yet the third costs ~2 us of a 70-us pass (504 and 522 tiles
+# took 66.0 and 67.9 us); every cut into whole rounds whose window holds
+# two blocks per SM took more time (chip_smoke phase 33: (43, 4, 48),
+# 528 tiles, 1-3% more; (47, 4, 43) and (43, 4, 47) 10-12% more): a panel
+# that is not a multiple of 8 columns cost 9-16% more per cell at 2048^2,
+# one that is 1-5%. The kernels are compiled with these windows' strides
+# as constants (``trapezoid_schedules``, ops/_build.py).
+_TRAPEZOID_TIERS = (((36, 4, 56), 2 * TRAP_SLOTS), ((32, 4, 40), 132), ((24, 4, 24), 0))
 # K4: steps per cooperative launch, the JAX package's 255; 1023 measured
 # 12% slower at 128^2 and within 2% at 256^2-1024^2.
 _RESIDENT_CHUNK = 255

@@ -26,6 +26,10 @@ routes), and per chunk ``sync``, ``loop``, ``av``, ``on_chunk`` and
 ``d2h_bytes`` (the driver's copies to and from a card) and
 ``kernel_launches`` (the kernel library's own count of its launches over
 the chunks' loops, ``lbm_launch_count``); all three read 0 on the CPU.
+Counters of the wrappers of K5 and K6 (``ops/temporal.py::count_tiles``):
+``pass_tiles``, the tiles of the run's passes, and ``tail_tiles``, those
+in each pass's last round of blocks when that round is partial; on the
+CPU they count the same schedule that the plain versions run.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 
 PREFIX = "lbm_tpu_torch."
 MAX_RECORDS = 4096
-COUNTERS = ("h2d_bytes", "d2h_bytes", "kernel_launches")
+COUNTERS = ("h2d_bytes", "d2h_bytes", "kernel_launches", "pass_tiles", "tail_tiles")
 
 
 @dataclasses.dataclass

@@ -5,7 +5,9 @@ K3, K5-K11 and K13 against their plain versions; K3's 16-bit forms (four
 cells per thread) bitwise against K1 at odd widths and ragged rows, K9 in
 one window at T 4, 8 and 16, full row and panel, and K5 and K6 in one
 window (AA steps on the trapezoid) at T 3, 4 and 8, on the driver's
-schedules and a window at the shared-memory limit, bitwise against K1;
+schedules and a window at the shared-memory limit, bitwise against K1,
+their passes in alternating tile order bitwise one order's, and K6's
+blocks per SM (``TRAP_SLOTS``) and tile counters on a 1024^2 deck;
 K1's and K2's 16-bit word forms bitwise against their one-cell forms on
 ragged, odd-height grids and over chained calls, the shape rule's route,
 the c16 codec against its conversion-instruction form over every
@@ -387,6 +389,57 @@ def test_trapezoid_kernel_is_bitwise_k1(cuda_device, route):
     k1 = tstep.run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 50, 1.0)
     assert torch.equal(got[0], k1[0])
     np.testing.assert_allclose(got[1].cpu().numpy(), k1[1].cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "c16", "bf16"])
+@pytest.mark.parametrize("route", list(TRAPEZOIDS))
+def test_trapezoid_pass_order_keeps_the_bits(cuda_device, route, storage):
+    """K5 and K6 at 1024^2 on the driver's schedule: one call of 2 passes,
+    whose second takes the tiles from the last one back
+    (``band_common.cuh::pass_order``), gives the state and the av series of
+    two calls of one pass each (both in row-major order) bit for bit."""
+    kernel = TRAPEZOIDS[route][0]
+    block, depth, panel = driver_schedule(route, 1024)
+    cells, nobst = make_setup(cuda_device, 1024, 1024, seed=19)
+    dev = {"f32": None, "c16": tdev.DevSpec.for_params(DENSITY, ACCEL), "bf16": tdev.BF16}[storage]
+    q = cells if dev is None else tdev.encode_state(cells, dev)
+
+    def run(c, n):
+        return kernel(c, nobst, DENSITY, ACCEL, OMEGA, n, block, depth, panel=panel, dev=dev)
+
+    both = run(q, 2 * depth)
+    first = run(q, depth)
+    second = run(first[0], depth)
+    assert torch.equal(both[0], second[0])
+    assert torch.equal(both[1], torch.cat([first[1], second[1]]))
+
+
+@pytest.mark.cuda
+def test_trap_slots_is_k6_occupancy(cuda_device):
+    """``TRAP_SLOTS`` against the runtime: K6's resident blocks per SM on the
+    window of the driver's largest tier, at every storage, times the
+    card's SMs."""
+    block, depth, panel = driver_schedule("deep", 1024)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for dev in (None, tdev.DevSpec.for_params(DENSITY, ACCEL), tdev.BF16):
+        regs, local, per_sm = tdeep.kernel_attrs(1024, 1024, block, depth, panel, dev)
+        assert per_sm * sms == BC.TRAP_SLOTS, (dev, regs, local, per_sm, sms)
+
+
+@pytest.mark.cuda
+def test_k6_tiles_of_a_1024_deck(cuda_device):
+    """``pass_tiles`` and ``tail_tiles`` of a 1024^2 deck of 20,000 steps
+    through auto at f32 (K6, T 4): 5,000 passes of 551 tiles, each ending
+    on a round of 23."""
+    params = LBMParams(nx=1024, ny=1024, max_iters=20000, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    obstacles = np.zeros((1024, 1024), np.int32)
+    obstacles[0, :] = obstacles[-1, :] = 1
+    obstacles[200:800, 341] = 1
+    res = tdriver.run_simulation(params, obstacles, device=cuda_device, fetch_final=False)
+    assert res.route == "deep"
+    assert res.trace.counts["pass_tiles"] == 2755000 and res.trace.counts["tail_tiles"] == 115000
 
 
 @pytest.mark.cuda

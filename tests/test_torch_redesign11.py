@@ -278,6 +278,20 @@ def test_cpu_auto_above_the_limit_runs_k6_plain():
     np.testing.assert_array_equal(result.av_vels, av.numpy())
 
 
+def test_cpu_auto_above_the_limit_counts_k6_tiles():
+    """auto on an explicit CPU one cell above K4's limit records the tiles
+    of K6's schedule (``pass_tiles``, ``tail_tiles``): two passes of 180
+    tiles of (32, 4, 40), each a partial round of ``TRAP_SLOTS`` blocks."""
+    side = limit_side() + 1
+    params = LBMParams(nx=side, ny=side, max_iters=8, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    result = tdriver.run_simulation(params, box_with_vertical_wall(side, side), backend="auto",
+                                    device="cpu", fetch_final=False)
+    assert result.route == "deep"
+    assert tdriver.deep_config(params, torch.float32) == (32, 4, 40)
+    assert result.trace.counts["pass_tiles"] == result.trace.counts["tail_tiles"] == 2 * 180
+
+
 def test_bench_code_path_on_the_cpu(capsys):
     """The port bench on a 32 x 32 deck of the 1024^2 deck's family on the
     CPU: one JSON line with the metric named for the deck."""

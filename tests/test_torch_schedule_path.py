@@ -123,6 +123,31 @@ def test_schedule_configs():
     assert tdriver.resident_config(params, torch.float64) is None
 
 
+# K5's and K6's schedule per side of a square grid, and its tiles and the
+# tiles of its last round of TRAP_SLOTS blocks when partial: at 1024^2 two
+# whole rounds and 23 tiles, kept (a cut into whole rounds ran slower).
+TRAPEZOID_PICKS = {256: ((24, 4, 24), (121, 121)), 512: ((32, 4, 40), (208, 208)),
+                   1024: ((36, 4, 56), (551, 23)), 2048: ((36, 4, 56), (2109, 261)),
+                   4096: ((36, 4, 56), (8436, 252))}
+
+
+@pytest.mark.parametrize("n", list(TRAPEZOID_PICKS))
+@pytest.mark.parametrize("config", ["temporal_config", "deep_config"])
+def test_trapezoid_schedule_and_its_rounds(config, n):
+    """K5's and K6's schedules at 256^2-4096^2 in every storage: the tiers'
+    pick, a window compiled with constant strides, and its tiles per pass
+    and in a partial last round (``ops/temporal.py::tiles_of_pass``)."""
+    from lbm_tpu_torch.ops.temporal import tiles_of_pass
+
+    params = LBMParams(nx=n, ny=n, max_iters=1, reynolds_dim=10, density=0.1,
+                       accel=0.005, omega=1.85)
+    want, tiles = TRAPEZOID_PICKS[n]
+    for dtype in (torch.float32, "c16", torch.bfloat16):
+        cfg = getattr(tdriver, config)(params, dtype)
+        assert cfg == want and cfg in tdriver.trapezoid_schedules()
+        assert tiles_of_pass(n, n, cfg[0], cfg[2]) == tiles
+
+
 @pytest.mark.parametrize("backend", ROUTES)
 def test_cli_rejects_f64_schedule_routes(backend, walls_deck, capsys):
     assert tcli.main([*walls_deck, "--device", "cpu", "--precision", "f64",

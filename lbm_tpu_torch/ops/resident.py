@@ -27,6 +27,12 @@ one of two forms picked from the shapes before any launch:
   ``run_resident_aa_plain`` is that schedule in plain PyTorch, bitwise
   ``run_resident_plain``.
 
+Each C call adds its schedule's ``schedule_counts`` to the open call's
+counters (``runtime/trace.py``): the grid barriers its launches meet, and
+for the shared-memory form the cell updates computed on ghost rows and the
+bytes through the exchange buffer. Counted in Python from the shapes, once
+a call; on the CPU nothing is counted.
+
 The shared-memory form's final state is whichever buffer its last launch
 wrote (the TPU kernel ends an even-length chunk with a whole-state copy
 into its output window; the card has no output window to fill). On a CPU
@@ -48,6 +54,7 @@ from lbm_tpu_torch.ops.band_common import SMEM_LIMIT
 from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
 from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, check_inputs, force_deltas, force_row,
                                     forcing_weights, kernel_scalars, step_plain)
+from lbm_tpu_torch.runtime import trace
 
 CHUNK_STEPS = 255  # steps per launch, as pallas_resident._CHUNK_STEPS
 _THREADS = 256  # csrc/resident.cu::kThreads
@@ -105,6 +112,42 @@ def resident_smem_config(ny: int, nx: int, max_blocks: int):
         if need <= SMEM_LIMIT:
             return -(-ny // rows), rows, depth, need
     return None
+
+
+def schedule_counts(ny: int, nx: int, n_iters: int, chunk: int, config=None) -> dict:
+    """The counters of one C call of K4 over ``n_iters`` steps in launches of
+    ``chunk``: ``grid_barriers``, ``ghost_updates`` and ``exchange_bytes``.
+
+    Shared-memory form (``config = (blocks, rows, depth, smem_bytes)``): a
+    launch of L steps runs passes of ``depth`` steps, the last shorter; it
+    meets one ``grid.sync()`` after each pass (the exchange's, then the
+    final one before the av reduction), and exchanges between its passes.
+    A pass of p steps computes p(p-1) ghost rows of ``nx`` cells a block.
+    An exchange moves 36 B a cell (9 f32 values) of each block's own rows
+    within ``depth`` of an edge out and its 2 ``depth`` ghost rows in.
+
+    Global-memory form (``config`` None): one barrier a step, and the entry
+    barrier of the call's first launch; no ghost rows, no exchange."""
+    if config is None:
+        return {"grid_barriers": n_iters + 1, "ghost_updates": 0, "exchange_bytes": 0}
+    blocks, rows, depth, _ = config
+    last = ny - (blocks - 1) * rows  # the last block's rows
+    moved = 36 * nx * ((blocks - 1) * min(rows, 2 * depth) + min(last, 2 * depth)
+                       + blocks * 2 * depth)
+    barriers = ghost = 0
+    for steps, launches in ((chunk, n_iters // chunk), (n_iters % chunk, 1)):
+        full, rest = divmod(steps, depth)
+        passes = full + (rest > 0)
+        barriers += launches * passes
+        ghost += launches * (full * depth * (depth - 1) + rest * (rest - 1))
+    exchanges = barriers - -(-n_iters // chunk)
+    return {"grid_barriers": barriers, "ghost_updates": ghost * blocks * nx,
+            "exchange_bytes": exchanges * moved}
+
+
+def _count(ny, nx, n_iters, chunk, config=None) -> None:
+    for name, n in schedule_counts(ny, nx, n_iters, chunk, config).items():
+        trace.count(name, n)
 
 
 def _check(cells, nobst, n_iters, chunk):
@@ -208,6 +251,20 @@ def _window_step(win, nob, frow, r0, r1, own, w1a, w2a, omega, paired):
     return out, torch.sum(nob[lo:hi] * u_mag(u_sq[lo - r0:hi - r0]))
 
 
+def _exchange(ex, blocks, t):
+    """The exchange between two passes through ``ex`` (9, ny, nx), the
+    buffer of the pass's parity: each block's own rows within ``t`` of an
+    edge into it, then every block's ghost rows from it."""
+    for y0, bi, _, win, _, _ in blocks:
+        edge = [rr for rr in range(bi) if rr < t or rr >= bi - t]
+        ex[:, [y0 + rr for rr in edge]] = win[:, [t + rr for rr in edge]]
+    for blk in blocks:
+        bi, grow = blk[1], blk[2]
+        ghost = list(range(t)) + list(range(t + bi, bi + 2 * t))
+        blk[3] = blk[3].clone()
+        blk[3][:, ghost] = ex[:, grow[ghost]]
+
+
 def _slabs_launch(cells, nobst, w1a, w2a, omega, steps, rows, depth, paired):
     """One launch of the shared-memory form: ``steps`` steps; returns the
     state and the per-step sums, each the sum over blocks in block order."""
@@ -236,17 +293,7 @@ def _slabs_launch(cells, nobst, w1a, w2a, omega, steps, rows, depth, paired):
         sums[done:done + length] = torch.stack(per_block).sum(0)
         done += length
         if done < steps:
-            # The exchange: each block's own rows within T of an edge into
-            # the buffer of this pass's parity, then every ghost row from it.
-            ex = exch[npass % 2]
-            for y0, bi, _, win, _, _ in blocks:
-                edge = [rr for rr in range(bi) if rr < t or rr >= bi - t]
-                ex[:, [y0 + rr for rr in edge]] = win[:, [t + rr for rr in edge]]
-            for blk in blocks:
-                bi, grow = blk[1], blk[2]
-                ghost = list(range(t)) + list(range(t + bi, bi + 2 * t))
-                blk[3] = blk[3].clone()
-                blk[3][:, ghost] = ex[:, grow[ghost]]
+            _exchange(exch[npass % 2], blocks, t)
         npass += 1
     out = torch.empty_like(cells)
     for y0, bi, _, win, _, _ in blocks:
@@ -337,6 +384,7 @@ def launch(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chunk, b
             *kernel_scalars(density, accel, omega, inv_tot_cells), stream,
         )
     _build.check(rc, f"resident kernel ({blocks} blocks)")
+    _count(ny, nx, n_iters, chunk)
     run_resident.launches += n_iters
     return as_regular(buf, n_iters), av
 
@@ -365,6 +413,7 @@ def launch_smem(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chu
         )
     _build.check(rc, f"resident kernel, shared-memory form ({blocks} blocks of {rows} rows, "
                      f"T {depth}, {smem} B)")
+    _count(ny, nx, n_iters, chunk, config)
     run_resident.launches_smem += n_iters
     return (a if -(-n_iters // chunk) % 2 == 0 else b), av
 

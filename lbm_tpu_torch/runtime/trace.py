@@ -29,7 +29,14 @@ the chunks' loops, ``lbm_launch_count``); all three read 0 on the CPU.
 Counters of the wrappers of K5 and K6 (``ops/temporal.py::count_tiles``):
 ``pass_tiles``, the tiles of the run's passes, and ``tail_tiles``, those
 in each pass's last round of blocks when that round is partial; on the
-CPU they count the same schedule that the plain versions run.
+CPU they count the same schedule that the plain versions run. Counters of
+K4's wrapper (``ops/resident.py::schedule_counts``): ``grid_barriers``,
+the ``grid.sync()`` calls its launches meet (one a pass in the
+shared-memory form, one a step in the global-memory form),
+``ghost_updates``, the cell updates computed on ghost rows, and
+``exchange_bytes``, the bytes written to and read from the exchange buffer
+between passes (both 0 in the global-memory form); all three read 0 on the
+CPU, where the plain per-step version runs.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ import torch
 
 PREFIX = "lbm_tpu_torch."
 MAX_RECORDS = 4096
-COUNTERS = ("h2d_bytes", "d2h_bytes", "kernel_launches", "pass_tiles", "tail_tiles")
+COUNTERS = ("h2d_bytes", "d2h_bytes", "kernel_launches", "pass_tiles", "tail_tiles",
+            "grid_barriers", "ghost_updates", "exchange_bytes")
 
 
 @dataclasses.dataclass

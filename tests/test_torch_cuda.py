@@ -17,7 +17,8 @@ rows and K8/K10 with received halos, bitwise the one-process mesh; and
 K12 across 2 processes, each mapping its neighbour's shard with CUDA IPC
 (tests/torch_multihost_worker.py ``ipc``), bitwise the one-process K12,
 and its deadline when a neighbour stops; and the driver's counters of
-bytes copied and kernel launches on K1, K6 and K4.
+bytes copied and kernel launches on K1, K6 and K4, and K4's schedule
+counters.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -1326,8 +1327,9 @@ def test_the_driver_counts_its_copies_and_launches(cuda_device, backend, storage
     and 101 (``runtime/trace.py``): the bytes of the state, the mask, the av
     series and, at c16, the saturation scalar; the kernel launches the
     route's schedule implies (K1 one a step; K6 one a pass of T steps and
-    K1 on the remainder; K4 one per 255 steps); and no synchronisation but
-    the driver's two per chunk."""
+    K1 on the remainder; K4 one per 255 steps); K4's grid barriers, ghost
+    updates and exchange bytes (``resident.schedule_counts``); and no
+    synchronisation but the driver's two per chunk."""
     nx, ny, iters, chunks = 96, 64, 301, (200, 101)
     params = LBMParams(nx=nx, ny=ny, max_iters=iters, reynolds_dim=10, density=DENSITY,
                        accel=ACCEL, omega=OMEGA)
@@ -1355,5 +1357,14 @@ def test_the_driver_counts_its_copies_and_launches(cuda_device, backend, storage
         depth = tdriver.deep_config(params, dtype)[1]
         launches = sum(n // depth + n % depth for n in chunks)
     assert rec.counts["kernel_launches"] == launches
+    # K4's schedule counters, summed over the chunks; 0 on the other routes.
+    k4 = dict.fromkeys(("grid_barriers", "ghost_updates", "exchange_bytes"), 0)
+    if backend == "resident":
+        config = tres.resident_smem_config(ny, nx, tres.sm_count(cuda_device))
+        for n in chunks:
+            for name, count in tres.schedule_counts(ny, nx, n, 255, config).items():
+                k4[name] += count
+        assert k4["grid_barriers"] > 0
+    assert {name: rec.counts[name] for name in k4} == k4
     assert {"library", "sync", "loop", "av", "fetch"} <= set(rec.spans)
     assert rec.elapsed == res.elapsed

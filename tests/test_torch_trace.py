@@ -64,7 +64,8 @@ def test_a_call_records_its_spans_and_counters(backend, storage):
     # pass: one pass in each of the chunks of 4 steps.
     tiles = 2 if res.route == "deep" else 0
     assert rec.counts == {"h2d_bytes": 0, "d2h_bytes": 0, "kernel_launches": 0,
-                          "pass_tiles": tiles, "tail_tiles": tiles}
+                          "pass_tiles": tiles, "tail_tiles": tiles, "grid_barriers": 0,
+                          "ghost_updates": 0, "exchange_bytes": 0}
 
 
 def test_each_call_has_its_own_id():

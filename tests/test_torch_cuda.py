@@ -18,7 +18,8 @@ K12 across 2 processes, each mapping its neighbour's shard with CUDA IPC
 (tests/torch_multihost_worker.py ``ipc``), bitwise the one-process K12,
 and its deadline when a neighbour stops; and the driver's counters of
 bytes copied and kernel launches on K1, K6 and K4, and K4's schedule
-counters.
+counters; and the driver's fetches through page-locked memory, bitwise
+the pageable copies, with held results never overwritten.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. They
 import neither JAX nor the JAX package, so they run where only the port's
@@ -1368,3 +1369,98 @@ def test_the_driver_counts_its_copies_and_launches(cuda_device, backend, storage
     assert {name: rec.counts[name] for name in k4} == k4
     assert {"library", "sync", "loop", "av", "fetch"} <= set(rec.spans)
     assert rec.elapsed == res.elapsed
+
+
+def _pageable_to_host(t, pinned=True):
+    """The driver's fetch before page-locked results."""
+    if t.device.type == "cuda":
+        tdriver.trace.count("d2h_bytes", t.nbytes)
+    return t.cpu().numpy()
+
+
+def copies_deck(seed):
+    """A 96 x 64 deck of 301 steps and a seeded f32 start (9, 64, 96)."""
+    nx, ny = 96, 64
+    params = LBMParams(nx=nx, ny=ny, max_iters=301, reynolds_dim=10, density=DENSITY,
+                       accel=ACCEL, omega=OMEGA)
+    obstacles = np.zeros((ny, nx), np.int32)
+    obstacles[0, :] = obstacles[-1, :] = 1
+    rng = np.random.RandomState(seed)
+    start = (WEIGHTS * DENSITY)[:, None, None] * (1 + 0.05 * rng.rand(9, ny, nx))
+    return params, obstacles, start.astype(np.float32)
+
+
+def is_plain_array(a, dtype, shape):
+    return (type(a) is np.ndarray and a.dtype == dtype and a.shape == shape
+            and a.flags.c_contiguous and a.flags.writeable)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "c16"])
+def test_the_driver_fetches_through_page_locked_memory(cuda_device, storage, monkeypatch):
+    """The driver's fetches (``runtime/driver.py::_to_host``) on a 96 x 64
+    deck in chunks of 200 and 101: the final state is a plain, writable,
+    C-contiguous array in page-locked memory, and it and the av series are
+    bitwise those of the pageable copies, with the same bytes counted; the
+    caller's start is unchanged and not page-locked."""
+    params, obstacles, start = copies_deck(7)
+    before = start.copy()
+    dtype = torch.float32 if storage == "f32" else "c16"
+    kw = dict(dtype=dtype, initial_cells=start, device=cuda_device, chunk_every=200)
+    res = tdriver.run_simulation(params, obstacles, **kw)
+    assert is_plain_array(res.cells, np.float32, start.shape)
+    assert torch.from_numpy(res.cells).is_pinned()
+    assert res.av_vels.dtype == np.float32 and res.av_vels.shape == (params.max_iters,)
+    assert start.tobytes() == before.tobytes()
+    assert not torch.from_numpy(start).is_pinned()
+    monkeypatch.setattr(tdriver, "_to_host", _pageable_to_host)
+    want = tdriver.run_simulation(params, obstacles, **kw)
+    assert not torch.from_numpy(want.cells).is_pinned()
+    assert {k: want.trace.counts[k] for k in ("h2d_bytes", "d2h_bytes")} == \
+        {k: res.trace.counts[k] for k in ("h2d_bytes", "d2h_bytes")}
+    assert res.cells.tobytes() == want.cells.tobytes()
+    assert res.av_vels.tobytes() == want.av_vels.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "c16"])
+def test_a_held_result_is_never_overwritten(cuda_device, storage):
+    """A first call's final state and av series, held while two more calls
+    on other starts run (the allocator's blocks of their results are
+    freed and reused between them), keep their bytes; no two held results
+    share memory."""
+    dtype = torch.float32 if storage == "f32" else "c16"
+    held = []
+    for seed in (11, 12, 13):
+        params, obstacles, start = copies_deck(seed)
+        res = tdriver.run_simulation(params, obstacles, dtype=dtype, initial_cells=start,
+                                     device=cuda_device)
+        if not held:
+            held = [res, res.cells.tobytes(), res.av_vels.tobytes()]
+        else:
+            assert not np.shares_memory(res.cells, held[0].cells)
+            assert res.cells.tobytes() != held[1]
+        del res
+    first, cells, av = held
+    assert first.cells.tobytes() == cells and first.av_vels.tobytes() == av
+    first.cells[0, 0, 0] += 1.0  # writable, and the caller's alone
+    assert first.cells.tobytes() != cells
+
+
+@pytest.mark.cuda
+def test_a_fetch_without_page_locked_memory_is_pageable(cuda_device, monkeypatch):
+    """Where no page-locked block can be had, ``_to_host`` copies through
+    pageable memory: the same bytes, counted once."""
+    t = torch.arange(9 * 64 * 96, dtype=torch.float32, device=cuda_device).reshape(9, 64, 96)
+    empty = torch.empty
+
+    def no_pinned(*args, pin_memory=False, **kwargs):
+        if pin_memory:
+            raise RuntimeError("CUDA error: out of memory")
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", no_pinned)
+    with tdriver.trace.call() as rec:
+        a = tdriver._to_host(t)
+    assert is_plain_array(a, np.float32, (9, 64, 96)) and not torch.from_numpy(a).is_pinned()
+    assert a.tobytes() == t.cpu().numpy().tobytes() and rec.counts["d2h_bytes"] == t.nbytes

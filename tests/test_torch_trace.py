@@ -17,7 +17,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from lbm_tpu_torch.models.d2q9 import LBMParams  # noqa: E402
+from lbm_tpu_torch.models.d2q9 import WEIGHTS, LBMParams  # noqa: E402
 from lbm_tpu_torch.runtime import driver, trace  # noqa: E402
 
 STORAGES = {"f32": torch.float32, "c16": "c16", "bf16": torch.bfloat16}
@@ -143,3 +143,61 @@ def test_the_spans_sit_in_a_profiler_trace(storage, tmp_path):
     reduced = trace_from_events(events, 1)
     assert len(reduced.loop_spans) == 3
     assert all(call["ts"] <= a <= b <= call["ts"] + call["dur"] for a, b in reduced.loop_spans)
+
+
+@pytest.mark.parametrize("start", ["rest", "f32", "f64", "strided"])
+def test_the_cpu_path_copies_nothing_and_keeps_its_bytes(start):
+    """On the CPU no byte crosses, whatever the start; an f64 or a strided
+    start gives the f32 start's bytes, and the caller's start is not
+    written."""
+    params, obstacles = deck()
+    rng = np.random.RandomState(3)
+    f32 = (WEIGHTS * params.density)[:, None, None] * (
+        1 + 0.05 * rng.rand(9, params.ny, params.nx))
+    f32 = f32.astype(np.float32)
+    cells = {"rest": None, "f32": f32, "f64": f32.astype(np.float64)}
+    if start == "strided":
+        cells["strided"] = np.zeros((9, params.ny, 2 * params.nx), np.float32)[:, :, ::2]
+        cells["strided"][...] = f32
+    given = None if cells[start] is None else cells[start].copy()
+    res = driver.run_simulation(params, obstacles, device="cpu", initial_cells=cells[start])
+    assert {k: res.trace.counts[k] for k in ("h2d_bytes", "d2h_bytes")} == \
+        {"h2d_bytes": 0, "d2h_bytes": 0}
+    if given is not None:
+        assert cells[start].tobytes() == given.tobytes()
+        want = driver.run_simulation(params, obstacles, device="cpu", initial_cells=f32)
+        assert res.cells.tobytes() == want.cells.tobytes()
+        assert res.av_vels.tobytes() == want.av_vels.tobytes()
+    assert type(res.cells) is np.ndarray and res.cells.flags.c_contiguous
+    assert res.cells.dtype == np.float32 and res.cells.shape == (9, params.ny, params.nx)
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int16])
+def test_the_cpu_fetch_is_the_tensors_own_array(dtype, pinned):
+    """``_to_host`` of a CPU tensor is ``t.cpu().numpy()``, pinned or not:
+    the tensor's own bytes, shared, with its dtype and shape, and no byte
+    counted."""
+    t = torch.arange(24, dtype=dtype).reshape(2, 3, 4)
+    with trace.call() as rec:
+        a = driver._to_host(t, pinned=pinned)
+    assert type(a) is np.ndarray and a.shape == (2, 3, 4) and a.dtype == t.numpy().dtype
+    assert a.tobytes() == t.numpy().tobytes() and np.shares_memory(a, t.numpy())
+    assert rec.counts["d2h_bytes"] == 0
+
+
+def test_the_copy_bound_needs_a_card(capsys):
+    """``scripts/copy_bound.py`` measures the card's host and link only: with
+    no card it prints why and exits 2, with no number."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "copy_bound.py")
+    spec = importlib.util.spec_from_file_location("copy_bound", path)
+    copy_bound = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(copy_bound)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the bound would run")
+    assert copy_bound.main([]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err

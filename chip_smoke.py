@@ -190,8 +190,7 @@ PyTorch built for CUDA. Phases, each printing what it found:
    shards at 1024^2-4096^2, each storage, in turns; K7's schedule sweep
    (T 3, 4, 5, 8) at 1024^2-4096^2; the loop MLUPS of ``band`` and
    ``auto`` on the official decks and the 2048^2 and 4096^2 walls decks
-   (``run_simulation``, no files); and the port bench (``python -m
-   lbm_tpu_torch.bench``), its JSON line logged;
+   (``run_simulation``, no files);
 29. K1's 16-bit forms and K2's c16 and bf16 forms in aligned words of four
    cells (``csrc/step.cu::step_word_kernel``, ``csrc/aa.cu::
    aa_word_kernel``): the c16 codec against its form with conversion
@@ -256,8 +255,7 @@ PyTorch built for CUDA. Phases, each printing what it found:
    1024^2 and 2048^2 on the tier's (36, 4, 56) and the cuts of K56_WAVES;
    each cut against (36, 4, 56) over 2 passes at 1024^2, the state
    bitwise and the av within 1e-6; both kernels' us per pass on grids of
-   whole tiles making 1-8 rounds and at 1008^2-2048^2; ``pass_tiles`` and
-   ``tail_tiles`` of a 1024^2 deck of 20,000 steps through ``auto``.
+   whole tiles making 1-8 rounds and at 1008^2-2048^2.
    ``--phase 33 --import-from DIR`` times the passes of the package under
    DIR alone (run it and this tree in turns, in processes of their own).
 
@@ -712,14 +710,10 @@ def scheduled_routes():
 
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import deep, resident, temporal
-    from lbm_tpu_torch.runtime.driver import pass_schedule, resident_config
-
-    params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
-                       accel=ACCEL, omega=OMEGA)
-    chunk = resident_config(params, torch.float32)
+    from lbm_tpu_torch.runtime.driver import pass_schedule
 
     def res(fn):
-        return lambda c, o, n: fn(c, o, DENSITY, ACCEL, OMEGA, n, 1.0, chunk=chunk)
+        return lambda c, o, n: fn(c, o, DENSITY, ACCEL, OMEGA, n, 1.0, chunk=resident.CHUNK_STEPS)
 
     out = {"resident": ("K4", res(resident.run_resident), res(resident.run_resident_plain), 1)}
     # K5's and K6's schedules at 2048^2, where the report times them.
@@ -835,7 +829,6 @@ def shard_routes():
 
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import band, band2, shard_step, step
-    from lbm_tpu_torch.runtime.driver import band2_config, band_config
 
     params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
                        accel=ACCEL, omega=OMEGA)
@@ -850,8 +843,8 @@ def shard_routes():
                   ((4, 1), (2, 2)), k1, 1),
            "K12": (steps(shard_step.run_shard_overlap), steps(shard_step.run_shard_step_plain),
                    ((4, 1),), k1, 1)}
-    for name, mod, run, cfg in (("K8", band, "run_band", band_config(params, torch.float32)),
-                                ("K10", band2, "run_band2", band2_config(params, torch.float32))):
+    for name, mod, run, cfg in (("K8", band, "run_band", band.schedule(params, torch.float32)),
+                                ("K10", band2, "run_band2", band2.schedule(params, torch.float32))):
         block, depth, panel = cfg
 
         def bind(fn, block=block, depth=depth, panel=panel):
@@ -1084,11 +1077,11 @@ def slab_phase(torch, spec, routes):
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import devspace, slab
     from lbm_tpu_torch.ops.step import run_step
-    from lbm_tpu_torch.runtime.driver import slab_config
 
     def cfg_for(n):
-        return slab_config(LBMParams(nx=n, ny=n, max_iters=1, reynolds_dim=10, density=DENSITY,
-                                     accel=ACCEL, omega=OMEGA), torch.float32)
+        return slab.schedule(LBMParams(nx=n, ny=n, max_iters=1, reynolds_dim=10,
+                                       density=DENSITY, accel=ACCEL, omega=OMEGA),
+                             torch.float32)
 
     def k13(c, o, n, cfg, dev=None, fn=slab.run_band_slab):
         block, depth, panel, kp, sb = cfg
@@ -1181,7 +1174,7 @@ def c16_path_phase(torch, cli, gpu_line, walls_ref):
     """Phase 17; returns {counter name: launches}."""
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import aa, band, band3, slab, step
-    from lbm_tpu_torch.runtime.driver import pass_schedule, slab_config
+    from lbm_tpu_torch.runtime.driver import pass_schedule
 
     fns = {"K1": step.run_step, "K2": aa.run_aa, "K11": band3.run_band3, "K7": band.run_band,
            "K13": slab.run_band_slab}
@@ -1193,7 +1186,7 @@ def c16_path_phase(torch, cli, gpu_line, walls_ref):
         params = LBMParams(nx=ny, ny=ny, max_iters=1, reynolds_dim=10, density=DENSITY,
                            accel=ACCEL, omega=OMEGA)
         if route == "slab":
-            _, depth, _, kpasses, _ = slab_config(params, torch.float32)
+            _, depth, _, kpasses, _ = slab.schedule(params, torch.float32)
             want["K13" + tail] += n // (kpasses * depth) * kpasses * depth
             n %= kpasses * depth
             route = "band"
@@ -1272,7 +1265,7 @@ def c16_more_forms():
 
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import band, band2, deep, shard_step, temporal
-    from lbm_tpu_torch.runtime.driver import band2_config, band_config, pass_schedule
+    from lbm_tpu_torch.runtime.driver import pass_schedule
 
     # The schedules at 2048^2, where the report times these forms.
     params = LBMParams(nx=2048, ny=2048, max_iters=1, reynolds_dim=10, density=DENSITY,
@@ -1294,9 +1287,9 @@ def c16_more_forms():
 
     out["K3"] = (steps(shard_step.run_shard_step), steps(shard_step.run_shard_step_plain), 1,
                  True)
-    for name, mod, run, cfg in (("K8", band, "run_band_sharded", band_config(params, "c16")),
+    for name, mod, run, cfg in (("K8", band, "run_band_sharded", band.schedule(params, "c16")),
                                 ("K10", band2, "run_band2_sharded",
-                                 band2_config(params, "c16"))):
+                                 band2.schedule(params, "c16"))):
         block, depth, panel = cfg
 
         def bind(fn, block=block, depth=depth, panel=panel):
@@ -1587,7 +1580,6 @@ def bf16_forms(routes, more, slab_cfg):
     from lbm_tpu_torch.ops import slab
     from lbm_tpu_torch.ops.aa import run_aa, run_aa_plain
     from lbm_tpu_torch.ops.step import run_step, run_step_plain
-    from lbm_tpu_torch.runtime.driver import slab_config
 
     def steps(fn):
         return lambda c, o, n, dev=None: fn(c, o, DENSITY, ACCEL, OMEGA, n, 1.0, dev=dev)
@@ -1600,7 +1592,7 @@ def bf16_forms(routes, more, slab_cfg):
     def k13(fn):
         def run(c, o, n, dev=None):
             _, ny, nx = c.shape  # the default schedule of the grid: S = ny / 2
-            block, depth, panel, kp, sb = slab_config(LBMParams(
+            block, depth, panel, kp, sb = slab.schedule(LBMParams(
                 nx=nx, ny=ny, max_iters=1, reynolds_dim=10, density=DENSITY, accel=ACCEL,
                 omega=OMEGA), torch.float32)
             return fn(c, o, DENSITY, ACCEL, OMEGA, n, block, depth, kp, sb, panel=panel, dev=dev)
@@ -2065,11 +2057,10 @@ def redesign9_turns(torch, spec, gpu_line):
     from lbm_tpu_torch.ops import band2, band3, devspace, shard_step
     from lbm_tpu_torch.ops.aa import run_aa
     from lbm_tpu_torch.ops.step import run_step
-    from lbm_tpu_torch.runtime.driver import band2_config, band3_config
 
     params = LBMParams(nx=2048, ny=2048, max_iters=1, reynolds_dim=10, density=DENSITY,
                        accel=ACCEL, omega=OMEGA)
-    k9_cfg, k11_cfg = band2_config(params, torch.float32), band3_config(params, torch.float32)
+    k9_cfg, k11_cfg = band2.schedule(params, torch.float32), band3.schedule(params, torch.float32)
     forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
     out = {}
     for nx, n in ((1024, 400), (2048, 200), (4096, 48)):
@@ -2113,7 +2104,6 @@ def k9_checks(torch, spec, skip_refused=False):
     from lbm_tpu_torch.ops import band2, devspace
     from lbm_tpu_torch.ops import band_common as BC
     from lbm_tpu_torch.ops.step import run_step
-    from lbm_tpu_torch.runtime.driver import band2_config
 
     checks = []
     for nx, ny, cfg in K9_CHECKS:
@@ -2144,7 +2134,7 @@ def k9_checks(torch, spec, skip_refused=False):
     log("  K9 determinism: two runs of each schedule give bitwise-equal av and state")
     params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
                        accel=ACCEL, omega=OMEGA)
-    block, depth, panel = band2_config(params, torch.float32)
+    block, depth, panel = band2.schedule(params, torch.float32)
     cells, nobst = random_setup(torch, 1024, 1024, seed=5)
     got = band2.run_band2(cells, nobst, DENSITY, ACCEL, OMEGA, 200, block, depth, panel=panel)
     k1 = run_step(cells, nobst, DENSITY, ACCEL, OMEGA, 200, 1.0)
@@ -2270,7 +2260,7 @@ def k56_checks(torch, spec, skip_refused=False):
     from lbm_tpu_torch.runtime import driver
 
     routes = k56_routes()
-    tiers = getattr(driver, "trapezoid_schedules", tuple)()
+    tiers = tuple(cfg for cfg, _ in getattr(temporal, "TRAPEZOID_TIERS", ()))
     checks = []
     for nx, ny, cfg in K56_CHECKS + tuple((2 * p - 7, 2 * b - 5, (b, t, p)) for b, t, p in tiers):
         try:
@@ -2415,12 +2405,11 @@ def k56_sweep_main(name="K56_SWEEP"):
     schedules, and sweeps."""
     import torch
 
-    from lbm_tpu_torch.ops import _build
-    from lbm_tpu_torch.runtime import driver
+    from lbm_tpu_torch.ops import _build, temporal
 
     sweep = globals()[name]
     candidates = tuple(dict.fromkeys(cfg for cfgs in sweep.values() for cfg in cfgs))
-    driver.trapezoid_schedules = lambda: candidates
+    temporal.TRAPEZOID_TIERS = tuple((cfg, 0) for cfg in candidates)
     b = _build.library().build_info
     log(f"  sweep's kernels {'built' if b['built'] else 'loaded'} in {b['seconds']:.1f} s, "
         f"K5 and K6 with constant strides for the windows {b['windows']}")
@@ -2460,13 +2449,8 @@ def waves_phase(torch, gpu_line):
     The sweep K56_WAVES in a process of its own (blocks per SM, times in
     turns); each whole-round cut of 1024^2 against the tier's (36, 4, 56)
     over 2 passes, the state bitwise; the times per pass on
-    K56_ROUND_GRIDS; the tile counters of a 1024^2 deck of 20,000 steps
-    through auto."""
-    import numpy as np
-
-    from lbm_tpu_torch.models.d2q9 import LBMParams
+    K56_ROUND_GRIDS."""
     from lbm_tpu_torch.ops import temporal
-    from lbm_tpu_torch.runtime import driver
 
     k56_sweep_process("K56_WAVES")
     cells, nobst = random_setup(torch, 1024, 1024, seed=33)
@@ -2482,18 +2466,6 @@ def waves_phase(torch, gpu_line):
                 f"{temporal.tiles_of_pass(1024, 1024, cfg[0], cfg[2])}")
     del cells, nobst
     k56_pass_times(torch, gpu_line)
-    params = LBMParams(nx=1024, ny=1024, max_iters=20000, reynolds_dim=10, density=DENSITY,
-                       accel=ACCEL, omega=OMEGA)
-    obstacles = np.zeros((1024, 1024), np.int32)
-    obstacles[0, :] = obstacles[-1, :] = 1
-    obstacles[:, 341] = 1
-    res = driver.run_simulation(params, obstacles, device="cuda:0", fetch_final=False)
-    counts = res.trace.counts
-    log(f"  a 1024^2 deck of 20,000 steps through auto: route {res.route}, pass_tiles "
-        f"{counts['pass_tiles']}, tail_tiles {counts['tail_tiles']}, loop "
-        f"{res.mlups(params):.1f} MLUPS [{gpu_line}]")
-    check(counts["pass_tiles"] == 2755000 and counts["tail_tiles"] == 115000,
-          "the 1024^2 deck's tile counters are not 5,000 passes of 551 tiles, 23 in a last round")
 
 
 def redesign10_phase(torch, spec, cli, gpu_line):
@@ -2534,7 +2506,6 @@ def k78_checks(torch, spec, skip_refused=False):
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import band, devspace
     from lbm_tpu_torch.ops.step import run_step
-    from lbm_tpu_torch.runtime.driver import band_config
 
     def attempt(what, fn):
         try:
@@ -2593,7 +2564,7 @@ def k78_checks(torch, spec, skip_refused=False):
     log("  K7 and K8 determinism: two runs of each schedule give bitwise-equal av and state")
     params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
                        accel=ACCEL, omega=OMEGA)
-    block, _, panel = band_config(params, torch.float32)
+    block, _, panel = band.schedule(params, torch.float32)
     cells, nobst = random_setup(torch, 1024, 1024, seed=5)
     s, o = on_mesh(cells, nobst, 4, 1)
     for depth in (3, 4, 5):
@@ -2621,7 +2592,7 @@ def redesign11_turns(torch, spec, gpu_line):
     {(storage, n[, "mesh"]): {kernel: us per step}}."""
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import band, band2, devspace, slab
-    from lbm_tpu_torch.runtime.driver import pass_schedule, slab_config
+    from lbm_tpu_torch.runtime.driver import pass_schedule
 
     forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
     out = {}
@@ -2630,7 +2601,7 @@ def redesign11_turns(torch, spec, gpu_line):
                            accel=ACCEL, omega=OMEGA)
         k7_cfg = pass_schedule("band", params, torch.float32)[1]
         k9_cfg = pass_schedule("band2", params, torch.float32)[1]
-        k13_cfg = slab_config(params, torch.float32)
+        k13_cfg = slab.schedule(params, torch.float32)
         m = n - n % (k13_cfg[1] * k13_cfg[3])
         cells, nobst = random_setup(torch, nx, nx, seed=7)
         for name, dev in forms.items():
@@ -2674,13 +2645,12 @@ def k7_sweep(torch, gpu_line):
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import band, band2
     from lbm_tpu_torch.ops import band_common as BC
-    from lbm_tpu_torch.runtime.driver import band2_config
 
     out = {}
     for nx, schedules in K7_SWEEP.items():
         params = LBMParams(nx=nx, ny=nx, max_iters=1, reynolds_dim=10, density=DENSITY,
                            accel=ACCEL, omega=OMEGA)
-        k9 = band2_config(params, torch.float32)
+        k9 = band2.schedule(params, torch.float32)
         cells, nobst = random_setup(torch, nx, nx, seed=7)
         n = max(120, 240 * 2048 // nx) // 120 * 120
         fits = [cfg for cfg in schedules if BC.smem_bytes(1, nx, *cfg) <= BC.SMEM_LIMIT]
@@ -2696,24 +2666,6 @@ def k7_sweep(torch, gpu_line):
             + f" [{gpu_line}]")
         del cells, nobst
     return out
-
-
-def bench_line():
-    """``python -m lbm_tpu_torch.bench`` in this process: its JSON line and
-    its stderr line."""
-    import contextlib
-    import io
-
-    from lbm_tpu_torch import bench
-
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = bench.main([])
-    check(rc == 0, f"the port bench exited {rc}")
-    line = out.getvalue().strip().splitlines()[-1]
-    res = json.loads(line)
-    check(res["metric"] == "mlups_1024x1024" and res["value"] > 0, f"bad bench line: {line}")
-    return line, err.getvalue().strip()
 
 
 def deck_mlups(torch, gpu_line, backends=("band", "auto"), tags=None):
@@ -2753,14 +2705,11 @@ def deck_mlups(torch, gpu_line, backends=("band", "auto"), tags=None):
 def redesign11_phase(torch, spec, gpu_line):
     """Phase 28: K7 and K8 in one window at any T against their plain
     versions and K1; timed beside K9, K10 and K13 in turns; K7's schedule
-    sweep; the port bench."""
+    sweep; the decks' loop MLUPS."""
     k78_checks(torch, spec)
     redesign11_turns(torch, spec, gpu_line)
     k7_sweep(torch, gpu_line)
     deck_mlups(torch, gpu_line)
-    line, note = bench_line()
-    log(f"  python -m lbm_tpu_torch.bench: {line}")
-    log(f"  {note}")
 
 
 # (nx, ny) of phase 29's checks: 1024^2 and an odd-height 1000-wide grid
@@ -3011,12 +2960,11 @@ def k11_checks(torch, spec, skip_refused=False):
     (another checkout): a schedule its K11 refuses is logged, not held."""
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import band3, devspace
-    from lbm_tpu_torch.runtime.driver import band3_config
 
     forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
     params = LBMParams(nx=1024, ny=1024, max_iters=1, reynolds_dim=10, density=DENSITY,
                        accel=ACCEL, omega=OMEGA)
-    cfg = band3_config(params, torch.float32)
+    cfg = band3.schedule(params, torch.float32)
     cases = [(nx, ny, sched, (2 * sched[1] + 3,)) for nx, ny, sched in K9_CHECKS]
     cases += [(1000, 998, cfg, (cfg[1], 2 * cfg[1] + 3)), ("walls", 1000, cfg,
                                                            (cfg[1], 2 * cfg[1] + 3))]
@@ -3132,12 +3080,11 @@ def redesign15_turns(torch, spec, gpu_line):
     K6 at 512^2-4096^2 (f32)."""
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import aa, band2, band3, deep, devspace, resident
-    from lbm_tpu_torch.runtime import driver
     from lbm_tpu_torch.runtime.driver import pass_schedule
 
     forms = {"f32": None, "c16": spec, "bf16": devspace.BF16}
     # K11 at every schedule of its tiers, where the package has a table.
-    others = driver.band3_schedules() if hasattr(driver, "band3_schedules") else ()
+    others = tuple(cfg for cfg, _ in getattr(band3, "BAND3_TIERS", ()))
     for nx, n in K11_SIZES[1:]:
         params = LBMParams(nx=nx, ny=nx, max_iters=1, reynolds_dim=10, density=DENSITY,
                            accel=ACCEL, omega=OMEGA)
@@ -3241,14 +3188,13 @@ def k11_sweep(torch, gpu_line):
     from lbm_tpu_torch.models.d2q9 import LBMParams
     from lbm_tpu_torch.ops import band2, band3, devspace
     from lbm_tpu_torch.ops import band_common as BC
-    from lbm_tpu_torch.runtime.driver import band2_config
 
     forms = {"f32": None, "c16": devspace.DevSpec.for_params(DENSITY, ACCEL),
              "bf16": devspace.BF16}
     for nx, n in K11_SIZES:
         params = LBMParams(nx=nx, ny=nx, max_iters=1, reynolds_dim=10, density=DENSITY,
                            accel=ACCEL, omega=OMEGA)
-        k9 = band2_config(params, torch.float32)
+        k9 = band2.schedule(params, torch.float32)
         fits = [cfg for cfg in K11_SWEEP if BC.smem_bytes(1, nx, *cfg) <= BC.SMEM_LIMIT
                 and band3.band3_supported(nx, nx, *cfg)]
         cells, nobst = random_setup(torch, nx, nx, seed=7)
@@ -3860,7 +3806,7 @@ def main():
             redesign11_turns(torch, spec, gpu_line)
         else:
             phase("28. K7 and K8 in one window at any T: vs plain and K1, beside K9, K10 and "
-                  "K13, K7's schedules, the port bench")
+                  "K13, K7's schedules, the decks' loop MLUPS")
             redesign11_phase(torch, spec, gpu_line)
         return 0
     if args.phase == 27:
@@ -4135,7 +4081,7 @@ def main():
           "the c16 gate decks")
     redesign10_phase(torch, spec, cli, gpu_line)
     phase("28. K7 and K8 in one window at any T: vs plain and K1, beside K9, K10 and K13, "
-          "K7's schedules, the port bench")
+          "K7's schedules, the decks' loop MLUPS")
     redesign11_phase(torch, spec, gpu_line)
     phase("29. K1's 16-bit forms and K2's in aligned multi-cell words: vs plain and the one-cell "
           "forms, attributes, in turns, the c16 decks")
@@ -4156,7 +4102,7 @@ def main():
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
-    from lbm_tpu_torch.runtime.driver import resident_config
+    from lbm_tpu_torch.ops.resident import CHUNK_STEPS
 
     shard_launches = {"K3": got_mesh["pallas"], "K12": got_mesh["pallas-overlap"],
                       "K8": got_mesh["band"], "K10": got_mesh["band2"]}
@@ -4178,12 +4124,12 @@ def main():
               sched_res[route][0],
               *sched_res[route][1][1024 if route == "resident" else 2048],
               (1024 if route == "resident" else 2048) ** 2,
-              resident_config(None, torch.float32) if route == "resident" else sched[route][3])
+              CHUNK_STEPS if route == "resident" else sched[route][3])
         for route in SCHEDULED
     ] + [
         entry(*RESIDENT_SMEM, k4_smem_launches, k4s_err,
               k4s_per[256, 256]["shared-memory form"] * 1e-3, k4s_plain, 256 * 256,
-              resident_config(None, torch.float32)),
+              CHUNK_STEPS),
     ] + [
         entry(*SHARDED[name], shard_launches[name], shard_res[name][0],
               *shard_res[name][1][(4, 1), 2048][:2], 2048 * 2048, shard[name][4])

@@ -18,9 +18,9 @@ that needs a kernel builds it, and a build failure raises.
 
 The kernels built on ``csrc/trapezoid.cuh`` (K5, K6 and K11) are compiled
 with constant row and plane strides for one list of windows, those of the
-driver's schedules (``runtime/driver.py::trapezoid_schedules`` and
-``band3_schedules``, K11's 16-bit split final passes included), and with
-the strides of its geometry for any other window. The windows reach the
+kernels' schedules (``ops/temporal.py::TRAPEZOID_TIERS`` and
+``ops/band3.py::BAND3_TIERS``, K11's 16-bit split final passes included),
+and with the strides of its geometry for any other window. The windows reach the
 sources as a line ``#define LBM_TRAP_WINDOWS ww, wh, ...`` in a header that
 nvcc includes before each of them (not a ``-D`` flag: nvcc reads its value
 as a comma-separated list of macros).
@@ -165,16 +165,16 @@ def _nvcc() -> str:
 
 def trap_windows() -> tuple[tuple[int, int], ...]:
     """The windows ``(width, height)`` that K5, K6 and K11 are compiled
-    for with constant strides: those of the driver's K5/K6 schedules, and
-    of its K11 schedules with the passes of T-2 and 2 steps that split a
-    16-bit K11 run's final pass (``ops/band3.py::split_final``)."""
-    from lbm_tpu_torch.runtime import driver
+    for with constant strides: those of the K5/K6 schedules' tiers, and of
+    K11's with the passes of T-2 and 2 steps that split a 16-bit K11 run's
+    final pass (``ops/band3.py::split_final``)."""
+    from lbm_tpu_torch.ops import band3, temporal
 
     trap = {(panel + 2 * depth, block + 2 * depth)
-            for block, depth, panel in driver.trapezoid_schedules()}
-    band3 = {(panel + 2 * t, block + 2 * t) for block, depth, panel in driver.band3_schedules()
-             for t in {depth, depth - 2, 2} if t >= 2}
-    return tuple(sorted(trap | band3))
+            for (block, depth, panel), _ in temporal.TRAPEZOID_TIERS}
+    k11 = {(panel + 2 * t, block + 2 * t) for (block, depth, panel), _ in band3.BAND3_TIERS
+           for t in {depth, depth - 2, 2} if t >= 2}
+    return tuple(sorted(trap | k11))
 
 
 def windows_define() -> str:

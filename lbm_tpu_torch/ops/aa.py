@@ -114,21 +114,21 @@ def force_odd_plain(state, nobst, w1a, w2a, dev=None):
     return out
 
 
-def even_step_plain(state, nobst, omega, paired="fused"):
+def even_step_plain(state, nobst, omega):
     """S -> C: relax the 9 slots of each cell, write speed k into slot opp(k)."""
     t = list(state.unbind(0))
-    relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+    relaxed, u_sq = bgk_relax(t, omega)
     fluid = nobst > 0.0
     out = [torch.where(fluid, relaxed[k], t[_OPP[k]]) for k in range(9)]
     return torch.stack([out[_OPP[j]] for j in range(9)]), torch.sum(nobst * u_mag(u_sq))
 
 
-def odd_step_plain(state, nobst, omega, paired="fused"):
+def odd_step_plain(state, nobst, omega):
     """C -> S: gather ``t_k`` from ``(x - c_k, opp(k))``, relax, scatter to
     ``(x + c_k, k)``."""
     t = [torch.roll(state[_OPP[k]], shifts=(_CYS[k], _CXS[k]), dims=(0, 1))
          for k in range(9)]
-    relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+    relaxed, u_sq = bgk_relax(t, omega)
     fluid = nobst > 0.0
     out = [torch.where(fluid, relaxed[k], t[_OPP[k]]) for k in range(9)]
     new = torch.stack([torch.roll(out[k], shifts=(_CYS[k], _CXS[k]), dims=(0, 1))
@@ -207,8 +207,7 @@ def _force_cells(q, nobst, w1a, w2a, dev, key):
     return q
 
 
-def run_aa_fused_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
-                       paired="fused", dev=None):
+def run_aa_fused_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, dev=None):
     """The word form's schedule in plain PyTorch; returns ``(cells, av)``.
     The call's first step takes the standalone even forcing; after that
     each step applies the next step's forcing to its own outputs before
@@ -231,7 +230,7 @@ def run_aa_fused_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cel
                       for k in range(9)]
         else:
             pulled = list(full.unbind(0))
-        relaxed, u_sq = bgk_relax(pulled, float(omega), paired=paired)
+        relaxed, u_sq = bgk_relax(pulled, float(omega))
         out = [torch.where(fluid, relaxed[k], pulled[_OPP[k]]) for k in range(9)]
 
         def key(k, odd=odd):
@@ -249,8 +248,7 @@ def run_aa_fused_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cel
     return unarrange(state, n_steps), av
 
 
-def run_aa_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
-                 paired="fused", dev=None):
+def run_aa_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, dev=None):
     """The AA schedule in plain PyTorch; returns ``(cells, av)``. With
     ``dev`` each step decodes the whole state and encodes its result."""
     check_inputs(cells, nobst, n_steps, MIN_NY, dev)
@@ -264,14 +262,13 @@ def run_aa_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
                        else (force_even_plain, even_step_plain))
         state = force(state, nobst, w1a, w2a, dev)
         full = state if dev is None else decode_state(state, dev)
-        full, tot = step(full, nobst, omega, paired)
+        full, tot = step(full, nobst, omega)
         state = full if dev is None else encode_state(full, dev)
         av[t] = tot * inv
     return unarrange(state, n_steps), av
 
 
-def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="fused",
-           dev=None):
+def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, dev=None):
     """Run ``n_steps`` AA steps: kernel K2 on CUDA, ``run_aa_plain`` on CPU.
 
     ``cells`` is left unchanged. ``inv_tot_cells`` is the f32 value of
@@ -279,12 +276,9 @@ def run_aa(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="
     ``dev``: 16-bit storage (int16 c16 codes or bf16 ``cells``).
     """
     if cells.device.type == "cpu":
-        return run_aa_plain(cells, nobst, density, accel, omega, n_steps,
-                            inv_tot_cells, paired, dev)
+        return run_aa_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, dev)
     if cells.device.type != "cuda":
         raise ValueError(f"no AA kernel for device {cells.device}")
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA AA kernel implements the fused collision form only")
     return launch(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
                   word_form(cells.shape[2], dev), dev)
 

@@ -56,6 +56,14 @@ def band2_supported(ny: int, nx: int, block: int, depth: int, panel: int | None 
             and (panel is None or panel >= 1))
 
 
+def schedule(params, dtype) -> tuple[int, int, int] | None:
+    """K9's schedule ``(block, depth, panel)`` on the grid of ``params``
+    (driver.py:590-610 of the JAX package), from ``band_common.BAND_TIERS``:
+    the large tiles where they fill a wave of blocks, the small ones below;
+    None for a dtype it does not store (``band_common.tiered``)."""
+    return BC.tiered(params, dtype, BC.BAND_TIERS, band2_supported)
+
+
 def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
     BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
     _, ny, nx = cells.shape
@@ -64,24 +72,20 @@ def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
                          f"depth {depth}, panel {panel} (needs even depth and block >= 2*depth)")
 
 
-def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
+def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
                   dev=None, aa=False):
     w1a, w2a = forcing_weights(density, accel)
-    step = (BC.aa_step_plain(float(omega), w1a, w2a, paired, depth) if aa
-            else BC.r_step_plain(float(omega), w1a, w2a, paired))
+    step = (BC.aa_step_plain(float(omega), w1a, w2a, depth) if aa
+            else BC.r_step_plain(float(omega), w1a, w2a))
     return BC.plain_passes(nobst, inv_tot_cells, block, depth, panel, lambda p, n: step, dev)
 
 
-def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired, device,
-            dev=None):
+def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, device, dev=None):
     """``run_passes`` of ``run_creep`` for the device of the state."""
     if device.type == "cpu":
-        return _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
-                             paired, dev)
+        return _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, dev)
     if device.type != "cuda":
         raise ValueError(f"no band2 kernel for device {device}")
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA band2 kernel implements the fused collision form only")
 
     def run_passes(cells, npasses):
         out = BC.launch_passes("lbm_band2_run", "band2 kernel", cells.contiguous().clone(), nobst,
@@ -94,49 +98,48 @@ def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, pa
 
 
 def step_band2(cells, nobst, density, accel, omega, block, depth, *, panel=None,
-               inv_tot_cells=1.0, paired="fused", dev=None):
+               inv_tot_cells=1.0, dev=None):
     """One pass of ``depth`` steps; returns ``(cells, av)`` of ``depth`` values."""
     _check(cells, nobst, depth, block, depth, panel, dev)
-    return _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
+    return _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
                    cells.device, dev)(cells, 1)
 
 
 def run_band2_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-                    inv_tot_cells=1.0, paired="fused", dev=None):
+                    inv_tot_cells=1.0, dev=None):
     """The band2 schedule in plain PyTorch; returns ``(cells, av)``."""
     _check(cells, nobst, n_iters, block, depth, panel, dev)
-    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
-                           paired, dev)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, dev)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired, dev)
+                        passes, dev)
 
 
 def run_band2_aa_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *,
-                       panel=None, inv_tot_cells=1.0, paired="fused", dev=None):
+                       panel=None, inv_tot_cells=1.0, dev=None):
     """``run_band2_plain``'s function with K9's steps in the AA arrangement
     (``band_common.aa_step_plain``), the kernel's schedule in plain PyTorch;
     returns ``(cells, av)``."""
     _check(cells, nobst, n_iters, block, depth, panel, dev)
-    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
-                           paired, dev, aa=True)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, dev,
+                           aa=True)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired, dev)
+                        passes, dev)
 
 
 def run_band2(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-              inv_tot_cells=1.0, paired="fused", dev=None):
+              inv_tot_cells=1.0, dev=None):
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K9 on CUDA (and K1
     for the remainder), ``run_band2_plain`` on CPU. ``cells`` is left
     unchanged. The kernel implements the fused collision form. ``dev``:
     16-bit storage (int16 c16 codes or bf16 ``cells``)."""
     if cells.device.type == "cpu":
         return run_band2_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
-                               panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
+                               panel=panel, inv_tot_cells=inv_tot_cells, dev=dev)
     _check(cells, nobst, n_iters, block, depth, panel, dev)
-    passes = _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
+    passes = _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
                      cells.device, dev)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired, dev)
+                        passes, dev)
 
 
 run_band2.launches = 0  # steps K9 advanced in this process
@@ -148,34 +151,33 @@ _K10 = BC.ShardedKernel("band2", "lbm_band2_sharded_run", band2_supported, PLANE
 
 
 def step_band2_sharded(shards, nob_shards, density, accel, omega, block, depth, ny, *,
-                       panel=None, paired="fused", dev=None):
+                       panel=None, dev=None):
     """One pass of ``depth`` steps over a 1-D mesh of row shards (``shards[i][0]``
     holds global rows ``[i*ry, (i+1)*ry)`` of ``ny``): K10 on CUDA, the plain
     pass on CPU. Returns the shards and their raw sums ``(nshards, depth)``.
     ``dev``: 16-bit storage (int16 c16 codes or bf16 shards)."""
-    out = _K10.step(shards, nob_shards, density, accel, omega, block, depth, ny, panel,
-                    paired, dev)
+    out = _K10.step(shards, nob_shards, density, accel, omega, block, depth, ny, panel, dev)
     if shards[0][0].device.type == "cuda":
         count_launches(run_band2_sharded, depth, dev)
     return out
 
 
 def run_band2_sharded_plain(shards, nob_shards, density, accel, omega, n_iters, block, depth,
-                            ny, *, panel=None, paired="fused", dev=None):
+                            ny, *, panel=None, dev=None):
     """The sharded band2 schedule in plain PyTorch, the remainder on the
     plain shard step; returns the shards and their raw sums ``(nshards, n_iters)``."""
     return _K10.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny,
-                    panel, paired, plain=True, dev=dev)
+                    panel, plain=True, dev=dev)
 
 
 def run_band2_sharded(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, *,
-                      panel=None, paired="fused", dev=None):
+                      panel=None, dev=None):
     """Run ``n_iters`` steps of a 1-D mesh of row shards, ``depth`` per pass:
     kernel K10 on CUDA (the ``n_iters % depth`` remainder on K3),
     ``run_band2_sharded_plain`` on CPU. Returns the shards and their raw sums
     ``(nshards, n_iters)``. ``dev``: 16-bit storage (int16 c16 codes or bf16 shards)."""
     out = _K10.run(shards, nob_shards, density, accel, omega, n_iters, block, depth, ny,
-                   panel, paired, dev=dev)
+                   panel, dev=dev)
     if shards[0][0].device.type == "cuda":
         count_launches(run_band2_sharded, n_iters // depth * depth, dev)
     return out
@@ -187,10 +189,10 @@ run_band2_sharded.launches_bf16 = 0  # mesh steps K10 advanced at bf16
 
 
 def row_shard(cells, nobst, nob_dn, nob_up, rank, world, ny, density, accel, omega, block, depth,
-              panel, n_passes, *, paired="fused", dev=None):
+              panel, n_passes, *, dev=None):
     """``n_passes`` passes of ``depth`` steps on shard ``rank`` of a 1-D row
     mesh of ``world`` shards, one per process, its halos received from the
     neighbour processes (``band_common.BandRowShard``): K10 on CUDA, its
     steps counted in ``run_band2_sharded``'s launches; the plain pass on CPU."""
     return BC.BandRowShard(_K10, run_band2_sharded, cells, nobst, nob_dn, nob_up, rank, world, ny, density,
-                           accel, omega, block, depth, panel, n_passes, paired=paired, dev=dev)
+                           accel, omega, block, depth, panel, n_passes, dev=dev)

@@ -76,6 +76,27 @@ def band3_supported(ny: int, nx: int, block: int, depth: int, panel: int | None 
             and (panel is None or panel >= 1))
 
 
+# K11's tiers (``band_common.tiered``; its load fused into its first step,
+# its store into its last, the steps between on K6's trapezoid), a window
+# of one copy at constant strides. On an H100 (chip_smoke phase 32's sweep
+# of T 4, 8 and 16 at 512^2-4096^2 and every storage, each candidate at
+# constant strides, and the two tiers in turns in one process, PERF.md
+# section 6): (36, 4, 56), a 44 x 64 window, took 4-14% less time than
+# (24, 4, 56) at 4096^2 (8,436 tiles) in every storage; (24, 4, 56), a
+# 32 x 64 window, took 4-28% less at 1024^2 and 512^2, and at 2048^2
+# (3,182 tiles) was within 1% at f32 and 4-7% faster at c16, 3% slower at
+# bf16. The build compiles these windows, and those of their split 16-bit
+# final passes, with constant strides (``ops/_build.py::trap_windows``).
+BAND3_TIERS = (((36, 4, 56), 4000), ((24, 4, 56), 0))
+
+
+def schedule(params, dtype) -> tuple[int, int, int] | None:
+    """K11's schedule ``(block, depth, panel)`` on the grid of ``params``
+    (driver.py:691-720 of the JAX package); None for a dtype it does not
+    store (``band_common.tiered``)."""
+    return BC.tiered(params, dtype, BAND3_TIERS, band3_supported)
+
+
 def force_s(state, nobst, w1a: float, w2a: float, dev=None):
     """S-space forcing on the full periodic state (``pallas_band3.force_s``).
     Its docstring states it is bit-identical to ``pallas_aa.force_even``, so
@@ -103,7 +124,7 @@ def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
                          f"rows ny-3..ny-1), got {ny}")
 
 
-def s_step_plain(omega, w1a, w2a, paired, depth, fuse_last):
+def s_step_plain(omega, w1a, w2a, depth, fuse_last):
     """K11's even/odd steps on whole windows, wrapping at their edges; the
     last odd step of the pass fuses the next forcing only if
     ``fuse_last``."""
@@ -112,12 +133,12 @@ def s_step_plain(omega, w1a, w2a, paired, depth, fuse_last):
     def step(s, planes, nob, frow):
         fluid = nob > 0.0
         if s % 2 == 0:
-            relaxed, u_sq = bgk_relax(planes, omega, paired=paired)
+            relaxed, u_sq = bgk_relax(planes, omega)
             out = [torch.where(fluid, relaxed[k], planes[BC.OPP[k]]) for k in range(9)]
             out = BC.force_windows(out, nob, frow, w1a, w2a)
             return [out[BC.OPP[j]] for j in range(9)], u_sq
         t = [torch.roll(planes[BC.OPP[k]], shifts=shifts[k], dims=(1, 2)) for k in range(9)]
-        relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+        relaxed, u_sq = bgk_relax(t, omega)
         out = [torch.where(fluid, relaxed[k], t[BC.OPP[k]]) for k in range(9)]
         if fuse_last or s < depth - 1:
             out = BC.force_windows(out, nob, frow, w1a, w2a)
@@ -126,14 +147,14 @@ def s_step_plain(omega, w1a, w2a, paired, depth, fuse_last):
     return step
 
 
-def k11_step_plain(omega, w1a, w2a, paired, depth, fuse_last):
+def k11_step_plain(omega, w1a, w2a, depth, fuse_last):
     """K11's pass as the kernel runs it (``csrc/band3.cu``): the steps of
     ``s_step_plain``, step s (0-based) updating only what the window cells
     at least s cells from every edge write (an even step: every slot of the
     cell; an odd step: slot k of the cell x + c_k), every other slot and
     sum NaN. The central tile after the last step is what the kernel
     stores, so a NaN there would be a value it never computed."""
-    inner = s_step_plain(omega, w1a, w2a, paired, depth, fuse_last)
+    inner = s_step_plain(omega, w1a, w2a, depth, fuse_last)
     nan = float("nan")
 
     def step(s, planes, nob, frow):
@@ -200,30 +221,24 @@ def _in_s_space(nobst, density, accel, s_passes, dev=None):
     return run_passes
 
 
-def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
-                  dev=None):
+def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, dev=None):
     w1a, w2a = forcing_weights(density, accel)
 
     def passes(steps, fuse_last):
         def step_for(p, npasses):
-            return k11_step_plain(float(omega), w1a, w2a, paired, steps,
-                                  fuse_last or p < npasses - 1)
+            return k11_step_plain(float(omega), w1a, w2a, steps, fuse_last or p < npasses - 1)
 
         return BC.plain_passes(nobst, inv_tot_cells, block, steps, panel, step_for, dev)
 
     return _in_s_space(nobst, density, accel, _split_passes(passes, depth, dev), dev)
 
 
-def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired, device,
-            dev=None):
+def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, device, dev=None):
     """``run_passes`` of ``run_creep`` for the device of the state."""
     if device.type == "cpu":
-        return _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
-                             paired, dev)
+        return _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, dev)
     if device.type != "cuda":
         raise ValueError(f"no band3 kernel for device {device}")
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA band3 kernel implements the fused collision form only")
 
     def passes(steps, fuse_last):
         def run_passes(state, npasses):
@@ -239,29 +254,28 @@ def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, pa
 
 
 def run_band3_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-                    inv_tot_cells=1.0, paired="fused", dev=None):
+                    inv_tot_cells=1.0, dev=None):
     """The band3 schedule in plain PyTorch; returns ``(cells, av)``."""
     _check(cells, nobst, n_iters, block, depth, panel, dev)
-    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
-                           paired, dev)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, dev)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired, dev)
+                        passes, dev)
 
 
 def run_band3(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-              inv_tot_cells=1.0, paired="fused", dev=None):
+              inv_tot_cells=1.0, dev=None):
     """Run ``n_iters`` steps, ``depth`` per in-place pass: kernel K11 on CUDA
     (and K1 for the remainder), ``run_band3_plain`` on CPU. ``cells`` is
     left unchanged. The kernel implements the fused collision form.
     ``dev``: 16-bit storage (int16 c16 codes or bf16 ``cells``)."""
     if cells.device.type == "cpu":
         return run_band3_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
-                               panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
+                               panel=panel, inv_tot_cells=inv_tot_cells, dev=dev)
     _check(cells, nobst, n_iters, block, depth, panel, dev)
-    passes = _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
+    passes = _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
                      cells.device, dev)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired, dev)
+                        passes, dev)
 
 
 run_band3.launches = 0  # steps K11 advanced in this process

@@ -82,13 +82,45 @@ FORCE = ((1, 1.0, 1), (3, -1.0, 1), (5, 1.0, 2),
 # 227 KB opt-in, less 1 KB for the kernels' static shared memory.
 SMEM_LIMIT = 232448 - 1024
 # Blocks of K5 or K6 that an H100 runs at once: two on each of its 132 SMs
-# (64 registers a thread, and a window of up to 113 KB, the driver's
-# largest tier's; ``deep.kernel_attrs`` reads it on the card). A pass of
-# more tiles runs in rounds of these.
+# (64 registers a thread, and a window of up to 113 KB, that of the largest
+# tier of ``temporal.TRAPEZOID_TIERS``; ``deep.kernel_attrs`` reads it on
+# the card). A pass of more tiles runs in rounds of these.
 TRAP_SLOTS = 2 * 132
 # Warps of a band kernel's 512-thread block: each keeps one partial sum per
 # step in shared memory (band_common.cuh::smem_bytes).
 _WARPS = 16
+
+# Band schedules ``(block, depth, panel)``: the tile is block rows by panel
+# columns with a depth-cell halo. Tiers ((block, depth, panel), fewest
+# tiles), in order: the first that the kernel takes and that cuts the grid
+# into at least that many tiles (else the last the kernel takes;
+# ``tiered``).
+# K7 and K9, one table for both (the same one-window body; K7 takes any T):
+# a 40 x 64 window, one copy, 102 KB of shared memory; on a grid that
+# gives it fewer tiles than one wave of blocks (two on each of an H100's
+# 132 SMs), a 32 x 32 window. At 256^2 and 512^2 the small tiles took 33%
+# and 3% less time than the large ones, at 1024^2 16% more (chip_smoke
+# phase 26's K9 sweep); K7's sweep of T 3, 4, 5 and 8 (phase 28) found
+# (32, 4, 56) the fastest or within 1.1% of it at 1024^2-4096^2, T 3 about
+# 15% slower at 2048^2 and T 5 within 2.1% either way (PERF.md section 6).
+BAND_TIERS = (((32, 4, 56), 2 * 132), ((24, 4, 24), 0))
+
+
+def tiered(params, dtype, tiers, supported) -> tuple[int, int, int] | None:
+    """The schedule of a T-step kernel on the grid of ``params`` (an
+    ``LBMParams``): the first of ``tiers`` that ``supported(ny, nx,
+    *schedule)`` takes and that cuts the grid into at least its number of
+    tiles; else the last one it takes (else the first). None for a
+    ``dtype`` the kernels do not store: f32, c16 and bf16 take one schedule,
+    the window being f32 in shared memory."""
+    if dtype not in (torch.float32, torch.bfloat16, "c16"):
+        return None
+    fits = [cfg for cfg, _ in tiers if supported(params.ny, params.nx, *cfg)]
+    for (block, depth, panel), fewest in tiers:
+        tiles = -(-params.ny // block) * -(-params.nx // panel)
+        if (block, depth, panel) in fits and tiles >= fewest:
+            return block, depth, panel
+    return fits[-1] if fits else tiers[0][0]
 
 
 def tile_shape(nx: int, block: int, depth: int, panel: int | None):
@@ -212,14 +244,14 @@ def force_windows(planes, nob, frow, w1a, w2a):
     return out
 
 
-def r_step_plain(omega, w1a, w2a, paired):
+def r_step_plain(omega, w1a, w2a):
     """The regular-arrangement step of K7 and K9 on windows: forcing of the
     ny-2 rows, pull streaming with wrap inside the window, BGK, bounce-back."""
 
     def step(s, planes, nob, frow):
         planes = force_windows(planes, nob, frow, w1a, w2a)
         t = [torch.roll(planes[k], shifts=(CYS[k], CXS[k]), dims=(1, 2)) for k in range(9)]
-        relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+        relaxed, u_sq = bgk_relax(t, omega)
         fluid = nob > 0.0
         return [torch.where(fluid, relaxed[k], t[OPP[k]]) for k in range(9)], u_sq
 
@@ -238,7 +270,7 @@ def _shifted(x, dy, dx):
     return y
 
 
-def aa_step_plain(omega, w1a, w2a, paired, depth):
+def aa_step_plain(omega, w1a, w2a, depth):
     """The one-window pass of K7, K8, K9, K10 and K13 (csrc/band_common.cuh:
     ``aa_load``, ``aa_steps``, ``aa_store``) as a step of
     ``creep_pass_plain``, any depth >= 1. Step 0 first puts the window's R
@@ -262,7 +294,7 @@ def aa_step_plain(omega, w1a, w2a, paired, depth):
             planes = [planes[OPP[j]] for j in range(9)]
         if s % 2 == 0:
             t = [_shifted(planes[OPP[k]], *shifts[k]) for k in range(9)]
-            relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+            relaxed, u_sq = bgk_relax(t, omega)
             out = [torch.where(fluid, relaxed[k], t[OPP[k]]) for k in range(9)]
             if not last:
                 out = force_windows(out, nob, frow, w1a, w2a)
@@ -270,7 +302,7 @@ def aa_step_plain(omega, w1a, w2a, paired, depth):
             if last:  # R_k of x from (x + c_k, k)
                 return [_shifted(slots[k], -shifts[k][0], -shifts[k][1]) for k in range(9)], u_sq
             return slots, u_sq
-        relaxed, u_sq = bgk_relax(planes, omega, paired=paired)
+        relaxed, u_sq = bgk_relax(planes, omega)
         out = [torch.where(fluid, relaxed[k], planes[OPP[k]]) for k in range(9)]
         if last:
             return out, u_sq
@@ -281,7 +313,7 @@ def aa_step_plain(omega, w1a, w2a, paired, depth):
 
 
 def run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-              run_passes, paired="fused", dev=None):
+              run_passes, dev=None):
     """The family's pass loop: ``run_passes(cells, n_iters // depth)`` returns
     the state and the per-step av of the passes, then the ``n_iters % depth``
     remainder runs on ``ops/step.py::run_step`` (kernel K1 on CUDA)."""
@@ -291,7 +323,7 @@ def run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth
         cells, av[:npasses * depth] = run_passes(cells, npasses)
     if rem:
         cells, av[npasses * depth:] = run_step(cells, nobst, density, accel, omega, rem,
-                                               inv_tot_cells, paired, dev)
+                                               inv_tot_cells, dev)
     return cells, av
 
 
@@ -404,7 +436,7 @@ def plain_passes_sharded(nob_shards, ny_global, block, depth, panel, step, dev=N
 
 
 def run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny_global, depth,
-                      run_passes, paired="fused", plain=False, dev=None):
+                      run_passes, plain=False, dev=None):
     """The sharded pass loop: ``run_passes(shards, n_iters // depth)``, then
     the ``n_iters % depth`` remainder on the shard step
     (``ops/shard_step.py::run_shard_step``, kernel K3 on CUDA; with
@@ -418,10 +450,10 @@ def run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny_glo
     if rem:
         if plain:
             shards, sums = run_shard_step_plain(shards, nob_shards, density, accel, omega, rem,
-                                                ny_global, paired, dev)
+                                                ny_global, dev)
         else:
             shards, sums = run_shard_step(shards, nob_shards, density, accel, omega, rem,
-                                          ny_global, paired=paired, dev=dev)
+                                          ny_global, dev=dev)
         parts.append(sums)
     return shards, torch.cat(parts, dim=1)
 
@@ -518,19 +550,15 @@ class ShardedKernel:
             raise ValueError(f"{self.name} schedule unsupported on a {ry}x{nx} shard: block "
                              f"{block}, depth {depth}, panel {panel}")
 
-    def passes(self, nob_shards, ny, density, accel, omega, block, depth, panel, paired,
-               device, dev=None):
+    def passes(self, nob_shards, ny, density, accel, omega, block, depth, panel, device, dev=None):
         """``run_passes`` of ``run_creep_sharded`` for ``device``: the plain
         passes on the CPU, the kernel's on CUDA."""
         if device.type == "cpu":
             w1a, w2a = forcing_weights(density, accel)
             return plain_passes_sharded(nob_shards, ny, block, depth, panel,
-                                        r_step_plain(float(omega), w1a, w2a, paired), dev)
+                                        r_step_plain(float(omega), w1a, w2a), dev)
         if device.type != "cuda":
             raise ValueError(f"no {self.name} kernel for device {device}")
-        if not (isinstance(paired, str) and paired.startswith("fused")):
-            raise ValueError(f"the CUDA {self.name} kernel implements the fused collision form "
-                             "only")
 
         def run_passes(shards, npasses):
             return launch_passes_sharded(self.entry, f"{self.name} sharded kernel", shards,
@@ -539,26 +567,25 @@ class ShardedKernel:
 
         return run_passes
 
-    def step(self, shards, nob_shards, density, accel, omega, block, depth, ny, panel, paired,
-             dev=None):
+    def step(self, shards, nob_shards, density, accel, omega, block, depth, ny, panel, dev=None):
         """One pass of ``depth`` steps; the shards and their raw sums
         ``(nshards, depth)``."""
         self.check(shards, nob_shards, depth, block, depth, panel, dev)
-        return self.passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
+        return self.passes(nob_shards, ny, density, accel, omega, block, depth, panel,
                            shards[0][0].device, dev)(shards, 1)
 
     def run(self, shards, nob_shards, density, accel, omega, n_iters, block, depth, ny, panel,
-            paired, plain=False, dev=None):
+            plain=False, dev=None):
         """``n_iters`` steps, ``depth`` per pass, the remainder on the shard
         step: the kernel's passes on CUDA, the plain ones on the CPU or
         with ``plain``; ``dev``: 16-bit storage. The shards and their raw sums
         ``(nshards, n_iters)``."""
         self.check(shards, nob_shards, n_iters, block, depth, panel, dev)
         device = torch.device("cpu") if plain else shards[0][0].device
-        passes = self.passes(nob_shards, ny, density, accel, omega, block, depth, panel, paired,
+        passes = self.passes(nob_shards, ny, density, accel, omega, block, depth, panel,
                              device, dev)
         return run_creep_sharded(shards, nob_shards, density, accel, omega, n_iters, ny, depth,
-                                 passes, paired, plain=plain or device.type == "cpu", dev=dev)
+                                 passes, plain=plain or device.type == "cpu", dev=dev)
 
 
 class BandRowShard:
@@ -578,7 +605,7 @@ class BandRowShard:
     mesh's. ``state()``, ``sums``: as ``shard_step.RowShard``, per step."""
 
     def __init__(self, kernel, counter, cells, nobst, nob_dn, nob_up, rank, world, ny, density,
-                 accel, omega, block, depth, panel, n_passes, *, paired="fused", dev=None):
+                 accel, omega, block, depth, panel, n_passes, *, dev=None):
         kernel.check([[cells]], [[nobst]], n_passes * depth, block, depth, panel, dev)
         ry, nx = cells.shape[1:]
         if not 0 <= rank < world or world * ry != ny:
@@ -593,13 +620,10 @@ class BandRowShard:
         if self.device.type == "cpu":
             w1a, w2a = forcing_weights(density, accel)
             self.cells, self.nob = cells, (nobst, nob_dn, nob_up)
-            self.plain_step = r_step_plain(float(omega), w1a, w2a, paired)
+            self.plain_step = r_step_plain(float(omega), w1a, w2a)
             return
         if self.device.type != "cuda":
             raise ValueError(f"no {kernel.name} kernel for device {self.device}")
-        if not (isinstance(paired, str) and paired.startswith("fused")):
-            raise ValueError(f"the CUDA {kernel.name} kernel implements the fused collision form "
-                             "only")
         b, p, t = tile_shape(nx, block, depth, panel)
         check_smem(f"{kernel.name} sharded kernel", kernel.plane_copies, nx, block, depth, panel)
         self.tile = (b, t, p)  # the entry's block, depth, panel

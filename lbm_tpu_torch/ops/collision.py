@@ -12,14 +12,13 @@ relaxation (kernels.cl:109-177), on tuples of 9 tensors:
   ``t6 - t8``.
 
 The CUDA kernels (``csrc/step.cu``, ``csrc/aa.cu``) write the fused form
-with the same grouping, so kernel and plain version round alike.
-``LBM_COLLIDE=literal|paired|fused`` picks the form of the plain versions;
-it is read once per run, by the driver, outside any step loop.
+with the same grouping, so kernel and plain version round alike. The
+routes' plain versions compute the fused form, the one the kernels
+compute; the literal and paired forms are the references that the fused
+form is held against.
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -37,17 +36,6 @@ _PAIRS = (
     (5, 7, W2, (1.0, 1.0)),
     (6, 8, W2, (-1.0, 1.0)),
 )
-
-
-def paired_default():
-    """The collision form from ``LBM_COLLIDE``: ``False`` (literal),
-    ``True`` (paired) or ``"fused"`` (the default)."""
-    mode = os.environ.get("LBM_COLLIDE", "fused")
-    if mode == "literal":
-        return False
-    if mode == "paired":
-        return True
-    return "fused"
 
 
 def u_mag(u_sq: torch.Tensor) -> torch.Tensor:

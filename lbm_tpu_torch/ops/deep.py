@@ -41,8 +41,8 @@ import torch
 
 from lbm_tpu_torch.ops import band_common as BC
 from lbm_tpu_torch.ops.step import count_launches, forcing_weights
-from lbm_tpu_torch.ops.temporal import (PLANE_COPIES, aa_trapezoid, blocks_to_state,
-                                        count_tiles, trapezoid_plain, window_rows)
+from lbm_tpu_torch.ops.temporal import (PLANE_COPIES, TRAPEZOID_TIERS, aa_trapezoid,
+                                        blocks_to_state, trapezoid_plain, window_rows)
 
 
 def deep_supported(ny: int, nx: int, block: int, depth: int, panel: int | None = None) -> bool:
@@ -51,8 +51,16 @@ def deep_supported(ny: int, nx: int, block: int, depth: int, panel: int | None =
     return ny >= 2 and block >= 1 and depth >= 1 and (panel is None or panel >= 1)
 
 
+def schedule(params, dtype) -> tuple[int, int, int] | None:
+    """K6's schedule ``(block, depth, panel)`` on the grid of ``params``
+    (``pallas_deep.pick_config``), from K5's tiers
+    (``temporal.TRAPEZOID_TIERS``); None for a dtype it does not store
+    (``band_common.tiered``)."""
+    return BC.tiered(params, dtype, TRAPEZOID_TIERS, deep_supported)
+
+
 def step_deep_plain(cells, nobst, density, accel, omega, block, depth, *, inv_tot_cells=1.0,
-                    paired="fused", dev=None, trap=trapezoid_plain):
+                    dev=None, trap=trapezoid_plain):
     """One pass of ``depth`` steps in plain PyTorch (``pallas_deep.step_deep``);
     returns ``(cells, av)`` with ``depth`` av values. ``dev``: 16-bit storage;
     ``trap``: the window's steps, ``trapezoid_plain`` (the pull on full
@@ -63,38 +71,32 @@ def step_deep_plain(cells, nobst, density, accel, omega, block, depth, *, inv_to
 
     def one_pass(state):
         win = state[:, rows].permute(1, 0, 2, 3)  # (nblk, 9, B+2T, nx)
-        out, sums = trap(win, nobst[rows], rows, ny, block, depth, float(omega), w1a, w2a,
-                         paired)
+        out, sums = trap(win, nobst[rows], rows, ny, block, depth, float(omega), w1a, w2a)
         inv = torch.tensor(inv_tot_cells, dtype=torch.float32, device=state.device)
         return blocks_to_state(out, ny), sums * inv
 
     return BC.coded(dev, one_pass)(cells)
 
 
-def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired, dev=None,
+def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, dev=None,
                   trap=trapezoid_plain):
     def run_passes(cells, npasses):
         av = []
         for _ in range(npasses):
             cells, a = step_deep_plain(cells, nobst, density, accel, omega, block, depth,
-                                       inv_tot_cells=inv_tot_cells, paired=paired, dev=dev,
-                                       trap=trap)
+                                       inv_tot_cells=inv_tot_cells, dev=dev, trap=trap)
             av.append(a)
         return cells, torch.cat(av)
 
     return run_passes
 
 
-def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired, device,
-            dev=None):
+def _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, device, dev=None):
     """``run_passes`` of ``run_creep`` for the device of the state."""
     if device.type == "cpu":
-        return _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired,
-                             dev)
+        return _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, dev)
     if device.type != "cuda":
         raise ValueError(f"no deep kernel for device {device}")
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA deep kernel implements the fused collision form only")
 
     def run_passes(cells, npasses):
         out = BC.launch_passes("lbm_deep_run", "deep kernel", cells.contiguous().clone(), nobst,
@@ -121,54 +123,49 @@ def kernel_attrs(ny: int, nx: int, block: int, depth: int, panel: int, dev=None)
 
 
 def step_deep(cells, nobst, density, accel, omega, block, depth, *, panel=None,
-              inv_tot_cells=1.0, paired="fused", dev=None):
+              inv_tot_cells=1.0, dev=None):
     """One pass of ``depth`` steps: kernel K6 on CUDA, ``step_deep_plain`` on
     CPU. Returns ``(cells, av)`` with ``depth`` values."""
     BC.check_schedule(cells, nobst, depth, block, depth, panel, dev)
-    return _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel, paired,
+    return _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
                    cells.device, dev)(cells, 1)
 
 
 def run_deep_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-                   inv_tot_cells=1.0, paired="fused", dev=None):
+                   inv_tot_cells=1.0, dev=None):
     """The deep schedule in plain PyTorch; returns ``(cells, av)``."""
     BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
-    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired,
-                           dev)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, dev)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired, dev)
+                        passes, dev)
 
 
 def run_deep_aa_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-                      inv_tot_cells=1.0, paired="fused", dev=None):
+                      inv_tot_cells=1.0, dev=None):
     """``run_deep_plain``'s function on K6's schedule (2-D tiles, the AA
     steps on the trapezoid: ``temporal.trapezoid_aa_plain``) in plain
     PyTorch; returns ``(cells, av)``."""
     BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
-    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired,
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth,
                            dev, aa_trapezoid(panel))
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired, dev)
+                        passes, dev)
 
 
 def run_deep(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-             inv_tot_cells=1.0, paired="fused", dev=None):
+             inv_tot_cells=1.0, dev=None):
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K6 on CUDA (and K1
     for the remainder), ``run_deep_plain`` on CPU. ``cells`` is left
     unchanged. The kernel implements the fused collision form. ``dev``:
-    16-bit storage (int16 c16 codes or bf16 ``cells``). The passes' tiles go
-    to the open call's counters (``count_tiles``)."""
+    16-bit storage (int16 c16 codes or bf16 ``cells``)."""
     if cells.device.type == "cpu":
-        out = run_deep_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
-                             panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
-    else:
-        BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
-        passes = _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
-                         paired, cells.device, dev)
-        out = BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                           passes, paired, dev)
-    count_tiles(cells, block, panel, n_iters // depth)
-    return out
+        return run_deep_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
+                              panel=panel, inv_tot_cells=inv_tot_cells, dev=dev)
+    BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
+    passes = _passes(nobst, density, accel, omega, inv_tot_cells, block, depth, panel,
+                     cells.device, dev)
+    return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+                        passes, dev)
 
 
 run_deep.launches = 0  # steps K6 advanced in this process

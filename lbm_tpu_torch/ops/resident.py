@@ -56,7 +56,9 @@ from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, check_inputs, force_deltas
                                     forcing_weights, kernel_scalars, step_plain)
 from lbm_tpu_torch.runtime import trace
 
-CHUNK_STEPS = 255  # steps per launch, as pallas_resident._CHUNK_STEPS
+# Steps per launch, as pallas_resident._CHUNK_STEPS; 1023 measured 12% slower
+# at 128^2 and within 2% at 256^2-1024^2.
+CHUNK_STEPS = 255
 _THREADS = 256  # csrc/resident.cu::kThreads
 _SMEM_THREADS = 512  # csrc/resident.cu::kSmemThreads, a block of the shared-memory form
 _SMEM_WARPS = _SMEM_THREADS // 32
@@ -157,7 +159,7 @@ def _check(cells, nobst, n_iters, chunk):
 
 
 def run_resident_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, *,
-                       chunk=CHUNK_STEPS, paired="fused"):
+                       chunk=CHUNK_STEPS):
     """``n_iters`` steps in chunks of ``chunk``, in plain PyTorch; returns
     ``(cells, av)``."""
     _check(cells, nobst, n_iters, chunk)
@@ -166,12 +168,12 @@ def run_resident_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_cel
     av = torch.empty(n_iters, dtype=torch.float32, device=cells.device)
     for start in range(0, n_iters, chunk):
         for t in range(start, min(start + chunk, n_iters)):
-            cells, tot = step_plain(cells, nobst, w1a, w2a, float(omega), paired)
+            cells, tot = step_plain(cells, nobst, w1a, w2a, float(omega))
             av[t] = tot * inv
     return cells, av
 
 
-def _aa_launch_plain(state, nobst, w1a, w2a, omega, first, steps, last, paired):
+def _aa_launch_plain(state, nobst, w1a, w2a, omega, first, steps, last):
     """One launch of the global-memory form: ``steps`` steps of a call on
     ``state`` (plane j holds slot opp(j) of the AA arrangement), the first
     of them the call's step ``first`` (a gather step when even); ``last``:
@@ -187,7 +189,7 @@ def _aa_launch_plain(state, nobst, w1a, w2a, omega, first, steps, last, paired):
             t = [torch.roll(planes[k], shifts=(_CYS[k], _CXS[k]), dims=(0, 1)) for k in range(9)]
         else:  # t_k from plane opp(k) of the cell
             t = [planes[_OPP[k]] for k in range(9)]
-        relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+        relaxed, u_sq = bgk_relax(t, omega)
         out = [torch.where(fluid, relaxed[k], t[_OPP[k]]) for k in range(9)]
         if not (last and st + 1 == steps):
             out = force_row(out, nobst, w1a, w2a)
@@ -211,7 +213,7 @@ def as_regular(state, n_steps: int):
 
 
 def run_resident_aa_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, *,
-                          chunk=CHUNK_STEPS, paired="fused"):
+                          chunk=CHUNK_STEPS):
     """The global-memory form's schedule in plain PyTorch, launch by launch
     of ``chunk`` steps: one copy of the state stepped in the AA arrangement
     from R, the forcing placed as the kernel places it. Returns ``(cells,
@@ -224,12 +226,12 @@ def run_resident_aa_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_
     for start in range(0, n_iters, chunk):
         steps = min(chunk, n_iters - start)
         state, sums = _aa_launch_plain(state, nobst, w1a, w2a, float(omega), start, steps,
-                                       start + steps == n_iters, paired)
+                                       start + steps == n_iters)
         av[start:start + steps] = sums * inv
     return as_regular(state, n_iters), av
 
 
-def _window_step(win, nob, frow, r0, r1, own, w1a, w2a, omega, paired):
+def _window_step(win, nob, frow, r0, r1, own, w1a, w2a, omega):
     """One step of window rows ``[r0, r1)`` from rows ``[r0-1, r1+1)`` of
     ``win`` (9, wh, nx): the forcing of the rows marked by ``frow`` at the
     source, the pull with wrap in x, BGK, bounce-back. Returns the window
@@ -243,7 +245,7 @@ def _window_step(win, nob, frow, r0, r1, own, w1a, w2a, omega, paired):
     n = r1 - r0
     t = [torch.roll(src[k][1 - _CYS[k]:1 - _CYS[k] + n], shifts=_CXS[k], dims=1)
          for k in range(9)]
-    relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+    relaxed, u_sq = bgk_relax(t, omega)
     fluid = nob[r0:r1] > 0.0
     out = win.clone()
     out[:, r0:r1] = torch.stack([torch.where(fluid, relaxed[k], t[_OPP[k]]) for k in range(9)])
@@ -265,7 +267,7 @@ def _exchange(ex, blocks, t):
         blk[3][:, ghost] = ex[:, grow[ghost]]
 
 
-def _slabs_launch(cells, nobst, w1a, w2a, omega, steps, rows, depth, paired):
+def _slabs_launch(cells, nobst, w1a, w2a, omega, steps, rows, depth):
     """One launch of the shared-memory form: ``steps`` steps; returns the
     state and the per-step sums, each the sum over blocks in block order."""
     _, ny, nx = cells.shape
@@ -286,7 +288,7 @@ def _slabs_launch(cells, nobst, w1a, w2a, omega, steps, rows, depth, paired):
             part = []
             for s in range(1, length + 1):
                 win, tot = _window_step(win, nob, frow, t - length + s, t + bi + length - s,
-                                        (t, t + bi), w1a, w2a, omega, paired)
+                                        (t, t + bi), w1a, w2a, omega)
                 part.append(tot)
             blk[3] = win
             per_block.append(torch.stack(part))
@@ -302,7 +304,7 @@ def _slabs_launch(cells, nobst, w1a, w2a, omega, steps, rows, depth, paired):
 
 
 def run_resident_slabs_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, rows,
-                             depth, *, chunk=CHUNK_STEPS, paired="fused"):
+                             depth, *, chunk=CHUNK_STEPS):
     """The shared-memory form's schedule in plain PyTorch: per launch of
     ``chunk`` steps, slabs of ``rows`` rows (the last fewer) with ``depth``
     ghost rows on each side, passes of ``depth`` steps (the launch's last
@@ -318,8 +320,7 @@ def run_resident_slabs_plain(cells, nobst, density, accel, omega, n_iters, inv_t
     av = torch.empty(n_iters, dtype=torch.float32, device=cells.device)
     for start in range(0, n_iters, chunk):
         steps = min(chunk, n_iters - start)
-        cells, sums = _slabs_launch(cells, nobst, w1a, w2a, float(omega), steps, rows, depth,
-                                    paired)
+        cells, sums = _slabs_launch(cells, nobst, w1a, w2a, float(omega), steps, rows, depth)
         av[start:start + steps] = sums * inv
     return cells, av
 
@@ -418,19 +419,16 @@ def launch_smem(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, chu
     return (a if -(-n_iters // chunk) % 2 == 0 else b), av
 
 
-def run_resident(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, *,
-                 chunk=CHUNK_STEPS, paired="fused"):
+def run_resident(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, *, chunk=CHUNK_STEPS):
     """Run ``n_iters`` steps, ``chunk`` per launch: kernel K4 on CUDA (the
     shared-memory form where ``resident_smem_config`` finds a schedule, the
     global-memory form elsewhere), ``run_resident_plain`` on CPU. ``cells``
     is left unchanged. The kernel implements the fused collision form."""
     if cells.device.type == "cpu":
         return run_resident_plain(cells, nobst, density, accel, omega, n_iters, inv_tot_cells,
-                                  chunk=chunk, paired=paired)
+                                  chunk=chunk)
     if cells.device.type != "cuda":
         raise ValueError(f"no resident kernel for device {cells.device}")
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA resident kernel implements the fused collision form only")
     _check(cells, nobst, n_iters, chunk)
     ny, nx = cells.shape[1:]
     config = resident_smem_config(ny, nx, sm_count(cells.device))

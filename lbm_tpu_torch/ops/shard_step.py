@@ -153,7 +153,7 @@ def with_ring(shards):
     return out
 
 
-def shard_step_plain(padded, nob_padded, r0, ny, w1a, w2a, omega, paired="fused"):
+def shard_step_plain(padded, nob_padded, r0, ny, w1a, w2a, omega):
     """One fused step of one ringed shard in plain PyTorch: forcing of every
     cell on global row ny-2 (the shard's first row is global row ``r0``),
     pull streaming inside the ring, BGK, bounce-back. Returns the new
@@ -167,7 +167,7 @@ def shard_step_plain(padded, nob_padded, r0, ny, w1a, w2a, omega, paired="fused"
     for k, w in force_deltas(w1a, w2a):
         m[k] = m[k] + w * amask
     t = [m[k][1 - _CYS[k]:1 - _CYS[k] + ry, 1 - _CXS[k]:1 - _CXS[k] + rx] for k in range(9)]
-    relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+    relaxed, u_sq = bgk_relax(t, omega)
     nob = nob_padded[1:-1, 1:-1]
     fluid = nob > 0.0
     out = torch.stack([torch.where(fluid, relaxed[k], t[_OPP[k]]) for k in range(9)])
@@ -193,8 +193,7 @@ def check_mesh(shards, nob_shards, n_steps, ny, dev=None) -> None:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
 
 
-def run_shard_step_plain(shards, nob_shards, density, accel, omega, n_steps, ny,
-                         paired="fused", dev=None):
+def run_shard_step_plain(shards, nob_shards, density, accel, omega, n_steps, ny, dev=None):
     """``n_steps`` of ``shard_step_plain`` on every shard, the rings rebuilt
     from the neighbours between steps; with ``dev`` (c16 or bf16) each step between
     a decode and an encode. Returns ``(shards, sums)``."""
@@ -213,7 +212,7 @@ def run_shard_step_plain(shards, nob_shards, density, accel, omega, n_steps, ny,
             row = []
             for j in range(px):
                 cells, tot = shard_step_plain(padded[i][j], nob_ring[i][j][0], i * ry, ny, w1a,
-                                              w2a, float(omega), paired)
+                                              w2a, float(omega))
                 sums[i * px + j, t] = tot.to(device)
                 row.append(cells if dev is None else encode_state(cells, dev))
             new.append(row)
@@ -301,11 +300,8 @@ def address_table(entries, device):
                         device=device)
 
 
-def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap, what,
-                dev):
+def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, overlap, what, dev):
     check_mesh(shards, nob_shards, n_steps, ny, dev)
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA shard kernels implement the fused collision form only")
     py, px = mesh_of(shards)
     ry, rx = shards[0][0].shape[1:]
     flat = [s for row in shards for s in row]
@@ -354,38 +350,33 @@ def _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, 
     return [[final[i * px + j] for j in range(px)] for i in range(py)], sums
 
 
-def _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap, what,
-              dev=None):
+def _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, overlap, what, dev=None):
     device = shards[0][0].device
     if device.type == "cpu":
-        return run_shard_step_plain(shards, nob_shards, density, accel, omega, n_steps, ny,
-                                    paired, dev)
+        return run_shard_step_plain(shards, nob_shards, density, accel, omega, n_steps, ny, dev)
     if device.type != "cuda":
         raise ValueError(f"no shard kernel for device {device}")
-    return _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, paired, overlap,
-                       what, dev)
+    return _run_kernel(shards, nob_shards, density, accel, omega, n_steps, ny, overlap, what, dev)
 
 
-def run_shard_step(shards, nob_shards, density, accel, omega, n_steps, ny, *, paired="fused",
-                   dev=None):
+def run_shard_step(shards, nob_shards, density, accel, omega, n_steps, ny, *, dev=None):
     """``n_steps`` fused steps of a mesh of shards: kernel K3 on CUDA,
     ``run_shard_step_plain`` on CPU. Returns ``(shards, sums)``, the raw
     per-shard sums ``(py*px, n_steps)`` on the first shard's device. The
     input shards are left unchanged; the returned ones may be views of one
     buffer. ``dev``: 16-bit storage (int16 c16 codes or bf16 shards)."""
-    out = _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, False,
+    out = _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, False,
                     "shard step kernel", dev)
     if shards[0][0].device.type == "cuda":
         count_launches(run_shard_step, n_steps, dev)
     return out
 
 
-def run_shard_overlap(shards, nob_shards, density, accel, omega, n_steps, ny, *,
-                      paired="fused"):
+def run_shard_overlap(shards, nob_shards, density, accel, omega, n_steps, ny):
     """``run_shard_step``'s function with kernel K12 on CUDA: each shard's
     edge cells are stored into the rings that read them by the kernel
     itself. Its plain version is ``run_shard_step_plain``."""
-    out = _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, paired, True,
+    out = _dispatch(shards, nob_shards, density, accel, omega, n_steps, ny, True,
                     "shard overlap kernel", None)
     if shards[0][0].device.type == "cuda":
         run_shard_overlap.launches += n_steps
@@ -433,7 +424,7 @@ class RowShard:
     launches_bf16 = 0
 
     def __init__(self, cells, nob_ring, rank, world, ny, density, accel, omega, n_steps, *,
-                 paired="fused", dev=None):
+                 dev=None):
         ry, rx = cells.shape[1:]
         check_inputs(cells, nob_ring[1:-1, 1:-1], n_steps, 1, dev)
         if tuple(nob_ring.shape) != (ry + 2, rx + 2):
@@ -449,12 +440,10 @@ class RowShard:
         self.sums = torch.empty(n_steps, dtype=torch.float32, device=self.device)
         if self.device.type == "cpu":
             self.cells, self.nob_ring = cells, nob_ring
-            self.plain = (*forcing_weights(density, accel), float(omega), paired)
+            self.plain = (*forcing_weights(density, accel), float(omega))
             return
         if self.device.type != "cuda":
             raise ValueError(f"no shard kernel for device {self.device}")
-        if not (isinstance(paired, str) and paired.startswith("fused")):
-            raise ValueError("the CUDA shard kernels implement the fused collision form only")
         self.lib = _build.library()
         self.lead, self.pitch = lead_of(cells.dtype), pitch_of(rx, cells.dtype)
         self.bufs = torch.empty((2, 9, ry + 2, self.pitch), dtype=cells.dtype, device=self.device)
@@ -593,7 +582,7 @@ class IpcRowShard:
     launches = 0  # steps K12 advanced across processes in this process
 
     def __init__(self, cells, nob_ring, rank, world, ny, density, accel, omega, n_steps, *,
-                 group=None, paired="fused", deadline=STALL_S):
+                 group=None, deadline=STALL_S):
         ry, rx = cells.shape[1:]
         check_inputs(cells, nob_ring[1:-1, 1:-1], n_steps, 1, None)
         if tuple(nob_ring.shape) != (ry + 2, rx + 2):
@@ -607,15 +596,12 @@ class IpcRowShard:
         self.prev, self.next = (rank - 1) % world, (rank + 1) % world
         self.deadline, self.t = deadline, 0
         if self.device.type == "cpu":
-            self.plain = RowShard(cells, nob_ring, rank, world, ny, density, accel, omega,
-                                  n_steps, paired=paired)
+            self.plain = RowShard(cells, nob_ring, rank, world, ny, density, accel, omega, n_steps)
             self.exchange = RowExchange(rank, world, "gloo" if world > 1 else "local", group)
             self.sums = self.plain.sums
             return
         if self.device.type != "cuda":
             raise ValueError(f"no shard kernel for device {self.device}")
-        if not (isinstance(paired, str) and paired.startswith("fused")):
-            raise ValueError("the CUDA shard kernels implement the fused collision form only")
         self.lib = lib = _build.library()
         self.lead, self.pitch = lead_of(torch.float32), pitch_of(rx)
         self.sums = torch.empty(n_steps, dtype=torch.float32, device=self.device)

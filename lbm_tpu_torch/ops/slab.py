@@ -40,6 +40,8 @@ pass's buffer at the storage dtype (``pallas_slab.py:171, 217``).
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from lbm_tpu_torch.ops import _build
@@ -63,6 +65,36 @@ def slab_supported(ny: int, nx: int, block: int, depth: int, kpasses: int, sbloc
             and B.band_supported(sblock + 2 * kpasses * depth, nx, block, depth, panel))
 
 
+# Passes per slab visit (the JAX package's default).
+_SLAB_K = 4
+
+
+def schedule(params, dtype) -> tuple[int, int, int | None, int, int] | None:
+    """K13's schedule ``(block, depth, panel, kpasses, sblock)`` on the grid
+    of ``params`` (driver.py:501-529 of the JAX package), or None. The pass
+    is K7's (``band.schedule``); ``LBM_SLAB_K`` sets the passes per slab
+    visit (default 4) and ``LBM_SLAB_S`` the slab rows. The default S is the
+    largest divisor of ny below ny: on an H100 the sweep (PERF.md, K13) ran
+    fastest at S = ny/2 at 2048^2 and 4096^2 for every K, the larger the
+    slab the faster (not the TPU's 4,194,304-cell slab, nor a slab whose
+    two buffers fit the 50 MB L2: those ran 1.3-1.5x slower)."""
+    cfg = B.schedule(params, dtype)
+    if cfg is None:
+        return None
+    block, depth, panel = cfg
+    k = int(os.environ.get("LBM_SLAB_K", str(_SLAB_K)))
+    ov_s = os.environ.get("LBM_SLAB_S")
+    if ov_s:
+        s = int(ov_s)
+        ok = slab_supported(params.ny, params.nx, block, depth, k, s, panel)
+        return (block, depth, panel, k, s) if ok else None
+    best = None
+    for s in range(1, params.ny):
+        if slab_supported(params.ny, params.nx, block, depth, k, s, panel):
+            best = s
+    return None if best is None else (block, depth, panel, k, best)
+
+
 def _check(cells, nobst, n_iters, block, depth, kpasses, sblock, panel, dev):
     BC.check_schedule(cells, nobst, n_iters, block, depth, panel, dev)
     _, ny, nx = cells.shape
@@ -74,20 +106,20 @@ def _check(cells, nobst, n_iters, block, depth, kpasses, sblock, panel, dev):
 
 
 def step_band_slab(slab, nob_slab, r0, density, accel, omega, block, depth, ny_global, own, *,
-                   panel=None, paired="fused", dev=None):
+                   panel=None, dev=None):
     """The plain version of one K13 pass: advance one slab buffer ``depth``
     steps, its rows at global rows ``r0 + row`` (mod ``ny_global``) for the
     forcing, wrapping within the buffer, and sum only the owned rows
     ``own = (lo, hi)``. ``nob_slab`` is the mask of the buffer's rows.
     Returns ``(slab, (depth,) raw per-step sums)``."""
     w1a, w2a = forcing_weights(density, accel)
-    step = BC.r_step_plain(float(omega), w1a, w2a, paired)
+    step = BC.r_step_plain(float(omega), w1a, w2a)
     return BC.coded(dev, lambda s: BC.creep_pass_plain(
         s, nob_slab, block, depth, panel, step, r0=r0, ny_global=ny_global, own=own))(slab)
 
 
 def run_band_slab_plain(cells, nobst, density, accel, omega, n_iters, block, depth, kpasses,
-                        sblock, *, panel=None, inv_tot_cells=1.0, paired="fused", dev=None):
+                        sblock, *, panel=None, inv_tot_cells=1.0, dev=None):
     """The slab schedule in plain PyTorch (slab inputs cut with wrapped row
     indices, as ``pallas_slab.slab_input``); returns ``(cells, av)``."""
     _check(cells, nobst, n_iters, block, depth, kpasses, sblock, panel, dev)
@@ -106,7 +138,7 @@ def run_band_slab_plain(cells, nobst, density, accel, omega, n_iters, block, dep
             slab, nob = cells[:, rows], nobst[rows]
             for p in range(kpasses):
                 slab, part = step_band_slab(slab, nob, r0, density, accel, omega, block, depth,
-                                            ny, own, panel=panel, paired=paired, dev=dev)
+                                            ny, own, panel=panel, dev=dev)
                 sums[p * depth:(p + 1) * depth] += part
             centres.append(slab[:, kt:kt + sblock])
         cells = torch.cat(centres, dim=1)
@@ -114,12 +146,12 @@ def run_band_slab_plain(cells, nobst, density, accel, omega, n_iters, block, dep
     if rem:
         cells, av[ngens * kt:] = B.run_band_plain(
             cells, nobst, density, accel, omega, rem, block, depth, panel=panel,
-            inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
+            inv_tot_cells=inv_tot_cells, dev=dev)
     return cells, av
 
 
 def run_band_slab(cells, nobst, density, accel, omega, n_iters, block, depth, kpasses, sblock, *,
-                  panel=None, inv_tot_cells=1.0, paired="fused", dev=None):
+                  panel=None, inv_tot_cells=1.0, dev=None):
     """Run ``n_iters`` steps, K*T per generation: kernel K13 on CUDA (the
     remainder on K7 and K1), ``run_band_slab_plain`` on CPU. ``cells`` is
     left unchanged. The kernel implements the fused collision form.
@@ -127,11 +159,9 @@ def run_band_slab(cells, nobst, density, accel, omega, n_iters, block, depth, kp
     if cells.device.type == "cpu":
         return run_band_slab_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
                                    kpasses, sblock, panel=panel, inv_tot_cells=inv_tot_cells,
-                                   paired=paired, dev=dev)
+                                   dev=dev)
     if cells.device.type != "cuda":
         raise ValueError(f"no slab kernel for device {cells.device}")
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA slab kernel implements the fused collision form only")
     _check(cells, nobst, n_iters, block, depth, kpasses, sblock, panel, dev)
     _, ny, nx = cells.shape
     kt = kpasses * depth
@@ -164,7 +194,7 @@ def run_band_slab(cells, nobst, density, accel, omega, n_iters, block, depth, kp
     if rem:
         cells, av[ngens * kt:] = B.run_band(cells, nobst, density, accel, omega, rem, block,
                                             depth, panel=panel, inv_tot_cells=inv_tot_cells,
-                                            paired=paired, dev=dev)
+                                            dev=dev)
     return cells, av
 
 

@@ -163,20 +163,19 @@ def force_row(m, nobst, w1a, w2a):
     return m
 
 
-def step_plain(cells, nobst, w1a, w2a, omega, paired="fused"):
+def step_plain(cells, nobst, w1a, w2a, omega):
     """One fused step in plain PyTorch (``pallas_step._physics``): forcing of
     row ny-2 under the joint mask, pull streaming with periodic wrap, BGK,
     bounce-back. Returns ``(new_cells, tot_u)``."""
     m = force_row(cells.unbind(0), nobst, w1a, w2a)
     t = [torch.roll(m[k], shifts=(_CYS[k], _CXS[k]), dims=(0, 1)) for k in range(9)]
-    relaxed, u_sq = bgk_relax(t, omega, paired=paired)
+    relaxed, u_sq = bgk_relax(t, omega)
     fluid = nobst > 0.0
     out = torch.stack([torch.where(fluid, relaxed[k], t[_OPP[k]]) for k in range(9)])
     return out, torch.sum(nobst * u_mag(u_sq))
 
 
-def run_step_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
-                   paired="fused", dev=None):
+def run_step_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, dev=None):
     """``n_steps`` of ``step_plain`` (with ``dev``, each between a decode and
     an encode); returns ``(cells, av)``."""
     from lbm_tpu_torch.ops.devspace import decode_state, encode_state
@@ -187,14 +186,13 @@ def run_step_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
     av = torch.empty(n_steps, dtype=torch.float32, device=cells.device)
     for t in range(n_steps):
         full = cells if dev is None else decode_state(cells, dev)
-        full, tot = step_plain(full, nobst, w1a, w2a, float(omega), paired)
+        full, tot = step_plain(full, nobst, w1a, w2a, float(omega))
         cells = full if dev is None else encode_state(full, dev)
         av[t] = tot * inv
     return cells, av
 
 
-def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired="fused",
-             dev=None):
+def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, dev=None):
     """Run ``n_steps`` fused steps: kernel K1 on CUDA, ``run_step_plain`` on CPU.
 
     ``cells`` is left unchanged. ``inv_tot_cells`` is the f32 value of
@@ -202,12 +200,9 @@ def run_step(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, paired
     ``dev``: 16-bit storage (int16 c16 codes or bf16 ``cells``).
     """
     if cells.device.type == "cpu":
-        return run_step_plain(cells, nobst, density, accel, omega, n_steps,
-                              inv_tot_cells, paired, dev)
+        return run_step_plain(cells, nobst, density, accel, omega, n_steps, inv_tot_cells, dev)
     if cells.device.type != "cuda":
         raise ValueError(f"no step kernel for device {cells.device}")
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA step kernel implements the fused collision form only")
     return launch(cells, nobst, density, accel, omega, n_steps, inv_tot_cells,
                   word_form(cells.shape[2], dev), dev)
 

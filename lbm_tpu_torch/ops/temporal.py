@@ -55,7 +55,6 @@ from lbm_tpu_torch.ops.collision import bgk_relax, u_mag
 from lbm_tpu_torch.ops.devspace import decode_state, encode_state
 from lbm_tpu_torch.ops.step import (_CXS, _CYS, _OPP, count_launches, forcing_weights,
                                     kernel_scalars)
-from lbm_tpu_torch.runtime import trace
 
 PLANE_COPIES = 1  # one window of the 9 planes per block, stepped in place (csrc/trapezoid.cuh)
 
@@ -66,16 +65,6 @@ def tiles_of_pass(ny: int, nx: int, block: int, panel: int | None) -> tuple[int,
     blocks when that round is partial (else 0)."""
     tiles = -(-ny // block) * (1 if panel is None else -(-nx // panel))
     return tiles, tiles % BC.TRAP_SLOTS
-
-
-def count_tiles(cells, block, panel, npasses) -> None:
-    """Add ``npasses`` passes of the schedule to the open call's counters
-    ``pass_tiles`` and ``tail_tiles`` (runtime/trace.py). They count the
-    schedule's tiles on either device: K5 and K6 launch them on a card, and
-    the plain versions on the CPU run the same passes on full rows."""
-    tiles, tail = tiles_of_pass(cells.shape[-2], cells.shape[-1], block, panel)
-    trace.count("pass_tiles", npasses * tiles)
-    trace.count("tail_tiles", npasses * tail)
 
 
 def block_heights(ny: int, block: int) -> tuple[int, int]:
@@ -92,6 +81,32 @@ def temporal_supported(ny: int, nx: int, block: int, depth: int, panel: int | No
     if ny < 2 or block < 1 or depth < 1 or (panel is not None and panel < 1):
         return False
     return depth <= min(block, block_heights(ny, block)[1])
+
+
+# K5 and K6 in one window copy, one table for both (``band_common.tiered``).
+# On an H100 (chip_smoke phase 27's sweep, every candidate's window with
+# constant strides, two runs, PERF.md section 6): (36, 4, 56), a 44 x 64
+# window of 113 KB, two blocks per SM (TRAP_SLOTS on the card), was the
+# fastest or within 2.3% of it for both kernels from 1024^2 to 4096^2, and
+# took 7-9% less time than (32, 4, 40) at 1024^2; at 512^2 (150 tiles) it
+# took 26-27% more, and (32, 4, 40) was the fastest; at 256^2, where that
+# makes under half a wave, the 32 x 32 window of (24, 4, 24) took 15-19%
+# less time. At 1024^2 its 551 tiles run as two whole rounds of TRAP_SLOTS
+# and a third of 23, yet the third costs ~2 us of a 70-us pass (504 and
+# 522 tiles took 66.0 and 67.9 us); every cut into whole rounds whose
+# window holds two blocks per SM took more time (chip_smoke phase 33: (43,
+# 4, 48), 528 tiles, 1-3% more; (47, 4, 43) and (43, 4, 47) 10-12% more):
+# a panel that is not a multiple of 8 columns cost 9-16% more per cell at
+# 2048^2, one that is 1-5%. The kernels are compiled with these windows'
+# strides as constants (``ops/_build.py::trap_windows``).
+TRAPEZOID_TIERS = (((36, 4, 56), 2 * BC.TRAP_SLOTS), ((32, 4, 40), 132), ((24, 4, 24), 0))
+
+
+def schedule(params, dtype) -> tuple[int, int, int] | None:
+    """K5's schedule ``(block, depth, panel)`` on the grid of ``params``
+    (``pick_block``/``pick_depth`` of the JAX package); None for a dtype it
+    does not store (``band_common.tiered``)."""
+    return BC.tiered(params, dtype, TRAPEZOID_TIERS, temporal_supported)
 
 
 def _check(cells, nobst, n_iters, block, depth, panel, dev=None):
@@ -126,7 +141,7 @@ def window_rows(ny, block, depth, device):
             + torch.arange(block + 2 * depth, device=device)[None, :]) % ny
 
 
-def trapezoid_plain(win, nob, rows, ny, block, depth, omega, w1a, w2a, paired):
+def trapezoid_plain(win, nob, rows, ny, block, depth, omega, w1a, w2a):
     """T steps of every block's window on the shrinking trapezoid, in plain
     PyTorch, the step algebra of ``pallas_temporal._kernel``.
 
@@ -151,14 +166,14 @@ def trapezoid_plain(win, nob, rows, ny, block, depth, omega, w1a, w2a, paired):
         # Output row o pulls input row o + 1 - cy; x wraps over the full row.
         pulled = [torch.roll(planes[k][:, 1 - _CYS[k]:1 - _CYS[k] + n_out], _CXS[k], dims=2)
                   for k in range(9)]
-        relaxed, u_sq = bgk_relax(pulled, omega, paired=paired)
+        relaxed, u_sq = bgk_relax(pulled, omega)
         fluid = nob[:, s:s + n_out] > 0.0
         planes = [torch.where(fluid, relaxed[k], pulled[_OPP[k]]) for k in range(9)]
         sums[s - 1] = torch.sum(nob_mid * u_mag(u_sq[:, u - 1:u - 1 + b]))
     return torch.stack(planes, 1), sums
 
 
-def trapezoid_aa_plain(win, nob, rows, ny, block, depth, panel, omega, w1a, w2a, paired):
+def trapezoid_aa_plain(win, nob, rows, ny, block, depth, panel, omega, w1a, w2a):
     """``trapezoid_plain``'s function on the kernels' schedule
     (``csrc/trapezoid.cuh``), in plain PyTorch, with its arguments and
     results and the tiles' ``panel`` (None: the full row).
@@ -216,7 +231,7 @@ def trapezoid_aa_plain(win, nob, rows, ny, block, depth, panel, omega, w1a, w2a,
             tk = [torch.roll(slots[_OPP[k]], shift[k], (1, 2)) for k in range(9)]
         else:
             tk = slots
-        relaxed, u_sq = bgk_relax(tk, omega, paired=paired)
+        relaxed, u_sq = bgk_relax(tk, omega)
         out = [torch.where(fluid, relaxed[k], tk[_OPP[k]]) for k in range(9)]
         if s < t:
             out = BC.force_windows(out, nobw, frow, w1a, w2a)
@@ -238,9 +253,8 @@ def aa_trapezoid(panel):
     """``trapezoid_aa_plain`` on tiles of ``panel`` columns, as the ``trap``
     of ``step_t_plain`` and ``deep.step_deep_plain``."""
 
-    def trap(win, nob, rows, ny, block, depth, omega, w1a, w2a, paired):
-        return trapezoid_aa_plain(win, nob, rows, ny, block, depth, panel, omega, w1a, w2a,
-                                  paired)
+    def trap(win, nob, rows, ny, block, depth, omega, w1a, w2a):
+        return trapezoid_aa_plain(win, nob, rows, ny, block, depth, panel, omega, w1a, w2a)
 
     return trap
 
@@ -258,7 +272,7 @@ def on_planes(codec, blocks, dev):
 
 
 def step_t_plain(state, nobst, density, accel, omega, block, depth, *, inv_tot_cells=1.0,
-                 paired="fused", dev=None, trap=trapezoid_plain):
+                 dev=None, trap=trapezoid_plain):
     """One pass of ``depth`` steps in plain PyTorch (``step_t_pallas``).
     Returns ``((cells, last_o, first_o), av)`` with ``depth`` av values.
     ``dev``: 16-bit storage (c16 codes or bf16 in the state and packs);
@@ -277,7 +291,7 @@ def step_t_plain(state, nobst, density, accel, omega, block, depth, *, inv_tot_c
     win[:-1, :, t + block:2 * t + block] = below[:-1]
     win[-1, :, t + last:2 * t + last] = below[-1]
     out, sums = trap(on_planes(decode_state, win, dev), nobst[rows], rows, ny, block, depth,
-                     float(omega), w1a, w2a, paired)
+                     float(omega), w1a, w2a)
     out = on_planes(encode_state, out, dev)
     first_o = out[:, :, :t].reshape(nblk, 9 * t, nx)
     last_o = torch.cat([out[:-1, :, block - t:block], out[-1:, :, last - t:last]])
@@ -286,15 +300,14 @@ def step_t_plain(state, nobst, density, accel, omega, block, depth, *, inv_tot_c
     return (blocks_to_state(out, ny), last_o.contiguous(), first_o.contiguous()), sums * inv
 
 
-def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired, dev=None,
+def _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, dev=None,
                   trap=trapezoid_plain):
     def run_passes(cells, npasses):
         state = (cells, *make_halos_t(cells, block, depth))
         av = []
         for _ in range(npasses):
             state, a = step_t_plain(state, nobst, density, accel, omega, block, depth,
-                                    inv_tot_cells=inv_tot_cells, paired=paired, dev=dev,
-                                    trap=trap)
+                                    inv_tot_cells=inv_tot_cells, dev=dev, trap=trap)
             av.append(a)
         return state[0], torch.cat(av)
 
@@ -329,15 +342,13 @@ def _launch(state, nobst, density, accel, omega, inv_tot_cells, block, depth, pa
     return (bufs[o], bufs[2 + 2 * o], bufs[3 + 2 * o]), av
 
 
-def _device_check(device, paired):
+def _device_check(device):
     if device.type != "cuda":
         raise ValueError(f"no temporal kernel for device {device}")
-    if not (isinstance(paired, str) and paired.startswith("fused")):
-        raise ValueError("the CUDA temporal kernel implements the fused collision form only")
 
 
 def step_t(state, nobst, density, accel, omega, block, depth, *, panel=None, inv_tot_cells=1.0,
-           paired="fused", dev=None):
+           dev=None):
     """One pass of ``depth`` steps on ``(cells, last_t, first_t)``: kernel K5
     on CUDA, ``step_t_plain`` on CPU. Returns ``((cells, last_o, first_o),
     av)``. ``dev``: 16-bit storage (c16 codes or bf16 in the state and packs)."""
@@ -345,58 +356,53 @@ def step_t(state, nobst, density, accel, omega, block, depth, *, panel=None, inv
     _check(cells, nobst, depth, block, depth, panel, dev)
     if cells.device.type == "cpu":
         return step_t_plain(state, nobst, density, accel, omega, block, depth,
-                            inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
-    _device_check(cells.device, paired)
+                            inv_tot_cells=inv_tot_cells, dev=dev)
+    _device_check(cells.device)
     return _launch(state, nobst, density, accel, omega, inv_tot_cells, block, depth, panel, 1,
                    dev)
 
 
 def run_temporal_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-                       inv_tot_cells=1.0, paired="fused", dev=None):
+                       inv_tot_cells=1.0, dev=None):
     """The temporal schedule in plain PyTorch; returns ``(cells, av)``."""
     _check(cells, nobst, n_iters, block, depth, panel, dev)
-    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired,
-                           dev)
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, dev)
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired, dev)
+                        passes, dev)
 
 
 def run_temporal_aa_plain(cells, nobst, density, accel, omega, n_iters, block, depth, *,
-                          panel=None, inv_tot_cells=1.0, paired="fused", dev=None):
+                          panel=None, inv_tot_cells=1.0, dev=None):
     """``run_temporal_plain``'s function on K5's schedule (2-D tiles, the AA
     steps on the trapezoid: ``trapezoid_aa_plain``) in plain PyTorch;
     returns ``(cells, av)``."""
     _check(cells, nobst, n_iters, block, depth, panel, dev)
-    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth, paired,
+    passes = _plain_passes(nobst, density, accel, omega, inv_tot_cells, block, depth,
                            dev, aa_trapezoid(panel))
     return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                        passes, paired, dev)
+                        passes, dev)
 
 
 def run_temporal(cells, nobst, density, accel, omega, n_iters, block, depth, *, panel=None,
-                 inv_tot_cells=1.0, paired="fused", dev=None):
+                 inv_tot_cells=1.0, dev=None):
     """Run ``n_iters`` steps, ``depth`` per pass: kernel K5 on CUDA (and K1
     for the remainder), ``run_temporal_plain`` on CPU. ``cells`` is left
     unchanged. The kernel implements the fused collision form. ``dev``:
-    16-bit storage (int16 c16 codes or bf16 ``cells``). The passes' tiles go
-    to the open call's counters (``count_tiles``)."""
+    16-bit storage (int16 c16 codes or bf16 ``cells``)."""
     if cells.device.type == "cpu":
-        out = run_temporal_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
-                                 panel=panel, inv_tot_cells=inv_tot_cells, paired=paired, dev=dev)
-    else:
-        _check(cells, nobst, n_iters, block, depth, panel, dev)
-        _device_check(cells.device, paired)
+        return run_temporal_plain(cells, nobst, density, accel, omega, n_iters, block, depth,
+                                  panel=panel, inv_tot_cells=inv_tot_cells, dev=dev)
+    _check(cells, nobst, n_iters, block, depth, panel, dev)
+    _device_check(cells.device)
 
-        def run_passes(c, npasses):
-            state = (c, *make_halos_t(c, block, depth))
-            (c, _, _), av = _launch(state, nobst, density, accel, omega, inv_tot_cells, block,
-                                    depth, panel, npasses, dev)
-            return c, av
+    def run_passes(c, npasses):
+        state = (c, *make_halos_t(c, block, depth))
+        (c, _, _), av = _launch(state, nobst, density, accel, omega, inv_tot_cells, block,
+                                depth, panel, npasses, dev)
+        return c, av
 
-        out = BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
-                           run_passes, paired, dev)
-    count_tiles(cells, block, panel, n_iters // depth)
-    return out
+    return BC.run_creep(cells, nobst, density, accel, omega, n_iters, inv_tot_cells, depth,
+                        run_passes, dev)
 
 
 run_temporal.launches = 0  # steps K5 advanced in this process

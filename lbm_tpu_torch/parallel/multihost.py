@@ -60,7 +60,6 @@ import torch
 
 from lbm_tpu_torch.models.d2q9 import D2Q9, LBMParams
 from lbm_tpu_torch.ops import devspace
-from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import collide
 from lbm_tpu_torch.ops.shard_step import (IpcRowShard, RowExchange, RowShard, gather_objects,
                                           ring_from_rows)
@@ -258,7 +257,6 @@ def run_simulation_multihost(params: LBMParams, obstacles: np.ndarray, *, backen
     tot_cells = int(np.sum(obstacles == 0))
     inv_np = np.asarray(1.0 / tot_cells, dtype=np.float64 if dtype == torch.float64 else np.float32)
     scalars = (params.density, params.accel, params.omega)
-    kw = dict(paired=paired_default(), dev=spec)
 
     def rows(x, lo, n):
         """Rows ``[lo, lo + n)`` of a global plane, wrapped, on the device."""
@@ -268,7 +266,7 @@ def run_simulation_multihost(params: LBMParams, obstacles: np.ndarray, *, backen
                               rows(nob, r0 + ry, 1)[None])[0]
 
     def k3(state, n):
-        return RowShard(state, nob_ring, rank, world_size, ny, *scalars, n, **kw)
+        return RowShard(state, nob_ring, rank, world_size, ny, *scalars, n, dev=spec)
 
     t0 = time.perf_counter()
     if route != "reference" and device.type == "cuda":
@@ -291,8 +289,7 @@ def run_simulation_multihost(params: LBMParams, obstacles: np.ndarray, *, backen
         # cast in and one rounding out, as the one-process runner does.
         # Set-up (the allocation, the handles swapped and mapped) is not timed.
         ipc = IpcRowShard(cells if spec is None else devspace.decode_state(cells, spec),
-                          nob_ring, rank, world_size, ny, *scalars, n_iters, group=group,
-                          paired=kw["paired"])
+                          nob_ring, rank, world_size, ny, *scalars, n_iters, group=group)
     else:
         exchange = RowExchange(rank, world_size, channel,
                                rows_group if channel == "nccl" else group)
@@ -324,7 +321,8 @@ def run_simulation_multihost(params: LBMParams, obstacles: np.ndarray, *, backen
                 make = band.row_shard if route == "band" else band2.row_shard
                 shards.append(drive(make(cells, rows(nob, r0, ry), rows(nob, r0 - depth, depth),
                                          rows(nob, r0 + ry, depth), rank, world_size, ny,
-                                         *scalars, block, depth, panel, npasses, **kw), npasses))
+                                         *scalars, block, depth, panel, npasses, dev=spec),
+                                    npasses))
                 cells = shards[-1].state()
             if rem:
                 shards.append(drive(k3(cells, rem), rem))

@@ -64,7 +64,6 @@ import torch
 
 from lbm_tpu_torch.models.d2q9 import CX, CY, D2Q9, LBMParams
 from lbm_tpu_torch.ops import devspace
-from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import collide
 from lbm_tpu_torch.ops.shard_step import sync, with_ring
 from lbm_tpu_torch.runtime.device import list_devices
@@ -220,12 +219,12 @@ def pick_shard_step(params: LBMParams, mesh, backend: str, dtype):
     shards; a ``(py, px)`` pair: a 2-D mesh) to ``(route, schedule)``: route
     ``reference``, ``pallas`` (K3), ``pallas-overlap`` (K12), ``band`` (K8)
     or ``band2`` (K10), schedule ``(block, depth, panel)`` of the band
-    routes from the single-device picker. Refusals raise ``ValueError``
+    routes from their modules' ``schedule``. Refusals raise ``ValueError``
     with the JAX package's wording. At c16 every route but
     ``pallas-overlap`` takes the codes on a 1-D mesh, at bf16 every route;
     a 2-D mesh runs the plain step of its storage (``reference``) and
     refuses ``pallas`` at 16 bits."""
-    from lbm_tpu_torch.runtime.driver import BACKENDS, band2_config, band_config
+    from lbm_tpu_torch.runtime.driver import BACKENDS
 
     two_d = isinstance(mesh, tuple)
     py, px = mesh if two_d else (mesh, 1)
@@ -269,11 +268,10 @@ def pick_shard_step(params: LBMParams, mesh, backend: str, dtype):
             raise ValueError(f"local grid {rows}x{cols} does not fit the pallas kernel's "
                              "tiling constraints")
         return ("pallas" if backend == "auto" else backend), None
-    from lbm_tpu_torch.ops.band import band_supported
-    from lbm_tpu_torch.ops.band2 import band2_supported
+    from lbm_tpu_torch.ops import band, band2
 
-    supported = band_supported if backend == "band" else band2_supported
-    cfg = (band_config if backend == "band" else band2_config)(params, dtype)
+    supported = band.band_supported if backend == "band" else band2.band2_supported
+    cfg = (band if backend == "band" else band2).schedule(params, dtype)
     if not (cfg[1] <= rows and supported(rows, cols, *cfg)):
         alt = "pallas" if backend == "band" else "band/pallas"
         raise ValueError(f"local grid {rows}x{cols} unsupported by the {backend} kernel; use "
@@ -309,9 +307,7 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
     nob_shards = split((obst == 0).to(torch.float32), mesh)
     tot_cells = int(np.sum(obstacles == 0))
     inv_np = np.asarray(1.0 / tot_cells, dtype=np.float64 if dtype == torch.float64 else np.float32)
-    paired = paired_default()
     scalars = (params.density, params.accel, params.omega)
-    kw = dict(paired=paired) if spec is None else dict(paired=paired, dev=spec)
 
     def advance(shards, n):
         if route == "reference":
@@ -331,7 +327,7 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
             run = run_band_sharded if route == "band" else run_band2_sharded
             block, depth, panel = cfg
             return run(shards, nob_shards, *scalars, n, block, depth, params.ny, panel=panel,
-                       **kw)
+                       dev=spec)
         from lbm_tpu_torch.ops.shard_step import run_shard_overlap, run_shard_step
 
         if route == "pallas-overlap":
@@ -339,11 +335,10 @@ def _run(params, obstacles, mesh, two_d, backend, dtype, initial_cells, start_st
             # and rounds once at its end, as the JAX package's runner does.
             full = shards if spec is None else [[devspace.decode_state(s, spec) for s in row]
                                                 for row in shards]
-            full, sums = run_shard_overlap(full, nob_shards, *scalars, n, params.ny,
-                                           paired=paired)
+            full, sums = run_shard_overlap(full, nob_shards, *scalars, n, params.ny)
             return (full if spec is None else [[devspace.encode_state(s, spec) for s in row]
                                                for row in full]), sums
-        return run_shard_step(shards, nob_shards, *scalars, n, params.ny, **kw)
+        return run_shard_step(shards, nob_shards, *scalars, n, params.ny, dev=spec)
 
     def as_full(shards):
         """The host's view of the state: c16 codes decode to f32, bf16

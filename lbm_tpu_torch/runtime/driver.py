@@ -15,14 +15,15 @@ Routes (``select_route``), as in the JAX package:
   versions, so the CPU tests drive the card's route;
 - ``pallas`` -> the fused one-step route (kernel K1 / its plain version);
 - ``band``, ``band2``, ``band3`` -> the band family (kernels K7, K9, K11 /
-  their plain versions), T steps per pass on the schedule of
-  ``band_config``, ``band2_config`` and ``band3_config``, the remainder on K1;
+  their plain versions), T steps per pass on the schedule of each module's
+  ``schedule`` (``ops/band.py``, ``ops/band2.py``, ``ops/band3.py``), the
+  remainder on K1;
 - ``resident`` -> whole-grid steps in persistent launches of
-  ``resident_config`` steps (kernel K4 / its plain version);
+  ``ops/resident.py::CHUNK_STEPS`` steps (kernel K4 / its plain version);
 - ``temporal``, ``deep`` -> T steps per pass on the shrinking trapezoid with
   carried row packs or halos read from the state (kernels K5, K6 / their
-  plain versions), on the schedules of ``temporal_config`` and
-  ``deep_config``, the remainder on K1;
+  plain versions), on the schedules of ``ops/temporal.py::schedule`` and
+  ``ops/deep.py::schedule``, the remainder on K1;
 - ``reference`` -> the plain step of ``ops/reference.py``;
 - ``slab`` -> K*T steps per generation over y-slabs (kernel K13 / its plain
   version), the remainder on K7 and K1; quarantined as in the JAX package:
@@ -82,18 +83,19 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch.models.d2q9 import D2Q9, LBMParams, obstacles_from_numpy
+from lbm_tpu_torch.ops import band, band2, band3, deep, devspace, slab, temporal
 from lbm_tpu_torch.ops.aa import MIN_NY as AA_MIN_NY
-from lbm_tpu_torch.ops.band_common import TRAP_SLOTS
-from lbm_tpu_torch.ops import devspace
-from lbm_tpu_torch.ops.collision import paired_default
 from lbm_tpu_torch.ops.reference import lbm_step_reference
-from lbm_tpu_torch.ops.resident import resident_supported
+from lbm_tpu_torch.ops.resident import resident_supported, run_resident
 from lbm_tpu_torch.runtime import trace
 
 BACKENDS = ("auto", "aa", "pallas", "reference", "band", "band2", "band3", "resident",
             "temporal", "deep", "slab")
-# Routes of T steps per pass with the remainder on K1, run by ``pass_schedule``.
-PASS_BACKENDS = ("band", "band2", "band3", "temporal", "deep")
+# Routes of T steps per pass with the remainder on K1, run by ``pass_schedule``,
+# and the module of each route's kernel.
+_PASS_MODULES = {"band": band, "band2": band2, "band3": band3, "temporal": temporal,
+                 "deep": deep}
+PASS_BACKENDS = tuple(_PASS_MODULES)
 KERNEL_BACKENDS = ("aa", "pallas", "resident", "slab") + PASS_BACKENDS
 # The storage that names c16 (int16 companded deviations, ops/devspace.py).
 C16 = "c16"
@@ -114,11 +116,6 @@ def storage_spec(params: LBMParams, dtype):
     if is_c16(dtype):
         return devspace.DevSpec.for_params(params.density, params.accel)
     return devspace.BF16 if dtype == torch.bfloat16 else None
-
-
-def _kernel_dtype(dtype) -> bool:
-    """Whether the T-step kernels store ``dtype``: f32, c16 or bf16."""
-    return stored_16(dtype) or dtype == torch.float32
 
 
 @dataclasses.dataclass
@@ -147,52 +144,6 @@ class SimulationResult:
         return params.reynolds(av / int(free.sum()))
 
 
-# Band schedules ``(block, depth, panel)``: the tile is block rows by panel
-# columns with a depth-cell halo. Tiers ((block, depth, panel), fewest
-# tiles), in order: the first that the kernel takes and that cuts the grid
-# into at least that many tiles (else the last the kernel takes;
-# ``_tiered``).
-# K7 and K9, one table for both (the same one-window body; K7 takes any T):
-# a 40 x 64 window, one copy, 102 KB of shared memory; on a grid that
-# gives it fewer tiles than one wave of blocks (two on each of an H100's
-# 132 SMs), a 32 x 32 window. At 256^2 and 512^2 the small tiles took 33%
-# and 3% less time than the large ones, at 1024^2 16% more (chip_smoke
-# phase 26's K9 sweep); K7's sweep of T 3, 4, 5 and 8 (phase 28) found
-# (32, 4, 56) the fastest or within 1.1% of it at 1024^2-4096^2, T 3 about
-# 15% slower at 2048^2 and T 5 within 2.1% either way (PERF.md section 6).
-_BAND_TIERS = (((32, 4, 56), 2 * 132), ((24, 4, 24), 0))
-# K11 (its load fused into its first step, its store into its last, the
-# steps between on K6's trapezoid), a window of one copy at constant
-# strides. On an H100 (chip_smoke phase 32's sweep of T 4, 8 and 16 at
-# 512^2-4096^2 and every storage, each candidate at constant strides,
-# and the two tiers in turns in one process, PERF.md section 6): (36, 4,
-# 56), a 44 x 64 window, took 4-14% less time than (24, 4, 56) at 4096^2
-# (8,436 tiles) in every storage; (24, 4, 56), a 32 x 64 window, took 4-28%
-# less at 1024^2 and 512^2, and at 2048^2 (3,182 tiles) was within 1% at
-# f32 and 4-7% faster at c16, 3% slower at bf16.
-_BAND3_TIERS = (((36, 4, 56), 4000), ((24, 4, 56), 0))
-# K5 and K6 in one window copy, one table for both. On an H100 (chip_smoke
-# phase 27's sweep, every candidate's window with constant strides, two
-# runs, PERF.md section 6): (36, 4, 56), a 44 x 64 window of 113 KB, two
-# blocks per SM (TRAP_SLOTS on the card), was the fastest or within 2.3%
-# of it for both kernels from 1024^2 to 4096^2, and took 7-9% less time
-# than (32, 4, 40) at 1024^2; at 512^2 (150 tiles) it took 26-27% more,
-# and (32, 4, 40) was the fastest; at 256^2, where that makes under half
-# a wave, the 32 x 32 window of (24, 4, 24) took 15-19% less time. At
-# 1024^2 its 551 tiles run as two whole rounds of TRAP_SLOTS and a third
-# of 23, yet the third costs ~2 us of a 70-us pass (504 and 522 tiles
-# took 66.0 and 67.9 us); every cut into whole rounds whose window holds
-# two blocks per SM took more time (chip_smoke phase 33: (43, 4, 48),
-# 528 tiles, 1-3% more; (47, 4, 43) and (43, 4, 47) 10-12% more): a panel
-# that is not a multiple of 8 columns cost 9-16% more per cell at 2048^2,
-# one that is 1-5%. The kernels are compiled with these windows' strides
-# as constants (``trapezoid_schedules``, ops/_build.py).
-_TRAPEZOID_TIERS = (((36, 4, 56), 2 * TRAP_SLOTS), ((32, 4, 40), 132), ((24, 4, 24), 0))
-# K4: steps per cooperative launch, the JAX package's 255; 1023 measured
-# 12% slower at 128^2 and within 2% at 256^2-1024^2.
-_RESIDENT_CHUNK = 255
-
-
 # auto at f32: K4 (resident) up to this state size, K6 (deep) above. On an
 # H100 (chip_smoke phase 25: K4, K6, K7, K9 and K11 in turns, each at its
 # schedule, PERF.md section 6), K4 took the least time per step at 128x256
@@ -207,143 +158,23 @@ _RESIDENT_CHUNK = 255
 _RESIDENT_AUTO_MAX_STATE = 9 * 448 * 448 * 4
 
 
-def band_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
-    """The band kernel's schedule ``(block, depth, panel)`` (driver.py:468-498
-    of the JAX package), or None for a dtype it does not store (f32, c16
-    and bf16 take one schedule: the window is f32 in shared memory)."""
-    from lbm_tpu_torch.ops.band import band_supported
-
-    return _tiered(params, _BAND_TIERS, band_supported) if _kernel_dtype(dtype) else None
-
-
-def band2_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
-    """The band2 kernel's schedule ``(block, depth, panel)`` (driver.py:590-610),
-    or None for a dtype it does not store (f32, c16 and bf16): the large
-    tiles where they fill a wave of blocks, the small ones below."""
-    from lbm_tpu_torch.ops.band2 import band2_supported
-
-    return _tiered(params, _BAND_TIERS, band2_supported) if _kernel_dtype(dtype) else None
-
-
-def band3_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
-    """The band3 kernel's schedule ``(block, depth, panel)`` (driver.py:691-720),
-    or None for a dtype it does not store (f32, c16 and bf16)."""
-    from lbm_tpu_torch.ops.band3 import band3_supported
-
-    return _tiered(params, _BAND3_TIERS, band3_supported) if _kernel_dtype(dtype) else None
-
-
-def band3_schedules() -> tuple[tuple[int, int, int], ...]:
-    """Every schedule of K11's tiers. The build compiles their windows, and
-    those of their split 16-bit final passes, with constant strides
-    (ops/_build.py, csrc/band3.cu)."""
-    return tuple(cfg for cfg, _ in _BAND3_TIERS)
-
-
-# K13: passes per slab visit (the JAX package's default).
-_SLAB_K = 4
-
-
-def slab_config(params: LBMParams, dtype) -> tuple[int, int, int | None, int, int] | None:
-    """The slab kernel's schedule ``(block, depth, panel, kpasses, sblock)``
-    (driver.py:501-529 of the JAX package), or None. The pass is K7's
-    (``band_config``); ``LBM_SLAB_K`` sets the passes per slab visit
-    (default 4) and ``LBM_SLAB_S`` the slab rows. The default S is the
-    largest divisor of ny below ny: on an H100 the sweep (PERF.md, K13) ran
-    fastest at S = ny/2 at 2048^2 and 4096^2 for every K, the larger the
-    slab the faster (not the TPU's 4,194,304-cell slab, nor a slab whose
-    two buffers fit the 50 MB L2: those ran 1.3-1.5x slower)."""
-    from lbm_tpu_torch.ops.slab import slab_supported
-
-    cfg = band_config(params, dtype)
-    if cfg is None:
-        return None
-    block, depth, panel = cfg
-    k = int(os.environ.get("LBM_SLAB_K", str(_SLAB_K)))
-    ov_s = os.environ.get("LBM_SLAB_S")
-    if ov_s:
-        s = int(ov_s)
-        ok = slab_supported(params.ny, params.nx, block, depth, k, s, panel)
-        return (block, depth, panel, k, s) if ok else None
-    best = None
-    for s in range(1, params.ny):
-        if slab_supported(params.ny, params.nx, block, depth, k, s, panel):
-            best = s
-    return None if best is None else (block, depth, panel, k, best)
-
-
-def resident_config(params: LBMParams, dtype) -> int | None:
-    """Steps per K4 launch (driver.py:1070-1080 of the JAX package runs
-    ``pallas_resident._CHUNK_STEPS``), or None for a dtype it does not store."""
-    del params
-    return _RESIDENT_CHUNK if dtype == torch.float32 else None
-
-
-def _tiered(params: LBMParams, tiers, supported) -> tuple[int, int, int]:
-    """The first schedule of ``tiers`` that ``supported(ny, nx, *schedule)``
-    takes and that cuts the grid into at least its number of tiles; else
-    the last one it takes (else the first)."""
-    fits = [cfg for cfg, _ in tiers if supported(params.ny, params.nx, *cfg)]
-    for (block, depth, panel), fewest in tiers:
-        tiles = -(-params.ny // block) * -(-params.nx // panel)
-        if (block, depth, panel) in fits and tiles >= fewest:
-            return block, depth, panel
-    return fits[-1] if fits else tiers[0][0]
-
-
-def temporal_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
-    """The temporal kernel's schedule ``(block, depth, panel)``
-    (``pick_block``/``pick_depth`` of the JAX package), or None for a dtype
-    it does not store (f32, c16 and bf16)."""
-    from lbm_tpu_torch.ops.temporal import temporal_supported
-
-    return _tiered(params, _TRAPEZOID_TIERS, temporal_supported) if _kernel_dtype(dtype) else None
-
-
-def deep_config(params: LBMParams, dtype) -> tuple[int, int, int] | None:
-    """The deep kernel's schedule ``(block, depth, panel)``
-    (``pallas_deep.pick_config``), or None for a dtype it does not store
-    (f32, c16 and bf16)."""
-    from lbm_tpu_torch.ops.deep import deep_supported
-
-    return _tiered(params, _TRAPEZOID_TIERS, deep_supported) if _kernel_dtype(dtype) else None
-
-
-def trapezoid_schedules() -> tuple[tuple[int, int, int], ...]:
-    """Every schedule of K5's and K6's tiers. The build compiles their
-    windows with constant strides (ops/_build.py, csrc/trapezoid.cuh)."""
-    return tuple(cfg for cfg, _ in _TRAPEZOID_TIERS)
-
-
 def pass_schedule(route: str, params: LBMParams, dtype):
-    """``(run, (block, depth, panel))`` of a route of ``PASS_BACKENDS``;
-    raises for a grid or dtype its kernel cannot take."""
-    if route == "band":
-        from lbm_tpu_torch.ops.band import band_supported as supported, run_band as run
-        cfg, need = band_config(params, dtype), "ny >= 2"
-    elif route == "band2":
-        from lbm_tpu_torch.ops.band2 import band2_supported as supported, run_band2 as run
-        cfg, need = band2_config(params, dtype), "ny >= 2"
-    elif route == "band3":
-        from lbm_tpu_torch.ops.band3 import band3_supported as supported, run_band3 as run
-        cfg, need = band3_config(params, dtype), "ny >= 2"
-    elif route == "temporal":
-        from lbm_tpu_torch.ops.temporal import run_temporal as run
-        from lbm_tpu_torch.ops.temporal import temporal_supported as supported
-        cfg, need = temporal_config(params, dtype), "ny >= 2 and every row block >= depth rows"
-    else:
-        from lbm_tpu_torch.ops.deep import deep_supported as supported, run_deep as run
-        cfg, need = deep_config(params, dtype), "ny >= 2"
-    if cfg is None or not supported(params.ny, params.nx, *cfg):
+    """``(run, (block, depth, panel))`` of a route of ``PASS_BACKENDS``, from
+    its module's ``schedule``; raises for a grid or dtype its kernel cannot
+    take."""
+    mod = _PASS_MODULES[route]
+    cfg = mod.schedule(params, dtype)
+    if cfg is None or not getattr(mod, f"{route}_supported")(params.ny, params.nx, *cfg):
+        need = "ny >= 2 and every row block >= depth rows" if route == "temporal" else "ny >= 2"
         raise ValueError(f"grid {params.ny}x{params.nx} unsupported by the {route} kernel "
                          f"(schedule {cfg}; it needs f32, c16 or bf16 and {need})")
-    return run, cfg
+    return getattr(mod, f"run_{route}"), cfg
 
 
 def select_slab(params: LBMParams, dtype):
     """The slab schedule for ``--backend slab`` (driver.py:532-559); raises
     for a grid the schedule cannot cut into slabs."""
-    cfg = slab_config(params, dtype)
+    cfg = slab.schedule(params, dtype)
     if cfg is None:
         raise ValueError(
             f"grid {params.ny}x{params.nx} unsupported by the slab kernel (needs ny divisible "
@@ -550,10 +381,7 @@ def run_simulation(
         # the series rounds as the JAX driver's does (driver.py:1366-1368).
         inv_np = np.asarray(1.0 / tot_cells,
                             dtype=np.float64 if dtype == torch.float64 else np.float32)
-        paired = paired_default()  # read once, outside the loop
         scalars = (params.density, params.accel, params.omega)
-        # Every route but K4's takes ``dev`` (select_route refused K4 at 16 bits).
-        kw = dict(paired=paired) if spec is None else dict(paired=paired, dev=spec)
 
         def advance(cells, n):
             """``n`` steps of the route; returns ``(cells, av)``."""
@@ -573,23 +401,19 @@ def run_simulation(
             if route in PASS_BACKENDS:
                 run, (block, depth, panel) = pass_schedule(route, params, dtype)
                 return run(cells, nobst, *scalars, n, block, depth, panel=panel,
-                           inv_tot_cells=float(inv_np), **kw)
+                           inv_tot_cells=float(inv_np), dev=spec)
             if route == "slab":
-                from lbm_tpu_torch.ops.slab import run_band_slab
-
                 block, depth, panel, kpasses, sblock = select_slab(params, dtype)
-                return run_band_slab(cells, nobst, *scalars, n, block, depth, kpasses, sblock,
-                                     panel=panel, inv_tot_cells=float(inv_np), **kw)
-            if route == "resident":
-                from lbm_tpu_torch.ops.resident import run_resident
-
-                return run_resident(cells, nobst, *scalars, n, float(inv_np),
-                                    chunk=resident_config(params, dtype), paired=paired)
+                return slab.run_band_slab(cells, nobst, *scalars, n, block, depth, kpasses,
+                                          sblock, panel=panel, inv_tot_cells=float(inv_np),
+                                          dev=spec)
+            if route == "resident":  # f32 only: select_route refused K4 at 16 bits
+                return run_resident(cells, nobst, *scalars, n, float(inv_np))
             if route == "aa":
                 from lbm_tpu_torch.ops.aa import run_aa as run
             else:
                 from lbm_tpu_torch.ops.step import run_step as run
-            return run(cells, nobst, *scalars, n, float(inv_np), **kw)
+            return run(cells, nobst, *scalars, n, float(inv_np), dev=spec)
 
         def as_full(cells):
             """The observer's view of the state: c16 codes decode to f32, bf16

@@ -26,11 +26,7 @@ routes), and per chunk ``sync``, ``loop``, ``av``, ``on_chunk`` and
 ``d2h_bytes`` (the driver's copies to and from a card) and
 ``kernel_launches`` (the kernel library's own count of its launches over
 the chunks' loops, ``lbm_launch_count``); all three read 0 on the CPU.
-Counters of the wrappers of K5 and K6 (``ops/temporal.py::count_tiles``):
-``pass_tiles``, the tiles of the run's passes, and ``tail_tiles``, those
-in each pass's last round of blocks when that round is partial; on the
-CPU they count the same schedule that the plain versions run. Counters of
-K4's wrapper (``ops/resident.py::schedule_counts``): ``grid_barriers``,
+Counters of K4's wrapper (``ops/resident.py::schedule_counts``): ``grid_barriers``,
 the ``grid.sync()`` calls its launches meet (one a pass in the
 shared-memory form, one a step in the global-memory form),
 ``ghost_updates``, the cell updates computed on ghost rows, and
@@ -51,8 +47,8 @@ import torch
 
 PREFIX = "lbm_tpu_torch."
 MAX_RECORDS = 4096
-COUNTERS = ("h2d_bytes", "d2h_bytes", "kernel_launches", "pass_tiles", "tail_tiles",
-            "grid_barriers", "ghost_updates", "exchange_bytes")
+COUNTERS = ("h2d_bytes", "d2h_bytes", "kernel_launches", "grid_barriers", "ghost_updates",
+            "exchange_bytes")
 
 
 @dataclasses.dataclass

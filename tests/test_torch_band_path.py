@@ -21,6 +21,7 @@ from lbm_tpu import cli as jcli
 from lbm_tpu_torch import cli as tcli
 from lbm_tpu_torch.api import Simulation
 from lbm_tpu_torch.models.d2q9 import LBMParams
+from lbm_tpu_torch.ops import band, band2, band3
 from lbm_tpu_torch.runtime import driver as tdriver
 from lbm_tpu_torch.utils.geometry import box, write_obstacle_file, write_params_file
 
@@ -116,8 +117,7 @@ def test_select_route_band(backend, dtype, ny, nx, want):
         assert tdriver.select_route(params, backend, dtype) == want
 
 
-@pytest.mark.parametrize("config", [tdriver.band_config, tdriver.band2_config,
-                                    tdriver.band3_config])
+@pytest.mark.parametrize("config", [band.schedule, band2.schedule, band3.schedule])
 def test_band_configs(config):
     params = LBMParams(nx=4096, ny=4096, max_iters=1, reynolds_dim=10, density=0.1,
                        accel=0.005, omega=1.85)

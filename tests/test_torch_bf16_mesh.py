@@ -28,6 +28,8 @@ from lbm_tpu.models.d2q9 import LBMParams as JParams
 from lbm_tpu.parallel import sharded as jsh
 from lbm_tpu_torch import cli as tcli
 from lbm_tpu_torch.models.d2q9 import LBMParams
+from lbm_tpu_torch.ops import band as tband
+from lbm_tpu_torch.ops import band2 as tband2
 from lbm_tpu_torch.parallel import sharded as tsh
 from lbm_tpu_torch.runtime import checkpoint as tckpt
 from lbm_tpu_torch.runtime import driver as tdriver
@@ -99,8 +101,8 @@ def test_1d_step_routes_bf16_match_jax(backend, n):
 def use_schedule(monkeypatch, block, depth, panel):
     """Both packages on one band schedule: the port's pickers, the JAX
     package's env knobs."""
-    for name in ("band_config", "band2_config"):
-        monkeypatch.setattr(tdriver, name, lambda params, dtype: (block, depth, panel))
+    for module in (tband, tband2):
+        monkeypatch.setattr(module, "schedule", lambda params, dtype: (block, depth, panel))
     monkeypatch.setenv("LBM_BAND_BLOCK", str(block))
     monkeypatch.setenv("LBM_BAND_DEPTH", str(depth))
     if panel is not None:

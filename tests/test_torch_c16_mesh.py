@@ -83,8 +83,8 @@ def test_1d_step_routes_c16_match_jax(backend, n):
 def use_schedule(monkeypatch, block, depth, panel):
     """Both packages on one band schedule: the port's pickers, the JAX
     package's env knobs."""
-    for name in ("band_config", "band2_config"):
-        monkeypatch.setattr(tdriver, name, lambda params, dtype: (block, depth, panel))
+    for module in (tband, tband2):
+        monkeypatch.setattr(module, "schedule", lambda params, dtype: (block, depth, panel))
     monkeypatch.setenv("LBM_BAND_BLOCK", str(block))
     monkeypatch.setenv("LBM_BAND_DEPTH", str(depth))
     if panel is not None:

@@ -181,8 +181,8 @@ def test_pass_route_schedules_at_c16():
     """Each schedule picker gives the same schedule at c16 as at f32 (the
     window stays f32 in shared memory), none at f64; ``auto`` at c16 stays
     on K1, a deliberate deviation (ROADMAP Queue 3)."""
-    for backend, config in (("band2", tdriver.band2_config), ("temporal", tdriver.temporal_config),
-                            ("deep", tdriver.deep_config)):
+    for backend, config in (("band2", tb2.schedule), ("temporal", ttemp.schedule),
+                            ("deep", tdeep.schedule)):
         assert config(PARAMS, "c16") == config(PARAMS, torch.float32) is not None
         assert config(PARAMS, torch.float64) is None
         assert tdriver.select_route(PARAMS, backend, "c16") == backend
@@ -236,7 +236,8 @@ def test_both_clis_at_c16_pass_routes(backend, deck, tmp_path, capsys, monkeypat
     env, schedule = JAX_SCHEDULES[backend]
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    monkeypatch.setattr(tdriver, f"{backend}_config", lambda params, dtype: schedule)
+    module = {"band2": tb2, "temporal": ttemp, "deep": tdeep}[backend]
+    monkeypatch.setattr(module, "schedule", lambda params, dtype: schedule)
     t_out, j_out = tmp_path / "t", tmp_path / "j"
     assert tcli.main([*deck, "--device", "cpu", "--backend", backend, "--precision", "c16",
                       "--out-dir", str(t_out)]) == 0

@@ -75,12 +75,25 @@ def test_u_mag_matches_jax():
                                rtol=1e-7)
 
 
-@pytest.mark.parametrize("env,want", [(None, "fused"), ("literal", False),
-                                      ("paired", True), ("fused", "fused")])
-def test_paired_default_reads_lbm_collide(monkeypatch, env, want):
-    if env is None:
-        monkeypatch.delenv("LBM_COLLIDE", raising=False)
-    else:
-        monkeypatch.setenv("LBM_COLLIDE", env)
-    assert tcol.paired_default() == want
-    assert jcol.paired_default() == want
+@pytest.mark.parametrize("backend", ["pallas", "aa", "deep", "resident"])
+def test_lbm_collide_does_not_reach_the_port(monkeypatch, backend):
+    """The port's routes compute the fused form, the kernels' one, whatever
+    ``LBM_COLLIDE`` says: a CPU run on a 16x32 box with it set to the
+    literal form gives the unset run's av series and final state bit for bit."""
+    from lbm_tpu_torch.models.d2q9 import LBMParams
+    from lbm_tpu_torch.runtime.driver import run_simulation
+    from lbm_tpu_torch.utils.geometry import box
+
+    params = LBMParams(nx=32, ny=16, max_iters=8, reynolds_dim=10, density=0.1, accel=0.005,
+                       omega=OMEGA)
+    runs = []
+    for env in (None, "literal"):
+        if env is None:
+            monkeypatch.delenv("LBM_COLLIDE", raising=False)
+        else:
+            monkeypatch.setenv("LBM_COLLIDE", env)
+        res = run_simulation(params, box(32, 16), backend=backend, device="cpu")
+        assert res.route == backend
+        runs.append(res)
+    np.testing.assert_array_equal(runs[1].av_vels, runs[0].av_vels)
+    np.testing.assert_array_equal(runs[1].cells, runs[0].cells)

@@ -7,7 +7,7 @@ one window at T 4, 8 and 16, full row and panel, and K5 and K6 in one
 window (AA steps on the trapezoid) at T 3, 4 and 8, on the driver's
 schedules and a window at the shared-memory limit, bitwise against K1,
 their passes in alternating tile order bitwise one order's, and K6's
-blocks per SM (``TRAP_SLOTS``) and tile counters on a 1024^2 deck;
+blocks per SM (``TRAP_SLOTS``);
 K1's and K2's 16-bit word forms bitwise against their one-cell forms on
 ragged, odd-height grids and over chained calls, the shape rule's route,
 the c16 codec against its conversion-instruction form over every
@@ -223,17 +223,6 @@ def test_band_kernel_rejects_oversized_window(cuda_device, route):
 
 
 @pytest.mark.cuda
-def test_kernels_reject_other_collision_forms(cuda_device):
-    cells, nobst = make_setup(cuda_device, 64, 8, seed=1)
-    for run in (tstep.run_step, taa.run_aa):
-        with pytest.raises(ValueError, match="fused"):
-            run(cells, nobst, DENSITY, ACCEL, OMEGA, 2, 1.0, paired=True)
-    for run, _ in BANDS.values():
-        with pytest.raises(ValueError, match="fused"):
-            run(cells, nobst, DENSITY, ACCEL, OMEGA, 8, 16, 4, panel=16, paired=True)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("form", ["global-memory", "shared-memory"])
 @pytest.mark.parametrize("iters,chunk", [(12, 5), (13, 5), (7, 255)])
 @pytest.mark.parametrize("nx,ny", [(70, 97), (33, 3)])
@@ -348,11 +337,11 @@ TRAPEZOID_CASES = [(70, 97, 8, 20, 4, 20), (70, 97, 19, 20, 4, 20), (70, 97, 25,
                    (70, 97, 11, 20, 3, 20), (250, 100, 11, 0, 0, "driver"),
                    (150, 104, 19, 24, 8, 40), (300, 104, 11, 32, 4, "widest"),
                    (300, 104, 19, 32, 8, "widest")]
-# Every schedule of the driver's K5 and K6 tiers, each window compiled with
+# Every schedule of K5's and K6's tiers, each window compiled with
 # constant strides, on a grid ragged in both directions, two passes and a
 # K1 remainder.
 TRAPEZOID_CASES += [(2 * panel - 7, 2 * block - 5, 2 * depth + 3, block, depth, panel)
-                    for block, depth, panel in tdriver.trapezoid_schedules()]
+                    for (block, depth, panel), _ in ttemp.TRAPEZOID_TIERS]
 
 
 @pytest.mark.cuda
@@ -430,21 +419,6 @@ def test_trap_slots_is_k6_occupancy(cuda_device):
 
 
 @pytest.mark.cuda
-def test_k6_tiles_of_a_1024_deck(cuda_device):
-    """``pass_tiles`` and ``tail_tiles`` of a 1024^2 deck of 20,000 steps
-    through auto at f32 (K6, T 4): 5,000 passes of 551 tiles, each ending
-    on a round of 23."""
-    params = LBMParams(nx=1024, ny=1024, max_iters=20000, reynolds_dim=10, density=DENSITY,
-                       accel=ACCEL, omega=OMEGA)
-    obstacles = np.zeros((1024, 1024), np.int32)
-    obstacles[0, :] = obstacles[-1, :] = 1
-    obstacles[200:800, 341] = 1
-    res = tdriver.run_simulation(params, obstacles, device=cuda_device, fetch_final=False)
-    assert res.route == "deep"
-    assert res.trace.counts["pass_tiles"] == 2755000 and res.trace.counts["tail_tiles"] == 115000
-
-
-@pytest.mark.cuda
 def test_temporal_pass_packs_match_plain(cuda_device):
     """One K5 pass from packs that differ from the state's rows: the state
     and both output packs, in the (cells, last, first) order."""
@@ -456,16 +430,6 @@ def test_temporal_pass_packs_match_plain(cuda_device):
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) < 1e-5 * float(w.abs().max())
     np.testing.assert_allclose(av.cpu().numpy(), want_av.cpu().numpy(), rtol=1e-4)
-
-
-@pytest.mark.cuda
-def test_new_kernels_reject_other_collision_forms(cuda_device):
-    cells, nobst = make_setup(cuda_device, 64, 8, seed=1)
-    with pytest.raises(ValueError, match="fused"):
-        tres.run_resident(cells, nobst, DENSITY, ACCEL, OMEGA, 2, 1.0, paired=True)
-    for run, _, _ in TRAPEZOIDS.values():
-        with pytest.raises(ValueError, match="fused"):
-            run(cells, nobst, DENSITY, ACCEL, OMEGA, 8, 8, 4, panel=16, paired=True)
 
 
 def mesh_setup(device, nx, ny, py, px, seed):
@@ -557,11 +521,6 @@ def test_shard_kernels_refuse(cuda_device):
     for kernel, _ in SHARD_BANDS.values():
         with pytest.raises(ValueError, match="shallower"):  # 4-row shards, depth 8
             kernel(shards, nob, DENSITY, ACCEL, OMEGA, 8, 16, 8, 32)
-        with pytest.raises(ValueError, match="fused"):
-            kernel(shards, nob, DENSITY, ACCEL, OMEGA, 8, 8, 4, 32, paired=True)
-    for kernel in SHARD_KERNELS.values():
-        with pytest.raises(ValueError, match="fused"):
-            kernel(shards, nob, DENSITY, ACCEL, OMEGA, 2, 32, paired=True)
 
 
 @pytest.mark.cuda
@@ -1355,7 +1314,7 @@ def test_the_driver_counts_its_copies_and_launches(cuda_device, backend, storage
     elif backend == "resident":
         launches = sum(-(-n // 255) for n in chunks)
     else:
-        depth = tdriver.deep_config(params, dtype)[1]
+        depth = tdeep.schedule(params, dtype)[1]
         launches = sum(n // depth + n % depth for n in chunks)
     assert rec.counts["kernel_launches"] == launches
     # K4's schedule counters, summed over the chunks; 0 on the other routes.

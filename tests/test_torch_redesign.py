@@ -128,11 +128,10 @@ def test_resident_smem_depth(nx, depth):
 def test_driver_k11_schedule_fits():
     """The driver's K11 schedule fits a block, its split final pass too."""
     from lbm_tpu_torch.models.d2q9 import LBMParams
-    from lbm_tpu_torch.runtime import driver as tdriver
 
     params = LBMParams(nx=2048, ny=2048, max_iters=1, reynolds_dim=10, density=DENSITY,
                        accel=ACCEL, omega=OMEGA)
-    block, depth, panel = tdriver.band3_config(params, torch.float32)
+    block, depth, panel = tb3.schedule(params, torch.float32)
     for t in (depth, 2):
         assert BC.smem_bytes(tb3.PLANE_COPIES, 2048, block, t, panel) <= BC.SMEM_LIMIT
 
@@ -141,7 +140,7 @@ def poisoned_step(omega, w1a, w2a, depth, fuse_last):
     """K11's step confined to the insets: step s (0-based) writes only what
     the cells at inset s write (even: all slots of the cell; odd: slot k of
     cell x + c_k), and every other slot is NaN after it."""
-    inner = tb3.s_step_plain(omega, w1a, w2a, "fused", depth, fuse_last)
+    inner = tb3.s_step_plain(omega, w1a, w2a, depth, fuse_last)
 
     def step(s, planes, nob, frow):
         out, u_sq = inner(s, planes, nob, frow)
@@ -174,8 +173,7 @@ def test_band3_inset_steps_leave_the_tile_unchanged(block, depth, panel):
     for fuse in (True, False):
         runs = [BC.creep_pass_plain(s_state, nob, block, depth, panel,
                                     fn(float(OMEGA), w1a, w2a, depth, fuse))
-                for fn in (poisoned_step, lambda *a: tb3.s_step_plain(a[0], a[1], a[2], "fused",
-                                                                     a[3], a[4]))]
+                for fn in (poisoned_step, tb3.s_step_plain)]
         (got, got_sums), (want, want_sums) = runs
         assert bool(torch.isfinite(got).all()) and torch.equal(got, want)
         assert torch.equal(got_sums, want_sums)

@@ -36,6 +36,7 @@ from lbm_tpu.ops import pallas_temporal as jt
 from lbm_tpu_torch import cli as tcli
 from lbm_tpu_torch.models.d2q9 import WEIGHTS, LBMParams
 from lbm_tpu_torch.ops import _build
+from lbm_tpu_torch.ops import band3 as tb3
 from lbm_tpu_torch.ops import band_common as BC
 from lbm_tpu_torch.ops import deep as td
 from lbm_tpu_torch.ops import devspace as tdev
@@ -168,13 +169,11 @@ def test_driver_windows_have_constant_strides(monkeypatch):
     gives ``csrc/trapezoid.cuh::with_layout`` to compile with constant
     strides (``#define LBM_TRAP_WINDOWS ww, wh, ...``), in one list with
     K11's (its tiers' windows and those of the T-2 and 2 steps of a split
-    16-bit final pass), and the windows follow
-    ``driver.trapezoid_schedules`` (chip_smoke phase 27's sweep sets it to
-    its candidates) and ``driver.band3_schedules``."""
-    tiers = [cfg for cfg, _ in tdriver._TRAPEZOID_TIERS]
-    assert set(tdriver.trapezoid_schedules()) == set(tiers)
-    band3 = [cfg for cfg, _ in tdriver._BAND3_TIERS]
-    assert set(tdriver.band3_schedules()) == set(band3)
+    16-bit final pass), and the windows follow ``temporal.TRAPEZOID_TIERS``
+    (chip_smoke phase 27's sweep sets it to its candidates) and
+    ``band3.BAND3_TIERS``."""
+    tiers = [cfg for cfg, _ in tt.TRAPEZOID_TIERS]
+    band3 = [cfg for cfg, _ in tb3.BAND3_TIERS]
     name, values = _build.windows_define().split(None, 2)[1:]
     assert name == "LBM_TRAP_WINDOWS"
     pairs = [int(v) for v in values.split(",")]
@@ -183,8 +182,8 @@ def test_driver_windows_have_constant_strides(monkeypatch):
     want |= {(panel + 2 * t, block + 2 * t) for block, depth, panel in band3
              for t in (depth, depth - 2, 2) if t >= 2}
     assert listed == want
-    monkeypatch.setattr(tdriver, "trapezoid_schedules", lambda: ((36, 4, 56), (32, 4, 72)))
-    monkeypatch.setattr(tdriver, "band3_schedules", lambda: ((24, 4, 56), (16, 2, 30)))
+    monkeypatch.setattr(tt, "TRAPEZOID_TIERS", (((36, 4, 56), 0), ((32, 4, 72), 0)))
+    monkeypatch.setattr(tb3, "BAND3_TIERS", (((24, 4, 56), 0), ((16, 2, 30), 0)))
     assert _build.trap_windows() == ((34, 20), (60, 28), (64, 32), (64, 44), (80, 40))
 
 
@@ -227,7 +226,8 @@ def test_both_clis_at_c16(backend, tmp_path, capsys, monkeypatch):
     deck = [str(tmp_path / "input.params"), str(tmp_path / "obstacles.dat")]
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    monkeypatch.setattr(tdriver, f"{backend}_config", lambda params, dtype: schedule)
+    monkeypatch.setattr({"temporal": tt, "deep": td}[backend], "schedule",
+                        lambda params, dtype: schedule)
     t_out, j_out = tmp_path / "t", tmp_path / "j"
     assert tcli.main([*deck, "--device", "cpu", "--backend", backend, "--precision", "c16",
                       "--out-dir", str(t_out)]) == 0

@@ -20,11 +20,8 @@ domain is T a multiple of 8) in interpret mode over the same steps, cells
 within 1e-5 of the state's scale and av at rtol 1e-4.
 
 The route: ``select_route`` at K4's limit on both sides, and ``auto`` on
-an explicit CPU running the plain version of K6 there. The port bench's
-code path on a small deck.
+an explicit CPU running the plain version of K6 there.
 """
-
-import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +29,6 @@ import pytest
 import torch
 
 from lbm_tpu.ops import pallas_band as jb
-from lbm_tpu_torch import bench as tbench
 from lbm_tpu_torch.models.d2q9 import WEIGHTS, LBMParams
 from lbm_tpu_torch.ops import band as tb
 from lbm_tpu_torch.ops import band_common as BC
@@ -119,7 +115,7 @@ def test_aa_model_nan_ring_is_the_wrap_reach(depth):
     and every cell further in is finite."""
     state, _ = make_setup(24, 20, seed=depth)
     w1a, w2a = forcing_weights(DENSITY, ACCEL)
-    step = BC.aa_step_plain(OMEGA, w1a, w2a, "fused", depth)
+    step = BC.aa_step_plain(OMEGA, w1a, w2a, depth)
     planes = list(torch.as_tensor(state)[:, None].unbind(0))
     nob = torch.ones((1, 20, 24))
     frow = torch.zeros((1, 20, 1))
@@ -187,9 +183,9 @@ def test_k13_pass_on_the_aa_model_is_the_pull():
     w1a, w2a = forcing_weights(DENSITY, ACCEL)
     kw = dict(r0=r0, ny_global=ny, own=(kt, kt + sblock))
     got = BC.creep_pass_plain(slab, nob_slab, 8, 3, 12,
-                              BC.aa_step_plain(OMEGA, w1a, w2a, "fused", 3), **kw)
+                              BC.aa_step_plain(OMEGA, w1a, w2a, 3), **kw)
     want = BC.creep_pass_plain(slab, nob_slab, 8, 3, 12,
-                               BC.r_step_plain(OMEGA, w1a, w2a, "fused"), **kw)
+                               BC.r_step_plain(OMEGA, w1a, w2a), **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(want[0], tslab.step_band_slab(slab, nob_slab, r0, DENSITY, ACCEL, OMEGA,
                                                      8, 3, ny, (kt, kt + sblock),
@@ -235,7 +231,7 @@ def test_band_config_fits_the_kernel(n):
     window holds two blocks on an SM."""
     params = LBMParams(nx=n, ny=n, max_iters=1, reynolds_dim=10, density=DENSITY, accel=ACCEL,
                        omega=OMEGA)
-    block, depth, panel = tdriver.band_config(params, torch.float32)
+    block, depth, panel = tb.schedule(params, torch.float32)
     assert tb.band_supported(n, n, block, depth, panel)
     assert 2 * (BC.smem_bytes(tb.PLANE_COPIES, n, block, depth, panel) + 1024) <= 228 * 1024
 
@@ -269,36 +265,10 @@ def test_cpu_auto_above_the_limit_runs_k6_plain():
     obstacles = box_with_vertical_wall(side, side)
     result = tdriver.run_simulation(params, obstacles, backend="auto", device="cpu")
     assert result.route == "deep"
-    block, depth, panel = tdriver.deep_config(params, torch.float32)
+    block, depth, panel = td.schedule(params, torch.float32)
     cells = tdriver.D2Q9.initial_state(params, dtype=torch.float32, device="cpu")
     nob = torch.as_tensor((obstacles == 0).astype(np.float32))
     want, av = td.run_deep_plain(cells, nob, DENSITY, ACCEL, OMEGA, 5, block, depth, panel=panel,
                                  inv_tot_cells=float(np.float32(1.0 / int(nob.sum()))))
     np.testing.assert_array_equal(result.cells, want.numpy())
     np.testing.assert_array_equal(result.av_vels, av.numpy())
-
-
-def test_cpu_auto_above_the_limit_counts_k6_tiles():
-    """auto on an explicit CPU one cell above K4's limit records the tiles
-    of K6's schedule (``pass_tiles``, ``tail_tiles``): two passes of 180
-    tiles of (32, 4, 40), each a partial round of ``TRAP_SLOTS`` blocks."""
-    side = limit_side() + 1
-    params = LBMParams(nx=side, ny=side, max_iters=8, reynolds_dim=10, density=DENSITY,
-                       accel=ACCEL, omega=OMEGA)
-    result = tdriver.run_simulation(params, box_with_vertical_wall(side, side), backend="auto",
-                                    device="cpu", fetch_final=False)
-    assert result.route == "deep"
-    assert tdriver.deep_config(params, torch.float32) == (32, 4, 40)
-    assert result.trace.counts["pass_tiles"] == result.trace.counts["tail_tiles"] == 2 * 180
-
-
-def test_bench_code_path_on_the_cpu(capsys):
-    """The port bench on a 32 x 32 deck of the 1024^2 deck's family on the
-    CPU: one JSON line with the metric named for the deck."""
-    assert tbench.main(["--device", "cpu", "--size", "32", "--iters", "8"]) == 0
-    out, err = capsys.readouterr()
-    line = json.loads(out.strip().splitlines()[-1])
-    assert line["metric"] == "mlups_32x32" and line["unit"] == "MLUPS"
-    assert line["value"] > 0
-    assert abs(line["vs_baseline"] - line["value"] / tbench.BASELINE_MLUPS) <= 0.006
-    assert "route resident" in err and err.startswith("# cpu")

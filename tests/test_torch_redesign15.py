@@ -76,7 +76,7 @@ def test_k11_pass_is_the_wrapped_pass_bit_for_bit(nx, ny, block, depth, panel, f
     nob = torch.as_tensor(nobst)
     s_state = tb3.force_s(tb3.stream_planes(torch.as_tensor(state)), nob, w1a, w2a)
     got, want = (BC.creep_pass_plain(s_state, nob, block, depth, panel,
-                                     fn(OMEGA, w1a, w2a, "fused", depth, fuse))
+                                     fn(OMEGA, w1a, w2a, depth, fuse))
                  for fn in (tb3.k11_step_plain, tb3.s_step_plain))
     assert bool(torch.isfinite(got[0]).all()) and torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
@@ -154,7 +154,7 @@ def test_k11_16_bit_final_pass_rounds_twice():
 
     def one_pass(x, steps, fuse):
         return BC.plain_passes(nob, 1.0, block, steps, panel, lambda p, n: tb3.k11_step_plain(
-            OMEGA, w1a, w2a, "fused", steps, fuse), SPEC)(x, 1)[0]
+            OMEGA, w1a, w2a, steps, fuse), SPEC)(x, 1)[0]
 
     split = tb3.stream_planes(one_pass(one_pass(s_state, depth - 2, True), 2, False), -1)
     whole = tb3.stream_planes(one_pass(s_state, depth, False), -1)

@@ -41,7 +41,6 @@ from lbm_tpu_torch.ops import band2 as tb2
 from lbm_tpu_torch.ops import band_common as BC
 from lbm_tpu_torch.ops import devspace as tdev
 from lbm_tpu_torch.ops import shard_step
-from lbm_tpu_torch.runtime import driver as tdriver
 from lbm_tpu_torch.utils.checker import check_files
 from lbm_tpu_torch.utils.geometry import write_obstacle_file, write_params_file
 
@@ -135,7 +134,7 @@ def test_k9_schedule_fits_two_blocks_per_sm(storage, n, want):
     params = LBMParams(nx=n, ny=n, max_iters=1, reynolds_dim=10, density=DENSITY,
                        accel=ACCEL, omega=OMEGA)
     dtype = {"f32": torch.float32, "c16": "c16", "bf16": torch.bfloat16}[storage]
-    block, depth, panel = tdriver.band2_config(params, dtype)
+    block, depth, panel = tb2.schedule(params, dtype)
     assert (block, depth, panel) == want and tb2.PLANE_COPIES == 1
     assert (-(-n // 32) * -(-n // 56) >= 2 * 132) == (want == (32, 4, 56))
     assert tb2.band2_supported(params.ny, params.nx, block, depth, panel)
@@ -220,7 +219,7 @@ def test_cli_band2_c16_matches_jax_cli(tmp_path, capsys, monkeypatch):
     deck = write_deck(tmp_path, 128, 48, 21, seed=25)
     monkeypatch.setenv("LBM_BAND_BLOCK", "16")
     monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    monkeypatch.setattr(tdriver, "band2_config", lambda params, dtype: (16, 8, None))
+    monkeypatch.setattr(tb2, "schedule", lambda params, dtype: (16, 8, None))
     out, ref = tmp_path / "port", tmp_path / "jax"
     assert tcli.main([*deck, "--device", "cpu", "--backend", "band2", "--precision", "c16",
                       "--out-dir", str(out)]) == 0

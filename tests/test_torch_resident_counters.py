@@ -251,7 +251,7 @@ def test_pass_us_and_ghost_share_read_a_k4_record():
 
 
 @pytest.mark.parametrize("counts, drop", [
-    ({"kernel_launches": 5000, "pass_tiles": 2755000, "tail_tiles": 115000}, ()),  # K6, 1024^2
+    ({"kernel_launches": 5000}, ()),  # K6, 1024^2
     ({"kernel_launches": 20000}, ()),  # K1's c16 word form
     ({"kernel_launches": 314}, K4_COUNTERS),  # a program without K4's counters
 ])

@@ -12,7 +12,11 @@ backends, their f64 and unsupported-grid errors, and that the API reaches
 them, are checked here too.
 """
 
+import ast
 import json
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ from lbm_tpu import cli as jcli
 from lbm_tpu_torch import cli as tcli
 from lbm_tpu_torch.api import Simulation
 from lbm_tpu_torch.models.d2q9 import LBMParams
+from lbm_tpu_torch.ops import _build, deep, resident, temporal
 from lbm_tpu_torch.runtime import driver as tdriver
 from lbm_tpu_torch.utils.checker import check_files
 from lbm_tpu_torch.utils.geometry import write_obstacle_file, write_params_file
@@ -115,12 +120,13 @@ def test_select_route_schedule(backend, dtype, ny, nx, want):
 def test_schedule_configs():
     params = LBMParams(nx=4096, ny=4096, max_iters=1, reynolds_dim=10, density=0.1,
                        accel=0.005, omega=1.85)
-    for config in (tdriver.temporal_config, tdriver.deep_config):
-        block, depth, panel = config(params, torch.float32)
+    for schedule in (temporal.schedule, deep.schedule):
+        block, depth, panel = schedule(params, torch.float32)
         assert 1 <= depth <= block and panel >= 1
-        assert config(params, torch.float64) is None
-    assert tdriver.resident_config(params, torch.float32) >= 1
-    assert tdriver.resident_config(params, torch.float64) is None
+        assert schedule(params, torch.float64) is None
+    assert resident.CHUNK_STEPS >= 1
+    with pytest.raises(ValueError):
+        tdriver.select_route(params, "resident", torch.float64)
 
 
 # K5's and K6's schedule per side of a square grid, and its tiles and the
@@ -132,20 +138,45 @@ TRAPEZOID_PICKS = {256: ((24, 4, 24), (121, 121)), 512: ((32, 4, 40), (208, 208)
 
 
 @pytest.mark.parametrize("n", list(TRAPEZOID_PICKS))
-@pytest.mark.parametrize("config", ["temporal_config", "deep_config"])
-def test_trapezoid_schedule_and_its_rounds(config, n):
+@pytest.mark.parametrize("module", [temporal, deep], ids=["temporal_config", "deep_config"])
+def test_trapezoid_schedule_and_its_rounds(module, n):
     """K5's and K6's schedules at 256^2-4096^2 in every storage: the tiers'
     pick, a window compiled with constant strides, and its tiles per pass
     and in a partial last round (``ops/temporal.py::tiles_of_pass``)."""
-    from lbm_tpu_torch.ops.temporal import tiles_of_pass
-
     params = LBMParams(nx=n, ny=n, max_iters=1, reynolds_dim=10, density=0.1,
                        accel=0.005, omega=1.85)
     want, tiles = TRAPEZOID_PICKS[n]
     for dtype in (torch.float32, "c16", torch.bfloat16):
-        cfg = getattr(tdriver, config)(params, dtype)
-        assert cfg == want and cfg in tdriver.trapezoid_schedules()
-        assert tiles_of_pass(n, n, cfg[0], cfg[2]) == tiles
+        cfg = module.schedule(params, dtype)
+        assert cfg == want and cfg in [c for c, _ in temporal.TRAPEZOID_TIERS]
+        assert (cfg[2] + 2 * cfg[1], cfg[0] + 2 * cfg[1]) in _build.trap_windows()
+        assert temporal.tiles_of_pass(n, n, cfg[0], cfg[2]) == tiles
+
+
+def test_ops_never_import_the_driver():
+    """The kernel layer keeps its schedules in its own modules: no
+    ``ops/*.py`` imports ``runtime.driver``, and ``_build.trap_windows``
+    does not load it. The package's ``__init__`` imports the driver, so a
+    fresh interpreter drops it from ``sys.modules`` and from
+    ``lbm_tpu_torch.runtime`` before the call and checks that the call does
+    not load it again."""
+    driver = "lbm_tpu_torch.runtime.driver"
+    ops = pathlib.Path(_build.__file__).parent
+    for path in sorted(ops.glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            assert not any(n.startswith(driver) for n in names), f"{path.name} imports the driver"
+    code = ("import sys; import lbm_tpu_torch.ops._build as b; import lbm_tpu_torch.runtime as r; "
+            f"del sys.modules[{driver!r}], r.driver; b.trap_windows(); "
+            f"print({driver!r} in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ops.parent.parent, timeout=120, check=True)
+    assert out.stdout.strip() == "False"
 
 
 @pytest.mark.parametrize("backend", ROUTES)

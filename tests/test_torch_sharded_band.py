@@ -4,7 +4,7 @@ the 8 virtual CPU devices of tests/conftest.py, whose sharded band kernels
 run in interpret mode.
 
 Both packages get the same schedule: the port through its pickers
-``runtime.driver.band_config``/``band2_config``, patched here, the JAX
+``ops/band.py::schedule``/``ops/band2.py::schedule``, patched here, the JAX
 package through ``LBM_BAND_BLOCK``/``LBM_BAND_DEPTH`` (and
 ``LBM_BAND_PANEL`` for its panel kernels, whose 128-column x halo the port
 replaces by a T-column one: the same function). The port's shards lie on
@@ -46,8 +46,8 @@ def band_case(ny, nx, iters, n):
 
 def use_schedule(monkeypatch, block, depth, panel):
     """The port's band pickers return ``(block, depth, panel)``."""
-    for name in ("band_config", "band2_config"):
-        monkeypatch.setattr(tdriver, name, lambda params, dtype: (block, depth, panel))
+    for module in (tband, tband2):
+        monkeypatch.setattr(module, "schedule", lambda params, dtype: (block, depth, panel))
 
 
 def run_both(monkeypatch, backend, ny, nx, iters, n, block, depth, panel=None):

@@ -185,7 +185,7 @@ def test_slab_driver_matches_jax_driver(dtype, monkeypatch):
     monkeypatch.setenv("LBM_SLAB_K", "2")
     monkeypatch.setenv("LBM_SLAB_S", "32")
     _, obstacles = make_setup(96)
-    assert tdriver.slab_config(PARAMS, torch.float32) == (24, 4, 24, 2, 32)
+    assert tslab.schedule(PARAMS, torch.float32) == (24, 4, 24, 2, 32)
     jdtype = jnp.float32 if dtype == "f32" else "c16"
     want = jdriver.run_simulation(JParams(**dataclasses.asdict(PARAMS)), obstacles,
                                   backend="slab", dtype=jdtype)
@@ -203,7 +203,7 @@ def test_slab_driver_matches_jax_driver(dtype, monkeypatch):
 def test_slab_default_schedule(monkeypatch):
     monkeypatch.delenv("LBM_SLAB_K", raising=False)
     monkeypatch.delenv("LBM_SLAB_S", raising=False)
-    cfg = tdriver.slab_config(dataclasses.replace(PARAMS, ny=1024, nx=1024), torch.float32)
+    cfg = tslab.schedule(dataclasses.replace(PARAMS, ny=1024, nx=1024), torch.float32)
     assert cfg[:4] == (32, 4, 56, 4) and 1024 % cfg[4] == 0 and 16 <= cfg[4] < 1024
-    assert tdriver.slab_config(dataclasses.replace(PARAMS, ny=1024, nx=1024), "c16") == cfg
-    assert tdriver.slab_config(PARAMS, torch.float64) is None
+    assert tslab.schedule(dataclasses.replace(PARAMS, ny=1024, nx=1024), "c16") == cfg
+    assert tslab.schedule(PARAMS, torch.float64) is None
